@@ -1,0 +1,72 @@
+"""Model configuration schema (the port's own copy).
+
+Mirrors ``repro/configs/base.py``'s ``ModelConfig`` for the fields the
+dense decoder path reads. The port keeps its own copy rather than
+importing the reference package, so it stays importable where JAX is
+absent. Fields of families not ported yet (MoE, hybrid, ssm, modality
+stubs) are left out until their slice lands.
+
+Execution fields resolve into a ``runtime.ExecPolicy``: ``REPRO_*``
+environment variables and per-call overrides take precedence over them.
+The port supports f32 attention and logits matmul inputs only (the
+reference's ``attn_mm_dtype`` / ``logits_mm_dtype`` defaults), and
+neither sliding windows nor parallel blocks, so those knobs are not
+carried.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    arch_id: str
+    family: str                     # dense (the only family ported)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0               # 0 -> d_model // n_heads
+    causal: bool = True
+    rope_theta: float = 10000.0
+    rope_pct: float = 1.0           # fraction of head_dim rotated
+    use_bias: bool = False
+    norm: str = "rmsnorm"           # rmsnorm | layernorm
+    act: str = "swiglu"             # swiglu | gelu
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    # numerics / execution (see runtime.policy.resolve_policy)
+    exp_impl: str = "vexp"          # the paper's knob: vexp | exact | vexp_hw
+    kernel_backend: str = ""        # cuda | reference | eager; "" -> cuda
+    attn_block_k: int = 512         # FlashAttention KV block (online-update unit)
+    kv_cache_layout: str = "bshd"   # bshd | bhsd
+    compute_dtype: str = "bfloat16"
+    source: str = ""
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    @property
+    def vocab_padded(self) -> int:
+        """Embedding rows padded to a multiple of 256; logits in the padded
+        range are masked at the serving boundary."""
+        return -(-self.vocab // 256) * 256
+
+    def reduced(self) -> "ModelConfig":
+        """Tiny same-family config for CPU tests (the reference's
+        ``reduced()`` restricted to the fields kept here)."""
+        return replace(
+            self,
+            n_layers=2,
+            d_model=128,
+            n_heads=4,
+            n_kv_heads=min(self.n_kv_heads, 4) if self.n_kv_heads < self.n_heads
+            else 4,
+            head_dim=32,
+            d_ff=256 if self.d_ff else 0,
+            vocab=512,
+        )

@@ -1,0 +1,30 @@
+"""Hand-written Hopper kernels of the port and their plain versions.
+
+Each kernel module holds its wrapper (launches the CUDA kernel on CUDA
+tensors, runs the plain version on CPU tensors), its plain version and a
+``LIB`` with the launch counter. Importing builds nothing.
+"""
+
+from . import build, decode_attention, flash_attention, vexp
+from .dispatch import dispatch
+
+LIBS = {"vexp": vexp.LIB, "flash_attention": flash_attention.LIB,
+        "decode_attention": decode_attention.LIB}
+
+
+def build_kernels() -> dict:
+    """Build every kernel library at once (one nvcc per source)."""
+    return build.build_all([lib.source for lib in LIBS.values()])
+
+
+def launch_counts() -> dict:
+    return {name: lib.launches for name, lib in LIBS.items()}
+
+
+def reset_launch_counts() -> None:
+    for lib in LIBS.values():
+        lib.launches = 0
+
+
+__all__ = ["dispatch", "build_kernels", "launch_counts",
+           "reset_launch_counts", "LIBS"]

@@ -1,0 +1,92 @@
+"""Shared building blocks (port of ``repro/models/layers.py``).
+
+Plain functions on tensors. Dtype behaviour follows the reference: norms
+compute in f32 and return the input dtype; RoPE rotates in f32 and
+returns the input dtype; biases are added in the activation dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def rmsnorm(x, w, eps=1e-5):
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+def layernorm(x, w, b, eps=1e-5):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * w.float()
+    if b is not None:
+        y = y + b.float()
+    return y.to(x.dtype)
+
+
+def norm_apply(x, p, kind, eps):
+    """``p`` holds ``w`` (and ``b`` for layernorm)."""
+    if kind == "layernorm":
+        return layernorm(x, p.w, p.b, eps)
+    return rmsnorm(x, p.w, eps)
+
+
+def rope_freqs(d_rot: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, d_rot, 2, dtype=torch.float32,
+                                         device=device) / d_rot))
+
+
+def apply_rope(x, pos, theta=10000.0, rope_pct=1.0):
+    """x: (B, S, H, D); pos: (B, S) or (S,) absolute positions. Rotates
+    interleaved lane pairs (x[..., ::2], x[..., 1::2]), as the reference
+    does, not the two halves."""
+    d = x.shape[-1]
+    d_rot = int(d * rope_pct) // 2 * 2
+    if d_rot == 0:
+        return x
+    freqs = rope_freqs(d_rot, theta, x.device)
+    if pos.dim() == 1:
+        pos = pos[None, :]
+    ang = pos[..., None].float() * freqs              # (B, S, d_rot/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    xr, xp = x[..., :d_rot], x[..., d_rot:]
+    x1, x2 = xr[..., ::2], xr[..., 1::2]
+    y1 = x1 * cos - x2 * sin                          # f32 (promotion)
+    y2 = x2 * cos + x1 * sin
+    yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
+    return torch.cat([yr.to(x.dtype), xp], dim=-1)
+
+
+def gelu(x):
+    """Tanh-approximate GELU (``jax.nn.gelu(approximate=True)``)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp_apply(x, p, act):
+    """Dense GELU FFN; ``p`` holds wu, wd and the optional biases bu, bd.
+    (The reference's SwiGLU branch, with its vexp-gated SiLU, is not
+    ported yet.)"""
+    if act != "gelu":
+        raise NotImplementedError(f"mlp activation {act!r} is not ported "
+                                  f"yet")
+    h = x @ p.wu
+    if p.bu is not None:
+        h = h + p.bu.to(h.dtype)
+    h = gelu(h)
+    y = h @ p.wd
+    if p.bd is not None:
+        y = y + p.bd.to(y.dtype)
+    return y
+
+
+def mask_padded_logits(logits, vocab: int):
+    """Mask the padded tail of the vocab dim to -1e30 so it never wins an
+    argmax."""
+    if logits.shape[-1] == vocab:
+        return logits
+    keep = torch.arange(logits.shape[-1], device=logits.device) < vocab
+    return torch.where(keep, logits, -1e30)

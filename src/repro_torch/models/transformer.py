@@ -1,0 +1,257 @@
+"""Dense decoder transformer (port of ``repro/models/transformer.py``,
+dense path): parameters as ``nn.Module``s, prefill and decode as plain
+functions over them.
+
+Parameter layout and dtypes follow the reference: matmul weights are
+(d_in, d_out); per layer, 2-D weights are held in the compute dtype (the
+reference casts each layer's 2-D f32 params to bf16 as it enters the scan;
+casting once at load gives the same values) and 1-D params stay f32; the
+embedding stays f32 and lookups are cast to the compute dtype afterwards;
+logits are an f32 matmul against ``embed.T``.
+
+The KV cache is a dict {"k", "v"} of stacked (L, B, S, Hkv, hd) ("bshd")
+or (L, B, Hkv, S, hd) ("bhsd") bf16 tensors. ``decode_step`` writes it in
+place (the reference donates it through a jitted step instead).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.core.attention import attention, decode_attention
+from .layers import apply_rope, mask_padded_logits, mlp_apply, norm_apply
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def _opt(module: nn.Module, name: str, t):
+    if t is None:
+        module.register_parameter(name, None)
+    else:
+        setattr(module, name, _param(t))
+
+
+class Norm(nn.Module):
+    def __init__(self, d, kind, device):
+        super().__init__()
+        self.w = _param(torch.ones(d, device=device))
+        _opt(self, "b", torch.zeros(d, device=device)
+             if kind == "layernorm" else None)
+
+
+def _dense(g, d_in, d_out, dtype, device):
+    return (torch.randn(d_in, d_out, generator=g, device=device)
+            * (1.0 / math.sqrt(d_in))).to(dtype)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg, g, dtype, device):
+        super().__init__()
+        d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        self.wq = _param(_dense(g, d, h * hd, dtype, device))
+        self.wk = _param(_dense(g, d, hkv * hd, dtype, device))
+        self.wv = _param(_dense(g, d, hkv * hd, dtype, device))
+        self.wo = _param(_dense(g, h * hd, d, dtype, device))
+        for name, n in (("bq", h * hd), ("bk", hkv * hd), ("bv", hkv * hd)):
+            _opt(self, name, torch.zeros(n, device=device)
+                 if cfg.use_bias else None)
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg, g, dtype, device):
+        super().__init__()
+        self.wu = _param(_dense(g, cfg.d_model, cfg.d_ff, dtype, device))
+        self.wd = _param(_dense(g, cfg.d_ff, cfg.d_model, dtype, device))
+        _opt(self, "bu", torch.zeros(cfg.d_ff, device=device)
+             if cfg.use_bias else None)
+        _opt(self, "bd", torch.zeros(cfg.d_model, device=device)
+             if cfg.use_bias else None)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg, g, dtype, device):
+        super().__init__()
+        self.ln_attn = Norm(cfg.d_model, cfg.norm, device)
+        self.attn = Attention(cfg, g, dtype, device)
+        self.ln_mlp = Norm(cfg.d_model, cfg.norm, device)
+        self.mlp = MLP(cfg, g, dtype, device)
+
+
+class Transformer(nn.Module):
+    """Parameter container; the computations are the functions below."""
+
+    def __init__(self, cfg, g: torch.Generator, device):
+        super().__init__()
+        if cfg.family != "dense" or not cfg.tie_embeddings:
+            raise NotImplementedError(
+                f"{cfg.arch_id}: only dense tied-embedding decoders are "
+                f"ported yet")
+        dtype = getattr(torch, cfg.compute_dtype)
+        self.layers = nn.ModuleList(
+            [Block(cfg, g, dtype, device) for _ in range(cfg.n_layers)])
+        self.ln_f = Norm(cfg.d_model, cfg.norm, device)
+        self.embed = _param(torch.randn(cfg.vocab_padded, cfg.d_model,
+                                        generator=g, device=device) * 0.02)
+
+
+def init_params(cfg, g: torch.Generator, device) -> Transformer:
+    """Random weights with the reference's layout and scales (dense
+    N(0,1)/sqrt(d_in), embedding N(0,1)*0.02, zero biases, unit norms),
+    drawn from ``g`` on ``device``."""
+    return Transformer(cfg, g, device)
+
+
+# ------------------------------------------------------------ attention
+
+def _qkv(x, p, cfg, pos):
+    b, s, _ = x.shape
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    if p.bq is not None:
+        q = q + p.bq.to(q.dtype)
+        k = k + p.bk.to(k.dtype)
+        v = v + p.bv.to(v.dtype)
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, hkv, hd)
+    v = v.reshape(b, s, hkv, hd)
+    if cfg.rope_pct > 0:
+        q = apply_rope(q, pos, cfg.rope_theta, cfg.rope_pct)
+        k = apply_rope(k, pos, cfg.rope_theta, cfg.rope_pct)
+    return q, k, v
+
+
+def _finish_block(x, a, blk, cfg):
+    x = x + a
+    h = norm_apply(x, blk.ln_mlp, cfg.norm, cfg.norm_eps)
+    return x + mlp_apply(h, blk.mlp, cfg.act)
+
+
+def embed_inputs(params, cfg, tokens):
+    """tokens (B, S) int -> (B, S, D) in the compute dtype."""
+    return params.embed[tokens].to(getattr(torch, cfg.compute_dtype))
+
+
+def forward(params, cfg, tokens, *, policy):
+    """Full-sequence forward to the final normed hidden states (B, S, D)."""
+    x = embed_inputs(params, cfg, tokens)
+    pos = torch.arange(x.shape[1], device=x.device)[None, :]
+    for blk in params.layers:
+        h = norm_apply(x, blk.ln_attn, cfg.norm, cfg.norm_eps)
+        q, k, v = _qkv(h, blk.attn, cfg, pos)
+        o = attention(q, k, v, causal=cfg.causal, policy=policy)
+        x = _finish_block(x, o.flatten(2) @ blk.attn.wo, blk, cfg)
+    return norm_apply(x, params.ln_f, cfg.norm, cfg.norm_eps)
+
+
+def _logits(params, cfg, x):
+    """f32 logits against the tied embedding, padded vocab masked."""
+    return mask_padded_logits(x.float() @ params.embed.T, cfg.vocab)
+
+
+def init_cache(cfg, batch, seq_len, device):
+    if cfg.kv_cache_layout == "bhsd":
+        shape = (cfg.n_layers, batch, cfg.n_kv_heads, seq_len, cfg.hd)
+    else:
+        shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+
+
+def cache_seq_axis(layout: str, stacked: bool = True) -> int:
+    if layout not in ("bshd", "bhsd"):
+        raise ValueError(f"unknown kv cache layout {layout!r}")
+    return (1 if layout == "bshd" else 2) + (1 if stacked else 0)
+
+
+def prefill(params, cfg, tokens, *, prompt_len=None, policy):
+    """Forward over the prompt; returns (last_logits (B, 1, V), cache).
+
+    ``prompt_len`` (B,) marks ragged right-padded rows: padding keys are
+    masked out of attention (the kernel takes them as per-row key
+    lengths), pad K/V rows are zeroed, and logits come from each row's
+    last real token."""
+    x = embed_inputs(params, cfg, tokens)
+    b, s, _ = x.shape
+    pos = torch.arange(s, device=x.device)[None, :]
+    kv_len = valid = None
+    if prompt_len is not None:
+        kv_len = torch.as_tensor(prompt_len, device=x.device).to(
+            torch.int32).reshape(-1)
+        valid = (pos < kv_len[:, None])[:, :, None, None]       # (B,S,1,1)
+    ks, vs = [], []
+    for blk in params.layers:
+        h = norm_apply(x, blk.ln_attn, cfg.norm, cfg.norm_eps)
+        q, k, v = _qkv(h, blk.attn, cfg, pos)
+        o = attention(q, k, v, causal=cfg.causal, kv_len=kv_len,
+                      policy=policy)
+        x = _finish_block(x, o.flatten(2) @ blk.attn.wo, blk, cfg)
+        if valid is not None:
+            k = torch.where(valid, k, 0)
+            v = torch.where(valid, v, 0)
+        if cfg.kv_cache_layout == "bhsd":
+            k, v = k.transpose(1, 2), v.transpose(1, 2)
+        ks.append(k.to(torch.bfloat16))
+        vs.append(v.to(torch.bfloat16))
+    x = norm_apply(x, params.ln_f, cfg.norm, cfg.norm_eps)
+    if kv_len is None:
+        xl = x[:, -1:]
+    else:
+        idx = torch.clamp(kv_len.long() - 1, 0, s - 1)
+        xl = x[torch.arange(b, device=x.device), idx][:, None]
+    return _logits(params, cfg, xl), {"k": torch.stack(ks),
+                                      "v": torch.stack(vs)}
+
+
+def _write_token_kv(cache, kv, pos, ok, layout):
+    """Write one token's K (or V) per row in place: kv (B, 1, Hkv, hd) at
+    position ``pos[b]``, only where ``ok[b]``. Rows that must not write
+    (parked slots, positions past the cache) write their old value back,
+    so nothing is indexed out of range and no host sync is needed."""
+    b = kv.shape[0]
+    s = cache.shape[cache_seq_axis(layout, stacked=False)]
+    rows = torch.arange(b, device=cache.device)
+    p = torch.clamp(pos, 0, s - 1)
+    new = kv[:, 0].to(cache.dtype)                          # (B, Hkv, hd)
+    if layout == "bhsd":
+        old = cache[rows, :, p]
+        cache[rows, :, p] = torch.where(ok[:, None, None], new, old)
+    else:
+        old = cache[rows, p]
+        cache[rows, p] = torch.where(ok[:, None, None], new, old)
+
+
+def decode_step(params, cfg, token, cache, pos, *, policy, live=None):
+    """One decode step. token (B, 1) int; pos (B,) int, each row's token
+    position; ``cache`` is updated in place and returned with the
+    (B, 1, V) logits. ``live`` (B,) int: rows with ``live == 0`` leave
+    their cache rows untouched (the reference parks their write at a
+    dropped index). A negative token (the non-finite sentinel) is never
+    used as an embedding index."""
+    b = token.shape[0]
+    x = embed_inputs(params, cfg, torch.clamp(token, min=0))
+    pos = torch.as_tensor(pos, device=x.device).to(torch.int32)
+    pos = torch.broadcast_to(pos.reshape(-1), (b,))
+    s = cache["k"].shape[cache_seq_axis(cfg.kv_cache_layout)]
+    ok = pos < s
+    if live is not None:
+        ok = ok & (live > 0)
+    lay = cfg.kv_cache_layout
+    for i, blk in enumerate(params.layers):
+        ck, cv = cache["k"][i], cache["v"][i]
+        h = norm_apply(x, blk.ln_attn, cfg.norm, cfg.norm_eps)
+        q, k, v = _qkv(h, blk.attn, cfg, pos[:, None])
+        _write_token_kv(ck, k, pos, ok, lay)
+        _write_token_kv(cv, v, pos, ok, lay)
+        o = decode_attention(q, ck, cv, pos + 1, layout=lay, policy=policy)
+        x = _finish_block(x, o.flatten(2) @ blk.attn.wo, blk, cfg)
+    return _final_logits(params, cfg, x), cache
+
+
+def _final_logits(params, cfg, x):
+    x = norm_apply(x, params.ln_f, cfg.norm, cfg.norm_eps)
+    return _logits(params, cfg, x)
