@@ -36,15 +36,27 @@ F32_FLOP_PER_S = 67e12
 # exponent add, four saturation selects), used only for its bound.
 VEXP_OPS_PER_ELEM = 20
 
-# Kernel vs plain version on the same inputs. Attention outputs are bf16;
-# a kernel sums its f32 dot products in another order than the plain
-# version, which moves an f32 score by ulps and can (a) move the bf16
-# output by one bf16 ulp (2^-7 relative) and (b) under vexp_hw, where the
-# exp input is rounded to bf16, move one p by one bf16 ulp (an absolute
-# output change below 2^-7 * max|v|). Hence |kernel - plain| <=
-# ATT_ATOL + ATT_RTOL * |plain| with max|v| ~ 4.5 for unit normal values.
-ATT_ATOL = 2.0 ** -7 * 4.5
-ATT_RTOL = 2.0 ** -7
+# Attention kernel vs plain version on the same inputs, per kernel and exp
+# backend: (largest |kernel - plain|, share of outputs whose bits differ).
+# A kernel sums its f32 dot products in another order than the plain
+# version; that moves an f32 result by ulps, which after the round to the
+# bf16 output flips a few outputs by one bf16 ulp. The card's readings at
+# these inputs (PERF.md): FA max 9.8e-4 / 3.9e-3 / 0 and share 6.6e-6 /
+# 7.2e-6 / 0 (exact / vexp / vexp_hw); decode max 6.1e-5 / 4.9e-4 / 7e-9
+# and share at most 1.5e-3 / 6.5e-4 / 1.6e-4 (one output in 6,144). The
+# limits sit 2-4x above them, and at 1e-6 where the reading is 0 or 7e-9.
+# Each phase also holds the plain version at half the online-update block
+# against the one at the full block, and a kernel with that wrong
+# partition must fail these limits. Under vexp the max alone cannot see
+# it (the half block moves outputs by at most 2e-3, inside the limit);
+# the share can: the half block changes 3-5 % (FA) and 19-22 % (decode)
+# of the outputs.
+ATT_LIMITS = {
+    "flash_attention": {"exact": (2e-3, 3e-5), "vexp": (8e-3, 3e-5),
+                        "vexp_hw": (1e-6, 1e-5)},
+    "decode_attention": {"exact": (1.5e-4, 5e-3), "vexp": (1e-3, 5e-3),
+                         "vexp_hw": (1e-6, 1e-3)},
+}
 
 
 def fail(msg: str):
@@ -92,6 +104,33 @@ def nan_aware_equal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def f32_ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """ulps between two finite-or-inf f32 tensors of the same sign."""
     return (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+
+
+def kernel_vs_plain(out, ref, real=None):
+    """(max |out - ref|, share of outputs whose bits differ) over the
+    outputs that the boolean ``real`` (broadcast to ``out``) selects."""
+    o, r = out.float(), ref.float()
+    if real is not None:
+        sel = real.expand_as(o)
+        o, r = o[sel], r[sel]
+    return float((o - r).abs().max()), float((o != r).double().mean())
+
+
+def check_attention(kernel, readings, where=""):
+    """Fail unless every backend's kernel reading is inside ATT_LIMITS and
+    every half-block plain version is outside them. ``readings`` maps
+    (exp, "kernel" | "half_block") to (max_abs_err, mismatch_share)."""
+    for (exp, who), (err, share) in readings.items():
+        lim_err, lim_share = ATT_LIMITS[kernel][exp]
+        inside = err <= lim_err and share <= lim_share
+        if who == "kernel" and not inside:
+            fail(f"{kernel}{where} {exp}: kernel off its plain version by "
+                 f"{err} (limit {lim_err}), {share} of outputs differ "
+                 f"(limit {lim_share})")
+        if who == "half_block" and inside:
+            fail(f"{kernel}{where} {exp}: the plain version at half the block "
+                 f"passes the limits ({err}, {share}); they cannot see a "
+                 f"wrong online-update partition")
 
 
 # --------------------------------------------------------------- phases
@@ -159,30 +198,31 @@ def phase_vexp(kernels, policy_cls):
     if worst["exact"] > 2:
         fail(f"exact exp: {worst['exact']} ulp from torch.exp (limit 2)")
 
-    # the exp-op path: dispatch("vexp") on a score-sized f32 tensor, as a
-    # caller of the op would; its launches are the kernel's main-path count
+    # the exp op, dispatch("vexp"), on a score-sized f32 tensor: parity and
+    # time only. Serving does not call it (the attention kernels inline
+    # the same exp), so the kernel table takes its launches, 0, from the
+    # serve run like every other row's.
     from repro_torch.kernels import dispatch
     x = torch.randn(8 * 12 * 512, 512, device="cuda") * 4.0
     pol = policy_cls(exp_backend="vexp")
     kernels.reset_launch_counts()
     y = dispatch("vexp", pol)(x, policy=pol)
     torch.cuda.synchronize()
-    launches = kernels.launch_counts()["vexp"]
-    if launches < 1:
-        fail("the vexp op path did not launch the vexp kernel")
+    if kernels.launch_counts()["vexp"] != 1:
+        fail("the vexp op did not launch the vexp kernel once")
     err = float((y - kv.vexp_plain(x, "vexp")).abs().max())
     ms = cuda_time_ms(lambda: kv.vexp(x, policy=pol))
     plain_ms = cuda_time_ms(lambda: kv.vexp_plain(x, "vexp"))
     lib_ms = cuda_time_ms(lambda: torch.exp(x))
     b_ms, b_by = bound_ms(x.numel() * 8, x.numel() * VEXP_OPS_PER_ELEM,
                           F32_FLOP_PER_S)
-    res.update({"shape": list(x.shape), "launches": launches, "ms": ms,
-                "plain_ms": plain_ms, "library_ms": lib_ms})
+    res.update({"shape": list(x.shape), "ms": ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms})
     emit({"phase": "vexp", **res})
     return {"name": "vexp_2d", "route": "cuda",
             "source": "src/repro_torch/csrc/vexp.cu",
             "replaces": "src/repro/kernels/vexp/kernel.py:33",
-            "launches": launches, "max_abs_err": err, "ms": ms,
+            "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms}
 
@@ -205,24 +245,26 @@ def phase_flash_attention(policy_cls, block_k):
     kv_len = torch.randint(32, s + 1, (b,), generator=g, device="cuda",
                            dtype=torch.int32)
     kv_len[0] = s
-    res, worst = {"block_k": block_k}, 0.0
+    real = (torch.arange(s, device="cuda")[None, :]
+            < kv_len[:, None])[:, :, None, None]       # real query rows
+    res, readings = {"block_k": block_k}, {}
     for exp in ("exact", "vexp", "vexp_hw"):
         pol = policy_cls(exp_backend=exp, block_k=block_k)
         out = fa.flash_attention(q, k, v, causal=True, kv_len=kv_len,
                                  policy=pol)
         ref = fa.flash_attention_plain(q, k, v, causal=True, kv_len=kv_len,
                                        block_k=block_k, exp_backend=exp)
-        torch.cuda.synchronize()
-        real = (torch.arange(s, device="cuda")[None, :]
-                < kv_len[:, None])[:, :, None, None]   # real query rows
-        diff = ((out.float() - ref.float()).abs() * real)
-        over = diff > ATT_ATOL + ATT_RTOL * ref.float().abs()
-        res[f"{exp}_max_abs_err"] = float(diff.max())
-        worst = max(worst, float(diff.max()))
-        if bool(over.any()):
-            fail(f"flash_attention {exp}: {int(over.sum())} outputs off "
-                 f"the plain version by more than {ATT_ATOL} + "
-                 f"{ATT_RTOL}*|ref| (max {float(diff.max())})")
+        readings[exp, "kernel"] = kernel_vs_plain(out, ref, real)
+        if exp != "exact":       # exact exp: the partition moves only ulps
+            half = fa.flash_attention_plain(
+                q, k, v, causal=True, kv_len=kv_len, block_k=block_k // 2,
+                exp_backend=exp)
+            readings[exp, "half_block"] = kernel_vs_plain(half, ref, real)
+    for (exp, who), (err, share) in readings.items():
+        res[f"{exp}_{who}_max_abs_err"] = err
+        res[f"{exp}_{who}_mismatch_share"] = share
+    worst = max(err for (_, who), (err, _) in readings.items()
+                if who == "kernel")
     for exp in ("exact", "vexp_hw", "vexp"):      # vexp last: the row's ms
         pol = policy_cls(exp_backend=exp, block_k=block_k)
         ms = cuda_time_ms(lambda: fa.flash_attention(
@@ -236,15 +278,19 @@ def phase_flash_attention(policy_cls, block_k):
     lib_ms = cuda_time_ms(lambda: torch.nn.functional
                           .scaled_dot_product_attention(qt, kt, vt,
                                                         attn_mask=mask))
-    lens = kv_len.double()
-    pairs = float((lens * (lens + 1) / 2).sum())       # causal, real rows
+    # the function's work: every query row attends, causally, to the keys
+    # below its row's kv_len; q and o move whole, K and V up to kv_len
+    qpos = torch.arange(s, device="cuda", dtype=torch.float64)[None, :]
+    pairs = float(torch.minimum(qpos + 1, kv_len.double()[:, None]).sum())
     flops = 4.0 * h * d * pairs
-    nbytes = 4 * b * s * h * d * 2                     # q, k, v, o bf16
+    live = float(kv_len.double().sum())
+    nbytes = 2 * b * s * h * d * 2 + 2 * live * h * d * 2
     b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
     res.update({"plain_ms_vexp": plain_ms,
-                "library_ms": lib_ms, "bound_ms": b_ms,
+                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "kv_len": kv_len.tolist()})
     emit({"phase": "flash_attention", **res})
+    check_attention("flash_attention", readings)
     return {"name": "flash_attention_bhsd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:104",
@@ -265,11 +311,12 @@ def phase_decode(policy_cls):
     cache_len = torch.randint(33, s + 1, (b,), generator=g, device="cuda",
                               dtype=torch.int32)
     cache_len[0] = s
-    res, worst, times = {}, 0.0, {}
+    res, worst, times, checks = {}, 0.0, {}, []
     for layout in ("bshd", "bhsd"):
         kl, vl = ((kc, vc) if layout == "bshd" else
                   (kc.transpose(1, 2).contiguous(),
                    vc.transpose(1, 2).contiguous()))
+        readings = {}
         for exp in ("exact", "vexp", "vexp_hw"):
             pol = policy_cls(exp_backend=exp)
             out = da.decode_attention(q, kl, vl, cache_len, layout=layout,
@@ -278,13 +325,18 @@ def phase_decode(policy_cls):
                                             layout=layout,
                                             block_s=pol.block_s,
                                             exp_backend=exp)
-            torch.cuda.synchronize()
-            diff = (out.float() - ref.float()).abs()
-            res[f"{layout}_{exp}_max_abs_err"] = float(diff.max())
-            worst = max(worst, float(diff.max()))
-            if bool((diff > ATT_ATOL + ATT_RTOL * ref.float().abs()).any()):
-                fail(f"decode_attention {layout}/{exp}: off the plain "
-                     f"version (max {float(diff.max())})")
+            readings[exp, "kernel"] = kernel_vs_plain(out, ref)
+            if exp != "exact":
+                half = da.decode_attention_plain(
+                    q, kl, vl, cache_len, layout=layout,
+                    block_s=pol.block_s // 2, exp_backend=exp)
+                readings[exp, "half_block"] = kernel_vs_plain(half, ref)
+        for (exp, who), (err, share) in readings.items():
+            res[f"{layout}_{exp}_{who}_max_abs_err"] = err
+            res[f"{layout}_{exp}_{who}_mismatch_share"] = share
+            if who == "kernel":
+                worst = max(worst, err)
+        checks.append((layout, readings))
         for exp in ("exact", "vexp_hw", "vexp"):
             pol = policy_cls(exp_backend=exp)
             res[f"ms_{layout}_{exp}"] = cuda_time_ms(
@@ -310,8 +362,11 @@ def phase_decode(policy_cls):
     ms, plain_ms = times["bshd"]
     res.update({"plain_ms_bshd": plain_ms,
                 "plain_ms_bhsd": times["bhsd"][1], "library_ms": lib_ms,
-                "bound_ms": b_ms, "cache_len": cache_len.tolist()})
+                "bound_ms": b_ms, "bound_by": b_by,
+                "cache_len": cache_len.tolist()})
     emit({"phase": "decode_attention", **res})
+    for layout, readings in checks:
+        check_attention("decode_attention", readings, f" {layout}")
     return {"name": "decode_attention_kernel", "route": "cuda",
             "source": "src/repro_torch/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention/kernel.py:196",
@@ -521,7 +576,8 @@ def main():
     rows.append(phase_flash_attention(ExecPolicy, block_k))
     rows.append(phase_decode(ExecPolicy))
     counts = phase_serve(kernels, smi)
-    for row, name in zip(rows[1:], ("flash_attention", "decode_attention")):
+    for row, name in zip(rows, ("vexp", "flash_attention",
+                                "decode_attention")):
         row["launches"] = counts[name]
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

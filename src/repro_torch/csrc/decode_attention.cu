@@ -224,9 +224,6 @@ extern "C" int decode_fwd(const void* q, const void* kc, const void* vc,
     case 64:
       return launch<64>(q, kc, vc, o, cache_len, B, Hkv, G, S, csb, csh, css,
                         sm_scale, window, block_s, backend, s);
-    case 128:
-      return launch<128>(q, kc, vc, o, cache_len, B, Hkv, G, S, csb, csh,
-                         css, sm_scale, window, block_s, backend, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

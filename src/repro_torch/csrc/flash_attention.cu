@@ -7,12 +7,14 @@
 // acc * 1/max(l, 1e-30) rounded to bf16. Adds per-row key lengths
 // (`kv_len`), so a ragged serving prefill runs on this kernel.
 //
-// Bound on this card: operations. A 512-token prefill does ~64 f32
-// multiply-adds per byte it reads. This first version keeps the
+// Bound on this card: bytes. At gpt2-small prefill (D = 64, 512 tokens,
+// ragged rows) moving q, o and each row's live K/V once at 3.35 TB/s
+// takes longer than the function's multiply-adds at the bf16 tensor-core
+// rate (chip_smoke.py computes both). This first version keeps the
 // reference's f32 dot products and runs them on the CUDA cores, not the
 // tensor cores (a bf16 wgmma would round q * sm_scale to bf16 and leave
-// the function the reference computes), so it sits far below the bf16
-// tensor-core peak the bound is quoted against.
+// the function the reference computes), so its own f32 datapath, not
+// memory, holds it far above that bound.
 // Design: one CTA per (batch, head, 64-query tile), 256 threads. The
 // q tile (scaled, f32) stays in shared memory; per KV block, K arrives in
 // 64-key f32 sub-tiles, every thread computes a 4 x 4 patch of scores
@@ -279,9 +281,6 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<64>(q, k, v, o, kv_len, B, H, Hkv, Sq, Sk, qs, ks, vs,
                         os, sm_scale, causal, window, block_k, backend, s);
-    case 128:
-      return launch<128>(q, k, v, o, kv_len, B, H, Hkv, Sq, Sk, qs, ks, vs,
-                         os, sm_scale, causal, window, block_k, backend, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
