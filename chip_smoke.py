@@ -6,8 +6,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 It builds the hand-written kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version on the card, times both, serves
-full-width gpt2-small through the port's ``Server`` and checks what comes
-out. Every phase prints one JSON line; the first failure exits non-zero.
+full-width gpt2-small through the port's ``Server`` on the contiguous
+cache and on the paged pool with a shared-prefix cache, and checks what
+comes out. Every phase prints one JSON line; the first failure exits
+non-zero.
 The last two lines are the kernel table and the device line. Without a
 CUDA device, or without the rest of the checkout, it exits non-zero and
 prints no result.
@@ -56,7 +58,25 @@ ATT_LIMITS = {
                         "vexp_hw": (1e-6, 1e-5)},
     "decode_attention": {"exact": (1.5e-4, 5e-3), "vexp": (1e-3, 5e-3),
                          "vexp_hw": (1e-6, 1e-3)},
+    # paged decode, read on the card (PERF.md): max 2.4e-4 / 1.2e-4 / 0
+    # and share 6.5e-4 / 1.6e-4 / 0 (4 and 1 outputs of 6,144 moved by
+    # one bf16 ulp). The exact limit allows such a flip at |o| ~ 0.25.
+    # The plain version at half a page moves 23-28 % of the outputs, by
+    # up to 3.9e-3, and must fail them: that shows the kernel updates
+    # once per page.
+    "decode_attention_paged": {"exact": (1e-3, 5e-3),
+                               "vexp": (1e-3, 5e-3),
+                               "vexp_hw": (1e-6, 1e-3)},
 }
+
+# Fused softmax kernel vs its plain version, largest distance in f32 ulps
+# per exp backend. Both take the same row max (exact) and the same exp
+# (vexp / vexp_hw bitwise, exact within the 0 ulp the vexp phase reads),
+# but sum the row in another order, so 1/sum, and with it every output of
+# the row, moves by a few ulps.
+SOFTMAX_MAX_ULP = {"exact": 16, "vexp": 16, "vexp_hw": 16}
+SOFTMAX_SIZES = (128, 512, 2048, 8192)      # benchmarks/softmax_speed.py
+PAGE = 64                                   # gpt2-small's block_page
 
 
 def fail(msg: str):
@@ -118,8 +138,9 @@ def kernel_vs_plain(out, ref, real=None):
 
 def check_attention(kernel, readings, where=""):
     """Fail unless every backend's kernel reading is inside ATT_LIMITS and
-    every half-block plain version is outside them. ``readings`` maps
-    (exp, "kernel" | "half_block") to (max_abs_err, mismatch_share)."""
+    every plain version at half the online-update unit (block or page) is
+    outside them. ``readings`` maps (exp, "kernel" | "half_block" |
+    "half_page") to (max_abs_err, mismatch_share)."""
     for (exp, who), (err, share) in readings.items():
         lim_err, lim_share = ATT_LIMITS[kernel][exp]
         inside = err <= lim_err and share <= lim_share
@@ -127,10 +148,10 @@ def check_attention(kernel, readings, where=""):
             fail(f"{kernel}{where} {exp}: kernel off its plain version by "
                  f"{err} (limit {lim_err}), {share} of outputs differ "
                  f"(limit {lim_share})")
-        if who == "half_block" and inside:
-            fail(f"{kernel}{where} {exp}: the plain version at half the block "
-                 f"passes the limits ({err}, {share}); they cannot see a "
-                 f"wrong online-update partition")
+        if who != "kernel" and inside:
+            fail(f"{kernel}{where} {exp}: the plain version at {who} passes "
+                 f"the limits ({err}, {share}); they cannot see a wrong "
+                 f"online-update partition")
 
 
 # --------------------------------------------------------------- phases
@@ -227,16 +248,115 @@ def phase_vexp(kernels, policy_cls):
             "library_ms": lib_ms}
 
 
-def _sdpa_mask_prefill(kv_len, sq, sk):
-    qpos = torch.arange(sq, device="cuda")[:, None]
+def phase_softmax(policy_cls):
+    """Kernel B4, the paper's Softmax, on S x S f32 attention scores for S
+    in benchmarks/softmax_speed.py's sweep: the kernel against its plain
+    version per exp backend (f32 ulps), timed against torch.softmax and
+    its bound (one read plus one write of the scores)."""
+    from repro_torch.kernels import softmax as ks
+    g = torch.Generator(device="cuda").manual_seed(3)
+    res, worst_err, row = {}, 0.0, None
+    for s in SOFTMAX_SIZES:
+        x = torch.randn(s, s, generator=g, device="cuda") * 4.0
+        for exp in ("exact", "vexp", "vexp_hw"):
+            pol = policy_cls(exp_backend=exp)
+            out = ks.softmax(x, -1, policy=pol)
+            ref = ks.softmax_plain(x, -1, exp_backend=exp)
+            ulp = int(f32_ulp_distance(out, ref).max())
+            err = float((out - ref).abs().max())
+            worst_err = max(worst_err, err)
+            res[f"s{s}_{exp}_max_ulp"] = ulp
+            res[f"s{s}_{exp}_max_abs_err"] = err
+            res[f"s{s}_{exp}_row_sum_max_dev"] = float(
+                (out.double().sum(-1) - 1.0).abs().max())
+            if ulp > SOFTMAX_MAX_ULP[exp]:
+                emit({"phase": "softmax", **res})
+                fail(f"softmax S={s} {exp}: kernel {ulp} ulp from its plain "
+                     f"version (limit {SOFTMAX_MAX_ULP[exp]})")
+        for exp in ("exact", "vexp_hw", "vexp"):    # vexp last: the row's ms
+            pol = policy_cls(exp_backend=exp)
+            res[f"s{s}_ms_{exp}"] = cuda_time_ms(
+                lambda: ks.softmax(x, -1, policy=pol))
+        ms = res[f"s{s}_ms_vexp"]
+        plain_ms = cuda_time_ms(
+            lambda: ks.softmax_plain(x, -1, exp_backend="vexp"), iters=5)
+        lib_ms = cuda_time_ms(lambda: torch.softmax(x, -1))
+        b_ms, b_by = bound_ms(x.numel() * 8, x.numel() * VEXP_OPS_PER_ELEM,
+                              F32_FLOP_PER_S)
+        res.update({f"s{s}_plain_ms_vexp": plain_ms,
+                    f"s{s}_library_ms": lib_ms, f"s{s}_bound_ms": b_ms,
+                    f"s{s}_bound_by": b_by})
+        row = (ms, plain_ms, lib_ms, b_ms, b_by)      # the largest S
+        del x
+    emit({"phase": "softmax", "sizes": list(SOFTMAX_SIZES), **res})
+    ms, plain_ms, lib_ms, b_ms, b_by = row
+    return {"name": "softmax_rows", "route": "cuda",
+            "source": "src/repro_torch/csrc/softmax.cu",
+            "replaces": "src/repro/kernels/softmax/kernel.py:41",
+            "launches": None, "max_abs_err": worst_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms}
+
+
+def _sdpa_mask_prefill(kv_len, sq, sk, q_offset=0):
+    qpos = torch.arange(sq, device="cuda")[:, None] + q_offset
     kpos = torch.arange(sk, device="cuda")[None, :]
     causal = (kpos <= qpos)[None]
     return (causal & (kpos < kv_len[:, None, None]))[:, None]
 
 
+def _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, q_offset, tag):
+    """One FA case: kernel vs plain per backend (and the plain version at
+    half the block), times, library time and bound. Query i of row b sits
+    at q_offset + i; its real rows are those below kv_len[b]."""
+    b, sq, h, d = q.shape
+    qpos = torch.arange(sq, device="cuda")[None, :] + q_offset
+    real = (qpos < kv_len[:, None])[:, :, None, None]
+    kw = dict(causal=True, kv_len=kv_len, q_offset=q_offset)
+    res, readings = {}, {}
+    for exp in ("exact", "vexp", "vexp_hw"):
+        pol = policy_cls(exp_backend=exp, block_k=block_k)
+        out = fa.flash_attention(q, k, v, policy=pol, **kw)
+        ref = fa.flash_attention_plain(q, k, v, block_k=block_k,
+                                       exp_backend=exp, **kw)
+        readings[exp, "kernel"] = kernel_vs_plain(out, ref, real)
+        if exp != "exact":       # exact exp: the partition moves only ulps
+            half = fa.flash_attention_plain(q, k, v, block_k=block_k // 2,
+                                            exp_backend=exp, **kw)
+            readings[exp, "half_block"] = kernel_vs_plain(half, ref, real)
+    for (exp, who), (err, share) in readings.items():
+        res[f"{tag}{exp}_{who}_max_abs_err"] = err
+        res[f"{tag}{exp}_{who}_mismatch_share"] = share
+    for exp in ("exact", "vexp_hw", "vexp"):      # vexp last: the row's ms
+        pol = policy_cls(exp_backend=exp, block_k=block_k)
+        res[f"{tag}ms_{exp}"] = cuda_time_ms(
+            lambda: fa.flash_attention(q, k, v, policy=pol, **kw))
+    plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(
+        q, k, v, block_k=block_k, exp_backend="vexp", **kw), iters=5)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = _sdpa_mask_prefill(kv_len, sq, k.shape[1], q_offset)
+    lib_ms = cuda_time_ms(lambda: torch.nn.functional
+                          .scaled_dot_product_attention(qt, kt, vt,
+                                                        attn_mask=mask))
+    # the function's work: every query row attends, causally, to the keys
+    # below its row's kv_len; q and o move whole, K and V up to kv_len
+    pairs = float(torch.minimum(qpos.double() + 1,
+                                kv_len.double()[:, None]).sum())
+    flops = 4.0 * h * d * pairs
+    live = float(kv_len.double().sum())
+    nbytes = 2 * b * sq * h * d * 2 + 2 * live * h * d * 2
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+    res.update({f"{tag}plain_ms_vexp": plain_ms, f"{tag}library_ms": lib_ms,
+                f"{tag}bound_ms": b_ms, f"{tag}bound_by": b_by,
+                f"{tag}kv_len": kv_len.tolist()})
+    return res, readings
+
+
 def phase_flash_attention(policy_cls, block_k):
     """Kernel 2 at gpt2-small prefill shapes: B=8, H=12, D=64, Sq=Sk=512,
-    ragged kv_len in [32, 512], causal."""
+    ragged kv_len in [32, 512], causal; and the hot-prefix case of
+    suffix admission: 256 suffix queries at q_offset=256 over 512 keys
+    (history + suffix), ragged kv_len in [257, 512]."""
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device="cuda").manual_seed(1)
     b, s, h, d = 8, 512, 12, 64
@@ -245,52 +365,24 @@ def phase_flash_attention(policy_cls, block_k):
     kv_len = torch.randint(32, s + 1, (b,), generator=g, device="cuda",
                            dtype=torch.int32)
     kv_len[0] = s
-    real = (torch.arange(s, device="cuda")[None, :]
-            < kv_len[:, None])[:, :, None, None]       # real query rows
-    res, readings = {"block_k": block_k}, {}
-    for exp in ("exact", "vexp", "vexp_hw"):
-        pol = policy_cls(exp_backend=exp, block_k=block_k)
-        out = fa.flash_attention(q, k, v, causal=True, kv_len=kv_len,
-                                 policy=pol)
-        ref = fa.flash_attention_plain(q, k, v, causal=True, kv_len=kv_len,
-                                       block_k=block_k, exp_backend=exp)
-        readings[exp, "kernel"] = kernel_vs_plain(out, ref, real)
-        if exp != "exact":       # exact exp: the partition moves only ulps
-            half = fa.flash_attention_plain(
-                q, k, v, causal=True, kv_len=kv_len, block_k=block_k // 2,
-                exp_backend=exp)
-            readings[exp, "half_block"] = kernel_vs_plain(half, ref, real)
-    for (exp, who), (err, share) in readings.items():
-        res[f"{exp}_{who}_max_abs_err"] = err
-        res[f"{exp}_{who}_mismatch_share"] = share
-    worst = max(err for (_, who), (err, _) in readings.items()
-                if who == "kernel")
-    for exp in ("exact", "vexp_hw", "vexp"):      # vexp last: the row's ms
-        pol = policy_cls(exp_backend=exp, block_k=block_k)
-        ms = cuda_time_ms(lambda: fa.flash_attention(
-            q, k, v, causal=True, kv_len=kv_len, policy=pol))
-        res[f"ms_{exp}"] = ms
-    plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(
-        q, k, v, causal=True, kv_len=kv_len, block_k=block_k,
-        exp_backend="vexp"), iters=5)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    mask = _sdpa_mask_prefill(kv_len, s, s)
-    lib_ms = cuda_time_ms(lambda: torch.nn.functional
-                          .scaled_dot_product_attention(qt, kt, vt,
-                                                        attn_mask=mask))
-    # the function's work: every query row attends, causally, to the keys
-    # below its row's kv_len; q and o move whole, K and V up to kv_len
-    qpos = torch.arange(s, device="cuda", dtype=torch.float64)[None, :]
-    pairs = float(torch.minimum(qpos + 1, kv_len.double()[:, None]).sum())
-    flops = 4.0 * h * d * pairs
-    live = float(kv_len.double().sum())
-    nbytes = 2 * b * s * h * d * 2 + 2 * live * h * d * 2
-    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
-    res.update({"plain_ms_vexp": plain_ms,
-                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "kv_len": kv_len.tolist()})
-    emit({"phase": "flash_attention", **res})
+    res, readings = _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, 0, "")
+    off = s // 2
+    qh = torch.randn(b, s - off, h, d, generator=g,
+                     device="cuda").to(torch.bfloat16)
+    kv_hot = torch.randint(off + 1, s + 1, (b,), generator=g, device="cuda",
+                           dtype=torch.int32)
+    kv_hot[0] = s
+    hot, hot_readings = _fa_case(fa, policy_cls, block_k, qh, k, v, kv_hot,
+                                 off, "hot_")
+    res.update(hot)
+    emit({"phase": "flash_attention", "block_k": block_k, "hot_q_offset": off,
+          **res})
     check_attention("flash_attention", readings)
+    check_attention("flash_attention", hot_readings, " hot")
+    worst = max(err for rd in (readings, hot_readings)
+                for (_, who), (err, _) in rd.items() if who == "kernel")
+    ms, plain_ms = res["ms_vexp"], res["plain_ms_vexp"]
+    lib_ms, b_ms, b_by = res["library_ms"], res["bound_ms"], res["bound_by"]
     return {"name": "flash_attention_bhsd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:104",
@@ -375,6 +467,97 @@ def phase_decode(policy_cls):
             "library_ms": lib_ms}
 
 
+def phase_paged_decode(policy_cls):
+    """Kernel B7 at gpt2-small decode shapes over a page pool: B=8,
+    Hkv=12, G=1, d=64, page=64, 16 pages per row (1,024 keys) from a
+    shuffled table, ragged cache_len in [37, 1024], both pool layouts."""
+    from repro_torch.kernels import decode_attention as da
+    g = torch.Generator(device="cuda").manual_seed(4)
+    b, ns, h, d, page = 8, 16, 12, 64, PAGE
+    n_pages = 1 + b * ns                     # page 0: the scratch page
+    q = torch.randn(b, 1, h, d, generator=g, device="cuda").to(torch.bfloat16)
+    kp, vp = (torch.randn(n_pages, page, h, d, generator=g, device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    perm = torch.randperm(b * ns, generator=g, device="cuda") + 1
+    tab = perm.reshape(b, ns).to(torch.int32)
+    cache_len = torch.randint(37, ns * page + 1, (b,), generator=g,
+                              device="cuda", dtype=torch.int32)
+    cache_len[0] = ns * page
+    # entries at or past a row's extent point at the scratch page, as the
+    # engine's tables do; the kernel must not read them
+    extent = (cache_len + page - 1) // page
+    tab = torch.where(torch.arange(ns, device="cuda")[None, :]
+                      < extent[:, None], tab, 0)
+    res, worst, times, checks = {}, 0.0, {}, []
+    for layout in ("bshd", "bhsd"):
+        kl, vl = ((kp, vp) if layout == "bshd" else
+                  (kp.transpose(1, 2).contiguous(),
+                   vp.transpose(1, 2).contiguous()))
+        readings = {}
+        for exp in ("exact", "vexp", "vexp_hw"):
+            pol = policy_cls(exp_backend=exp, block_page=page)
+            out = da.decode_attention_paged(q, kl, vl, tab, cache_len,
+                                            layout=layout, policy=pol)
+            ref = da.decode_attention_paged_plain(q, kl, vl, tab, cache_len,
+                                                  layout=layout,
+                                                  exp_backend=exp)
+            readings[exp, "kernel"] = kernel_vs_plain(out, ref)
+            if exp != "exact":
+                half = da.decode_attention_paged_plain(
+                    q, kl, vl, tab, cache_len, layout=layout,
+                    exp_backend=exp, block=page // 2)
+                readings[exp, "half_page"] = kernel_vs_plain(half, ref)
+        for (exp, who), (err, share) in readings.items():
+            res[f"{layout}_{exp}_{who}_max_abs_err"] = err
+            res[f"{layout}_{exp}_{who}_mismatch_share"] = share
+            if who == "kernel":
+                worst = max(worst, err)
+        checks.append((layout, readings))
+        for exp in ("exact", "vexp_hw", "vexp"):
+            pol = policy_cls(exp_backend=exp, block_page=page)
+            res[f"ms_{layout}_{exp}"] = cuda_time_ms(
+                lambda: da.decode_attention_paged(q, kl, vl, tab, cache_len,
+                                                  layout=layout, policy=pol),
+                iters=50)
+        times[layout] = (res[f"ms_{layout}_vexp"], cuda_time_ms(
+            lambda: da.decode_attention_paged_plain(
+                q, kl, vl, tab, cache_len, layout=layout,
+                exp_backend="vexp"), iters=10))
+    # library: SDPA over the cache already gathered contiguous through the
+    # table; the gather is not timed
+    kt = da.paged_gather(kp, tab).transpose(1, 2)
+    vt = da.paged_gather(vp, tab).transpose(1, 2)
+    qt = q.transpose(1, 2)
+    mask = (torch.arange(ns * page, device="cuda")[None, :]
+            < cache_len[:, None])[:, None, None]
+    lib_ms = cuda_time_ms(lambda: torch.nn.functional
+                          .scaled_dot_product_attention(qt, kt, vt,
+                                                        attn_mask=mask),
+                          iters=50)
+    # the bound reads each row's live pages (K and V) once, q and o once;
+    # the operations count the live keys
+    live_pages = float(extent.double().sum())
+    nbytes = live_pages * page * h * d * 2 * 2 + 2 * b * h * d * 2
+    flops = 4.0 * float(cache_len.double().sum()) * h * d
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+    ms, plain_ms = times["bshd"]
+    res.update({"page": page, "plain_ms_bshd": plain_ms,
+                "plain_ms_bhsd": times["bhsd"][1], "library_ms": lib_ms,
+                "library": "sdpa over the gathered contiguous cache "
+                           "(gather not timed)",
+                "live_pages": int(live_pages), "bound_ms": b_ms,
+                "bound_by": b_by, "cache_len": cache_len.tolist()})
+    emit({"phase": "decode_attention_paged", **res})
+    for layout, readings in checks:
+        check_attention("decode_attention_paged", readings, f" {layout}")
+    return {"name": "decode_attention_kernel_paged", "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_attention_paged.cu",
+            "replaces": "src/repro/kernels/decode_attention/kernel.py:470",
+            "launches": 0, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms}
+
+
 def _pct(xs, q):
     xs = sorted(xs)
     return xs[min(len(xs) * q // 100, len(xs) - 1)]
@@ -408,19 +591,177 @@ def replay_logits(cfg, params, reqs, policy):
     return out
 
 
+def replay_logits_paged(cfg, params, reqs, policy, hist_len, page):
+    """Teacher-forced logits of ``reqs`` through the paged path, as a hot
+    admission serves them: the shared ``hist_len``-token prefix (whole
+    pages) prefilled once into pool pages that every row's table
+    shares, each row's suffix prefilled against that history (attention
+    at q_offset=hist_len), then one paged decode step per emitted
+    token. Returns a list of (B, V) f32 logits per step."""
+    from repro_torch.models import transformer
+    from repro_torch.models.decode_state import (_paged_gather_hist,
+                                                 _paged_scatter)
+    b, n, lay = len(reqs), len(reqs[0].out), cfg.kv_cache_layout
+    hp = hist_len // page
+    slen = np.array([len(r.prompt) - hist_len for r in reqs], np.int32)
+    sp = int(slen.max())
+    ns = -(-(hist_len + sp + n) // page)
+    tab = np.zeros((b, ns), np.int64)
+    tab[:, :hp] = np.arange(1, hp + 1)               # the shared pages
+    for i in range(b):
+        first = 1 + hp + i * (ns - hp)
+        tab[i, hp:] = np.arange(first, first + ns - hp)
+    pool = transformer.init_paged_cache(cfg, 1 + hp + b * (ns - hp), page,
+                                        "cuda")
+    _, pre = transformer.prefill(
+        params, cfg, torch.as_tensor(reqs[0].prompt[None, :hist_len],
+                                     device="cuda"), policy=policy)
+    for name in ("k", "v"):
+        _paged_scatter(pool[name], pre[name], tab[:1, :hp], page, lay)
+    hist = {name: _paged_gather_hist(pool[name], tab[:, :hp], page, lay)
+            for name in ("k", "v")}
+    toks = np.zeros((b, sp), np.int32)
+    for i, r in enumerate(reqs):
+        toks[i, :slen[i]] = r.prompt[hist_len:]
+    logits, suf = transformer.prefill(
+        params, cfg, torch.as_tensor(toks, device="cuda"),
+        prompt_len=torch.as_tensor(slen, device="cuda"), policy=policy,
+        hist=hist)
+    nc = -(-sp // page)
+    for name in ("k", "v"):
+        _paged_scatter(pool[name], suf[name], tab[:, hp:hp + nc], page, lay)
+    tabs = torch.as_tensor(tab, dtype=torch.int32, device="cuda")
+    out = [logits[:, 0]]
+    pos = torch.as_tensor(slen + hist_len, device="cuda")
+    for t in range(n - 1):
+        tok = torch.as_tensor([[r.out[t]] for r in reqs], dtype=torch.int32,
+                              device="cuda")
+        logits, pool = transformer.decode_step_paged(
+            params, cfg, tok, pool, tabs, pos + t, policy=policy)
+        out.append(logits[:, 0])
+    return out
+
+
 # cuda tier vs reference tier, teacher-forced, full-width gpt2-small: the
-# flash-decode kernel rounds q and p to bf16 where the reference tier's
-# decode keeps f32 (the Pallas kernel does the same), and bf16
+# flash-decode kernels round q and p to bf16 where the reference tier's
+# decode keeps f32 (the Pallas kernels do the same), and bf16
 # activations carry that through 12 layers; logits are O(1).
 REPLAY_LOGIT_TOL = 0.1
 
 
-def phase_serve(kernels, smi):
-    """Full-width gpt2-small through the port's Server: max_batch 8,
-    max_seq 1024, 16 requests with prompt lengths in [32, 512], 64 new
-    tokens each, policy groups eval=exact, bulk=vexp, hw=vexp_hw."""
+def check_replay(name, reqs, fast, ref):
+    """cuda-tier logits within REPLAY_LOGIT_TOL of the reference tier's,
+    finite, and every served token the reference argmax wherever the
+    reference's top two logits are more than 2 x the limit apart."""
+    d = max(float((a - b).abs().max()) for a, b in zip(fast, ref))
+    if not all(bool(torch.isfinite(a).all()) for a in fast):
+        fail(f"replay {name}: non-finite logits")
+    if d > REPLAY_LOGIT_TOL:
+        fail(f"replay {name}: cuda vs reference tier logits differ by {d} "
+             f"(limit {REPLAY_LOGIT_TOL})")
+    for i, r in enumerate(reqs):
+        for t, lg in enumerate(ref):
+            top = torch.topk(lg[i], 2).values
+            if float(top[0] - top[1]) > 2 * REPLAY_LOGIT_TOL and \
+                    int(lg[i].argmax()) != r.out[t]:
+                fail(f"replay {name}: request {r.rid} step {t} token "
+                     f"{r.out[t]} != reference argmax {int(lg[i].argmax())}")
+    return d
+
+
+class SmiSampler:
+    """nvidia-smi's SM clock, memory clock and power draw, sampled every
+    200 ms while the ``with`` block runs; the sampler process is stopped
+    on exit."""
+
+    FIELDS = ("clocks_sm_mhz", "clocks_mem_mhz", "power_draw_w")
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "200"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            out, _ = self.proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate()
+        self.samples = []
+        for line in out.splitlines():
+            try:
+                self.samples.append([float(x) for x in line.split(",")])
+            except ValueError:         # "[N/A]" fields
+                continue
+        return False
+
+    def summary(self):
+        rows = [s for s in self.samples if len(s) == len(self.FIELDS)]
+        if not rows:
+            return "not measured"
+        out = {"samples": len(rows)}
+        for name, col in zip(self.FIELDS, zip(*rows)):
+            col = sorted(col)
+            out[name] = {"min": col[0], "median": col[len(col) // 2],
+                         "max": col[-1]}
+        return out
+
+
+def timed_serve(kernels, srv, reqs):
+    """Serve ``reqs`` with every launch count set to 0 just before and read
+    just after, SDPA calls counted, peak device memory and clocks / power
+    sampled. Returns (seconds, launch counts, SDPA calls, peak bytes,
+    nvidia-smi summary)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_calls = []
+
+    def counting_sdpa(*a, **k):
+        sdpa_calls.append(1)
+        return sdpa(*a, **k)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    torch.nn.functional.scaled_dot_product_attention = counting_sdpa
+    kernels.reset_launch_counts()
+    try:
+        with SmiSampler() as smi:
+            t0 = time.perf_counter()
+            srv.run(reqs)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    finally:
+        torch.nn.functional.scaled_dot_product_attention = sdpa
+    counts = kernels.launch_counts()
+    return (secs, counts, len(sdpa_calls), torch.cuda.max_memory_allocated(),
+            smi.summary())
+
+
+def check_requests(cfg, reqs, max_new):
+    for r in reqs:
+        out = np.asarray(r.out)
+        if (r.finish_reason != "max_new" or len(out) != max_new
+                or (out < 0).any() or (out >= cfg.vocab).any()):
+            fail(f"request {r.rid}: {r.finish_reason}, {len(out)} tokens, "
+                 f"range [{out.min()}, {out.max()}]")
+
+
+def serve_metrics(reqs, secs):
+    ntok = sum(len(r.out) for r in reqs)
+    ttft = [r.t_first - r.t_submit for r in reqs]
+    lat = [r.t_done - r.t_submit for r in reqs]
+    return {"requests": len(reqs), "tokens": ntok, "seconds": secs,
+            "tok_s": ntok / secs, "ttft_p50_s": _pct(ttft, 50),
+            "ttft_p95_s": _pct(ttft, 95), "req_p50_s": _pct(lat, 50),
+            "req_p95_s": _pct(lat, 95)}
+
+
+def gpt2_small_setup():
+    """Full-width gpt2-small with random weights from seed 0, its default
+    policy (which must be the cuda tier) and the three policy groups."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import Server, make_requests
     from repro_torch.models import api
     from repro_torch.runtime import parse_policy_groups, resolve_policy
     cfg = get_config("gpt2-small")
@@ -430,6 +771,14 @@ def phase_serve(kernels, smi):
         fail(f"default tier is {policy.kernel_backend}, not cuda")
     groups = parse_policy_groups("eval=exact,bulk=vexp,hw=vexp_hw", cfg,
                                  base=policy)
+    return cfg, params, policy, groups
+
+
+def phase_serve(kernels, smi, cfg, params, policy, groups):
+    """Full-width gpt2-small through the port's Server: max_batch 8,
+    max_seq 1024, 16 requests with prompt lengths in [32, 512], 64 new
+    tokens each, policy groups eval=exact, bulk=vexp, hw=vexp_hw."""
+    from repro_torch.launch.serve import Server, make_requests
 
     def server():
         return Server(cfg, params, max_batch=8, max_seq=1024, policy=policy,
@@ -440,33 +789,11 @@ def phase_serve(kernels, smi):
                                seed=1))
     torch.cuda.synchronize()
 
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    sdpa_calls = []
-
-    def counting_sdpa(*a, **k):
-        sdpa_calls.append(1)
-        return sdpa(*a, **k)
-
     srv = server()
     reqs = make_requests(cfg, 16, 512, 64, mixed_lengths=True, min_len=32,
                          groups=sorted(groups), seed=0)
-    torch.nn.functional.scaled_dot_product_attention = counting_sdpa
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    try:
-        srv.run(reqs)
-        torch.cuda.synchronize()
-    finally:
-        torch.nn.functional.scaled_dot_product_attention = sdpa
-    secs = time.perf_counter() - t0
-    counts = kernels.launch_counts()
-
-    for r in reqs:
-        out = np.asarray(r.out)
-        if (r.finish_reason != "max_new" or len(out) != 64
-                or (out < 0).any() or (out >= cfg.vocab).any()):
-            fail(f"request {r.rid}: {r.finish_reason}, {len(out)} tokens, "
-                 f"range [{out.min()}, {out.max()}]")
+    secs, counts, sdpa_calls, peak, clocks = timed_serve(kernels, srv, reqs)
+    check_requests(cfg, reqs, 64)
     st = srv.stats()
     waves = sum(s["admit_waves"] for s in st.values())
     steps = sum(s["decode_steps"] for s in st.values())
@@ -476,21 +803,17 @@ def phase_serve(kernels, smi):
     if counts["decode_attention"] != cfg.n_layers * steps:
         fail(f"decode_attention launches {counts['decode_attention']} != "
              f"{cfg.n_layers} layers x {steps} decode steps")
+    if counts["decode_attention_paged"]:
+        fail("the contiguous serve launched the paged decode kernel")
     if sdpa_calls:
-        fail(f"{len(sdpa_calls)} library attention calls on the port's path")
+        fail(f"{sdpa_calls} library attention calls on the port's path")
 
-    ntok = sum(len(r.out) for r in reqs)
-    ttft = [r.t_first - r.t_submit for r in reqs]
-    lat = [r.t_done - r.t_submit for r in reqs]
     res = {"phase": "serve", "arch": cfg.arch_id, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "vocab_padded": cfg.vocab_padded,
-           "requests": len(reqs), "tokens": ntok, "seconds": secs,
-           "tok_s": ntok / secs, "ttft_p50_s": _pct(ttft, 50),
-           "ttft_p95_s": _pct(ttft, 95), "req_p50_s": _pct(lat, 50),
-           "req_p95_s": _pct(lat, 95), "admit_waves": waves,
+           **serve_metrics(reqs, secs), "admit_waves": waves,
            "decode_steps": steps, "launches": counts,
-           "prompt_lens": [len(r.prompt) for r in reqs],
-           "nvidia_smi": smi}
+           "peak_memory_bytes": peak, "clocks_power": clocks,
+           "prompt_lens": [len(r.prompt) for r in reqs], "nvidia_smi": smi}
 
     # teacher-forced replay of 2 requests per group: cuda vs reference tier
     worst = {}
@@ -499,26 +822,150 @@ def phase_serve(kernels, smi):
         fast = replay_logits(cfg, params, two, pol)
         ref = replay_logits(cfg, params, two,
                             pol.replace(kernel_backend="reference"))
-        d = max(float((a - b).abs().max()) for a, b in zip(fast, ref))
-        worst[name] = d
-        if not all(bool(torch.isfinite(a).all()) for a in fast):
-            fail(f"replay {name}: non-finite logits")
-        if d > REPLAY_LOGIT_TOL:
-            fail(f"replay {name}: cuda vs reference tier logits differ by "
-                 f"{d} (limit {REPLAY_LOGIT_TOL})")
-        # the served tokens are the cuda tier's argmax where no near tie
-        for i, r in enumerate(two):
-            for t, lg in enumerate(ref):
-                top = torch.topk(lg[i], 2).values
-                if float(top[0] - top[1]) > 2 * REPLAY_LOGIT_TOL and \
-                        int(lg[i].argmax()) != r.out[t]:
-                    fail(f"replay {name}: request {r.rid} step {t} token "
-                         f"{r.out[t]} != reference argmax "
-                         f"{int(lg[i].argmax())}")
+        worst[name] = check_replay(name, two, fast, ref)
     res["replay_max_abs_logit_diff"] = worst
     res["profile"] = profile_serve(server, make_requests(
         cfg, 8, 512, 16, mixed_lengths=True, min_len=32,
         groups=sorted(groups), seed=2))
+    emit(res)
+    return counts
+
+
+def _record_hot_prompts(srv):
+    """Wrap each group's admission so that every wave's prefill is timed
+    (synced on both sides) and the prompts of every wave that attached
+    prefix-cache pages (a hot wave) are recorded. Returns (set of hot
+    prompts' bytes, list of (hot, rows, seconds) per wave)."""
+    hot, waves = set(), []
+    for g in srv._groups.values():
+        state, admit = g.state, g.state.prefill_into
+
+        def recording(slots, toks, plens, _state=state, _admit=admit):
+            before = _state.pcache.hits
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            first = _admit(slots, toks, plens)
+            torch.cuda.synchronize()
+            is_hot = _state.pcache.hits > before
+            rows = np.asarray(slots).reshape(-1)
+            waves.append((is_hot, len(rows), time.perf_counter() - t0))
+            if is_hot:
+                for j in rows:
+                    hot.add(toks[j, :plens[j]].tobytes())
+            return first
+        state.prefill_into = recording
+    return hot, waves
+
+
+def phase_serve_paged(kernels, smi, cfg, params, policy, groups):
+    """Full-width gpt2-small through Server(paged=True): max_batch 8,
+    max_seq 1024, page 64, 32 requests on one shared 256-token prefix
+    plus a suffix of [32, 256] tokens (seed 0), 64 new tokens each, the
+    same three policy groups. Each group's first wave is cold and
+    publishes the prefix; its later waves attach it and prefill only the
+    suffixes (FA at q_offset=256)."""
+    from repro_torch.launch.serve import Request, Server, make_requests
+    from repro_torch.models import transformer
+    n_req, shared, suffix, max_new = 32, 256, 256, 64
+
+    def server(pol=policy, grp=groups):
+        return Server(cfg, params, max_batch=8, max_seq=1024, policy=pol,
+                      policy_groups=grp, device="cuda", paged=True,
+                      block_page=PAGE)
+
+    srv = server()
+    hot, wave_s = _record_hot_prompts(srv)
+    reqs = make_requests(cfg, n_req, suffix, max_new, mixed_lengths=True,
+                         min_len=32, groups=sorted(groups), seed=0,
+                         shared_prefix=shared)
+    secs, counts, sdpa_calls, peak, clocks = timed_serve(kernels, srv, reqs)
+    check_requests(cfg, reqs, max_new)
+    st = srv.stats()
+    waves = sum(s["admit_waves"] for s in st.values())
+    steps = sum(s["decode_steps"] for s in st.values())
+    if counts["decode_attention_paged"] != cfg.n_layers * steps:
+        fail(f"decode_attention_paged launches "
+             f"{counts['decode_attention_paged']} != {cfg.n_layers} layers "
+             f"x {steps} decode steps")
+    if counts["decode_attention"]:
+        fail(f"the paged serve launched the contiguous decode kernel "
+             f"{counts['decode_attention']} times")
+    if counts["flash_attention"] != cfg.n_layers * waves:
+        fail(f"flash_attention launches {counts['flash_attention']} != "
+             f"{cfg.n_layers} layers x {waves} admission waves")
+    if sdpa_calls:
+        fail(f"{sdpa_calls} library attention calls on the port's path")
+    pools = {name: st[name]["pool"] for name in groups}
+    for name in groups:            # the server's idle "default" group aside
+        s = st[name]
+        if s["admit_waves"] < 2 or pools[name]["prefix"]["hits"] <= 0:
+            fail(f"paged group {name}: {s['admit_waves']} waves, "
+                 f"{pools[name]['prefix']['hits']} prefix hits; every group "
+                 f"needs a hot wave")
+    hot_reqs = [r for r in reqs if r.prompt.tobytes() in hot]
+    srv.assert_idle_clean()          # drops the prefix cache: stats first
+
+    hit_tokens = sum(p["prefix"]["hit_tokens"] for p in pools.values())
+    res = {"phase": "serve_paged", "arch": cfg.arch_id, "page": PAGE,
+           "shared_prefix": shared, **serve_metrics(reqs, secs),
+           "admit_waves": waves, "decode_steps": steps, "launches": counts,
+           "hot_requests": len(hot_reqs),
+           # admission prefill wall per wave (synced), cold vs hot
+           "cold_wave_s": [t for h, _, t in wave_s if not h],
+           "hot_wave_s": [t for h, _, t in wave_s if h],
+           "hot_wave_rows": [n for h, n, _ in wave_s if h],
+           # prompt tokens served from the prefix cache, over all prompt
+           # tokens; the cache's own hit_rate counts hot waves' lookups
+           "prefix_hit_token_share": hit_tokens / sum(len(r.prompt)
+                                                      for r in reqs),
+           "prefix_hit_rate": {n: p["prefix"]["hit_rate"]
+                               for n, p in pools.items()},
+           "peak_pages": {n: p["peak_pages"] for n, p in pools.items()},
+           "pages_allocatable": pools[sorted(pools)[0]]["pages_allocatable"],
+           "peak_oversubscription": {n: p["peak_oversubscription"]
+                                     for n, p in pools.items()},
+           "pool": pools, "peak_memory_bytes": peak, "clocks_power": clocks,
+           "prompt_lens": [len(r.prompt) for r in reqs], "nvidia_smi": smi}
+
+    # teacher-forced replay through the hot path, 2 hot requests per
+    # group: cuda vs reference tier
+    worst = {}
+    for name, pol in groups.items():
+        two = [r for r in hot_reqs if r.group == name][:2]
+        fast = replay_logits_paged(cfg, params, two, pol, shared, PAGE)
+        ref = replay_logits_paged(cfg, params, two,
+                                  pol.replace(kernel_backend="reference"),
+                                  shared, PAGE)
+        worst[name] = check_replay(f"paged {name}", two, fast, ref)
+    res["replay_max_abs_logit_diff"] = worst
+
+    # every hot request against the same request served cold and alone
+    near_ties, same = [], 0
+    for r in hot_reqs:
+        pol = groups[r.group]
+        solo = Request(r.rid, r.prompt.copy(), max_new)
+        server(pol, None).run([solo])
+        diff = [i for i, (a, b) in enumerate(zip(r.out, solo.out)) if a != b]
+        if not diff:
+            same += 1
+            continue
+        i = diff[0]
+        seq = np.concatenate([r.prompt, np.asarray(solo.out[:i], np.int32)])
+        lg, _ = transformer.prefill(
+            params, cfg, torch.as_tensor(seq[None], device="cuda"),
+            policy=pol.replace(kernel_backend="reference"))
+        top = torch.topk(lg[0, 0], 2).values
+        gap = float(top[0] - top[1])
+        if gap > 2 * REPLAY_LOGIT_TOL:
+            fail(f"hot request {r.rid} ({r.group}) leaves its cold solo "
+                 f"tokens at step {i} where the reference's top-2 gap is "
+                 f"{gap}, not a near tie")
+        near_ties.append({"rid": r.rid, "step": i, "top2_gap": gap})
+    res["hot_equals_cold_solo"] = {"identical": same,
+                                   "near_tie_divergences": near_ties}
+    res["profile"] = profile_serve(server, make_requests(
+        cfg, 8, suffix, 16, mixed_lengths=True, min_len=32,
+        groups=sorted(groups), seed=2, shared_prefix=shared))
     emit(res)
     return counts
 
@@ -569,16 +1016,19 @@ def main():
         fail(f"cannot import the port from {HERE}/src: {e}")
     resolve_device("cuda")
     smi = phase_build(kernels)
-    rows = [phase_vexp(kernels, ExecPolicy)]
-    from repro_torch.configs import get_config
-    from repro_torch.runtime import resolve_policy
-    block_k = resolve_policy(get_config("gpt2-small"), env={}).block_k
-    rows.append(phase_flash_attention(ExecPolicy, block_k))
+    rows = [phase_vexp(kernels, ExecPolicy), phase_softmax(ExecPolicy)]
+    cfg, params, policy, groups = gpt2_small_setup()
+    rows.append(phase_flash_attention(ExecPolicy, policy.block_k))
     rows.append(phase_decode(ExecPolicy))
-    counts = phase_serve(kernels, smi)
-    for row, name in zip(rows, ("vexp", "flash_attention",
-                                "decode_attention")):
-        row["launches"] = counts[name]
+    rows.append(phase_paged_decode(ExecPolicy))
+    # each serve path runs with the counts set to 0 just before it; a
+    # kernel's launches are the sum over both paths' runs
+    counts = phase_serve(kernels, smi, cfg, params, policy, groups)
+    paged = phase_serve_paged(kernels, smi, cfg, params, policy, groups)
+    for row, name in zip(rows, ("vexp", "softmax", "flash_attention",
+                                "decode_attention",
+                                "decode_attention_paged")):
+        row["launches"] = counts[name] + paged[name]
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

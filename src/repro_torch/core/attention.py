@@ -32,15 +32,24 @@ def _resolve(exp_impl):
     return exp_impl if callable(exp_impl) else get_exp_fn(exp_impl)
 
 
+def _qpos(sq: int, q_offset, device) -> torch.Tensor:
+    """(1|B, Sq) absolute query positions: ``q_offset`` is the position of
+    q[0] minus that of k[0] (an int, or a (B,) tensor of per-row
+    offsets)."""
+    off = torch.as_tensor(q_offset, device=device).reshape(-1, 1)
+    return torch.arange(sq, device=device)[None, :] + off
+
+
 def _mask(sq: int, sk: int, *, causal: bool, window: Optional[int],
-          device) -> Optional[torch.Tensor]:
-    """(Sq, Sk) boolean keep-mask, or None when nothing is masked."""
+          q_offset=0, device) -> Optional[torch.Tensor]:
+    """(1|B, Sq, Sk) boolean keep-mask, or None when nothing is masked.
+    Causal keep is ``kpos <= qpos + q_offset``."""
     if not causal and window is None:
         return None
-    qpos = torch.arange(sq, device=device)[:, None]
-    kpos = torch.arange(sk, device=device)[None, :]
-    keep = kpos <= qpos if causal else torch.ones(sq, sk, dtype=torch.bool,
-                                                  device=device)
+    qpos = _qpos(sq, q_offset, device)[:, :, None]
+    kpos = torch.arange(sk, device=device)[None, None, :]
+    keep = (kpos <= qpos) if causal else torch.ones(
+        qpos.shape[0], sq, sk, dtype=torch.bool, device=device)
     if window is not None:
         keep = keep & (kpos > qpos - window)
     return keep
@@ -53,9 +62,10 @@ def kv_valid_from_len(kv_len: torch.Tensor, sk: int) -> torch.Tensor:
 
 
 def attention_xla(q, k, v, *, causal=True, window=None, exp_impl="vexp",
-                  sm_scale=None, kv_valid=None):
+                  q_offset=0, sm_scale=None, kv_valid=None):
     """Materialized-score attention. ``kv_valid`` (B, Sk) bool masks
-    padding keys out of both weights and normalizer."""
+    padding keys out of both weights and normalizer; ``q_offset`` (int or
+    (B,)) places the queries past a key history."""
     exp_fn = _resolve(exp_impl)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -63,9 +73,8 @@ def attention_xla(q, k, v, *, causal=True, window=None, exp_impl="vexp",
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     qg = q.float().reshape(b, sq, hkv, g, d)
     s = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
-    msk = _mask(sq, sk, causal=causal, window=window, device=q.device)
-    if msk is not None:
-        msk = msk[None]                               # (1, Sq, Sk)
+    msk = _mask(sq, sk, causal=causal, window=window, q_offset=q_offset,
+                device=q.device)                      # (1|B, Sq, Sk)
     if kv_valid is not None:
         kvm = kv_valid[:, None, :]                    # (B, 1, Sk)
         msk = kvm if msk is None else msk & kvm
@@ -82,11 +91,13 @@ def attention_xla(q, k, v, *, causal=True, window=None, exp_impl="vexp",
 
 
 def attention_flash(q, k, v, *, causal=True, window=None, exp_impl="vexp",
-                    sm_scale=None, block_k=512, kv_valid=None):
+                    q_offset=0, sm_scale=None, block_k=512, kv_valid=None):
     """FlashAttention-2 scan: per-row running (m, l, acc) updated once per
-    KV block of ``block_k`` keys, f32 throughout. Under vexp the block
-    partition is part of the result (vexp(a)·vexp(b) != vexp(a+b)), so the
-    kernel that is held to this function updates on the same blocks."""
+    KV block of ``block_k`` keys counted from key 0, f32 throughout. Under
+    vexp the block partition is part of the result (vexp(a)·vexp(b) !=
+    vexp(a+b)), so the kernel that is held to this function updates on
+    the same blocks. ``q_offset`` (int or (B,)) is the absolute position
+    of q[0] minus that of k[0]."""
     exp_fn = _resolve(exp_impl)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -94,7 +105,7 @@ def attention_flash(q, k, v, *, causal=True, window=None, exp_impl="vexp",
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     block_k = min(block_k, sk)
     qg = (q.float() * scale).reshape(b, sq, hkv, g, d)
-    qpos = torch.arange(sq, device=q.device)[:, None]
+    qpos = _qpos(sq, q_offset, q.device)[:, :, None]     # (1|B, Sq, 1)
     m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros_like(m)
@@ -108,9 +119,9 @@ def attention_flash(q, k, v, *, causal=True, window=None, exp_impl="vexp",
         kpos = k0 + torch.arange(bk, device=q.device)[None, :]
         keep = torch.ones((1, sq, bk), dtype=torch.bool, device=q.device)
         if causal:
-            keep = keep & (kpos <= qpos)[None]
+            keep = keep & (kpos[None] <= qpos)
         if window is not None:
-            keep = keep & (kpos > qpos - window)[None]
+            keep = keep & (kpos[None] > qpos - window)
         if kv_valid is not None:
             keep = keep & kv_valid[:, None, k0:k0 + bk]
         keep = keep[:, None, None]                    # (B|1, 1, 1, Sq, bk)
@@ -162,14 +173,16 @@ def decode_attention_reference(q, k_cache, v_cache, cache_len, *,
 
 
 def attention(q, k, v, *, causal=True, window=None, kv_len=None,
-              sm_scale=None, policy):
+              q_offset=0, sm_scale=None, policy):
     """Full-sequence attention under ``policy``. ``kv_len`` (B,) int32:
     per-row count of real keys (ragged right-padded prompts); None means
-    every key is real."""
+    every key is real. ``q_offset`` (int or (B,)): queries sit that many
+    positions past key 0 (suffix prefill against a key history); the
+    cuda tier's kernel takes both, so no call leaves the kernel."""
     from repro_torch.kernels.dispatch import dispatch
     return dispatch("flash_attention", policy)(
         q, k, v, causal=causal, window=window, kv_len=kv_len,
-        sm_scale=sm_scale, policy=policy)
+        q_offset=q_offset, sm_scale=sm_scale, policy=policy)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window=None,

@@ -5,7 +5,10 @@
 // online (m, l, acc) update once per KV block of `block_k` keys, p masked
 // after the exp (a masked lane would otherwise add vexp(0) = 1), output
 // acc * 1/max(l, 1e-30) rounded to bf16. Adds per-row key lengths
-// (`kv_len`), so a ragged serving prefill runs on this kernel.
+// (`kv_len`) and per-row query offsets (`q_offset`: query i of row b sits
+// at absolute position q_offset[b] + i, key j at j; causal keep is
+// j <= q_offset[b] + i), so ragged serving prefill and suffix prefill
+// against a shared-prefix history both run on this kernel.
 //
 // Bound on this card: bytes. At gpt2-small prefill (D = 64, 512 tokens,
 // ragged rows) moving q, o and each row's live K/V once at 3.35 TB/s
@@ -23,9 +26,10 @@
 // thread accumulates a 4 x (D/16) patch of p @ v in registers. Threads
 // split a block internally; the (m, l, acc) update stays once per block,
 // so the block partition, and with it the vexp result, is the
-// reference's. KV blocks past the causal bound, past kv_len or below the
-// window are skipped: for their rows they would be an exact no-op
-// (alpha = exp(0) = 1, p = 0). The score tile needs dynamic shared memory
+// reference's. Blocks are counted from key 0 whatever the query offset,
+// as the scan counts them. KV blocks past the causal bound, past kv_len
+// or below the window are skipped: for their rows they would be an exact
+// no-op (alpha = exp(0) = 1, p = 0). The score tile needs dynamic shared memory
 // above 48 KB (opted in per launch).
 
 #include <cuda_bf16.h>
@@ -56,9 +60,10 @@ fa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
               __nv_bfloat16* __restrict__ o, const int* __restrict__ kv_len,
-              int H, int Hkv, int Sq, int Sk, Strides qs, Strides ks,
-              Strides vs, Strides os, float sm_scale, int causal, int window,
-              int block_k, int backend) {
+              const int* __restrict__ q_offset, int H, int Hkv, int Sq,
+              int Sk, Strides qs, Strides ks, Strides vs, Strides os,
+              float sm_scale, int causal, int window, int block_k,
+              int backend) {
   constexpr int DP = D + 1;              // padded row: no bank conflicts
   constexpr int NC = D / 16;             // output columns per thread
   const int q0 = blockIdx.x * kBQ;
@@ -93,9 +98,11 @@ fa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   const int klen = kv_len != nullptr ? min(kv_len[b], Sk) : Sk;
+  const int qoff = q_offset != nullptr ? q_offset[b] : 0;
+  const int qa0 = qoff + q0;                      // absolute pos of row 0
   int kend = klen;                                // exclusive
-  if (causal) kend = min(kend, q0 + kBQ);
-  const int kstart = window > 0 ? max(0, q0 - window + 1) : 0;
+  if (causal) kend = min(kend, qa0 + kBQ);
+  const int kstart = window > 0 ? max(0, qa0 - window + 1) : 0;
   const int blk_first = kstart / block_k;
   const int blk_end = (kend + block_k - 1) / block_k;
 
@@ -145,7 +152,7 @@ fa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
         for (int j = 0; j < 4; ++j) {
           const int c = t0 + cg + 16 * j;
           if (c < bk)
-            sS[r * SS + c] = keep_key(k0 + c, q0 + r, klen, causal, window)
+            sS[r * SS + c] = keep_key(k0 + c, qa0 + r, klen, causal, window)
                                  ? s[i][j] : kNegInf;
         }
       }
@@ -155,7 +162,7 @@ fa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     // ---- row max, rescale factor, p = exp(s - m_new) masked, row sum
     {
       const int r = tid / 4, part = tid % 4;
-      const int qp = q0 + r;
+      const int qp = qa0 + r;
       float* row = sS + r * SS;
       float mx = kNegInf;
       for (int c = part; c < bk; c += 4) mx = fmaxf(mx, row[c]);
@@ -235,9 +242,9 @@ fa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o,
-           const void* kv_len, int B, int H, int Hkv, int Sq, int Sk,
-           Strides qs, Strides ks, Strides vs, Strides os, float sm_scale,
-           int causal, int window, int block_k, int backend,
+           const void* kv_len, const void* q_offset, int B, int H, int Hkv,
+           int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os,
+           float sm_scale, int causal, int window, int block_k, int backend,
            cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       ((size_t)kBQ * (D + 1) + (size_t)kTK * (D + 1) +
@@ -251,24 +258,26 @@ int launch(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(o), static_cast<const int*>(kv_len), H,
-      Hkv, Sq, Sk, qs, ks, vs, os, sm_scale, causal, window, block_k,
-      backend);
+      static_cast<__nv_bfloat16*>(o), static_cast<const int*>(kv_len),
+      static_cast<const int*>(q_offset), H, Hkv, Sq, Sk, qs, ks, vs, os,
+      sm_scale, causal, window, block_k, backend);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q (B,H,Sq,D), k/v (B,Hkv,Sk,D), o (B,H,Sq,D): bf16, any strides with the
-// last dim packed. kv_len: (B,) int32 or null (every key real). window <= 0
-// means no window. Returns cudaGetLastError() after the launch.
+// last dim packed. kv_len: (B,) int32 or null (every key real). q_offset:
+// (B,) int32 or null (all 0). window <= 0 means no window. Returns
+// cudaGetLastError() after the launch.
 extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
-                      const void* kv_len, int B, int H, int Hkv, int Sq,
-                      int Sk, int D, long long qsb, long long qsh,
-                      long long qss, long long ksb, long long ksh,
-                      long long kss, long long vsb, long long vsh,
-                      long long vss, long long osb, long long osh,
-                      long long oss, float sm_scale, int causal, int window,
+                      const void* kv_len, const void* q_offset, int B,
+                      int H, int Hkv, int Sq, int Sk, int D,
+                      long long qsb, long long qsh, long long qss,
+                      long long ksb, long long ksh, long long kss,
+                      long long vsb, long long vsh, long long vss,
+                      long long osb, long long osh, long long oss,
+                      float sm_scale, int causal, int window,
                       int block_k, int backend, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
@@ -276,11 +285,13 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return launch<32>(q, k, v, o, kv_len, B, H, Hkv, Sq, Sk, qs, ks, vs,
-                        os, sm_scale, causal, window, block_k, backend, s);
+      return launch<32>(q, k, v, o, kv_len, q_offset, B, H, Hkv, Sq, Sk, qs,
+                        ks, vs, os, sm_scale, causal, window, block_k,
+                        backend, s);
     case 64:
-      return launch<64>(q, k, v, o, kv_len, B, H, Hkv, Sq, Sk, qs, ks, vs,
-                        os, sm_scale, causal, window, block_k, backend, s);
+      return launch<64>(q, k, v, o, kv_len, q_offset, B, H, Hkv, Sq, Sk, qs,
+                        ks, vs, os, sm_scale, causal, window, block_k,
+                        backend, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -5,11 +5,13 @@ tensors, runs the plain version on CPU tensors), its plain version and a
 ``LIB`` with the launch counter. Importing builds nothing.
 """
 
-from . import build, decode_attention, flash_attention, vexp
+from . import build, decode_attention, flash_attention, softmax, vexp
 from .dispatch import dispatch
 
-LIBS = {"vexp": vexp.LIB, "flash_attention": flash_attention.LIB,
-        "decode_attention": decode_attention.LIB}
+LIBS = {"vexp": vexp.LIB, "softmax": softmax.LIB,
+        "flash_attention": flash_attention.LIB,
+        "decode_attention": decode_attention.LIB,
+        "decode_attention_paged": decode_attention.PAGED_LIB}
 
 
 def build_kernels() -> dict:

@@ -3,11 +3,14 @@
 ``dispatch(op, policy)`` maps each numeric op onto the implementation the
 policy's kernel tier selects:
 
-    op                 cuda                        reference              eager
-    ----------------   -------------------------   --------------------   ------------------
-    vexp               kernels.vexp                core exp fn            core exp fn
-    flash_attention    kernels.flash_attention     core attention_flash   core attention_xla
-    decode_attention   kernels.decode_attention    core decode ref.       core decode ref.
+    op                       cuda                          reference              eager
+    ----------------------   ---------------------------   --------------------   ------------------
+    vexp                     kernels.vexp                  core exp fn            core exp fn
+    softmax                  kernels.softmax               core softmax           core softmax
+    flash_attention          kernels.flash_attention       core attention_flash   core attention_xla
+    decode_attention         kernels.decode_attention      core decode ref.       core decode ref.
+    decode_attention_paged   kernels.decode_attention      paged_gather +         paged_gather +
+                             (decode_attention_paged)      core decode ref.       core decode ref.
 
 Every callable takes the op's tensors and keywords plus ``policy=``. There
 is no autotune and no fallback: an unregistered (op, tier) raises, and a
@@ -21,7 +24,8 @@ from typing import Callable, Dict, Tuple
 
 _TABLE: Dict[Tuple[str, str], str] = {}
 
-OPS = ("vexp", "flash_attention", "decode_attention")
+OPS = ("vexp", "softmax", "flash_attention", "decode_attention",
+       "decode_attention_paged")
 
 
 def register(op: str, backend: str, target: str) -> None:
@@ -37,6 +41,10 @@ register("vexp", "cuda", "repro_torch.kernels.vexp:vexp")
 register("vexp", "reference", "repro_torch.kernels.dispatch:_vexp_plain")
 register("vexp", "eager", "repro_torch.kernels.dispatch:_vexp_plain")
 
+register("softmax", "cuda", "repro_torch.kernels.softmax:softmax")
+register("softmax", "reference", "repro_torch.kernels.dispatch:_softmax_core")
+register("softmax", "eager", "repro_torch.kernels.dispatch:_softmax_core")
+
 register("flash_attention", "cuda",
          "repro_torch.kernels.flash_attention:flash_attention")
 register("flash_attention", "reference",
@@ -50,6 +58,16 @@ register("decode_attention", "reference",
          "repro_torch.kernels.dispatch:_decode_reference")
 register("decode_attention", "eager",
          "repro_torch.kernels.dispatch:_decode_reference")
+
+# paged decode over a page pool and per-row block tables: the cuda tier
+# walks the table inside the kernel; the other tiers gather the table
+# into a contiguous cache first (the oracle semantics)
+register("decode_attention_paged", "cuda",
+         "repro_torch.kernels.decode_attention:decode_attention_paged")
+register("decode_attention_paged", "reference",
+         "repro_torch.kernels.dispatch:_decode_paged_reference")
+register("decode_attention_paged", "eager",
+         "repro_torch.kernels.dispatch:_decode_paged_reference")
 
 
 def dispatch(op: str, policy) -> Callable:
@@ -70,25 +88,31 @@ def _vexp_plain(x, *, policy):
     return policy.exp_fn()(x)
 
 
+def _softmax_core(x, axis=-1, *, policy):
+    from repro_torch.core.softmax import softmax as core_softmax
+    return core_softmax(x, axis, exp_impl=policy.exp_backend)
+
+
 def _kv_valid(kv_len, sk):
     from repro_torch.core.attention import kv_valid_from_len
     return None if kv_len is None else kv_valid_from_len(kv_len, sk)
 
 
 def _attention_reference(q, k, v, *, causal=True, window=None, kv_len=None,
-                         sm_scale=None, policy):
+                         q_offset=0, sm_scale=None, policy):
     from repro_torch.core.attention import attention_flash
     return attention_flash(q, k, v, causal=causal, window=window,
-                           exp_impl=policy.exp_backend, sm_scale=sm_scale,
-                           block_k=policy.block_k,
+                           exp_impl=policy.exp_backend, q_offset=q_offset,
+                           sm_scale=sm_scale, block_k=policy.block_k,
                            kv_valid=_kv_valid(kv_len, k.shape[1]))
 
 
 def _attention_eager(q, k, v, *, causal=True, window=None, kv_len=None,
-                     sm_scale=None, policy):
+                     q_offset=0, sm_scale=None, policy):
     from repro_torch.core.attention import attention_xla
     return attention_xla(q, k, v, causal=causal, window=window,
-                         exp_impl=policy.exp_backend, sm_scale=sm_scale,
+                         exp_impl=policy.exp_backend, q_offset=q_offset,
+                         sm_scale=sm_scale,
                          kv_valid=_kv_valid(kv_len, k.shape[1]))
 
 
@@ -97,4 +121,18 @@ def _decode_reference(q, k_cache, v_cache, cache_len, *, window=None,
     from repro_torch.core.attention import decode_attention_reference
     return decode_attention_reference(
         q, k_cache, v_cache, cache_len, window=window,
+        exp_impl=policy.exp_backend, sm_scale=sm_scale, layout=layout)
+
+
+def _decode_paged_reference(q, k_pool, v_pool, block_tab, cache_len, *,
+                            window=None, sm_scale=None, layout="bshd",
+                            policy):
+    """Gather the block table into a contiguous per-row cache, then the
+    one-pass decode reference (``_decode_paged_fallback`` of the JAX
+    package)."""
+    from repro_torch.core.attention import decode_attention_reference
+    from repro_torch.kernels.decode_attention import paged_gather
+    return decode_attention_reference(
+        q, paged_gather(k_pool, block_tab, layout),
+        paged_gather(v_pool, block_tab, layout), cache_len, window=window,
         exp_impl=policy.exp_backend, sm_scale=sm_scale, layout=layout)

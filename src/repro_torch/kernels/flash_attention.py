@@ -4,8 +4,9 @@
 and runs the plain version on CPU tensors. Layout (B, S, H, D) at the
 interface, as in the reference's ``ops.flash_attention``; the kernel reads
 that layout in place through strides, so nothing is transposed or padded.
-Unlike the Pallas kernel it takes per-row key lengths ``kv_len``, so the
-serving engine's ragged prefill runs on it.
+Unlike the Pallas kernel it takes per-row key lengths ``kv_len`` and a
+query offset ``q_offset``, so the serving engine's ragged prefill and its
+suffix prefill against a shared-prefix history both run on it.
 """
 
 from __future__ import annotations
@@ -22,30 +23,35 @@ HEAD_DIMS = (32, 64)      # gpt2-small, and its --reduced config
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None, kv_len=None,
-                          sm_scale=None, block_k=128, exp_backend="vexp"):
+                          q_offset=0, sm_scale=None, block_k=128,
+                          exp_backend="vexp"):
     """The function the kernel computes: the reference's blockwise scan
-    with the online update once per ``block_k`` keys, f32 dots, keys at or
-    past ``kv_len[b]`` masked."""
+    with the online update once per ``block_k`` keys counted from key 0,
+    f32 dots, keys at or past ``kv_len[b]`` masked, queries at
+    ``q_offset`` + i."""
     kv_valid = (None if kv_len is None
                 else kv_valid_from_len(kv_len, k.shape[1]))
     return attention_flash(q, k, v, causal=causal, window=window,
-                           exp_impl=exp_backend, sm_scale=sm_scale,
-                           block_k=block_k, kv_valid=kv_valid)
+                           exp_impl=exp_backend, q_offset=q_offset,
+                           sm_scale=sm_scale, block_k=block_k,
+                           kv_valid=kv_valid)
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, kv_len=None,
-                    sm_scale=None, policy):
+                    q_offset=0, sm_scale=None, policy):
     """q (B,Sq,H,D), k/v (B,Sk,Hkv,D) -> (B,Sq,H,D) in q's dtype.
 
-    ``kv_len`` (B,) int: real keys per row (None: all Sk). The policy gives
-    the exp backend and ``block_k``, the online-update block."""
+    ``kv_len`` (B,) int: real keys per row (None: all Sk). ``q_offset``
+    int or (B,) int: query i of row b sits at position q_offset[b] + i.
+    The policy gives the exp backend and ``block_k``, the online-update
+    block."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     block_k = min(policy.block_k, sk)
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, causal=causal, window=window, kv_len=kv_len,
-            sm_scale=sm_scale, block_k=block_k,
+            q_offset=q_offset, sm_scale=sm_scale, block_k=block_k,
             exp_backend=policy.exp_backend)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention kernel: unsupported device "
@@ -75,9 +81,14 @@ def flash_attention(q, k, v, *, causal=True, window=None, kv_len=None,
         if kv_len.shape != (b,):
             raise ValueError(f"kv_len must be ({b},), got "
                              f"{tuple(kv_len.shape)}")
+    qoff = None
+    if not (isinstance(q_offset, int) and q_offset == 0):
+        qoff = torch.broadcast_to(
+            torch.as_tensor(q_offset, device=q.device).to(torch.int32)
+            .reshape(-1), (b,)).contiguous()
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    launch = LIB.fn("fa_fwd", [P, P, P, P, P] + [I] * 6 + [LL] * 12
+    launch = LIB.fn("fa_fwd", [P] * 6 + [I] * 6 + [LL] * 12
                     + [F, I, I, I, I, P])
 
     def bhs(t):          # (B, S, H, D) strides in (b, h, s) order
@@ -86,6 +97,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, kv_len=None,
     LIB.check(launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if kv_len is None else kv_len.data_ptr(),
+        None if qoff is None else qoff.data_ptr(),
         b, h, hkv, sq, sk, d, *bhs(q), *bhs(k), *bhs(v), *bhs(out),
         scale, int(causal), window or 0, block_k,
         BACKEND_CODE[policy.exp_backend],

@@ -1,8 +1,11 @@
 """Slot-level continuous-batching server (port of ``repro/launch/serve.py``,
-contiguous KV cache, monolithic ragged admission).
+contiguous or paged KV cache, monolithic ragged admission).
 
 * A fixed pool of ``max_batch`` slots per policy group (a
-  ``KVDecodeState``), allocated once at ``max_seq``.
+  ``KVDecodeState``, or with ``paged=True`` a ``PagedKVDecodeState``:
+  fixed-size KV pages behind per-slot block tables, a refcounted page
+  allocator and a shared-prefix page cache), allocated once at
+  ``max_seq``.
 * Ragged admission: queued requests are right-padded to a pow2 length
   bucket, prefilled as one pool-width batch with per-request prompt
   lengths (on the ``cuda`` tier the FlashAttention kernel masks each row
@@ -14,11 +17,18 @@ contiguous KV cache, monolithic ragged admission).
   admitted mid-decode.
 * Policy groups: each group has its own ExecPolicy and pool, so ``exact``
   traffic never shares a batch with ``vexp`` traffic.
+* Paged admission: a wave closes at a request whose fresh pages (plus the
+  cache-only hit pages its attach pins) do not fit the free + evictable
+  budget, or whose prefix-cache hit depth is below the wave head's. A
+  wave whose allocation still fails (``OutOfBlocks``) goes back to the
+  queue in FIFO order; with nothing in flight that can never clear, so
+  the server raises naming the head request.
 
 Emitted tokens stay on the device; each request's tokens reach the host
-once, when it finishes. Paged KV, chunked prefill, fault handling and
-speculative decoding are later slices. Until quarantine is ported, a slot
-that emits the non-finite sentinel (-1) stops the server with an error.
+once, when it finishes. Chunked prefill, fault handling (the backoff /
+shed ladder) and speculative decoding are not ported yet. Until
+quarantine is, a slot that emits the non-finite sentinel (-1) stops the
+server with an error.
 """
 
 from __future__ import annotations
@@ -34,7 +44,8 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.models import api
-from repro_torch.models.decode_state import KVDecodeState, _len_bucket  # noqa: F401  (re-export)
+from repro_torch.models.block_pool import OutOfBlocks
+from repro_torch.models.decode_state import _len_bucket, decode_state_for  # noqa: F401  (re-export)
 from repro_torch.runtime import (ExecPolicy, parse_policy_groups,
                                  resolve_device, resolve_policy)
 
@@ -62,11 +73,16 @@ class _Group:
     depends only on token counts, never on token values, so tokens stay on
     the device until a request finishes."""
 
-    def __init__(self, cfg, params, policy, max_batch, cache_s, device):
+    def __init__(self, cfg, params, policy, max_batch, cache_s, device, *,
+                 paged=False, block_page=None, block_budget=None,
+                 prefix_cache=True):
         self.cfg, self.policy = cfg, policy
         self.max_batch, self.device = max_batch, device
-        self.state = KVDecodeState(cfg, params, policy, max_batch, cache_s,
-                                   device=device)
+        self.paged = paged
+        kw = (dict(page=block_page, n_pages=block_budget,
+                   prefix_cache=prefix_cache) if paged else {})
+        self.state = decode_state_for(cfg, paged=paged)(
+            cfg, params, policy, max_batch, cache_s, device=device, **kw)
         self.queue: deque = deque()
         self.reqs: list = [None] * max_batch
         self.lens = np.zeros(max_batch, np.int64)   # tokens held per slot
@@ -80,26 +96,62 @@ class _Group:
         self.admit_s: list = []     # per-wave admission time (synced)
         self.req_lat: list = []     # submit -> tokens on the host
         self.ttft: list = []        # submit -> first token on the device
+        self.peak_logical = 0       # max summed live tokens (paged)
+        self.peak_pages = 0         # max physical pages in use (paged)
         self._toks: dict = {}       # slot -> [(B, 1) token tensors]
 
     def _take_wave(self, free):
         """The maximal FIFO prefix of the queue that shares the head
         request's prefill bucket: a long prompt closes the wave and heads
-        the next one, so shorter prompts never pay its width."""
+        the next one, so shorter prompts never pay its width. Paged
+        groups also close the wave at a request whose fresh pages plus
+        the cache-only hit pages its attach pins do not fit the free +
+        evictable budget (admission blocks on pages; decode never does),
+        and at a request colder than the wave head's hit depth (one
+        history shape per prefill)."""
         take, bucket = [], None
+        head_h = avail = None
+        pinned = set()     # evictable hit pages already debited this wave
         while free and self.queue:
-            b = self.state.prefill_width(len(self.queue[0].prompt))
+            r = self.queue[0]
+            b = self.state.prefill_width(len(r.prompt))
             if bucket is not None and b > bucket:
                 break
+            if self.paged:
+                if avail is None:
+                    avail = self.state.free_with_evictable()
+                need, h = self.state.admission_need(r.prompt, cap_h=head_h)
+                if head_h is not None and h < head_h:
+                    break
+                pin, pin_gids = self.state.admission_pin(r.prompt, h,
+                                                         pinned)
+                if not ((need + pin) <= avail).all():
+                    break
+                avail = avail - need - pin
+                pinned.update(pin_gids)
+                if head_h is None:
+                    head_h = h
             bucket = b if bucket is None else bucket
             take.append((free.pop(0), self.queue.popleft()))
         return take, bucket
+
+    def _in_flight(self) -> bool:
+        return any(r is not None for r in self.reqs)
+
+    def _unservable(self, why):
+        r = self.queue[0]
+        raise RuntimeError(
+            f"request {r.rid} ({len(r.prompt)} prompt tokens) cannot be "
+            f"admitted with nothing in flight: {why}")
 
     def admit(self, admit_log=None):
         """Fill freed slots from the queue with one ragged prefill."""
         free = [j for j in range(self.max_batch) if self.reqs[j] is None]
         take, sp = self._take_wave(free)
         if not take:
+            if free and self.queue and not self._in_flight():
+                self._unservable("its pages exceed what the pool can "
+                                 "ever supply")
             return
         slots = np.array([j for j, _ in take])
         # full pool width, so admitting 1 or max_batch requests runs the
@@ -111,7 +163,16 @@ class _Group:
             toks[j, :len(r.prompt)] = r.prompt
             plens[j] = len(r.prompt)
         t0 = time.perf_counter()
-        first = self.state.prefill_into(slots, toks, plens)
+        try:
+            first = self.state.prefill_into(slots, toks, plens)
+        except OutOfBlocks:
+            # prefill_into released every page the wave held: re-queue it
+            # in FIFO order and retry once pages free up
+            for _, r in reversed(take):
+                self.queue.appendleft(r)
+            if not self._in_flight():
+                self._unservable("the page pool ran out (OutOfBlocks)")
+            return
         _sync(self.device)
         self.admit_s.append(time.perf_counter() - t0)
         sl = torch.as_tensor(slots, device=self.device)
@@ -129,6 +190,25 @@ class _Group:
                 admit_log.append(r.rid)
             if self.ntok[j] >= r.max_new:
                 self._finish(j, "max_new")
+        self._bump_peaks()
+
+    def _bump_peaks(self):
+        """Paged pools: track the high-water marks of summed live tokens
+        and of physical pages in use (host counters only, sampled at
+        scheduling events)."""
+        if not self.paged:
+            return
+        logical = int(sum(self.lens[j] for j in range(self.max_batch)
+                          if self.reqs[j] is not None))
+        self.peak_logical = max(self.peak_logical, logical)
+        self.peak_pages = max(self.peak_pages, self.state.alloc.n_used())
+
+    def sweep(self):
+        """Invariant sweep (it syncs; tests and shutdown only): freed
+        slots parked, and for paged pools refcount conservation and no
+        orphaned table rows."""
+        self.state.check_integrity(
+            {j for j in range(self.max_batch) if self.reqs[j] is not None})
 
     def decode_once(self):
         """One batched decode step over the live slots (no-op when idle)."""
@@ -170,7 +250,7 @@ class _Group:
 
     @property
     def busy(self) -> bool:
-        return bool(self.queue) or any(r is not None for r in self.reqs)
+        return bool(self.queue) or self._in_flight()
 
 
 class Server:
@@ -180,7 +260,10 @@ class Server:
 
     def __init__(self, cfg, params, *, max_batch=4, max_seq=512,
                  policy: Optional[ExecPolicy] = None,
-                 policy_groups: Optional[dict] = None, device=None):
+                 policy_groups: Optional[dict] = None, device=None,
+                 paged: bool = False, block_page: Optional[int] = None,
+                 block_budget: Optional[int] = None,
+                 prefix_cache: bool = True):
         self.device = resolve_device(device)
         if params.embed.device.type != self.device.type:
             raise ValueError(f"params live on {params.embed.device}, the "
@@ -193,7 +276,10 @@ class Server:
         groups.setdefault("default", self.policy)
         self.policy_groups = groups
         self._groups = {name: _Group(cfg, params, pol, max_batch,
-                                     self.cache_s, self.device)
+                                     self.cache_s, self.device, paged=paged,
+                                     block_page=block_page,
+                                     block_budget=block_budget,
+                                     prefix_cache=prefix_cache)
                         for name, pol in groups.items()}
         self.admit_log: list = []    # rids in admission order
 
@@ -238,29 +324,72 @@ class Server:
             xs = sorted(xs)
             return xs[min(len(xs) * q // 100, len(xs) - 1)] if xs else 0.0
 
-        return {name: {"decode_steps": g.decode_steps,
-                       "p50_req_s": pct(g.req_lat, 50),
-                       "p95_req_s": pct(g.req_lat, 95),
-                       "admit_waves": len(g.admit_s),
-                       "admit_s_total": sum(g.admit_s, 0.0),
-                       "queue_depth": len(g.queue),
-                       "p50_ttft_s": pct(g.ttft, 50),
-                       "p95_ttft_s": pct(g.ttft, 95),
-                       "policy": g.policy.describe()}
-                for name, g in self._groups.items()}
+        out = {}
+        for name, g in self._groups.items():
+            out[name] = {"decode_steps": g.decode_steps,
+                         "p50_req_s": pct(g.req_lat, 50),
+                         "p95_req_s": pct(g.req_lat, 95),
+                         "admit_waves": len(g.admit_s),
+                         "admit_s_total": sum(g.admit_s, 0.0),
+                         "queue_depth": len(g.queue),
+                         "p50_ttft_s": pct(g.ttft, 50),
+                         "p95_ttft_s": pct(g.ttft, 95),
+                         "policy": g.policy.describe()}
+            if g.paged:
+                g._bump_peaks()          # sample the current footprint
+                pool = g.state.pool_stats()
+                pool["peak_pages"] = g.peak_pages
+                pool["peak_logical_tokens"] = g.peak_logical
+                # summed live tokens over what the pool could hold with
+                # every page exclusive: above 1.0, prefix sharing carries
+                # logical state past physical capacity
+                cap = pool["pages_allocatable"] * pool["page"]
+                pool["peak_oversubscription"] = (g.peak_logical / cap
+                                                 if cap else 0.0)
+                out[name]["pool"] = pool
+        return out
+
+    def check_invariants(self):
+        """Every group's invariant sweep: freed slots parked, and for
+        paged pools refcount conservation and no orphaned table rows.
+        Raises AssertionError on the first violation."""
+        for g in self._groups.values():
+            g.sweep()
+
+    def assert_idle_clean(self):
+        """Leak check for a drained server: nothing queued or in flight,
+        invariants hold, and after dropping the prefix cache's own
+        references every paged group's allocator has zero pages in use.
+        Destructive to the prefix cache (a shutdown check): serving can
+        go on, but restarts cold."""
+        for name, g in self._groups.items():
+            if g.busy:
+                raise AssertionError(f"group {name} still busy")
+            g.sweep()
+            if g.paged:
+                if g.state.pcache is not None:
+                    g.state.pcache.drop_all()
+                used = g.state.alloc.n_used()
+                if used:
+                    raise AssertionError(f"group {name}: {used} pages "
+                                         f"leaked")
 
 
 def make_requests(cfg, n, prompt_len, max_new, *, mixed_lengths=False,
-                  min_len=4, groups=("default",), seed=0):
+                  min_len=4, groups=("default",), seed=0, shared_prefix=0):
     """``n`` requests with random prompts from ``seed``, assigned to
     ``groups`` round-robin; ``mixed_lengths`` draws each prompt length in
-    [min_len, prompt_len]."""
+    [min_len, prompt_len]. ``shared_prefix`` > 0 gives every prompt the
+    same first tokens (one draw), followed by its own suffix of the
+    drawn length."""
     rng = np.random.default_rng(seed)
+    shared = rng.integers(0, cfg.vocab, (shared_prefix,), dtype=np.int32)
     reqs = []
     for i in range(n):
         plen = (int(rng.integers(min_len, prompt_len + 1)) if mixed_lengths
                 else prompt_len)
-        prompt = rng.integers(0, cfg.vocab, (plen,), dtype=np.int32)
+        prompt = np.concatenate(
+            [shared, rng.integers(0, cfg.vocab, (plen,), dtype=np.int32)])
         reqs.append(Request(i, prompt, max_new, group=groups[i % len(groups)]))
     return reqs
 
@@ -289,6 +418,23 @@ def main(argv=None):
                     help='per-request policy groups, e.g. '
                          '"eval=exact,bulk=vexp" (requests are assigned '
                          'round-robin); omit for a single default group')
+    ap.add_argument("--paged", action="store_true",
+                    help="serve through the paged KV pool (per-slot block "
+                         "tables, refcounted page allocator, shared-prefix "
+                         "page cache) instead of contiguous slot rows")
+    ap.add_argument("--block-page", type=int, default=None,
+                    help="KV page size in tokens (default: the policy's "
+                         "block_page)")
+    ap.add_argument("--block-budget", type=int, default=None,
+                    help="physical pages in the pool (default: one full "
+                         "reservation per slot plus the scratch page; set "
+                         "lower to exercise prefix-sharing "
+                         "oversubscription)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable the shared-prefix page cache (paged only)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend the same N tokens to every generated "
+                         "prompt (exercises the prefix cache)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' "
                          "runs the kernels' plain versions)")
@@ -308,10 +454,14 @@ def main(argv=None):
     params = api.init_params(cfg, 0, device=device)
     server = Server(cfg, params, max_batch=args.max_batch,
                     max_seq=args.max_seq, policy=policy,
-                    policy_groups=groups, device=device)
+                    policy_groups=groups, device=device, paged=args.paged,
+                    block_page=args.block_page,
+                    block_budget=args.block_budget,
+                    prefix_cache=not args.no_prefix_cache)
     reqs = make_requests(cfg, args.requests, args.prompt_len, args.max_new,
                          mixed_lengths=args.mixed_lengths,
-                         groups=sorted(groups) if groups else ("default",))
+                         groups=sorted(groups) if groups else ("default",),
+                         shared_prefix=args.shared_prefix)
     t0 = time.perf_counter()
     server.run(reqs)
     dt = time.perf_counter() - t0
@@ -324,6 +474,16 @@ def main(argv=None):
               f"p95 {s['p95_req_s'] * 1e3:.1f}ms, "
               f"ttft p50 {s['p50_ttft_s'] * 1e3:.1f}ms "
               f"p95 {s['p95_ttft_s'] * 1e3:.1f}ms")
+        if "pool" in s:
+            p = s["pool"]
+            line = (f"    pool: page={p['page']} used {p['pages_used']}/"
+                    f"{p['pages_allocatable']} peak {p['peak_pages']} "
+                    f"(logical {p['peak_logical_tokens']} tok, "
+                    f"oversub {p['peak_oversubscription']:.2f}x)")
+            if "prefix" in p:
+                line += (f", prefix hit rate "
+                         f"{p['prefix']['hit_rate']:.2f}")
+            print(line)
     for r in reqs[:3]:
         print(f"  req {r.rid} [{r.group}] len={len(r.prompt)}: "
               f"{r.out[:8]}... ({r.finish_reason})")

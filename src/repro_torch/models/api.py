@@ -1,5 +1,7 @@
-"""Model API of the port (the ``repro/models/api.py`` subset this slice
-needs): init_params / forward / prefill / init_cache / decode_step.
+"""Model API of the port (the ``repro/models/api.py`` subset ported so
+far): init_params / forward / prefill (with an optional shared-prefix
+history) / init_cache / decode_step / init_paged_cache /
+decode_step_paged.
 
 Every entry runs on the card unless the caller passes ``device="cpu"``;
 with no card and no explicit device they raise. Inputs may be numpy
@@ -43,15 +45,20 @@ def forward(params, cfg, batch, *, policy=None, device=None):
 
 def prefill(params, cfg, batch, *, policy=None, device=None):
     """Prompt forward -> (last_logits (B, 1, V), cache). The optional
-    ``batch["prompt_len"]`` (B,) marks ragged right-padded prompts."""
+    ``batch["prompt_len"]`` (B,) marks ragged right-padded prompts; the
+    optional ``batch["hist"]`` {"k", "v"} (L, B, h, Hkv, hd) is a
+    shared-prefix KV history the tokens continue (suffix prefill)."""
     dev = resolve_device(device)
     _check_params(params, dev)
     plen = batch.get("prompt_len")
+    hist = batch.get("hist")
     return transformer.prefill(
         params, cfg, torch.as_tensor(batch["tokens"], device=dev),
         prompt_len=None if plen is None else torch.as_tensor(plen,
                                                              device=dev),
-        policy=_policy(cfg, policy))
+        policy=_policy(cfg, policy),
+        hist=None if hist is None else {k: torch.as_tensor(v, device=dev)
+                                        for k, v in hist.items()})
 
 
 def init_cache(cfg, batch_size, seq_len, *, device=None):
@@ -68,4 +75,23 @@ def decode_step(params, cfg, token, cache, pos, *, policy=None, live=None,
     return transformer.decode_step(
         params, cfg, torch.as_tensor(token, device=dev), cache,
         torch.as_tensor(pos, device=dev), policy=_policy(cfg, policy),
+        live=None if live is None else torch.as_tensor(live, device=dev))
+
+
+def init_paged_cache(cfg, n_pages, page, *, device=None):
+    return transformer.init_paged_cache(cfg, n_pages, page,
+                                        resolve_device(device))
+
+
+def decode_step_paged(params, cfg, token, cache, tables, pos, *,
+                      policy=None, live=None, device=None):
+    """One decode step over a paged pool through the (B, nS) block
+    ``tables``; the pool is updated in place and returned with the
+    logits."""
+    dev = resolve_device(device)
+    _check_params(params, dev)
+    return transformer.decode_step_paged(
+        params, cfg, torch.as_tensor(token, device=dev), cache,
+        torch.as_tensor(tables, device=dev), torch.as_tensor(pos, device=dev),
+        policy=_policy(cfg, policy),
         live=None if live is None else torch.as_tensor(live, device=dev))

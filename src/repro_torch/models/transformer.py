@@ -11,7 +11,10 @@ logits are an f32 matmul against ``embed.T``.
 
 The KV cache is a dict {"k", "v"} of stacked (L, B, S, Hkv, hd) ("bshd")
 or (L, B, Hkv, S, hd) ("bhsd") bf16 tensors. ``decode_step`` writes it in
-place (the reference donates it through a jitted step instead).
+place (the reference donates it through a jitted step instead). The paged
+pool (``init_paged_cache``) stacks pages instead of slots; per-row block
+tables map each row's logical pages to pool pages, and
+``decode_step_paged`` writes it in place through them.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.attention import attention, decode_attention
+from repro_torch.kernels.dispatch import dispatch
 from .layers import apply_rope, mask_padded_logits, mlp_apply, norm_apply
 
 
@@ -168,27 +172,42 @@ def cache_seq_axis(layout: str, stacked: bool = True) -> int:
     return (1 if layout == "bshd" else 2) + (1 if stacked else 0)
 
 
-def prefill(params, cfg, tokens, *, prompt_len=None, policy):
+def prefill(params, cfg, tokens, *, prompt_len=None, policy, hist=None):
     """Forward over the prompt; returns (last_logits (B, 1, V), cache).
 
     ``prompt_len`` (B,) marks ragged right-padded rows: padding keys are
     masked out of attention (the kernel takes them as per-row key
     lengths), pad K/V rows are zeroed, and logits come from each row's
-    last real token."""
+    last real token.
+
+    ``hist`` {"k", "v"}: (L, B, h, Hkv, hd) bf16 ("bshd" whatever the
+    cache layout) is a shared-prefix KV history already in the page pool.
+    ``tokens`` are then each row's suffix at absolute positions h + i,
+    attending over [history | suffix] through attention's ``q_offset=h``
+    with ``kv_len = h + prompt_len``; ``prompt_len`` counts suffix tokens,
+    and the returned cache and logits cover the suffix only."""
     x = embed_inputs(params, cfg, tokens)
     b, s, _ = x.shape
-    pos = torch.arange(s, device=x.device)[None, :]
+    h0 = 0 if hist is None else hist["k"].shape[2]
+    pos = torch.arange(s, device=x.device)[None, :] + h0
     kv_len = valid = None
     if prompt_len is not None:
-        kv_len = torch.as_tensor(prompt_len, device=x.device).to(
+        plen = torch.as_tensor(prompt_len, device=x.device).to(
             torch.int32).reshape(-1)
-        valid = (pos < kv_len[:, None])[:, :, None, None]       # (B,S,1,1)
+        valid = (pos - h0 < plen[:, None])[:, :, None, None]    # (B,S,1,1)
+        kv_len = plen + h0
     ks, vs = [], []
-    for blk in params.layers:
+    for i, blk in enumerate(params.layers):
         h = norm_apply(x, blk.ln_attn, cfg.norm, cfg.norm_eps)
         q, k, v = _qkv(h, blk.attn, cfg, pos)
-        o = attention(q, k, v, causal=cfg.causal, kv_len=kv_len,
-                      policy=policy)
+        if hist is None:
+            o = attention(q, k, v, causal=cfg.causal, kv_len=kv_len,
+                          policy=policy)
+        else:
+            kc = torch.cat([hist["k"][i].to(k.dtype), k], dim=1)
+            vc = torch.cat([hist["v"][i].to(v.dtype), v], dim=1)
+            o = attention(q, kc, vc, causal=True, kv_len=kv_len,
+                          q_offset=h0, policy=policy)
         x = _finish_block(x, o.flatten(2) @ blk.attn.wo, blk, cfg)
         if valid is not None:
             k = torch.where(valid, k, 0)
@@ -198,10 +217,10 @@ def prefill(params, cfg, tokens, *, prompt_len=None, policy):
         ks.append(k.to(torch.bfloat16))
         vs.append(v.to(torch.bfloat16))
     x = norm_apply(x, params.ln_f, cfg.norm, cfg.norm_eps)
-    if kv_len is None:
+    if prompt_len is None:
         xl = x[:, -1:]
     else:
-        idx = torch.clamp(kv_len.long() - 1, 0, s - 1)
+        idx = torch.clamp(plen.long() - 1, 0, s - 1)
         xl = x[torch.arange(b, device=x.device), idx][:, None]
     return _logits(params, cfg, xl), {"k": torch.stack(ks),
                                       "v": torch.stack(vs)}
@@ -255,3 +274,75 @@ def decode_step(params, cfg, token, cache, pos, *, policy, live=None):
 def _final_logits(params, cfg, x):
     x = norm_apply(x, params.ln_f, cfg.norm, cfg.norm_eps)
     return _logits(params, cfg, x)
+
+
+# ------------------------------------------------------------- paged decode
+
+def init_paged_cache(cfg, n_pages, page, device):
+    """Paged KV pool: (L, N, page, Hkv, hd) ("bshd") / (L, N, Hkv, page,
+    hd) ("bhsd") x2. No slot axis: the host allocator hands pages to slots
+    through per-slot block tables; page 0 is the reserved scratch page
+    every unassigned table entry points at."""
+    if cfg.kv_cache_layout == "bhsd":
+        shape = (cfg.n_layers, n_pages, cfg.n_kv_heads, page, cfg.hd)
+    else:
+        shape = (cfg.n_layers, n_pages, page, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+
+
+def _write_token_kv_paged(pool, kv, gids, offs, ok, layout):
+    """Write one token's K (or V) per row in place into its pool page:
+    kv (B, 1, Hkv, hd) at page ``gids[b]``, offset ``offs[b]``, only where
+    ``ok[b]``. Rows that must not write (dead slots, whose tables point at
+    the scratch page) write the old value back, as ``_write_token_kv``
+    does, so nothing is indexed out of range and no host sync is
+    needed."""
+    new = kv[:, 0].to(pool.dtype)                           # (B, Hkv, hd)
+    if layout == "bhsd":
+        old = pool[gids, :, offs]
+        pool[gids, :, offs] = torch.where(ok[:, None, None], new, old)
+    else:
+        old = pool[gids, offs]
+        pool[gids, offs] = torch.where(ok[:, None, None], new, old)
+
+
+def _paged_attn(q, pool_k, pool_v, tables, cache_len, cfg, policy):
+    """Policy-routed paged sweep: the cuda tier walks the table inside the
+    kernel; the reference / eager tiers gather it into a contiguous cache
+    first (the same function, the oracle the kernel is held to)."""
+    return dispatch("decode_attention_paged", policy)(
+        q, pool_k, pool_v, tables, cache_len, window=None, sm_scale=None,
+        layout=cfg.kv_cache_layout, policy=policy)
+
+
+def decode_step_paged(params, cfg, token, cache, tables, pos, *, policy,
+                      live=None):
+    """One decode step over a paged pool. token (B, 1) int; ``cache`` the
+    stacked pools of ``init_paged_cache``; ``tables`` (B, nS) int32 block
+    table shared by every layer; pos (B,) int, each row's token position.
+    The pool is written in place and returned with the (B, 1, V) logits;
+    the tables are read only. Rows with ``live == 0`` write nothing."""
+    b = token.shape[0]
+    x = embed_inputs(params, cfg, torch.clamp(token, min=0))
+    lay = cfg.kv_cache_layout
+    page = cache["k"].shape[3 if lay == "bhsd" else 2]
+    ns = tables.shape[1]
+    pos = torch.as_tensor(pos, device=x.device).to(torch.int32)
+    pos = torch.broadcast_to(pos.reshape(-1), (b,))
+    ok = pos < ns * page
+    if live is not None:
+        ok = ok & (live > 0)
+    p = torch.clamp(pos, 0, ns * page - 1).long()
+    rows = torch.arange(b, device=x.device)
+    gids = tables[rows, p // page].long()
+    offs = p % page
+    for i, blk in enumerate(params.layers):
+        pk, pv = cache["k"][i], cache["v"][i]
+        h = norm_apply(x, blk.ln_attn, cfg.norm, cfg.norm_eps)
+        q, k, v = _qkv(h, blk.attn, cfg, pos[:, None])
+        _write_token_kv_paged(pk, k, gids, offs, ok, lay)
+        _write_token_kv_paged(pv, v, gids, offs, ok, lay)
+        o = _paged_attn(q, pk, pv, tables, pos + 1, cfg, policy)
+        x = _finish_block(x, o.flatten(2) @ blk.attn.wo, blk, cfg)
+    return _final_logits(params, cfg, x), cache

@@ -8,6 +8,10 @@
   ``decode_attention_kernel`` in interpret mode at one small shape: both
   cache layouts, ragged (B,) ``cache_len``, with and without a window.
 * The port's reference / eager tiers against their JAX counterparts.
+* ``q_offset`` (queries placed past a key history, as hot prefix
+  admission calls attention): the FA kernel's plain version and the eager
+  tier against the JAX ``attention_flash`` / ``attention_xla`` with the
+  same offset, an int or one per row.
 
 Inputs are made with numpy from a seed and fed to both packages in bf16.
 Tolerance: both sides compute in f32 and round the output to bf16 once,
@@ -164,4 +168,41 @@ def test_dispatch_table_complete_and_strict():
         for tier in KERNEL_BACKENDS:
             assert callable(dispatch(op, ExecPolicy(kernel_backend=tier)))
     with pytest.raises(ValueError):
-        dispatch("softmax", ExecPolicy())
+        dispatch("decode_attention_sharded", ExecPolicy())   # not ported
+
+
+QOFF_SQ, QOFF_SK = 40, 104                  # 64 history keys + 40 queries
+# jitted, so the JAX side runs as one program, not op by op
+_j_flash = jax.jit(jatt.attention_flash,
+                   static_argnames=("causal", "exp_impl", "block_k"))
+_j_xla = jax.jit(jatt.attention_xla, static_argnames=("causal", "exp_impl"))
+
+
+@pytest.mark.parametrize("q_offset", [64, "per_row"])
+@pytest.mark.parametrize("exp", EXPS)
+def test_q_offset_matches_reference(exp, q_offset):
+    """Suffix queries after a key history: causal keep is kpos <= qpos +
+    q_offset, ragged per-row key lengths, blocks of 64 keys counted from
+    key 0. Per-row offsets give each row its own history length."""
+    q, = _inputs([(B, QOFF_SQ, H, D)], seed=7)
+    k, v = _inputs([(B, QOFF_SK, HKV, D)] * 2, seed=8)
+    kv_len = np.array([104, 70, 90], np.int32)
+    off = (np.array([64, 30, 50], np.int32) if q_offset == "per_row"
+           else q_offset)
+    kv_valid = jnp.arange(QOFF_SK)[None, :] < jnp.asarray(kv_len)[:, None]
+    joff = jnp.asarray(off)
+    toff = torch.from_numpy(off) if q_offset == "per_row" else off
+    want = _j_flash(_j(q), _j(k), _j(v), causal=True, exp_impl=exp,
+                    block_k=64, q_offset=joff, kv_valid=kv_valid)
+    got = kfa.flash_attention_plain(_t(q), _t(k), _t(v), causal=True,
+                                    kv_len=torch.from_numpy(kv_len),
+                                    q_offset=toff, block_k=64,
+                                    exp_backend=exp)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    want = _j_xla(_j(q), _j(k), _j(v), causal=True, exp_impl=exp,
+                  q_offset=joff, kv_valid=kv_valid)
+    pol = ExecPolicy(exp_backend=exp, kernel_backend="eager")
+    got = tatt.attention(_t(q), _t(k), _t(v), causal=True,
+                         kv_len=torch.from_numpy(kv_len), q_offset=toff,
+                         policy=pol)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
