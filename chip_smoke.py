@@ -831,32 +831,6 @@ def phase_serve(kernels, smi, cfg, params, policy, groups):
     return counts
 
 
-def _record_hot_prompts(srv):
-    """Wrap each group's admission so that every wave's prefill is timed
-    (synced on both sides) and the prompts of every wave that attached
-    prefix-cache pages (a hot wave) are recorded. Returns (set of hot
-    prompts' bytes, list of (hot, rows, seconds) per wave)."""
-    hot, waves = set(), []
-    for g in srv._groups.values():
-        state, admit = g.state, g.state.prefill_into
-
-        def recording(slots, toks, plens, _state=state, _admit=admit):
-            before = _state.pcache.hits
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            first = _admit(slots, toks, plens)
-            torch.cuda.synchronize()
-            is_hot = _state.pcache.hits > before
-            rows = np.asarray(slots).reshape(-1)
-            waves.append((is_hot, len(rows), time.perf_counter() - t0))
-            if is_hot:
-                for j in rows:
-                    hot.add(toks[j, :plens[j]].tobytes())
-            return first
-        state.prefill_into = recording
-    return hot, waves
-
-
 def phase_serve_paged(kernels, smi, cfg, params, policy, groups):
     """Full-width gpt2-small through Server(paged=True): max_batch 8,
     max_seq 1024, page 64, 32 requests on one shared 256-token prefix
@@ -867,14 +841,14 @@ def phase_serve_paged(kernels, smi, cfg, params, policy, groups):
     from repro_torch.launch.serve import Request, Server, make_requests
     from repro_torch.models import transformer
     n_req, shared, suffix, max_new = 32, 256, 256, 64
+    policy = policy.replace(block_page=PAGE)
+    groups = {n: p.replace(block_page=PAGE) for n, p in groups.items()}
 
     def server(pol=policy, grp=groups):
         return Server(cfg, params, max_batch=8, max_seq=1024, policy=pol,
-                      policy_groups=grp, device="cuda", paged=True,
-                      block_page=PAGE)
+                      policy_groups=grp, device="cuda", paged=True)
 
     srv = server()
-    hot, wave_s = _record_hot_prompts(srv)
     reqs = make_requests(cfg, n_req, suffix, max_new, mixed_lengths=True,
                          min_len=32, groups=sorted(groups), seed=0,
                          shared_prefix=shared)
@@ -898,11 +872,12 @@ def phase_serve_paged(kernels, smi, cfg, params, policy, groups):
     pools = {name: st[name]["pool"] for name in groups}
     for name in groups:            # the server's idle "default" group aside
         s = st[name]
-        if s["admit_waves"] < 2 or pools[name]["prefix"]["hits"] <= 0:
+        if (s["admit_waves"] < 2 or s["hot_waves"] < 1
+                or pools[name]["prefix"]["hits"] <= 0):
             fail(f"paged group {name}: {s['admit_waves']} waves, "
-                 f"{pools[name]['prefix']['hits']} prefix hits; every group "
-                 f"needs a hot wave")
-    hot_reqs = [r for r in reqs if r.prompt.tobytes() in hot]
+                 f"{s['hot_waves']} hot, {pools[name]['prefix']['hits']} "
+                 f"prefix hits; every group needs a hot wave")
+    hot_reqs = [r for r in reqs if r.prefix_hit]
     srv.assert_idle_clean()          # drops the prefix cache: stats first
 
     hit_tokens = sum(p["prefix"]["hit_tokens"] for p in pools.values())
@@ -910,10 +885,12 @@ def phase_serve_paged(kernels, smi, cfg, params, policy, groups):
            "shared_prefix": shared, **serve_metrics(reqs, secs),
            "admit_waves": waves, "decode_steps": steps, "launches": counts,
            "hot_requests": len(hot_reqs),
-           # admission prefill wall per wave (synced), cold vs hot
-           "cold_wave_s": [t for h, _, t in wave_s if not h],
-           "hot_wave_s": [t for h, _, t in wave_s if h],
-           "hot_wave_rows": [n for h, n, _ in wave_s if h],
+           # admission wall (synced), per group: all waves and hot waves
+           "admit_s": {n: {"waves": st[n]["admit_waves"],
+                           "total": st[n]["admit_s_total"],
+                           "hot_waves": st[n]["hot_waves"],
+                           "hot_total": st[n]["hot_admit_s_total"]}
+                       for n in groups},
            # prompt tokens served from the prefix cache, over all prompt
            # tokens; the cache's own hit_rate counts hot waves' lookups
            "prefix_hit_token_share": hit_tokens / sum(len(r.prompt)
@@ -1021,14 +998,18 @@ def main():
     rows.append(phase_flash_attention(ExecPolicy, policy.block_k))
     rows.append(phase_decode(ExecPolicy))
     rows.append(phase_paged_decode(ExecPolicy))
-    # each serve path runs with the counts set to 0 just before it; a
-    # kernel's launches are the sum over both paths' runs
-    counts = phase_serve(kernels, smi, cfg, params, policy, groups)
-    paged = phase_serve_paged(kernels, smi, cfg, params, policy, groups)
+    # each serve path runs with the counts set to 0 just before it and
+    # read just after; a kernel's launches are the sum over both runs,
+    # and launches_by_path keeps each run's own count
+    by_path = {"serve": phase_serve(kernels, smi, cfg, params, policy,
+                                    groups),
+               "serve_paged": phase_serve_paged(kernels, smi, cfg, params,
+                                                policy, groups)}
     for row, name in zip(rows, ("vexp", "softmax", "flash_attention",
                                 "decode_attention",
                                 "decode_attention_paged")):
-        row["launches"] = counts[name] + paged[name]
+        row["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

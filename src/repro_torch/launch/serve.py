@@ -58,6 +58,7 @@ class Request:
     group: str = "default"              # policy group (Server.policy_groups)
     out: list = field(default_factory=list)
     finish_reason: Optional[str] = None  # "max_new" | "length_cap"
+    prefix_hit: int = 0                 # prompt tokens from the prefix cache
     t_submit: float = 0.0
     t_first: float = 0.0
     t_done: float = 0.0
@@ -74,13 +75,12 @@ class _Group:
     the device until a request finishes."""
 
     def __init__(self, cfg, params, policy, max_batch, cache_s, device, *,
-                 paged=False, block_page=None, block_budget=None,
-                 prefix_cache=True):
+                 paged=False, block_budget=None, prefix_cache=True):
         self.cfg, self.policy = cfg, policy
         self.max_batch, self.device = max_batch, device
         self.paged = paged
-        kw = (dict(page=block_page, n_pages=block_budget,
-                   prefix_cache=prefix_cache) if paged else {})
+        kw = (dict(n_pages=block_budget, prefix_cache=prefix_cache)
+              if paged else {})
         self.state = decode_state_for(cfg, paged=paged)(
             cfg, params, policy, max_batch, cache_s, device=device, **kw)
         self.queue: deque = deque()
@@ -94,6 +94,7 @@ class _Group:
         self.decode_steps = 0
         self.decode_s: list = []    # per-step host dispatch time
         self.admit_s: list = []     # per-wave admission time (synced)
+        self.admit_hist: list = []  # per-wave prefix-cache tokens per row
         self.req_lat: list = []     # submit -> tokens on the host
         self.ttft: list = []        # submit -> first token on the device
         self.peak_logical = 0       # max summed live tokens (paged)
@@ -175,6 +176,8 @@ class _Group:
             return
         _sync(self.device)
         self.admit_s.append(time.perf_counter() - t0)
+        hist = self.state.wave_hist if self.paged else 0
+        self.admit_hist.append(hist)
         sl = torch.as_tensor(slots, device=self.device)
         self.last = self.last.index_copy(0, sl, first[sl])
         self.live_dev = self.live_dev.index_fill(0, sl, 1)
@@ -184,6 +187,7 @@ class _Group:
             self.lens[j] = len(r.prompt)
             self.ntok[j] = 1
             self._toks[j] = [first]
+            r.prefix_hit = hist
             r.t_first = now
             self.ttft.append(now - r.t_submit)
             if admit_log is not None:
@@ -256,13 +260,16 @@ class _Group:
 class Server:
     """Continuous-batching server: one ExecPolicy, slot pool and decode
     step per group. ``run(requests)`` serves until every request is done.
-    Runs on the card unless ``device="cpu"`` is passed."""
+    Runs on the card unless ``device="cpu"`` is passed. With ``paged``
+    each group's page size is its policy's ``block_page``;
+    ``block_budget`` (physical pages per group, default a full
+    reservation per slot plus the scratch page) and ``prefix_cache``
+    exist for tests that squeeze the pool or turn the cache off."""
 
     def __init__(self, cfg, params, *, max_batch=4, max_seq=512,
                  policy: Optional[ExecPolicy] = None,
                  policy_groups: Optional[dict] = None, device=None,
-                 paged: bool = False, block_page: Optional[int] = None,
-                 block_budget: Optional[int] = None,
+                 paged: bool = False, block_budget: Optional[int] = None,
                  prefix_cache: bool = True):
         self.device = resolve_device(device)
         if params.embed.device.type != self.device.type:
@@ -277,7 +284,6 @@ class Server:
         self.policy_groups = groups
         self._groups = {name: _Group(cfg, params, pol, max_batch,
                                      self.cache_s, self.device, paged=paged,
-                                     block_page=block_page,
                                      block_budget=block_budget,
                                      prefix_cache=prefix_cache)
                         for name, pol in groups.items()}
@@ -319,7 +325,9 @@ class Server:
 
     def stats(self) -> dict:
         """Per-group decode steps, request latency and TTFT percentiles,
-        admission waves and queue depth, from host-side records only."""
+        admission waves and queue depth, from host-side records only.
+        Paged groups add their pool and the hot waves (those whose rows
+        attached prefix-cache pages) with their admission time."""
         def pct(xs, q):
             xs = sorted(xs)
             return xs[min(len(xs) * q // 100, len(xs) - 1)] if xs else 0.0
@@ -336,6 +344,9 @@ class Server:
                          "p95_ttft_s": pct(g.ttft, 95),
                          "policy": g.policy.describe()}
             if g.paged:
+                hot = [s for s, h in zip(g.admit_s, g.admit_hist) if h]
+                out[name]["hot_waves"] = len(hot)
+                out[name]["hot_admit_s_total"] = sum(hot, 0.0)
                 g._bump_peaks()          # sample the current footprint
                 pool = g.state.pool_stats()
                 pool["peak_pages"] = g.peak_pages
@@ -423,15 +434,8 @@ def main(argv=None):
                          "tables, refcounted page allocator, shared-prefix "
                          "page cache) instead of contiguous slot rows")
     ap.add_argument("--block-page", type=int, default=None,
-                    help="KV page size in tokens (default: the policy's "
-                         "block_page)")
-    ap.add_argument("--block-budget", type=int, default=None,
-                    help="physical pages in the pool (default: one full "
-                         "reservation per slot plus the scratch page; set "
-                         "lower to exercise prefix-sharing "
-                         "oversubscription)")
-    ap.add_argument("--no-prefix-cache", action="store_true",
-                    help="disable the shared-prefix page cache (paged only)")
+                    help="KV page size in tokens, the policy's block_page "
+                         "(default: config/env)")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="prepend the same N tokens to every generated "
                          "prompt (exercises the prefix cache)")
@@ -443,7 +447,8 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     policy = resolve_policy(cfg, exp_backend=args.exp_backend,
-                            kernel_backend=args.kernel_backend)
+                            kernel_backend=args.kernel_backend,
+                            block_page=args.block_page)
     groups = None
     if args.policy_groups:
         groups = parse_policy_groups(args.policy_groups, cfg, base=policy)
@@ -454,10 +459,7 @@ def main(argv=None):
     params = api.init_params(cfg, 0, device=device)
     server = Server(cfg, params, max_batch=args.max_batch,
                     max_seq=args.max_seq, policy=policy,
-                    policy_groups=groups, device=device, paged=args.paged,
-                    block_page=args.block_page,
-                    block_budget=args.block_budget,
-                    prefix_cache=not args.no_prefix_cache)
+                    policy_groups=groups, device=device, paged=args.paged)
     reqs = make_requests(cfg, args.requests, args.prompt_len, args.max_new,
                          mixed_lengths=args.mixed_lengths,
                          groups=sorted(groups) if groups else ("default",),
@@ -479,7 +481,8 @@ def main(argv=None):
             line = (f"    pool: page={p['page']} used {p['pages_used']}/"
                     f"{p['pages_allocatable']} peak {p['peak_pages']} "
                     f"(logical {p['peak_logical_tokens']} tok, "
-                    f"oversub {p['peak_oversubscription']:.2f}x)")
+                    f"oversub {p['peak_oversubscription']:.2f}x), hot "
+                    f"waves {s['hot_waves']}/{s['admit_waves']}")
             if "prefix" in p:
                 line += (f", prefix hit rate "
                          f"{p['prefix']['hit_rate']:.2f}")

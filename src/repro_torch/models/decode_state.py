@@ -213,11 +213,11 @@ class PagedKVDecodeState(KVDecodeState):
     is_paged = True
 
     def __init__(self, cfg, params, policy, pool_width, cache_s, *, device,
-                 n_pages=None, page=None, prefix_cache=True):
+                 n_pages=None, prefix_cache=True):
         from .block_pool import BlockAllocator, PrefixCache
         super().__init__(cfg, params, policy, pool_width, cache_s,
                          device=device)
-        self.page = int(page or policy.block_page)
+        self.page = policy.block_page
         self.ns = -(-cache_s // self.page)          # table columns per slot
         self.n_pages = int(n_pages if n_pages is not None
                            else 1 + pool_width * self.ns)
@@ -227,6 +227,7 @@ class PagedKVDecodeState(KVDecodeState):
         self.slot_pages = [[] for _ in range(pool_width)]
         self.tables = torch.zeros((pool_width, self.ns), dtype=torch.int32,
                                   device=device)
+        self.wave_hist = 0      # prefix-cache tokens of the last wave's rows
 
     # ------------------------------------------------------------- budget
 
@@ -388,6 +389,7 @@ class PagedKVDecodeState(KVDecodeState):
             np.array([new_tab[j] for j in slots], np.int32), device=dev)
         self.pos_dev[sl] = torch.as_tensor(plens[slots].astype(np.int32),
                                            device=dev)
+        self.wave_hist = h
         return _guard_tokens(logits)
 
     def step(self, last, live):

@@ -37,11 +37,10 @@ _ENV_FIELDS = {
     "KERNEL_BACKEND": "kernel_backend",
     "BLOCK_K": "block_k",
     "BLOCK_S": "block_s",
-    "BLOCK_ROWS": "block_rows",
     "BLOCK_PAGE": "block_page",
     "ACCUM_DTYPE": "accum_dtype",
 }
-_INT_FIELDS = ("block_k", "block_s", "block_rows", "block_page")
+_INT_FIELDS = ("block_k", "block_s", "block_page")
 
 
 @dataclass(frozen=True)
@@ -54,9 +53,6 @@ class ExecPolicy:
                     (m, l, acc) update, in the kernel and the scan. (The
                     kernel's 64-row query tile is not a policy choice.)
     block_s         decode-attention KV block (online-update unit).
-    block_rows      fused-softmax row block of the reference's Pallas
-                    kernel; the port's softmax kernel runs one row per
-                    CTA and reads it only for ``describe``.
     block_page      paged-KV page size in tokens: the paged pool's
                     allocation unit and the paged decode kernel's
                     online-update unit. Fixed when a pool is built.
@@ -68,7 +64,6 @@ class ExecPolicy:
     kernel_backend: str = "cuda"
     block_k: int = 128
     block_s: int = 512
-    block_rows: int = 64
     block_page: int = 64
     accum_dtype: str = "float32"
 
@@ -99,8 +94,8 @@ class ExecPolicy:
 
     def describe(self) -> str:
         return (f"exp={self.exp_backend} kernel={self.kernel_backend} "
-                f"blocks=(k{self.block_k},r{self.block_rows},"
-                f"s{self.block_s},p{self.block_page}) "
+                f"blocks=(k{self.block_k},s{self.block_s},"
+                f"p{self.block_page}) "
                 f"accum={self.accum_dtype}")
 
 

@@ -417,26 +417,75 @@ def paged_inputs():
     return q, pools, tab.astype(np.int32), clen
 
 
+# Largest share of bf16 outputs whose bits may differ from the Pallas
+# paged sweep. Updating once per page, the plain version matches it bit
+# for bit under exact and vexp and moves 1 output of 768 under vexp_hw;
+# an update per half page (or per two pages) moves 11-18 % of them. Under
+# vexp such a wrong partition moves each output by at most 2^-8, inside
+# TOL, so only the share can see it.
+PAGED_BITS_SHARE = 2.0 ** -8
+
+_PALLAS_PAGED = {}
+
+
+def _pallas_paged(paged_inputs, layout, exp):
+    """The Pallas paged sweep in interpret mode (computed once per case)."""
+    if (layout, exp) not in _PALLAS_PAGED:
+        from repro.kernels.decode_attention.ops import decode_attention_paged
+        from repro.runtime import ExecPolicy as JaxPolicy
+        q, pools, tab, clen = paged_inputs
+        kp, vp = pools[layout]
+        want = decode_attention_paged(
+            _jbf(q), _jbf(kp), _jbf(vp), jnp.asarray(tab), jnp.asarray(clen),
+            layout=layout, interpret=True,
+            policy=JaxPolicy(exp_backend=exp, kernel_backend="pallas",
+                             interpret=True))
+        _PALLAS_PAGED[layout, exp] = torch.from_numpy(_np(want)).to(
+            torch.bfloat16)
+    return _PALLAS_PAGED[layout, exp]
+
+
+def _bits_share(got, want):
+    """Share of bf16 outputs whose bits differ."""
+    return float((got.view(torch.int16) != want.view(torch.int16))
+                 .double().mean())
+
+
 @pytest.mark.parametrize("layout", ["bshd", "bhsd"])
 @pytest.mark.parametrize("exp", EXPS)
 def test_paged_plain_matches_pallas_interpret(paged_inputs, layout, exp):
     """The paged kernel's plain version (online update once per page)
-    against the Pallas paged sweep run in interpret mode."""
-    from repro.kernels.decode_attention.ops import decode_attention_paged
-    from repro.runtime import ExecPolicy as JaxPolicy
+    against the Pallas paged sweep run in interpret mode: within TOL, and
+    at most PAGED_BITS_SHARE of the outputs differ in any bit."""
     q, pools, tab, clen = paged_inputs
     kp, vp = pools[layout]
-    want = decode_attention_paged(
-        _jbf(q), _jbf(kp), _jbf(vp), jnp.asarray(tab), jnp.asarray(clen),
-        layout=layout, interpret=True,
-        policy=JaxPolicy(exp_backend=exp, kernel_backend="pallas",
-                         interpret=True))
+    want = _pallas_paged(paged_inputs, layout, exp)
     got = kdec.decode_attention_paged(
         _bf(q), _bf(kp), _bf(vp), torch.from_numpy(tab),
         torch.from_numpy(clen), layout=layout,
         policy=ExecPolicy(exp_backend=exp))
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    assert _bits_share(got, want) <= PAGED_BITS_SHARE
+
+
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+@pytest.mark.parametrize("exp", EXPS)
+def test_paged_plain_at_half_a_page_fails_the_bits_share(paged_inputs,
+                                                        layout, exp):
+    """The plain version updating once per half page (the contiguous
+    kernel's habit of a smaller block) leaves the Pallas sweep's
+    partition: the bits share must reject it, under vexp too, where the
+    largest difference stays inside TOL."""
+    q, pools, tab, clen = paged_inputs
+    kp, vp = pools[layout]
+    want = _pallas_paged(paged_inputs, layout, exp)
+    page = kp.shape[1] if layout == "bshd" else kp.shape[2]
+    half = kdec.decode_attention_paged_plain(
+        _bf(q), _bf(kp), _bf(vp), torch.from_numpy(tab),
+        torch.from_numpy(clen), layout=layout, exp_backend=exp,
+        block=page // 2)
+    assert _bits_share(half, want) > PAGED_BITS_SHARE
 
 
 @pytest.mark.parametrize("layout", ["bshd", "bhsd"])
@@ -640,9 +689,11 @@ def _serve(cfg, params, prompts, *, paged, max_new=5, max_batch=2,
 
 
 def _policy(cfg, exp, page):
-    """The contiguous decode then updates on the paged sweep's partition
-    (``block_s`` = the page), so the two agree bit for bit under vexp."""
-    return resolve_policy(cfg, env={}, exp_backend=exp, block_s=page)
+    """Pages of ``page`` tokens; the contiguous decode then updates on the
+    paged sweep's partition (``block_s`` = the page), so the two agree bit
+    for bit under vexp."""
+    return resolve_policy(cfg, env={}, exp_backend=exp, block_s=page,
+                          block_page=page)
 
 
 @pytest.mark.parametrize("exp", EXPS)
@@ -653,8 +704,7 @@ def test_paged_matches_contiguous(cfg, params, exp):
     pol = _policy(cfg, exp, 8)
     prompts = _prompts(cfg, (5, 11, 7, 20))
     ref, _ = _serve(cfg, params, prompts, paged=False, policy=pol)
-    got, srv = _serve(cfg, params, prompts, paged=True, policy=pol,
-                      block_page=8)
+    got, srv = _serve(cfg, params, prompts, paged=True, policy=pol)
     assert got == ref
     pool = srv.stats()["default"]["pool"]
     assert pool["pages_used"] == pool["prefix"]["pages"]
@@ -666,8 +716,7 @@ def test_paged_matches_contiguous_bhsd(cfg, params):
     pol = _policy(c, "vexp", 8)
     prompts = _prompts(c, (5, 11, 7))
     ref, _ = _serve(c, params, prompts, paged=False, policy=pol)
-    got, srv = _serve(c, params, prompts, paged=True, policy=pol,
-                      block_page=8)
+    got, srv = _serve(c, params, prompts, paged=True, policy=pol)
     assert got == ref
     assert srv._groups["default"].state.data["k"].shape[2:] == (4, 8, 32)
 
@@ -677,16 +726,19 @@ def test_hot_prefix_matches_cold_solo(cfg, params, exp):
     """A request admitted onto a hot shared prefix (its first pages attach
     to cached pages; only the suffix is prefilled, against the gathered
     history) emits the tokens it gets served cold and alone."""
-    pol = resolve_policy(cfg, env={}, exp_backend=exp)
+    pol = resolve_policy(cfg, env={}, exp_backend=exp, block_page=4)
     prefix = np.random.default_rng(5).integers(0, cfg.vocab, (16,),
                                                dtype=np.int32)
     a, b = _prompts(cfg, (24, 30), seed=6, prefix=prefix)
-    cold, _ = _serve(cfg, params, [b], paged=True, policy=pol, block_page=4)
+    cold, _ = _serve(cfg, params, [b], paged=True, policy=pol)
     srv = Server(cfg, params, max_batch=1, max_seq=64, policy=pol,
-                 paged=True, block_page=4, device="cpu")
+                 paged=True, device="cpu")
     ra, rb = Request(0, a.copy(), 5), Request(1, b.copy(), 5)
     srv.run([ra, rb])                  # a seeds the cache, b rides it hot
-    assert srv.stats()["default"]["pool"]["prefix"]["hits"] >= 4
+    st = srv.stats()["default"]
+    assert st["pool"]["prefix"]["hits"] >= 4
+    assert (ra.prefix_hit, rb.prefix_hit) == (0, 16)
+    assert st["admit_waves"] == 2 and st["hot_waves"] == 1
     assert rb.out == cold[0]
     srv.assert_idle_clean()
 
@@ -701,7 +753,7 @@ def test_hot_admission_in_the_middle_of_decode(cfg, params):
     ref, _ = _serve(cfg, params, prompts, paged=False, max_new=4,
                     policy=pol)
     got, srv = _serve(cfg, params, prompts, paged=True, max_new=4,
-                      policy=pol, block_page=4)
+                      policy=pol)
     assert got == ref
     assert srv.stats()["default"]["pool"]["prefix"]["hits"] > 0
     assert srv._groups["default"].decode_steps > 0
@@ -716,7 +768,7 @@ def test_eviction_under_pressure_keeps_identity(cfg, params):
     ref, _ = _serve(cfg, params, prompts, paged=False, max_new=4,
                     policy=pol)
     got, srv = _serve(cfg, params, prompts, paged=True, max_new=4,
-                      policy=pol, block_page=4, block_budget=2 * 16 + 2)
+                      policy=pol, block_budget=2 * 16 + 2)
     assert got == ref
     pool = srv.stats()["default"]["pool"]
     assert pool["prefix"]["evictions"] > 0
@@ -735,7 +787,7 @@ def test_out_of_blocks_requeues_the_wave_without_leaking(cfg, params,
     ref, _ = _serve(cfg, params, prompts, paged=False, max_new=6,
                     policy=pol)
     srv = Server(cfg, params, max_batch=2, max_seq=64, policy=pol,
-                 paged=True, block_page=8, device="cpu")
+                 paged=True, device="cpu")
     state = srv._groups["default"].state
     orig, calls = state.prefill_into, {"n": 0}
 
@@ -761,7 +813,7 @@ def test_out_of_blocks_requeues_the_wave_without_leaking(cfg, params,
 
     # 8 pages per reservation + scratch > 8: nothing can ever admit
     tiny = Server(cfg, params, max_batch=2, max_seq=64, policy=pol,
-                  paged=True, block_page=8, block_budget=8, device="cpu")
+                  paged=True, block_budget=8, device="cpu")
     tiny.submit(Request(7, prompts[0].copy(), 2))
     with pytest.raises(RuntimeError, match="request 7"):
         tiny.drain()
@@ -772,7 +824,7 @@ def test_prefix_cache_off_still_serves(cfg, params):
     prompts = _prompts(cfg, (24, 24), seed=11)
     ref, _ = _serve(cfg, params, prompts, paged=False, policy=pol)
     got, srv = _serve(cfg, params, prompts, paged=True, policy=pol,
-                      block_page=4, prefix_cache=False)
+                      prefix_cache=False)
     assert got == ref
     assert "prefix" not in srv.stats()["default"]["pool"]
     srv.assert_idle_clean()
@@ -794,8 +846,9 @@ def test_same_greedy_tokens_as_the_jax_paged_server(models):
                      paged=True, block_page=8)
     jreqs = [JaxRequest(i, p.copy(), 5) for i, p in enumerate(prompts)]
     jsrv.run(jreqs)
-    got, srv = _serve(cfg, tp, prompts, paged=True, block_page=8,
-                      policy=resolve_policy(cfg, env={}, exp_backend="vexp"))
+    got, srv = _serve(cfg, tp, prompts, paged=True,
+                      policy=resolve_policy(cfg, env={}, exp_backend="vexp",
+                                            block_page=8))
     assert srv.stats()["default"]["pool"]["prefix"]["hits"] > 0
     for r in jreqs:
         ours = got[r.rid]

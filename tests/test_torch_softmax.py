@@ -163,12 +163,17 @@ def test_softmax_tiers_and_core_routing():
 
 
 def test_policy_block_rows_and_block_page():
+    """block_page (64) resolves like the other fields. The softmax kernel
+    runs one row per CTA, so the port has no row block: block_rows is
+    not a field and REPRO_BLOCK_ROWS is ignored."""
     p = resolve_policy(None, env={})
-    assert (p.block_rows, p.block_page) == (64, 64)
+    assert p.block_page == 64
     env = {"REPRO_BLOCK_ROWS": "32", "REPRO_BLOCK_PAGE": "16"}
     p = resolve_policy(None, env=env)
-    assert (p.block_rows, p.block_page) == (32, 16)
-    assert "r32" in p.describe() and "p16" in p.describe()
+    assert p.block_page == 16 and not hasattr(p, "block_rows")
+    assert "p16" in p.describe()
+    with pytest.raises(ValueError, match="block_rows"):
+        resolve_policy(None, env={}, block_rows=32)
     assert resolve_policy(None, env=env, block_page=8).block_page == 8
     with pytest.raises(ValueError):
         ExecPolicy(block_page=0)
