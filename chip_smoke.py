@@ -7,9 +7,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 It builds the hand-written kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version on the card, times both, serves
 full-width gpt2-small through the port's ``Server`` on the contiguous
-cache and on the paged pool with a shared-prefix cache, and checks what
-comes out. Every phase prints one JSON line; the first failure exits
-non-zero.
+cache and on the paged pool with a shared-prefix cache, then serves it
+sequence-sharded (``kv_mode="seq"``) on 2 ranks spawned on the one card
+(gloo, host-staged collectives), and checks what comes out. Every phase
+prints one JSON line; the first failure on any rank exits non-zero.
 The last two lines are the kernel table and the device line. Without a
 CUDA device, or without the rest of the checkout, it exits non-zero and
 prints no result.
@@ -67,6 +68,21 @@ ATT_LIMITS = {
     "decode_attention_paged": {"exact": (1e-3, 5e-3),
                                "vexp": (1e-3, 5e-3),
                                "vexp_hw": (1e-6, 1e-3)},
+    # the sequence-sharded kernels (phase_sharded_decode), each shard's
+    # statistics normalized on their own, live rows only. The paged ones
+    # (B8, B9) stay inside the paged limits: max 4.9e-4 / 4.9e-4 / 6e-8,
+    # share 6.5e-4 / 3.7e-4 / 5.9e-5 at 2 and 4 shards, both layouts. The
+    # contiguous ones (B5, B6) read max 9.8e-4 / 6.1e-5 / 9.8e-4 and share
+    # 9.3e-4 / 5.9e-5 / 1.1e-3: a shard's output normalizes over fewer
+    # keys than the whole row's, so it is larger, and the one-ulp bf16
+    # flips that summation order causes cost up to 2^-10 (the decode
+    # limits' exact 1.5e-4 and vexp_hw 1e-6 sit below one such flip at
+    # |o| > 1/64). These limits take one flip at |o| < 0.5 and twice the
+    # share read; the plain version at half a block still moves 13-21 %
+    # of the outputs and fails them.
+    "decode_attention_partial": {"exact": (2e-3, 5e-3),
+                                 "vexp": (1e-3, 5e-3),
+                                 "vexp_hw": (2e-3, 3e-3)},
 }
 
 # Fused softmax kernel vs its plain version, largest distance in f32 ulps
@@ -558,6 +574,289 @@ def phase_paged_decode(policy_cls):
             "library_ms": lib_ms}
 
 
+# Sequence-sharded decode: the fold of the shards' statistics against
+# the unsharded kernel, the limit the reference holds its sharded decode
+# to (tests/test_sharded_decode.py:276-309).
+FOLD_LIMIT = 2e-3
+SHARD_COUNTS = (2, 4)
+
+
+def _norm_stats(m, l, acc):
+    """A shard's own normalized output acc / max(l, 1e-30), in bf16."""
+    return (acc / torch.clamp(l, min=1e-30)).to(torch.bfloat16)
+
+
+def _fold_out(tiles, exp, q):
+    """The merge's local fold of stacked shard tiles -> (B,1,H,d) bf16."""
+    from repro_torch.core.softmax import stats_fold_packed
+    from repro_torch.core.vexp import get_exp_fn
+    st, acc = stats_fold_packed(torch.stack(tiles),
+                                exp_fn=get_exp_fn(exp))
+    return (acc / torch.clamp(st.l, min=1e-30)).reshape(q.shape).to(
+        q.dtype)
+
+
+def _sharded_case(kernel, kern, plain, unsharded, q, cache_len, offsets,
+                  block, exps, policy_cls, problems):
+    """One (kernel, layout, shard count) case. ``kern(mode, pol, r)`` runs
+    shard r's partial ("partial" -> (m, l, acc)) or packed ("packed" ->
+    tile) kernel, ``plain(exp, r, block)`` the partial plain version,
+    ``unsharded(pol)`` the unsharded kernel. Checks the packed tile equal
+    to the partial statistics bit for bit, empty rows at the identity,
+    each shard's kernel against its plain version (both normalized per
+    shard, live rows only) inside ATT_LIMITS[kernel] and the plain
+    version at half the update unit outside them, and the fold of the
+    packed tiles within FOLD_LIMIT of the unsharded kernel; what fails is
+    appended to ``problems``. Returns (readings, fold errors)."""
+    from repro_torch.core.softmax import KERNEL_NEG_INF
+    readings, fold = {}, {}
+    for exp in exps:
+        pol = policy_cls(exp_backend=exp)
+        outs = {"kernel": [], "plain": [], "half_block": []}
+        tiles = []
+        for r, off in enumerate(offsets):
+            live = cache_len > off
+            m, l, acc = kern("partial", pol, r)
+            tile = kern("packed", pol, r)
+            tiles.append(tile)
+            if not torch.equal(tile, torch.cat([acc, m, l], dim=-1)):
+                problems.append(f"{kernel} {exp} shard {r}: packed tile != "
+                                f"partial statistics")
+            empty = ~live
+            if empty.any() and not (
+                    bool((m[empty] == KERNEL_NEG_INF).all())
+                    and bool((l[empty] == 0).all())
+                    and bool((acc[empty] == 0).all())):
+                problems.append(f"{kernel} {exp} shard {r}: an empty row is "
+                                f"not the merge identity "
+                                f"({KERNEL_NEG_INF}, 0, 0)")
+            outs["kernel"].append(_norm_stats(m, l, acc)[live])
+            outs["plain"].append(_norm_stats(*plain(exp, r, block))[live])
+            if exp != "exact":
+                outs["half_block"].append(
+                    _norm_stats(*plain(exp, r, block // 2))[live])
+        ref = torch.cat(outs["plain"])
+        for who in ("kernel", "half_block"):
+            if outs[who]:
+                readings[exp, who] = kernel_vs_plain(torch.cat(outs[who]),
+                                                     ref)
+        folded = _fold_out(tiles, exp, q)
+        fold[exp] = float((folded.float()
+                           - unsharded(pol).float()).abs().max())
+        if fold[exp] > FOLD_LIMIT:
+            problems.append(f"{kernel} {exp}: the fold of {len(offsets)} "
+                            f"shards is {fold[exp]} off the unsharded "
+                            f"kernel (limit {FOLD_LIMIT})")
+    return readings, fold
+
+
+def phase_sharded_decode(policy_cls):
+    """Kernels B5 / B6 (contiguous) and B8 / B9 (paged) at the decode
+    phase's shape, B=8, Hkv=12, G=1, d=64, S=1024, page 64, both layouts,
+    the cache cut into 2 and 4 sequence slices, on one process: each
+    shard's kernel against its plain version at its seq_offset, the
+    empty-shard identity, the fold against the unsharded kernel, the
+    overflow case (q x 60), and per-shard times beside the bound."""
+    from repro_torch.kernels import decode_attention as da
+    g = torch.Generator(device="cuda").manual_seed(5)
+    b, s, h, d, page = 8, 1024, 12, 64, PAGE
+    ns = s // page
+    q = torch.randn(b, 1, h, d, generator=g, device="cuda").to(torch.bfloat16)
+    kc, vc = (torch.randn(b, s, h, d, generator=g, device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    # rows inside the first quarter, inside the first half (shard 1 of 2
+    # empty), straddling the half, and full
+    cache_len = torch.randint(33, s + 1, (b,), generator=g, device="cuda",
+                              dtype=torch.int32)
+    cache_len[:4] = torch.tensor([s, 200, 511, 513], dtype=torch.int32)
+    n_pages = 1 + b * ns
+    kp, vp = (torch.randn(n_pages, page, h, d, generator=g, device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    perm = torch.randperm(b * ns, generator=g, device="cuda") + 1
+    extent = (cache_len + page - 1) // page
+    tab = torch.where(torch.arange(ns, device="cuda")[None, :]
+                      < extent[:, None], perm.reshape(b, ns).to(torch.int32),
+                      0)
+    res, rows = {"cache_len": cache_len.tolist()}, {}
+    exps = ("exact", "vexp", "vexp_hw")
+    problems, checks = [], []
+    worst = {"contig": 0.0, "paged": 0.0}
+
+    def contig_fns(layout, qq, n):
+        kl, vl = ((kc, vc) if layout == "bshd" else
+                  (kc.transpose(1, 2).contiguous(),
+                   vc.transpose(1, 2).contiguous()))
+        ax, local = (1 if layout == "bshd" else 2), s // n
+        sl = [(kl.narrow(ax, r * local, local), vl.narrow(ax, r * local,
+                                                          local))
+              for r in range(n)]
+        offs = [r * local for r in range(n)]
+
+        def kern(mode, pol, r):
+            f = (da.decode_attention_partial if mode == "partial"
+                 else da.decode_attention_partial_packed)
+            return f(qq, *sl[r], cache_len, offs[r], layout=layout,
+                     policy=pol)
+
+        def plain(exp, r, blk):
+            return da.decode_attention_partial_plain(
+                qq, *sl[r], cache_len, offs[r], layout=layout, block_s=blk,
+                exp_backend=exp)
+
+        def unsharded(pol):
+            return da.decode_attention(qq, kl, vl, cache_len, layout=layout,
+                                       policy=pol)
+        return kern, plain, unsharded, offs, sl
+
+    def paged_fns(layout, qq, n):
+        kl, vl = ((kp, vp) if layout == "bshd" else
+                  (kp.transpose(1, 2).contiguous(),
+                   vp.transpose(1, 2).contiguous()))
+        cols = ns // n
+        shards = []
+        for r in range(n):
+            # shard r's own pool: its scratch page, then the pages its
+            # table slice names; the slice rewritten to local ids
+            t = tab[:, r * cols:(r + 1) * cols]
+            ids = torch.unique(torch.cat([torch.zeros(1, dtype=t.dtype,
+                                                      device="cuda"),
+                                          t.reshape(-1)]))
+            shards.append((kl[ids].contiguous(), vl[ids].contiguous(),
+                           torch.searchsorted(ids, t).to(torch.int32)))
+        offs = [r * cols * page for r in range(n)]
+
+        def kern(mode, pol, r):
+            f = (da.decode_attention_paged_partial if mode == "partial"
+                 else da.decode_attention_paged_packed)
+            return f(qq, *shards[r], cache_len, offs[r], layout=layout,
+                     policy=pol)
+
+        def plain(exp, r, blk):
+            return da.decode_attention_paged_partial_plain(
+                qq, *shards[r], cache_len, offs[r], layout=layout,
+                exp_backend=exp, block=blk)
+
+        def unsharded(pol):
+            return da.decode_attention_paged(qq, kl, vl, tab, cache_len,
+                                             layout=layout, policy=pol)
+        return kern, plain, unsharded, offs, shards
+
+    for kind, fns, kernel in (("contig", contig_fns,
+                               "decode_attention_partial"),
+                              ("paged", paged_fns,
+                               "decode_attention_paged")):
+        for layout in ("bshd", "bhsd"):
+            for n in SHARD_COUNTS:
+                kern, plain, unsharded, offs, _ = fns(layout, q, n)
+                block = (min(policy_cls().block_s, s // n)
+                         if kind == "contig" else page)
+                readings, fold = _sharded_case(
+                    kernel, kern, plain, unsharded, q, cache_len, offs,
+                    block, exps, policy_cls, problems)
+                tag = f"{kind}_{layout}_n{n}_"
+                for (exp, who), (err, share) in readings.items():
+                    res[f"{tag}{exp}_{who}_max_abs_err"] = err
+                    res[f"{tag}{exp}_{who}_mismatch_share"] = share
+                res.update({f"{tag}{exp}_fold_max_abs_err": e
+                            for exp, e in fold.items()})
+                worst[kind] = max([worst[kind]] + [
+                    err for (_, who), (err, _) in readings.items()
+                    if who == "kernel"])
+                checks.append((kernel, readings, f" {layout} n={n}"))
+                # overflow guard: per-shard maxima hundreds apart
+                q60 = (q.float() * 60.0).to(torch.bfloat16)
+                kern60, _, uns60, _, _ = fns(layout, q60, n)
+                for exp in exps:
+                    pol = policy_cls(exp_backend=exp)
+                    out = _fold_out([kern60("packed", pol, r)
+                                     for r in range(n)], exp, q60)
+                    if not bool(torch.isfinite(out).all()):
+                        problems.append(f"{kernel} {layout} n={n} {exp}: "
+                                        f"the fold overflowed at q x 60")
+                    res[f"{tag}{exp}_q60_fold_max_abs_err"] = float(
+                        (out.float() - uns60(pol).float()).abs().max())
+
+    # times: n = 2, bshd, vexp, per shard; the row reports shard 0 (every
+    # row has keys there: the most work)
+    pol = policy_cls(exp_backend="vexp")
+    qt = q.transpose(1, 2)
+    q_bytes = b * h * d * 2
+    for kind, fns in (("contig", contig_fns), ("paged", paged_fns)):
+        kern, plain, _, offs, sl = fns("bshd", q, 2)
+        local = s // 2
+        for mode in ("partial", "packed"):
+            name = {("contig", "partial"): "decode_attention_kernel_partial",
+                    ("contig", "packed"): "decode_attention_kernel_packed",
+                    ("paged", "partial"):
+                        "decode_attention_kernel_paged_partial",
+                    ("paged", "packed"):
+                        "decode_attention_kernel_paged_packed"}[kind, mode]
+            per = []
+            for r, off in enumerate(offs):
+                live_k = torch.clamp(cache_len - off, 0, local)
+                if kind == "paged":      # whole live pages are read
+                    live_rows = float(((live_k + page - 1) // page
+                                       ).double().sum()) * page
+                else:
+                    live_rows = float(live_k.double().sum())
+                nbytes = (live_rows * h * d * 2 * 2 + q_bytes
+                          + b * h * (d + 2) * 4)
+                flops = 4.0 * float(live_k.double().sum()) * h * d
+                b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+                ms = cuda_time_ms(lambda: kern(mode, pol, r), iters=50)
+                blk = policy_cls().block_s if kind == "contig" else page
+
+                def run_plain():
+                    m, l, acc = plain("vexp", r, blk)
+                    return ((m, l, acc) if mode == "partial"
+                            else torch.cat([acc, m, l], dim=-1))
+                plain_ms = cuda_time_ms(run_plain, iters=10)
+                # SDPA over the shard's slice: the normalized output, not
+                # the statistics (no library call returns them)
+                if kind == "contig":
+                    kk, vv = (t.transpose(1, 2) for t in sl[r])
+                else:
+                    kk, vv = (da.paged_gather(p, sl[r][2]).transpose(1, 2)
+                              for p in sl[r][:2])
+                mask = (torch.arange(kk.shape[2], device="cuda")[None, :]
+                        < live_k[:, None])[:, None, None]
+                lib_ms = cuda_time_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qt, kk, vv, attn_mask=mask), iters=50)
+                per.append({"seq_offset": off, "ms": ms,
+                            "plain_ms": plain_ms, "library_ms": lib_ms,
+                            "bound_ms": b_ms, "bound_by": b_by,
+                            "live_keys": int(live_k.sum())})
+            res[f"{name}_by_shard"] = per
+            src = ("src/repro_torch/csrc/decode_attention.cu"
+                   if kind == "contig"
+                   else "src/repro_torch/csrc/decode_attention_paged.cu")
+            line = {"partial": 235, "packed": 280} if kind == "contig" \
+                else {"partial": 490, "packed": 509}
+            p0 = per[0]
+            rows[name] = {
+                "name": name, "route": "cuda", "source": src,
+                "replaces": "src/repro/kernels/decode_attention/kernel.py:"
+                            f"{line[mode]}",
+                "launches": 0, "max_abs_err": worst[kind], "ms": p0["ms"],
+                "plain_ms": p0["plain_ms"], "bound_ms": p0["bound_ms"],
+                "bound_by": p0["bound_by"], "library_ms": p0["library_ms"],
+                "library": "sdpa over the shard's slice (normalized output, "
+                           "not the statistics)",
+                "shape": "B=8 Hkv=12 G=1 d=64 S=1024 bshd, shard 0 of 2, "
+                         "exp vexp"}
+    emit({"phase": "sharded_decode", "shard_counts": list(SHARD_COUNTS),
+          "fold_limit": FOLD_LIMIT, **res})
+    if problems:
+        fail(f"{problems[0]} ({len(problems) - 1} more failures)")
+    for kernel, readings, where in checks:
+        check_attention(kernel, readings, where)
+    return [rows[k] for k in ("decode_attention_kernel_partial",
+                              "decode_attention_kernel_packed",
+                              "decode_attention_kernel_paged_partial",
+                              "decode_attention_kernel_paged_packed")]
+
+
 def _pct(xs, q):
     xs = sorted(xs)
     return xs[min(len(xs) * q // 100, len(xs) - 1)]
@@ -758,6 +1057,33 @@ def serve_metrics(reqs, secs):
             "req_p95_s": _pct(lat, 95)}
 
 
+def near_tie_compare(cfg, params, groups, reqs, others, what, against):
+    """Each request's tokens against ``others`` (the same request served
+    another way): equal, or diverging first at a step where the reference
+    tier's top-2 logit gap is a near tie (<= 2 x REPLAY_LOGIT_TOL).
+    Returns the counts; fails on a divergence that is not a near tie."""
+    from repro_torch.models import transformer
+    near_ties, same = [], 0
+    for r, other in zip(reqs, others):
+        diff = [i for i, (a, b) in enumerate(zip(r.out, other)) if a != b]
+        if not diff and len(r.out) == len(other):
+            same += 1
+            continue
+        i = diff[0] if diff else min(len(r.out), len(other))
+        seq = np.concatenate([r.prompt, np.asarray(other[:i], np.int32)])
+        lg, _ = transformer.prefill(
+            params, cfg, torch.as_tensor(seq[None], device="cuda"),
+            policy=groups[r.group].replace(kernel_backend="reference"))
+        top = torch.topk(lg[0, 0], 2).values
+        gap = float(top[0] - top[1])
+        if gap > 2 * REPLAY_LOGIT_TOL:
+            fail(f"{what} {r.rid} ({r.group}) leaves {against} at step {i} "
+                 f"where the reference's top-2 gap is {gap}, not a near "
+                 f"tie")
+        near_ties.append({"rid": r.rid, "step": i, "top2_gap": gap})
+    return {"identical": same, "near_tie_divergences": near_ties}
+
+
 def gpt2_small_setup():
     """Full-width gpt2-small with random weights from seed 0, its default
     policy (which must be the cuda tier) and the three policy groups."""
@@ -839,8 +1165,7 @@ def phase_serve_paged(kernels, smi, cfg, params, policy, groups):
     publishes the prefix; its later waves attach it and prefill only the
     suffixes (FA at q_offset=256)."""
     from repro_torch.launch.serve import Request, Server, make_requests
-    from repro_torch.models import transformer
-    n_req, shared, suffix, max_new = 32, 256, 256, 64
+    shared, suffix, max_new = 256, 256, 64     # as in paged_requests
     policy = policy.replace(block_page=PAGE)
     groups = {n: p.replace(block_page=PAGE) for n, p in groups.items()}
 
@@ -849,9 +1174,7 @@ def phase_serve_paged(kernels, smi, cfg, params, policy, groups):
                       policy_groups=grp, device="cuda", paged=True)
 
     srv = server()
-    reqs = make_requests(cfg, n_req, suffix, max_new, mixed_lengths=True,
-                         min_len=32, groups=sorted(groups), seed=0,
-                         shared_prefix=shared)
+    reqs = paged_requests(cfg, groups)
     secs, counts, sdpa_calls, peak, clocks = timed_serve(kernels, srv, reqs)
     check_requests(cfg, reqs, max_new)
     st = srv.stats()
@@ -917,34 +1240,229 @@ def phase_serve_paged(kernels, smi, cfg, params, policy, groups):
     res["replay_max_abs_logit_diff"] = worst
 
     # every hot request against the same request served cold and alone
-    near_ties, same = [], 0
+    solos = []
     for r in hot_reqs:
-        pol = groups[r.group]
         solo = Request(r.rid, r.prompt.copy(), max_new)
-        server(pol, None).run([solo])
-        diff = [i for i, (a, b) in enumerate(zip(r.out, solo.out)) if a != b]
-        if not diff:
-            same += 1
-            continue
-        i = diff[0]
-        seq = np.concatenate([r.prompt, np.asarray(solo.out[:i], np.int32)])
-        lg, _ = transformer.prefill(
-            params, cfg, torch.as_tensor(seq[None], device="cuda"),
-            policy=pol.replace(kernel_backend="reference"))
-        top = torch.topk(lg[0, 0], 2).values
-        gap = float(top[0] - top[1])
-        if gap > 2 * REPLAY_LOGIT_TOL:
-            fail(f"hot request {r.rid} ({r.group}) leaves its cold solo "
-                 f"tokens at step {i} where the reference's top-2 gap is "
-                 f"{gap}, not a near tie")
-        near_ties.append({"rid": r.rid, "step": i, "top2_gap": gap})
-    res["hot_equals_cold_solo"] = {"identical": same,
-                                   "near_tie_divergences": near_ties}
+        server(groups[r.group], None).run([solo])
+        solos.append(solo.out)
+    res["hot_equals_cold_solo"] = near_tie_compare(
+        cfg, params, groups, hot_reqs, solos, "hot request",
+        "its cold solo tokens")
     res["profile"] = profile_serve(server, make_requests(
         cfg, 8, suffix, 16, mixed_lengths=True, min_len=32,
         groups=sorted(groups), seed=2, shared_prefix=shared))
     emit(res)
-    return counts
+    return counts, reqs
+
+
+# The sharded serves: 2 ranks on the one card (NCCL refuses two ranks on
+# one device, so gloo, with the CUDA tensors staged through host memory),
+# each a process of its own, joined through a file:// store.
+SHARD_RANKS = 2
+SHARD_TIMEOUT_S = 300          # the process group's collective timeout
+SHARD_JOIN_S = 900             # the whole spawned phase
+SHARD_LABEL = "2 ranks on one card, gloo, host-staged collectives"
+MERGE = {"eval": "split", "bulk": "packed", "hw": "packed"}
+
+
+def sharded_groups(groups):
+    """The policy groups with their merge strategies: eval=exact splits,
+    bulk=vexp and hw=vexp_hw pack, so every partial and packed kernel
+    runs on a serve path; pages of PAGE tokens."""
+    return {n: p.replace(merge_strategy=MERGE[n], block_page=PAGE)
+            for n, p in groups.items()}
+
+
+def contiguous_sharded_requests(cfg, groups):
+    """16 requests, prompts in [32, 896] (seed 0): rows that stay inside
+    shard 0 and rows that straddle the 512-position boundary."""
+    from repro_torch.launch.serve import make_requests
+    return make_requests(cfg, 16, 896, 64, mixed_lengths=True, min_len=32,
+                         groups=sorted(groups), seed=0)
+
+
+def paged_requests(cfg, groups, seed=0):
+    """The paged phase's 32 requests: one shared 256-token prefix plus a
+    suffix of [32, 256] tokens, 64 new tokens each."""
+    from repro_torch.launch.serve import make_requests
+    return make_requests(cfg, 32, 256, 64, mixed_lengths=True, min_len=32,
+                         groups=sorted(groups), seed=seed, shared_prefix=256)
+
+
+def _sharded_rank(rank, world, store, out_path):
+    """One rank of phase_serve_sharded (a spawned process): joins the
+    group, serves the contiguous then the paged request set through
+    Server(kv_mode="seq"), and writes its tokens, counts and stats to
+    ``out_path``. Any failure raises, so the process exits non-zero."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch import kernels
+    from repro_torch.distributed import init_shard_group
+    from repro_torch.launch.serve import Server, make_requests
+    from repro_torch.runtime import resolve_device
+    resolve_device("cuda")
+    torch.cuda.set_device(0)
+    comm = init_shard_group(f"file://{store}", rank, world, device="cuda",
+                            timeout_s=SHARD_TIMEOUT_S)
+    cfg, params, policy, groups = gpt2_small_setup()
+    policy = policy.replace(block_page=PAGE)
+    groups = sharded_groups(groups)
+    out = {"rank": rank, "backend": comm.backend,
+           "host_staged": comm.host_staged}
+    for path, paged in (("serve_sharded", False),
+                        ("serve_paged_sharded", True)):
+        def server():
+            return Server(cfg, params, max_batch=8, max_seq=1024,
+                          policy=policy, policy_groups=groups, device="cuda",
+                          paged=paged, kv_mode="seq", shards=comm)
+        server().run(make_requests(cfg, 3, 64, 4, groups=sorted(groups),
+                                   seed=1))               # warm-up
+        srv = server()
+        reqs = (paged_requests(cfg, groups) if paged
+                else contiguous_sharded_requests(cfg, groups))
+        secs, counts, sdpa_calls, peak, clocks = timed_serve(kernels, srv,
+                                                             reqs)
+        st = srv.stats()
+        srv.assert_idle_clean()
+        out[path] = {"tokens": [r.out for r in reqs],
+                     "finish": [r.finish_reason for r in reqs],
+                     "prefix_hit": [r.prefix_hit for r in reqs],
+                     "metrics": serve_metrics(reqs, secs),
+                     "launches": counts, "sdpa_calls": sdpa_calls,
+                     "peak_memory_bytes": peak, "clocks_power": clocks,
+                     "stats": st}
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def _spawn_ranks(world):
+    """Run _sharded_rank on ``world`` spawned processes; every one must
+    exit 0 within SHARD_JOIN_S. Returns their results in rank order."""
+    import multiprocessing as mp
+    import tempfile
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f"rank{r}.json") for r in range(world)]
+        procs = [ctx.Process(target=_sharded_rank,
+                             args=(r, world, os.path.join(tmp, "store"),
+                                   paths[r]))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SHARD_JOIN_S
+        try:
+            for p in procs:
+                p.join(max(deadline - time.monotonic(), 1.0))
+        finally:
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        if hung:
+            fail(f"sharded serve: ranks {hung} still running after "
+                 f"{SHARD_JOIN_S} s")
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            fail(f"sharded serve: rank exit codes {codes}")
+        out = []
+        for path in paths:
+            with open(path) as f:
+                out.append(json.load(f))
+        return out
+
+
+def phase_serve_sharded(kernels, smi, cfg, params, policy, groups,
+                        paged_reqs):
+    """Sequence-sharded serving (kv_mode="seq") of full-width gpt2-small
+    on 2 ranks of the one card: max_batch 8, max_seq 1024 (512 positions
+    per rank), 64 new tokens, groups eval=exact (merge split), bulk=vexp
+    and hw=vexp_hw (packed). First the contiguous cache on 16 requests
+    with prompts in [32, 896], then the paged pool (page 64, 8 pages per
+    rank per slot) on the paged phase's 32 shared-prefix requests. Checks
+    every rank's tokens equal, each request's tokens equal to the same
+    request served unsharded (``paged_reqs``: the paged phase's) under
+    the near-tie rule, partial / packed launches = layers x decode steps
+    per merge strategy, no unsharded decode launch and no SDPA call,
+    12 or 36 collectives per step, prefix hits in every paged group, and
+    (in each rank) assert_idle_clean. Returns {path: rank 0's counts}."""
+    from repro_torch.launch.serve import Request, Server
+    groups = sharded_groups(groups)
+    ranks = _spawn_ranks(SHARD_RANKS)
+    base_reqs = contiguous_sharded_requests(cfg, groups)
+    Server(cfg, params, max_batch=8, max_seq=1024, policy=policy,
+           policy_groups=groups, device="cuda").run(base_reqs)
+    baselines = {"serve_sharded": base_reqs,
+                 "serve_paged_sharded": paged_reqs}
+    kernel_of = {"serve_sharded": ("decode_attention_partial",
+                                   "decode_attention_packed",
+                                   "decode_attention"),
+                 "serve_paged_sharded": ("decode_attention_paged_partial",
+                                         "decode_attention_paged_packed",
+                                         "decode_attention_paged")}
+    by_path = {}
+    for path, base in baselines.items():
+        r0 = ranks[0][path]
+        for other in ranks[1:]:
+            if other[path]["tokens"] != r0["tokens"]:
+                fail(f"{path}: rank {other['rank']}'s tokens differ from "
+                     f"rank 0's")
+        reqs = [Request(b.rid, b.prompt, len(t), group=b.group, out=t,
+                        finish_reason=f)
+                for b, t, f in zip(base, r0["tokens"], r0["finish"])]
+        check_requests(cfg, reqs, 64)
+        st, counts = r0["stats"], r0["launches"]
+        partial, packed, whole = kernel_of[path]
+        steps = {m: sum(st[n]["decode_steps"] for n in st
+                        if st[n]["merge_strategy"] == m)
+                 for m in ("split", "packed")}
+        for n, g in st.items():
+            if g["shards"] != SHARD_RANKS:
+                fail(f"{path} group {n}: {g['shards']} shards, not "
+                     f"{SHARD_RANKS}")
+            per = cfg.n_layers * (3 if g["merge_strategy"] == "split" else 1)
+            if g["collectives"] != per * g["decode_steps"]:
+                fail(f"{path} group {n}: {g['collectives']} collectives in "
+                     f"{g['decode_steps']} decode steps, not {per} a step")
+        for name, m in ((partial, "split"), (packed, "packed")):
+            if counts[name] != cfg.n_layers * steps[m] or not steps[m]:
+                fail(f"{path}: {name} launches {counts[name]} != "
+                     f"{cfg.n_layers} layers x {steps[m]} {m} decode steps")
+        if counts[whole] or r0["sdpa_calls"]:
+            fail(f"{path}: {counts[whole]} unsharded decode launches, "
+                 f"{r0['sdpa_calls']} SDPA calls")
+        if path == "serve_paged_sharded":
+            for n in groups:
+                if st[n]["pool"]["prefix"]["hits"] <= 0:
+                    fail(f"{path} group {n}: no prefix hits")
+        res = {"phase": path, "label": SHARD_LABEL, "ranks": SHARD_RANKS,
+               "backend": ranks[0]["backend"],
+               "host_staged": ranks[0]["host_staged"],
+               **r0["metrics"],
+               "p50_step_s": {n: st[n]["p50_step_s"] for n in groups},
+               "decode_steps": {n: st[n]["decode_steps"] for n in groups},
+               "collectives_per_step": {n: st[n]["collectives_per_step"]
+                                        for n in groups},
+               "merge_strategy": {n: st[n]["merge_strategy"]
+                                  for n in groups},
+               "launches": counts,
+               "peak_memory_bytes_by_rank": [r[path]["peak_memory_bytes"]
+                                             for r in ranks],
+               "tok_s_by_rank": [r[path]["metrics"]["tok_s"]
+                                 for r in ranks],
+               "clocks_power": r0["clocks_power"],
+               "prompt_lens": [len(r.prompt) for r in reqs],
+               "nvidia_smi": smi}
+        if path == "serve_paged_sharded":
+            res["prefix_hits"] = {n: st[n]["pool"]["prefix"]["hits"]
+                                  for n in groups}
+            res["hot_requests"] = sum(1 for h in r0["prefix_hit"] if h)
+        res["equals_unsharded"] = near_tie_compare(
+            cfg, params, groups, reqs, [b.out for b in base],
+            "sharded request", "its unsharded tokens")
+        emit(res)
+        by_path[path] = counts
+    return by_path
 
 
 def profile_serve(make_server, reqs):
@@ -998,16 +1516,24 @@ def main():
     rows.append(phase_flash_attention(ExecPolicy, policy.block_k))
     rows.append(phase_decode(ExecPolicy))
     rows.append(phase_paged_decode(ExecPolicy))
+    rows.extend(phase_sharded_decode(ExecPolicy))
     # each serve path runs with the counts set to 0 just before it and
-    # read just after; a kernel's launches are the sum over both runs,
-    # and launches_by_path keeps each run's own count
+    # read just after; a kernel's launches are the sum over the paths,
+    # and launches_by_path keeps each run's own count (a sharded path's
+    # from rank 0, whose counts equal every rank's)
     by_path = {"serve": phase_serve(kernels, smi, cfg, params, policy,
-                                    groups),
-               "serve_paged": phase_serve_paged(kernels, smi, cfg, params,
-                                                policy, groups)}
+                                    groups)}
+    by_path["serve_paged"], paged_reqs = phase_serve_paged(
+        kernels, smi, cfg, params, policy, groups)
+    by_path.update(phase_serve_sharded(kernels, smi, cfg, params, policy,
+                                       groups, paged_reqs))
     for row, name in zip(rows, ("vexp", "softmax", "flash_attention",
                                 "decode_attention",
-                                "decode_attention_paged")):
+                                "decode_attention_paged",
+                                "decode_attention_partial",
+                                "decode_attention_packed",
+                                "decode_attention_paged_partial",
+                                "decode_attention_paged_packed")):
         row["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
     emit({"kernels": rows})

@@ -1,11 +1,15 @@
 """Softmax on the VEXP exponential, and the online (partial) softmax algebra.
 
-Port of ``repro/core/softmax.py:29-124``. ``softmax`` is the paper's
+Port of ``repro/core/softmax.py:29-189``. ``softmax`` is the paper's
 three-step kernel structure: the row max, ``exp(x - max)`` with its sum,
 then one reciprocal per row and a multiply. The online variants keep
 FlashAttention-style running statistics (m = running max, l = running sum
-of exponentials) with an associative, commutative merge. The collective
-merges over a sharded sequence axis are not ported yet.
+of exponentials) with an associative, commutative merge.
+``stats_merge_collective`` / ``stats_merge_collective_packed`` fold that
+merge over the shards of a sequence-sharded KV cache through a
+``torch.distributed`` process group, wrapped as
+``repro_torch.distributed.ShardGroup`` (any object with its
+``all_gather`` / ``all_reduce`` does).
 """
 
 from __future__ import annotations
@@ -106,3 +110,49 @@ def stats_merge(a: SoftmaxStats, b: SoftmaxStats, *, exp_fn: Callable):
 
     aa, ab = _alpha(a.m), _alpha(b.m)
     return SoftmaxStats(m=m, l=a.l * aa + b.l * ab), aa, ab
+
+
+def _shard_alpha(m_sh, m_g, exp_fn):
+    """exp(m_shard - m_global), 0 for empty shards. The global max is
+    taken before any exp, so the argument is <= 0 and cannot overflow
+    however far apart the shards' maxima are; a shard that saw no valid
+    key (m <= KERNEL_NEG_INF / 2, or -inf) contributes exactly nothing."""
+    empty = (m_sh <= 0.5 * KERNEL_NEG_INF) | ~torch.isfinite(m_sh)
+    safe_g = torch.where(torch.isfinite(m_g), m_g, 0.0)
+    return torch.where(empty, 0.0, exp_fn(m_sh - safe_g))
+
+
+def stats_fold_packed(tiles: torch.Tensor, *, exp_fn: Callable):
+    """The local fold of gathered packed tiles: ``tiles`` (n_shards, ...,
+    d + 2) f32, each laid out ``[acc (d) | m (1) | l (1)]``. Returns
+    (SoftmaxStats with (..., 1) m and l, acc (..., d)); normalize with
+    ``acc / max(l, tiny)``. The fold after the all_gather of
+    ``stats_merge_collective_packed``, on its own so that tiles from one
+    device fold the same way."""
+    d = tiles.shape[-1] - 2
+    m_sh, l_sh = tiles[..., d:d + 1], tiles[..., d + 1:d + 2]
+    m_g = m_sh.amax(dim=0)
+    alpha = _shard_alpha(m_sh, m_g, exp_fn)
+    return (SoftmaxStats(m=m_g, l=(l_sh * alpha).sum(dim=0)),
+            (tiles[..., :d] * alpha).sum(dim=0))
+
+
+def stats_merge_collective_packed(packed: torch.Tensor, comm, *,
+                                  exp_fn: Callable):
+    """Single-collective merge: one all_gather of every shard's packed
+    ``(..., d + 2)`` tile over ``comm``, then ``stats_fold_packed``.
+    Returns (SoftmaxStats, acc) as ``stats_merge_collective`` does."""
+    return stats_fold_packed(comm.all_gather(packed), exp_fn=exp_fn)
+
+
+def stats_merge_collective(stats: SoftmaxStats, acc: torch.Tensor, comm, *,
+                           exp_fn: Callable):
+    """``stats_merge`` folded over every shard of ``comm``: all_reduce MAX
+    of m (the global max, before any exp), then all_reduce SUMs of the
+    alpha-rescaled l and acc (acc's trailing dims broadcast against l's).
+    Three collectives; the packed form moves the same algebra in one."""
+    m_g = comm.all_reduce(stats.m, "max")
+    alpha = _shard_alpha(stats.m, m_g, exp_fn)
+    l_g = comm.all_reduce(stats.l * alpha, "sum")
+    acc_g = comm.all_reduce(acc * alpha, "sum")
+    return SoftmaxStats(m=m_g, l=l_g), acc_g

@@ -22,6 +22,23 @@
 // window are skipped (an exact no-op for that row). With batch 8 and 12
 // heads this is 96 CTAs on 132 SMs, each sweeping its row serially;
 // splitting the sequence across CTAs is later work.
+//
+// Also replaces decode_attention_kernel_partial and
+// decode_attention_kernel_packed (_decode_kernel with partial=True, and
+// packed=True): the same sweep over one shard of a sequence-sharded
+// cache. The cache pointers address the shard's local slice of S rows,
+// whose first row sits at global position seq_offset; cache_len stays
+// global, so a key at local row r is kept when
+// cache_len - window <= r + seq_offset < cache_len. Blocks count from
+// the slice's local row 0, as the Pallas grid does. Instead of the
+// normalized output the sweep writes its raw f32 statistics: m and l
+// (B,Hkv,G,1) and acc (B,Hkv,G,d) (partial), or one (B,Hkv,G,d+2) tile
+// laid out [acc | m | l] (packed; no lane padding, unlike the
+// reference's d_pad + 2). A row with no key on this shard sweeps no
+// block and writes the merge identity (KERNEL_NEG_INF = -1e30, 0, 0):
+// every output element is written, and never -inf (vexp of -inf - -inf
+// is NaN). Bound and design as above; the statistics written are
+// (d+2)*4 bytes per query row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -33,21 +50,25 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxG = 8;
-constexpr float kNegInf = -1e30f;
+constexpr float kNegInf = -1e30f;   // core/softmax.py KERNEL_NEG_INF
+
+// what the sweep writes (the reference's partial / packed flags)
+enum Mode { kNormalized = 0, kPartial = 1, kPacked = 2 };
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-template <int D>
+template <int D, int MODE>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ kc,
               const __nv_bfloat16* __restrict__ vc,
-              __nv_bfloat16* __restrict__ o,
+              void* __restrict__ o, float* __restrict__ om,
+              float* __restrict__ ol,
               const int* __restrict__ cache_len, int Hkv, int G, int S,
               long long csb, long long csh, long long css, float sm_scale,
-              int window, int block_s, int backend) {
+              int window, int block_s, int seq_offset, int backend) {
   constexpr int KG = kThreads / D;        // key groups in the p @ v pass
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -70,8 +91,10 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
     sL[g] = 0.0f;
   }
 
-  const int len = min(cache_len[b], S);
-  const int lo = window > 0 ? max(0, len - window) : 0;   // first kept key
+  // this slice's kept keys, in local rows: [lo, len)
+  const int len_g = cache_len[b];
+  const int len = min(max(len_g - seq_offset, 0), S);
+  const int lo = window > 0 ? min(max(len_g - window - seq_offset, 0), S) : 0;
   const int blk_first = lo / block_s;
   const int blk_end = (len + block_s - 1) / block_s;
   const __nv_bfloat16* kb = kc + b * csb + h * csh;
@@ -170,61 +193,130 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
   }
 
+  if constexpr (MODE == kNormalized) {
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(o);
+    if (kg == 0) {
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) {
+        if (g < G) {
+          const float inv = 1.0f / fmaxf(sL[g], 1e-30f);
+          out[qoff + g * D + d] =
+              __float2bfloat16_rn(__fmul_rn(acc[g], inv));
+        }
+      }
+    }
+    return;
+  }
+  // raw statistics of this slice; a row that swept nothing still holds
+  // the identity (kNegInf, 0, 0) from the initialisation
+  constexpr int W = MODE == kPacked ? D + 2 : D;   // row width of acc
+  float* out = static_cast<float*>(o);
+  const long long row = (long long)b * Hkv + h;     // (b, h) of (B, Hkv)
   if (kg == 0) {
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g < G) {
-        const float inv = 1.0f / fmaxf(sL[g], 1e-30f);
-        o[qoff + g * D + d] = __float2bfloat16_rn(__fmul_rn(acc[g], inv));
-      }
+    for (int g = 0; g < kMaxG; ++g)
+      if (g < G) out[(row * G + g) * W + d] = acc[g];
+  }
+  if (tid < G) {
+    if constexpr (MODE == kPacked) {
+      out[(row * G + tid) * W + D] = sM[tid];
+      out[(row * G + tid) * W + D + 1] = sL[tid];
+    } else {
+      om[row * G + tid] = sM[tid];
+      ol[row * G + tid] = sL[tid];
     }
   }
 }
 
-template <int D>
-int launch(const void* q, const void* kc, const void* vc, void* o,
-           const void* cache_len, int B, int Hkv, int G, int S,
+template <int D, int MODE>
+int launch(const void* q, const void* kc, const void* vc, void* o, void* om,
+           void* ol, const void* cache_len, int B, int Hkv, int G, int S,
            long long csb, long long csh, long long css, float sm_scale,
-           int window, int block_s, int backend, cudaStream_t stream) {
+           int window, int block_s, int seq_offset, int backend,
+           cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       ((size_t)G * D + (size_t)G * block_s + (size_t)G * D * (kThreads / D) +
        3 * (size_t)G);
   cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      decode_kernel<D, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(Hkv, B);
-  decode_kernel<D><<<grid, kThreads, smem, stream>>>(
+  decode_kernel<D, MODE><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(kc),
-      static_cast<const __nv_bfloat16*>(vc),
-      static_cast<__nv_bfloat16*>(o), static_cast<const int*>(cache_len),
-      Hkv, G, S, csb, csh, css, sm_scale, window, block_s, backend);
+      static_cast<const __nv_bfloat16*>(vc), o, static_cast<float*>(om),
+      static_cast<float*>(ol), static_cast<const int*>(cache_len), Hkv, G, S,
+      csb, csh, css, sm_scale, window, block_s, seq_offset, backend);
   return (int)cudaGetLastError();
+}
+
+template <int MODE>
+int run(const void* q, const void* kc, const void* vc, void* o, void* om,
+        void* ol, const void* cache_len, int B, int Hkv, int G, int S, int D,
+        long long csb, long long csh, long long css, float sm_scale,
+        int window, int block_s, int seq_offset, int backend, void* stream) {
+  if (B == 0) return 0;
+  if (G < 1 || G > kMaxG || block_s < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32:
+      return launch<32, MODE>(q, kc, vc, o, om, ol, cache_len, B, Hkv, G, S,
+                              csb, csh, css, sm_scale, window, block_s,
+                              seq_offset, backend, s);
+    case 64:
+      return launch<64, MODE>(q, kc, vc, o, om, ol, cache_len, B, Hkv, G, S,
+                              csb, csh, css, sm_scale, window, block_s,
+                              seq_offset, backend, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// q, o: (B,Hkv,G,D) packed bf16; k/v cache bf16 addressed as
-// base + b*csb + h*csh + s*css (+ d, packed), rows 16-byte aligned;
-// cache_len: (B,) int32. window <= 0 means no window. G <= 8.
-// Returns cudaGetLastError() after the launch.
+// All three entries take the same arguments. q: (B,Hkv,G,D) packed bf16;
+// k/v cache bf16 addressed as base + b*csb + h*csh + s*css (+ d, packed),
+// rows 16-byte aligned, S rows from global position seq_offset on;
+// cache_len: (B,) int32 global lengths. window <= 0 means no window.
+// G <= 8. Each returns cudaGetLastError() after its launch.
+//
+// decode_fwd: o (B,Hkv,G,D) bf16, the normalized output (om, ol unused).
 extern "C" int decode_fwd(const void* q, const void* kc, const void* vc,
-                          void* o, const void* cache_len, int B, int Hkv,
-                          int G, int S, int D, long long csb, long long csh,
-                          long long css, float sm_scale, int window,
-                          int block_s, int backend, void* stream) {
-  if (B == 0) return 0;
-  if (G < 1 || G > kMaxG) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32:
-      return launch<32>(q, kc, vc, o, cache_len, B, Hkv, G, S, csb, csh, css,
-                        sm_scale, window, block_s, backend, s);
-    case 64:
-      return launch<64>(q, kc, vc, o, cache_len, B, Hkv, G, S, csb, csh, css,
-                        sm_scale, window, block_s, backend, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+                          void* o, void* om, void* ol, const void* cache_len,
+                          int B, int Hkv, int G, int S, int D, long long csb,
+                          long long csh, long long css, float sm_scale,
+                          int window, int block_s, int seq_offset,
+                          int backend, void* stream) {
+  return run<kNormalized>(q, kc, vc, o, om, ol, cache_len, B, Hkv, G, S, D,
+                          csb, csh, css, sm_scale, window, block_s,
+                          seq_offset, backend, stream);
+}
+
+// decode_partial_fwd: o = acc (B,Hkv,G,D), om = m and ol = l (B,Hkv,G,1),
+// all f32.
+extern "C" int decode_partial_fwd(const void* q, const void* kc,
+                                  const void* vc, void* o, void* om, void* ol,
+                                  const void* cache_len, int B, int Hkv,
+                                  int G, int S, int D, long long csb,
+                                  long long csh, long long css,
+                                  float sm_scale, int window, int block_s,
+                                  int seq_offset, int backend, void* stream) {
+  return run<kPartial>(q, kc, vc, o, om, ol, cache_len, B, Hkv, G, S, D, csb,
+                       csh, css, sm_scale, window, block_s, seq_offset,
+                       backend, stream);
+}
+
+// decode_packed_fwd: o = the (B,Hkv,G,D+2) f32 tile [acc | m | l] (om, ol
+// unused).
+extern "C" int decode_packed_fwd(const void* q, const void* kc,
+                                 const void* vc, void* o, void* om, void* ol,
+                                 const void* cache_len, int B, int Hkv, int G,
+                                 int S, int D, long long csb, long long csh,
+                                 long long css, float sm_scale, int window,
+                                 int block_s, int seq_offset, int backend,
+                                 void* stream) {
+  return run<kPacked>(q, kc, vc, o, om, ol, cache_len, B, Hkv, G, S, D, csb,
+                      csh, css, sm_scale, window, block_s, seq_offset,
+                      backend, stream);
 }

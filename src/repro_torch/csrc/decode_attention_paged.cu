@@ -27,6 +27,21 @@
 // through shared memory. With batch 8 and 12 heads this is 96 CTAs on
 // 132 SMs, each sweeping its row's pages serially; TMA page gathers and
 // splitting a row's pages across CTAs are later work.
+//
+// Also replaces decode_attention_kernel_paged_partial and
+// decode_attention_kernel_paged_packed (_paged_kernel with partial=True,
+// and packed=True): the same walk over one shard of a sequence-sharded
+// pool. The pool is the shard's own (local page ids, its page 0 the
+// scratch page) and block_tab its (B, nS) slice of the table columns,
+// whose logical page 0 sits at global position seq_offset; cache_len
+// stays global, so local token t is kept when
+// cache_len - window <= t + seq_offset < cache_len. Instead of the
+// normalized output the walk writes its raw f32 statistics: m and l
+// (B,Hkv,G,1) and acc (B,Hkv,G,d) (partial), or one (B,Hkv,G,d+2) tile
+// laid out [acc | m | l] (packed). A row with no key on this shard walks
+// no page and writes the merge identity (KERNEL_NEG_INF = -1e30, 0, 0),
+// never -inf. Bound and design as above; the statistics written are
+// (d+2)*4 bytes per query row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,23 +53,27 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxG = 8;
-constexpr float kNegInf = -1e30f;
+constexpr float kNegInf = -1e30f;   // core/softmax.py KERNEL_NEG_INF
+
+// what the walk writes (the reference's partial / packed flags)
+enum Mode { kNormalized = 0, kPartial = 1, kPacked = 2 };
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-template <int D>
+template <int D, int MODE>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ kpool,
                     const __nv_bfloat16* __restrict__ vpool,
-                    __nv_bfloat16* __restrict__ o,
+                    void* __restrict__ o, float* __restrict__ om,
+                    float* __restrict__ ol,
                     const int* __restrict__ block_tab,
                     const int* __restrict__ cache_len, int Hkv, int G,
                     int page, int nS, long long psn, long long psh,
                     long long pst, float sm_scale, int window, int tpk,
-                    int backend) {
+                    int seq_offset, int backend) {
   constexpr int KG = kThreads / D;        // key groups in the p @ v pass
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -77,8 +96,11 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     sL[g] = 0.0f;
   }
 
-  const int len = min(cache_len[b], nS * page);
-  const int lo = window > 0 ? max(0, len - window) : 0;   // first kept key
+  // this shard's kept keys, in local token positions: [lo, len)
+  const int len_g = cache_len[b];
+  const int len = min(max(len_g - seq_offset, 0), nS * page);
+  const int lo = window > 0
+      ? min(max(len_g - window - seq_offset, 0), nS * page) : 0;
   const int pg_first = lo / page;
   const int pg_end = (len + page - 1) / page;
   const int* trow = block_tab + (long long)b * nS;
@@ -194,69 +216,136 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
   }
 
+  if constexpr (MODE == kNormalized) {
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(o);
+    if (kg == 0) {
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) {
+        if (g < G) {
+          const float inv = 1.0f / fmaxf(sL[g], 1e-30f);
+          out[qoff + g * D + d] =
+              __float2bfloat16_rn(__fmul_rn(acc[g], inv));
+        }
+      }
+    }
+    return;
+  }
+  // raw statistics of this shard; a row that walked no page still holds
+  // the identity (kNegInf, 0, 0) from the initialisation
+  constexpr int W = MODE == kPacked ? D + 2 : D;   // row width of acc
+  float* out = static_cast<float*>(o);
+  const long long row = (long long)b * Hkv + h;     // (b, h) of (B, Hkv)
   if (kg == 0) {
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g < G) {
-        const float inv = 1.0f / fmaxf(sL[g], 1e-30f);
-        o[qoff + g * D + d] = __float2bfloat16_rn(__fmul_rn(acc[g], inv));
-      }
+    for (int g = 0; g < kMaxG; ++g)
+      if (g < G) out[(row * G + g) * W + d] = acc[g];
+  }
+  if (tid < G) {
+    if constexpr (MODE == kPacked) {
+      out[(row * G + tid) * W + D] = sM[tid];
+      out[(row * G + tid) * W + D + 1] = sL[tid];
+    } else {
+      om[row * G + tid] = sM[tid];
+      ol[row * G + tid] = sL[tid];
     }
   }
 }
 
-template <int D>
-int launch(const void* q, const void* kp, const void* vp, void* o,
-           const void* tab, const void* cache_len, int B, int Hkv, int G,
-           int page, int nS, long long psn, long long psh, long long pst,
-           float sm_scale, int window, int backend, cudaStream_t stream) {
+template <int D, int MODE>
+int launch(const void* q, const void* kp, const void* vp, void* o, void* om,
+           void* ol, const void* tab, const void* cache_len, int B, int Hkv,
+           int G, int page, int nS, long long psn, long long psh,
+           long long pst, float sm_scale, int window, int seq_offset,
+           int backend, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       ((size_t)G * D + (size_t)G * page + (size_t)G * D * (kThreads / D) +
        3 * (size_t)G);
   cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      paged_decode_kernel<D, MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   // threads per key in the score pass: a power of two, at most one
   // 16-byte load each, and no more than the page needs to fill the CTA
   int tpk = 1;
   while (tpk * 2 <= D / 8 && tpk * 2 * page <= kThreads) tpk *= 2;
   dim3 grid(Hkv, B);
-  paged_decode_kernel<D><<<grid, kThreads, smem, stream>>>(
+  paged_decode_kernel<D, MODE><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(kp),
-      static_cast<const __nv_bfloat16*>(vp),
-      static_cast<__nv_bfloat16*>(o), static_cast<const int*>(tab),
+      static_cast<const __nv_bfloat16*>(vp), o, static_cast<float*>(om),
+      static_cast<float*>(ol), static_cast<const int*>(tab),
       static_cast<const int*>(cache_len), Hkv, G, page, nS, psn, psh, pst,
-      sm_scale, window, tpk, backend);
+      sm_scale, window, tpk, seq_offset, backend);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// q, o: (B,Hkv,G,D) packed bf16; K/V pools bf16, page p / head h / token t
-// of a pool at base + p*psn + h*psh + t*pst (+ d, packed), rows 16-byte
-// aligned; block_tab: (B,nS) int32 packed; cache_len: (B,) int32.
-// window <= 0 means no window. G <= 8. Returns cudaGetLastError() after
-// the launch.
-extern "C" int paged_decode_fwd(const void* q, const void* kp,
-                                const void* vp, void* o, const void* tab,
-                                const void* cache_len, int B, int Hkv,
-                                int G, int D, int page, int nS,
-                                long long psn, long long psh, long long pst,
-                                float sm_scale, int window, int backend,
-                                void* stream) {
+template <int MODE>
+int run(const void* q, const void* kp, const void* vp, void* o, void* om,
+        void* ol, const void* tab, const void* cache_len, int B, int Hkv,
+        int G, int D, int page, int nS, long long psn, long long psh,
+        long long pst, float sm_scale, int window, int seq_offset,
+        int backend, void* stream) {
   if (B == 0) return 0;
   if (G < 1 || G > kMaxG || page < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return launch<32>(q, kp, vp, o, tab, cache_len, B, Hkv, G, page, nS,
-                        psn, psh, pst, sm_scale, window, backend, s);
+      return launch<32, MODE>(q, kp, vp, o, om, ol, tab, cache_len, B, Hkv,
+                              G, page, nS, psn, psh, pst, sm_scale, window,
+                              seq_offset, backend, s);
     case 64:
-      return launch<64>(q, kp, vp, o, tab, cache_len, B, Hkv, G, page, nS,
-                        psn, psh, pst, sm_scale, window, backend, s);
+      return launch<64, MODE>(q, kp, vp, o, om, ol, tab, cache_len, B, Hkv,
+                              G, page, nS, psn, psh, pst, sm_scale, window,
+                              seq_offset, backend, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// All three entries take the same arguments. q: (B,Hkv,G,D) packed bf16;
+// K/V pools bf16, page p / head h / token t of a pool at
+// base + p*psn + h*psh + t*pst (+ d, packed), rows 16-byte aligned;
+// block_tab: (B,nS) int32 packed, pool page ids, logical page 0 at global
+// position seq_offset; cache_len: (B,) int32 global lengths. window <= 0
+// means no window. G <= 8. Each returns cudaGetLastError() after its
+// launch.
+//
+// paged_decode_fwd: o (B,Hkv,G,D) bf16, the normalized output (om, ol
+// unused).
+extern "C" int paged_decode_fwd(const void* q, const void* kp,
+                                const void* vp, void* o, void* om, void* ol,
+                                const void* tab, const void* cache_len,
+                                int B, int Hkv, int G, int D, int page,
+                                int nS, long long psn, long long psh,
+                                long long pst, float sm_scale, int window,
+                                int seq_offset, int backend, void* stream) {
+  return run<kNormalized>(q, kp, vp, o, om, ol, tab, cache_len, B, Hkv, G, D,
+                          page, nS, psn, psh, pst, sm_scale, window,
+                          seq_offset, backend, stream);
+}
+
+// paged_decode_partial_fwd: o = acc (B,Hkv,G,D), om = m and ol = l
+// (B,Hkv,G,1), all f32.
+extern "C" int paged_decode_partial_fwd(
+    const void* q, const void* kp, const void* vp, void* o, void* om,
+    void* ol, const void* tab, const void* cache_len, int B, int Hkv, int G,
+    int D, int page, int nS, long long psn, long long psh, long long pst,
+    float sm_scale, int window, int seq_offset, int backend, void* stream) {
+  return run<kPartial>(q, kp, vp, o, om, ol, tab, cache_len, B, Hkv, G, D,
+                       page, nS, psn, psh, pst, sm_scale, window, seq_offset,
+                       backend, stream);
+}
+
+// paged_decode_packed_fwd: o = the (B,Hkv,G,D+2) f32 tile [acc | m | l]
+// (om, ol unused).
+extern "C" int paged_decode_packed_fwd(
+    const void* q, const void* kp, const void* vp, void* o, void* om,
+    void* ol, const void* tab, const void* cache_len, int B, int Hkv, int G,
+    int D, int page, int nS, long long psn, long long psh, long long pst,
+    float sm_scale, int window, int seq_offset, int backend, void* stream) {
+  return run<kPacked>(q, kp, vp, o, om, ol, tab, cache_len, B, Hkv, G, D,
+                      page, nS, psn, psh, pst, sm_scale, window, seq_offset,
+                      backend, stream);
 }

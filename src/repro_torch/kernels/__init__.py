@@ -11,12 +11,16 @@ from .dispatch import dispatch
 LIBS = {"vexp": vexp.LIB, "softmax": softmax.LIB,
         "flash_attention": flash_attention.LIB,
         "decode_attention": decode_attention.LIB,
-        "decode_attention_paged": decode_attention.PAGED_LIB}
+        "decode_attention_partial": decode_attention.PARTIAL_LIB,
+        "decode_attention_packed": decode_attention.PACKED_LIB,
+        "decode_attention_paged": decode_attention.PAGED_LIB,
+        "decode_attention_paged_partial": decode_attention.PAGED_PARTIAL_LIB,
+        "decode_attention_paged_packed": decode_attention.PAGED_PACKED_LIB}
 
 
 def build_kernels() -> dict:
     """Build every kernel library at once (one nvcc per source)."""
-    return build.build_all([lib.source for lib in LIBS.values()])
+    return build.build_all(sorted({lib.source for lib in LIBS.values()}))
 
 
 def launch_counts() -> dict:

@@ -92,12 +92,14 @@ def build_all(sources) -> dict:
 
 
 class KernelLib:
-    """One compiled source: its ctypes handle and a launch counter.
+    """A compiled source's ctypes handle and one launch counter.
 
     ``fn(name)`` returns the C entry with its argument types set; each C
     entry returns ``cudaGetLastError()`` and ``check`` raises on a
     non-zero code. ``launches`` counts the kernel launches made through
-    this library's wrappers and nothing else."""
+    the wrappers that check against this object and nothing else; a
+    source with several kernels has one object per kernel, sharing the
+    loaded library."""
 
     def __init__(self, source: str):
         self.source = source

@@ -11,6 +11,9 @@ policy's kernel tier selects:
     decode_attention         kernels.decode_attention      core decode ref.       core decode ref.
     decode_attention_paged   kernels.decode_attention      paged_gather +         paged_gather +
                              (decode_attention_paged)      core decode ref.       core decode ref.
+    decode_attention_sharded kernels.decode_attention      all_gather of the      all_gather of the
+                             (decode_attention_sharded:    K/V slices +           K/V slices +
+                             partial kernels + merge)      core decode ref.       core decode ref.
 
 Every callable takes the op's tensors and keywords plus ``policy=``. There
 is no autotune and no fallback: an unregistered (op, tier) raises, and a
@@ -22,10 +25,12 @@ from __future__ import annotations
 import importlib
 from typing import Callable, Dict, Tuple
 
+import torch
+
 _TABLE: Dict[Tuple[str, str], str] = {}
 
 OPS = ("vexp", "softmax", "flash_attention", "decode_attention",
-       "decode_attention_paged")
+       "decode_attention_paged", "decode_attention_sharded")
 
 
 def register(op: str, backend: str, target: str) -> None:
@@ -68,6 +73,19 @@ register("decode_attention_paged", "reference",
          "repro_torch.kernels.dispatch:_decode_paged_reference")
 register("decode_attention_paged", "eager",
          "repro_torch.kernels.dispatch:_decode_paged_reference")
+
+
+# sequence-parallel decode over a cache sharded along S across ranks
+# (``shard`` a distributed.ShardSpec): the cuda tier sweeps each rank's
+# slice with the partial-statistics kernels and merges per the policy's
+# merge_strategy; the other tiers all_gather the slices and run the
+# decode reference (same semantics, one extra copy)
+register("decode_attention_sharded", "cuda",
+         "repro_torch.kernels.decode_attention:decode_attention_sharded")
+register("decode_attention_sharded", "reference",
+         "repro_torch.kernels.dispatch:_decode_sharded_reference")
+register("decode_attention_sharded", "eager",
+         "repro_torch.kernels.dispatch:_decode_sharded_reference")
 
 
 def dispatch(op: str, policy) -> Callable:
@@ -135,4 +153,23 @@ def _decode_paged_reference(q, k_pool, v_pool, block_tab, cache_len, *,
     return decode_attention_reference(
         q, paged_gather(k_pool, block_tab, layout),
         paged_gather(v_pool, block_tab, layout), cache_len, window=window,
+        exp_impl=policy.exp_backend, sm_scale=sm_scale, layout=layout)
+
+
+def _decode_sharded_reference(q, k_cache, v_cache, cache_len, *, shard,
+                              window=None, sm_scale=None, layout="bshd",
+                              policy):
+    """all_gather every rank's K/V slice into the whole cache (ranks in
+    order along the sequence axis), then the one-pass decode reference
+    (``_decode_sharded_fallback`` of the JAX package, with the gather
+    written out)."""
+    from repro_torch.core.attention import decode_attention_reference
+    ax = 2 if layout == "bhsd" else 1
+
+    def whole(c):
+        parts = shard.comm.all_gather(c)             # (n, *slice)
+        return torch.cat(list(parts.unbind(0)), dim=ax)
+
+    return decode_attention_reference(
+        q, whole(k_cache), whole(v_cache), cache_len, window=window,
         exp_impl=policy.exp_backend, sm_scale=sm_scale, layout=layout)

@@ -23,6 +23,14 @@ contiguous or paged KV cache, monolithic ragged admission).
   wave whose allocation still fails (``OutOfBlocks``) goes back to the
   queue in FIFO order; with nothing in flight that can never clear, so
   the server raises naming the head request.
+* Sequence-sharded decode (``kv_mode="seq"``, ``shards`` a
+  ``distributed.ShardGroup``): every rank runs the same server on the
+  same requests; each ``cuda``-tier group keeps only its rank's slice of
+  the cache's sequence axis and folds the ranks' attention statistics
+  through its policy's ``merge_strategy`` every layer. ``reference`` /
+  ``eager`` groups stay whole and replicated on every rank, as the
+  reference keeps non-pallas groups off its sharded program. Scheduling
+  reads only token counts, so every rank makes the same decisions.
 
 Emitted tokens stay on the device; each request's tokens reach the host
 once, when it finishes. Chunked prefill, fault handling (the backoff /
@@ -43,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.distributed import KV_MODES, init_from_env, resolve_kv_shards
 from repro_torch.models import api
 from repro_torch.models.block_pool import OutOfBlocks
 from repro_torch.models.decode_state import _len_bucket, decode_state_for  # noqa: F401  (re-export)
@@ -75,14 +84,17 @@ class _Group:
     the device until a request finishes."""
 
     def __init__(self, cfg, params, policy, max_batch, cache_s, device, *,
-                 paged=False, block_budget=None, prefix_cache=True):
+                 paged=False, block_budget=None, prefix_cache=True,
+                 comm=None):
         self.cfg, self.policy = cfg, policy
         self.max_batch, self.device = max_batch, device
         self.paged = paged
+        self.comm = comm                # set: the cache is sequence-sharded
         kw = (dict(n_pages=block_budget, prefix_cache=prefix_cache)
               if paged else {})
         self.state = decode_state_for(cfg, paged=paged)(
-            cfg, params, policy, max_batch, cache_s, device=device, **kw)
+            cfg, params, policy, max_batch, cache_s, device=device,
+            comm=comm, **kw)
         self.queue: deque = deque()
         self.reqs: list = [None] * max_batch
         self.lens = np.zeros(max_batch, np.int64)   # tokens held per slot
@@ -92,6 +104,7 @@ class _Group:
         self.live_dev = torch.zeros(max_batch, dtype=torch.int32,
                                     device=device)
         self.decode_steps = 0
+        self.collectives = 0        # issued by decode steps (sharded)
         self.decode_s: list = []    # per-step host dispatch time
         self.admit_s: list = []     # per-wave admission time (synced)
         self.admit_hist: list = []  # per-wave prefix-cache tokens per row
@@ -224,9 +237,12 @@ class _Group:
         if not live:
             return
         t0 = time.perf_counter()
+        calls = 0 if self.comm is None else self.comm.calls
         nxt = self.state.step(self.last, self.live_dev)
         self.last = nxt
         self.decode_s.append(time.perf_counter() - t0)
+        if self.comm is not None:
+            self.collectives += self.comm.calls - calls
         self.decode_steps += 1
         for j in live:
             self.lens[j] += 1
@@ -263,14 +279,20 @@ class Server:
     Runs on the card unless ``device="cpu"`` is passed. With ``paged``
     each group's page size is its policy's ``block_page``;
     ``block_budget`` (physical pages per group, default a full
-    reservation per slot plus the scratch page) and ``prefix_cache``
-    exist for tests that squeeze the pool or turn the cache off."""
+    reservation per slot plus a scratch page per shard) and
+    ``prefix_cache`` exist for tests that squeeze the pool or turn the
+    cache off. ``kv_mode`` ("auto", "seq", "batch") with ``shards`` (a
+    ``distributed.ShardGroup``) places the cache:
+    ``distributed.resolve_kv_shards`` says when "seq" shards a group's
+    cache over the group's ranks; every rank then constructs the same
+    Server and runs the same requests."""
 
     def __init__(self, cfg, params, *, max_batch=4, max_seq=512,
                  policy: Optional[ExecPolicy] = None,
                  policy_groups: Optional[dict] = None, device=None,
                  paged: bool = False, block_budget: Optional[int] = None,
-                 prefix_cache: bool = True):
+                 prefix_cache: bool = True, kv_mode: str = "auto",
+                 shards=None):
         self.device = resolve_device(device)
         if params.embed.device.type != self.device.type:
             raise ValueError(f"params live on {params.embed.device}, the "
@@ -282,11 +304,16 @@ class Server:
         groups = dict(policy_groups) if policy_groups else {}
         groups.setdefault("default", self.policy)
         self.policy_groups = groups
-        self._groups = {name: _Group(cfg, params, pol, max_batch,
-                                     self.cache_s, self.device, paged=paged,
-                                     block_budget=block_budget,
-                                     prefix_cache=prefix_cache)
-                        for name, pol in groups.items()}
+        self._groups = {}
+        for name, pol in groups.items():
+            n = resolve_kv_shards(cfg, kv_mode, shards, self.cache_s,
+                                  page=pol.block_page if paged else None)
+            sharded = n > 1 and pol.kernel_backend == "cuda"
+            self._groups[name] = _Group(
+                cfg, params, pol, max_batch, self.cache_s, self.device,
+                paged=paged, block_budget=block_budget,
+                prefix_cache=prefix_cache,
+                comm=shards if sharded else None)
         self.admit_log: list = []    # rids in admission order
 
     def submit(self, r: Request) -> None:
@@ -324,8 +351,10 @@ class Server:
         return requests
 
     def stats(self) -> dict:
-        """Per-group decode steps, request latency and TTFT percentiles,
-        admission waves and queue depth, from host-side records only.
+        """Per-group decode steps, request latency, TTFT and decode-step
+        (host) time percentiles, admission waves and queue depth, the
+        cache's shard count with its merge strategy and the collectives
+        its decode steps issued, from host-side records only.
         Paged groups add their pool and the hot waves (those whose rows
         attached prefix-cache pages) with their admission time."""
         def pct(xs, q):
@@ -342,7 +371,14 @@ class Server:
                          "queue_depth": len(g.queue),
                          "p50_ttft_s": pct(g.ttft, 50),
                          "p95_ttft_s": pct(g.ttft, 95),
-                         "policy": g.policy.describe()}
+                         "p50_step_s": pct(g.decode_s, 50),
+                         "policy": g.policy.describe(),
+                         "shards": g.state.shards,
+                         "merge_strategy": (g.policy.merge_strategy
+                                            if g.state.shards > 1 else None),
+                         "collectives": g.collectives,
+                         "collectives_per_step": (g.collectives
+                                                  / max(g.decode_steps, 1))}
             if g.paged:
                 hot = [s for s, h in zip(g.admit_s, g.admit_hist) if h]
                 out[name]["hot_waves"] = len(hot)
@@ -442,6 +478,12 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' "
                          "runs the kernels' plain versions)")
+    ap.add_argument("--kv-mode", default="auto", choices=KV_MODES,
+                    help='decode-cache placement over the ranks of '
+                         'torchrun: "seq" shards the KV sequence axis '
+                         '(sequence-parallel decode through the partial '
+                         'kernels and the policy\'s merge_strategy); '
+                         '"auto" and "batch" keep it whole on every rank')
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -452,14 +494,25 @@ def main(argv=None):
     groups = None
     if args.policy_groups:
         groups = parse_policy_groups(args.policy_groups, cfg, base=policy)
-    print(f"[serve] policy: {policy.describe()}")
-    for name, pol in (groups or {}).items():
-        print(f"[serve]   group {name}: {pol.describe()}")
     device = resolve_device(args.device)
+    comm, device = init_from_env(device)
+    rank = 0 if comm is None else comm.rank
+    say = print if rank == 0 else (lambda *a, **k: None)
+    say(f"[serve] policy: {policy.describe()}")
+    for name, pol in (groups or {}).items():
+        say(f"[serve]   group {name}: {pol.describe()}")
     params = api.init_params(cfg, 0, device=device)
     server = Server(cfg, params, max_batch=args.max_batch,
                     max_seq=args.max_seq, policy=policy,
-                    policy_groups=groups, device=device, paged=args.paged)
+                    policy_groups=groups, device=device, paged=args.paged,
+                    kv_mode=args.kv_mode, shards=comm)
+    stats = server.stats()
+    if args.kv_mode == "seq":
+        world = 1 if comm is None else comm.world
+        say(f"[serve] kv-mode seq over {world} rank(s): decode axis "
+            + ", ".join(f"{n}: {'sharded ' + str(s['shards']) + '-way'}"
+                        if s["shards"] > 1 else f"{n}: unsharded"
+                        for n, s in stats.items()))
     reqs = make_requests(cfg, args.requests, args.prompt_len, args.max_new,
                          mixed_lengths=args.mixed_lengths,
                          groups=sorted(groups) if groups else ("default",),
@@ -468,14 +521,24 @@ def main(argv=None):
     server.run(reqs)
     dt = time.perf_counter() - t0
     ntok = sum(len(r.out) for r in reqs)
-    print(f"served {len(reqs)} requests on {device}, {ntok} tokens in "
-          f"{dt:.2f}s ({ntok / dt:.1f} tok/s)")
+    if comm is not None:
+        # every rank must have emitted the same tokens, bit for bit
+        mine = torch.as_tensor([t for r in reqs for t in r.out],
+                               dtype=torch.int64, device=device)
+        got = comm.all_gather(mine)
+        if not bool((got == got[0]).all()):
+            raise RuntimeError("ranks emitted different tokens")
+    say(f"served {len(reqs)} requests on {device}, {ntok} tokens in "
+        f"{dt:.2f}s ({ntok / dt:.1f} tok/s)")
     for name, s in server.stats().items():
-        print(f"  group {name}: {s['decode_steps']} decode steps, "
-              f"request latency p50 {s['p50_req_s'] * 1e3:.1f}ms "
-              f"p95 {s['p95_req_s'] * 1e3:.1f}ms, "
-              f"ttft p50 {s['p50_ttft_s'] * 1e3:.1f}ms "
-              f"p95 {s['p95_ttft_s'] * 1e3:.1f}ms")
+        say(f"  group {name}: {s['decode_steps']} decode steps, "
+            f"request latency p50 {s['p50_req_s'] * 1e3:.1f}ms "
+            f"p95 {s['p95_req_s'] * 1e3:.1f}ms, "
+            f"ttft p50 {s['p50_ttft_s'] * 1e3:.1f}ms "
+            f"p95 {s['p95_ttft_s'] * 1e3:.1f}ms"
+            + (f", {s['shards']} shards, merge {s['merge_strategy']}, "
+               f"{s['collectives_per_step']:.0f} collectives/step"
+               if s["shards"] > 1 else ""))
         if "pool" in s:
             p = s["pool"]
             line = (f"    pool: page={p['page']} used {p['pages_used']}/"
@@ -486,10 +549,12 @@ def main(argv=None):
             if "prefix" in p:
                 line += (f", prefix hit rate "
                          f"{p['prefix']['hit_rate']:.2f}")
-            print(line)
+            say(line)
     for r in reqs[:3]:
-        print(f"  req {r.rid} [{r.group}] len={len(r.prompt)}: "
-              f"{r.out[:8]}... ({r.finish_reason})")
+        say(f"  req {r.rid} [{r.group}] len={len(r.prompt)}: "
+            f"{r.out[:8]}... ({r.finish_reason})")
+    if comm is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

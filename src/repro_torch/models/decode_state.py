@@ -10,6 +10,16 @@ budget queries (``free_with_evictable`` / ``admission_need`` /
 ``admission_pin``) and ``pool_stats``. Positions advance on the device,
 and emitted tokens stay there: a decode step ships nothing to the host.
 ``decode_state_for`` picks the class.
+
+Given a ``distributed.ShardGroup`` (``comm``), a state holds only its
+rank's slice of the sequence axis (port of the reference's sequence-
+sharded ``KVDecodeState`` / ``PagedKVDecodeState``,
+``decode_state.py:94-165,824-916,996-1060,1231-1360``): the contiguous
+cache is (L, B, S/n, Hkv, hd), the paged pool n_pages/n pages with its
+own scratch page 0. Every rank runs the same prefill (replicated, on the
+FlashAttention kernel) and keeps its slice, and decodes through the
+partial-statistics kernels and the policy's merge. Admission is
+monolithic, as the reference's sharded states are.
 """
 
 from __future__ import annotations
@@ -47,13 +57,29 @@ class DecodeState:
     kind = "state"
     is_paged = False
 
-    def __init__(self, cfg, params, policy, pool_width, cache_s, *, device):
+    def __init__(self, cfg, params, policy, pool_width, cache_s, *, device,
+                 comm=None):
         self.cfg, self.params, self.policy = cfg, params, policy
         self.pool_width, self.cache_s = pool_width, cache_s
         self.device = device
         self.data = None                 # allocated on first admission
         self.pos_dev = torch.zeros(pool_width, dtype=torch.int32,
                                    device=device)
+        self.shard = self._shard_spec(comm)
+
+    def _shard_spec(self, comm):
+        """This rank's slice of the sequence axis (None: the whole)."""
+        if comm is None:
+            return None
+        from repro_torch.distributed import ShardSpec
+        if self.cache_s % comm.world:
+            raise ValueError(f"cache length {self.cache_s} not divisible by "
+                             f"{comm.world} shards")
+        return ShardSpec(comm, self.cache_s // comm.world)
+
+    @property
+    def shards(self) -> int:
+        return 1 if self.shard is None else self.shard.world
 
     def max_len(self):
         """Length at which a slot must stop decoding (None: unbounded)."""
@@ -73,26 +99,34 @@ class DecodeState:
         logits, pref = transformer.prefill(self.params, self.cfg, toks_t,
                                            prompt_len=plens_t,
                                            policy=self.policy)
+        off, local = ((0, self.cache_s) if self.shard is None
+                      else (self.shard.offset, self.shard.local_s))
         if self.data is None:
             self.data = transformer.init_cache(self.cfg, self.pool_width,
-                                               self.cache_s, self.device)
+                                               local, self.device)
         sl = torch.as_tensor(np.asarray(slots), device=self.device)
-        sp = toks.shape[1]
-        for name in ("k", "v"):
-            pool, rows = self.data[name], pref[name][:, sl]
-            if self.cfg.kv_cache_layout == "bhsd":
-                pool[:, sl, :, :sp] = rows
-            else:
-                pool[:, sl, :sp] = rows
+        end = min(off + local, toks.shape[1])    # this slice's prompt rows
+        if end > off:
+            for name in ("k", "v"):
+                pool, rows = self.data[name], pref[name][:, sl]
+                if self.cfg.kv_cache_layout == "bhsd":
+                    pool[:, sl, :, :end - off] = rows[:, :, :, off:end]
+                else:
+                    pool[:, sl, :end - off] = rows[:, :, off:end]
         self.pos_dev[sl] = plens_t[sl].to(torch.int32)
         return _guard_tokens(logits)
 
     def step(self, last, live):
         """One decode step over the pool; live slots' positions advance
         by one on the device. Returns the (pool_width, 1) next tokens."""
-        logits, self.data = transformer.decode_step(
-            self.params, self.cfg, last, self.data, self.pos_dev,
-            policy=self.policy, live=live)
+        if self.shard is None:
+            logits, self.data = transformer.decode_step(
+                self.params, self.cfg, last, self.data, self.pos_dev,
+                policy=self.policy, live=live)
+        else:
+            logits, self.data = transformer.decode_step_sharded(
+                self.params, self.cfg, last, self.data, self.pos_dev,
+                policy=self.policy, shard=self.shard, live=live)
         self.pos_dev = self.pos_dev + live
         return _guard_tokens(logits, last)
 
@@ -182,7 +216,9 @@ def _paged_integrity(state, live):
     if state.pcache is not None:
         for gid, _, _ in state.pcache._entries.values():
             holders[int(gid)] = holders.get(int(gid), 0) + 1
-    for gid in range(1, state.n_pages):       # page 0 is the scratch page
+    for gid in range(state.n_pages):
+        if state.alloc.local_id(gid) == 0:    # a partition's scratch page
+            continue
         refs = state.alloc.refcount(gid)
         held = holders.get(gid, 0)
         if refs != held:
@@ -198,7 +234,7 @@ class PagedKVDecodeState(KVDecodeState):
     """Dense transformer over a paged pool: fixed-size KV pages behind
     per-slot block tables, a host-side refcounted allocator, and a
     shared-prefix page cache (port of ``PagedKVDecodeState``,
-    ``decode_state.py:1207-1505``, unsharded, monolithic admission).
+    ``decode_state.py:1207-1505``, monolithic admission).
 
       * full reservation: a slot's whole table (ceil(cache_s/page)
         columns, minus its prefix-cache hits) is allocated at admission,
@@ -207,53 +243,86 @@ class PagedKVDecodeState(KVDecodeState):
         of P pages hold P + N*suffix physical pages;
       * no shared page is ever written: decode writes only at positions
         >= the prompt length, past every full (shareable) prompt page.
+
+    Sequence-sharded over n ranks (``comm``), the allocator has one
+    partition per rank: table column c belongs to rank c // (ns/n), global
+    page ids are partition-major, and each rank's pool holds only its
+    partition (local id = global id % pages per partition, local page 0
+    its scratch page). The host bookkeeping (allocator, prefix cache,
+    slot pages) is the same on every rank; the device tables hold this
+    rank's columns as local ids. The default budget is a full reservation
+    per slot plus one scratch page per partition.
     """
 
     kind = "paged-kv"
     is_paged = True
 
     def __init__(self, cfg, params, policy, pool_width, cache_s, *, device,
-                 n_pages=None, prefix_cache=True):
+                 comm=None, n_pages=None, prefix_cache=True):
         from .block_pool import BlockAllocator, PrefixCache
-        super().__init__(cfg, params, policy, pool_width, cache_s,
-                         device=device)
         self.page = policy.block_page
         self.ns = -(-cache_s // self.page)          # table columns per slot
+        super().__init__(cfg, params, policy, pool_width, cache_s,
+                         device=device, comm=comm)
+        nsh = self.shards
         self.n_pages = int(n_pages if n_pages is not None
-                           else 1 + pool_width * self.ns)
-        self.alloc = BlockAllocator(self.n_pages)
+                           else nsh + pool_width * self.ns)
+        if self.n_pages % nsh:
+            raise ValueError(f"page budget {self.n_pages} not divisible by "
+                             f"{nsh} shards")
+        self.alloc = BlockAllocator(
+            self.n_pages, n_partitions=nsh,
+            cols_per_part=None if nsh == 1 else self.ns // nsh)
         self.pcache = (PrefixCache(self.alloc, self.page) if prefix_cache
                        else None)
         self.slot_pages = [[] for _ in range(pool_width)]
-        self.tables = torch.zeros((pool_width, self.ns), dtype=torch.int32,
-                                  device=device)
+        self.tables = torch.zeros((pool_width, self.ns // nsh),
+                                  dtype=torch.int32, device=device)
         self.wave_hist = 0      # prefix-cache tokens of the last wave's rows
+
+    def _shard_spec(self, comm):
+        if comm is None:
+            return None
+        from repro_torch.distributed import ShardSpec
+        if self.ns % comm.world:
+            raise ValueError(f"{self.ns} pages per slot not divisible by "
+                             f"{comm.world} shards")
+        return ShardSpec(comm, self.ns // comm.world * self.page)
+
+    def _own_cols(self):
+        """[first, end) table columns held by this rank."""
+        n = self.ns // self.shards
+        r = 0 if self.shard is None else self.shard.rank
+        return r * n, (r + 1) * n
 
     # ------------------------------------------------------------- budget
 
     def free_with_evictable(self):
-        """Page budget: free pages plus prefix-cache pages held only by
-        the cache (refcount 1). Live state is never evicted, so only
-        those are reclaimable. Returns a (1,) array (one partition)."""
+        """Per-partition page budget: free pages plus prefix-cache pages
+        held only by the cache (refcount 1). Live state is never evicted,
+        so only those are reclaimable."""
         free = self.alloc.free_counts()
         if self.pcache is not None:
             for gid, _, _ in self.pcache._entries.values():
                 if self.alloc.refcount(gid) == 1:
-                    free = free + 1
+                    free[self.alloc.part_of(gid)] += 1
         return free
 
     def admission_need(self, prompt, *, cap_h=None):
-        """(fresh-page count as a (1,) array, hit depth in pages) for
+        """(per-partition fresh-page counts, hit depth in pages) for
         admitting one request: its own prefix-cache depth (capped at
         ``cap_h``, the wave's depth, and leaving >= 1 suffix token), and
-        the reserved columns [h, ns) as fresh pages."""
+        the reserved columns [h, ns) as fresh pages of their partitions."""
         h = 0
         if self.pcache is not None:
             p = np.asarray(prompt).reshape(-1)
             h = min(self.pcache.probe(p), (len(p) - 1) // self.page)
         if cap_h is not None:
             h = min(h, cap_h)
-        return np.array([self.ns - h], np.int64), h
+        need = np.zeros(self.alloc.n_partitions, np.int64)
+        for c in range(h, self.ns):
+            need[self.alloc.part_of_col(c)] += 1
+        return need, h
 
     def admission_pin(self, prompt, h, reserved):
         """Evictable supply this admission consumes beyond its fresh
@@ -261,17 +330,20 @@ class PagedKVDecodeState(KVDecodeState):
         and not already in ``reserved`` (pinned earlier in the wave).
         ``free_with_evictable`` counts them as reclaimable while
         ``admission_need`` counts them as hits; attach pins them, so the
-        gate must debit them once. Returns ((1,) count, gids)."""
+        gate must debit them once. Returns (per-partition counts, gids)."""
+        pin = np.zeros(self.alloc.n_partitions, np.int64)
         gids = []
         if self.pcache is not None and h:
             p = np.asarray(prompt).reshape(-1)
-            gids = [gid for gid in self.pcache.hit_gids(p, max_pages=h)
-                    if gid not in reserved and self.alloc.refcount(gid) == 1]
-        return np.array([len(gids)], np.int64), gids
+            for gid in self.pcache.hit_gids(p, max_pages=h):
+                if gid not in reserved and self.alloc.refcount(gid) == 1:
+                    pin[self.alloc.part_of(gid)] += 1
+                    gids.append(gid)
+        return pin, gids
 
     def pool_stats(self) -> dict:
         s = {"page": self.page, "pages_total": self.n_pages,
-             "pages_allocatable": self.n_pages - 1,
+             "pages_allocatable": self.n_pages - self.alloc.n_partitions,
              "pages_used": self.alloc.n_used(),
              "pages_free": self.alloc.n_free()}
         s["utilization"] = s["pages_used"] / max(s["pages_allocatable"], 1)
@@ -293,7 +365,7 @@ class PagedKVDecodeState(KVDecodeState):
         from .block_pool import OutOfBlocks
         if self.data is None:
             self.data = transformer.init_paged_cache(
-                self.cfg, self.n_pages, self.page, self.device)
+                self.cfg, self.alloc.per_part, self.page, self.device)
         slots = [int(j) for j in np.asarray(slots).reshape(-1)]
         toks = np.asarray(toks)
         plens = np.asarray(plens).reshape(-1)
@@ -355,8 +427,7 @@ class PagedKVDecodeState(KVDecodeState):
             hist_tab = np.zeros((self.pool_width, h_pages), np.int64)
             for j in slots:
                 hist_tab[j] = new_tab[j][:h_pages]
-            hist = {name: _paged_gather_hist(self.data[name], hist_tab,
-                                             page, lay)
+            hist = {name: self._gather_hist(self.data[name], hist_tab)
                     for name in ("k", "v")}
             sp = _len_bucket(int((plens - h).max()), self.cache_s - h)
             toks_suf = np.ones((self.pool_width, sp), toks.dtype)
@@ -369,13 +440,20 @@ class PagedKVDecodeState(KVDecodeState):
                 self.params, self.cfg, torch.as_tensor(toks_suf, device=dev),
                 prompt_len=torch.as_tensor(plens_suf, device=dev),
                 policy=self.policy, hist=hist)
+        # this rank's columns of the prefilled span [h_pages, h_pages + nc)
         nc = -(-sp // page)
-        gids = np.array([new_tab[j][h_pages:h_pages + nc] for j in slots],
-                        np.int64)
+        c0, c1 = self._own_cols()
+        a, e = max(h_pages, c0), min(h_pages + nc, c1)
         sl = torch.as_tensor(np.asarray(slots), device=dev)
-        for name in ("k", "v"):
-            _paged_scatter(self.data[name], pref[name][:, sl], gids, page,
-                           lay)
+        if e > a:
+            gids = self._local_ids([new_tab[j][a:e] for j in slots])
+            r0 = (a - h_pages) * page               # rows of the prefill
+            for name in ("k", "v"):
+                rows = pref[name][:, sl]
+                rows = (rows[:, :, :, r0:(e - h_pages) * page]
+                        if lay == "bhsd" else
+                        rows[:, :, r0:(e - h_pages) * page])
+                _paged_scatter(self.data[name], rows, gids, page, lay)
 
         # ---- publish full prompt pages (the cache takes its own refs)
         if self.pcache is not None:
@@ -386,16 +464,44 @@ class PagedKVDecodeState(KVDecodeState):
 
         # ---- table rows + positions of the admitted slots
         self.tables[sl] = torch.as_tensor(
-            np.array([new_tab[j] for j in slots], np.int32), device=dev)
+            self._local_ids([new_tab[j][c0:c1] for j in slots]), device=dev)
         self.pos_dev[sl] = torch.as_tensor(plens[slots].astype(np.int32),
                                            device=dev)
         self.wave_hist = h
         return _guard_tokens(logits)
 
+    def _local_ids(self, gids):
+        """Pool page ids of this rank for global page ids (partition-local
+        on a sharded pool: each rank indexes its own pool)."""
+        return (np.asarray(gids, np.int64) % self.alloc.per_part).astype(
+            np.int32)
+
+    def _gather_hist(self, pool, hist_tab):
+        """The (L, pool_width, hP*page, Hkv, hd) prefix history of the
+        global page ids ``hist_tab`` (pool_width, hP). Sharded, each rank
+        gathers the columns it holds and one all_gather brings every
+        rank the others' (admission only, never on the decode path)."""
+        page, lay = self.page, self.cfg.kv_cache_layout
+        if self.shard is None:
+            return _paged_gather_hist(pool, hist_tab, page, lay)
+        # ids of other ranks' pages land on arbitrary local pages here;
+        # only each column's owner's copy is kept
+        mine = _paged_gather_hist(pool, self._local_ids(hist_tab), page, lay)
+        got = self.shard.comm.all_gather(mine)    # (n, L, B, hP*page, ...)
+        cols = self.ns // self.shards
+        return torch.cat([got[c // cols, :, :, c * page:(c + 1) * page]
+                          for c in range(hist_tab.shape[1])], dim=2)
+
     def step(self, last, live):
-        logits, self.data = transformer.decode_step_paged(
-            self.params, self.cfg, last, self.data, self.tables,
-            self.pos_dev, policy=self.policy, live=live)
+        if self.shard is None:
+            logits, self.data = transformer.decode_step_paged(
+                self.params, self.cfg, last, self.data, self.tables,
+                self.pos_dev, policy=self.policy, live=live)
+        else:
+            logits, self.data = transformer.decode_step_paged_sharded(
+                self.params, self.cfg, last, self.data, self.tables,
+                self.pos_dev, policy=self.policy, shard=self.shard,
+                live=live)
         self.pos_dev = self.pos_dev + live
         return _guard_tokens(logits, last)
 

@@ -226,15 +226,22 @@ def prefill(params, cfg, tokens, *, prompt_len=None, policy, hist=None):
                                       "v": torch.stack(vs)}
 
 
-def _write_token_kv(cache, kv, pos, ok, layout):
+def _write_token_kv(cache, kv, pos, ok, layout, offset=0):
     """Write one token's K (or V) per row in place: kv (B, 1, Hkv, hd) at
-    position ``pos[b]``, only where ``ok[b]``. Rows that must not write
-    (parked slots, positions past the cache) write their old value back,
-    so nothing is indexed out of range and no host sync is needed."""
+    global position ``pos[b]``, only where ``ok[b]`` and the position
+    lies in this cache, whose first row is global position ``offset`` (a
+    rank's slice of a sequence-sharded cache; 0 for a whole cache). Rows
+    that must not write (parked slots, positions past or before the
+    cache) write their old value back at a clamped row. The clamp comes
+    before any indexing, so a position below the slice never wraps round
+    to its end as a negative index would; nothing is out of range and no
+    host sync is needed."""
     b = kv.shape[0]
     s = cache.shape[cache_seq_axis(layout, stacked=False)]
     rows = torch.arange(b, device=cache.device)
-    p = torch.clamp(pos, 0, s - 1)
+    lp = pos - offset
+    ok = ok & (lp >= 0) & (lp < s)
+    p = torch.clamp(lp, 0, s - 1)
     new = kv[:, 0].to(cache.dtype)                          # (B, Hkv, hd)
     if layout == "bhsd":
         old = cache[rows, :, p]
@@ -242,6 +249,30 @@ def _write_token_kv(cache, kv, pos, ok, layout):
     else:
         old = cache[rows, p]
         cache[rows, p] = torch.where(ok[:, None, None], new, old)
+
+
+def _decode_layers(params, cfg, token, pos, layer_attn):
+    """The decode step's layer loop: ``layer_attn(i, q, k, v)`` lands the
+    token's K/V in layer i's cache and returns its attention output
+    (B, 1, H, hd); everything else is the same for every cache form.
+    Returns the (B, 1, V) logits."""
+    x = embed_inputs(params, cfg, torch.clamp(token, min=0))
+    for i, blk in enumerate(params.layers):
+        h = norm_apply(x, blk.ln_attn, cfg.norm, cfg.norm_eps)
+        q, k, v = _qkv(h, blk.attn, cfg, pos[:, None])
+        o = layer_attn(i, q, k, v)
+        x = _finish_block(x, o.flatten(2) @ blk.attn.wo, blk, cfg)
+    return _final_logits(params, cfg, x)
+
+
+def _positions(pos, b, device):
+    pos = torch.as_tensor(pos, device=device).to(torch.int32)
+    return torch.broadcast_to(pos.reshape(-1), (b,))
+
+
+def _live(live, b, device):
+    ok = torch.ones(b, dtype=torch.bool, device=device)
+    return ok if live is None else ok & (live > 0)
 
 
 def decode_step(params, cfg, token, cache, pos, *, policy, live=None):
@@ -252,23 +283,58 @@ def decode_step(params, cfg, token, cache, pos, *, policy, live=None):
     dropped index). A negative token (the non-finite sentinel) is never
     used as an embedding index."""
     b = token.shape[0]
-    x = embed_inputs(params, cfg, torch.clamp(token, min=0))
-    pos = torch.as_tensor(pos, device=x.device).to(torch.int32)
-    pos = torch.broadcast_to(pos.reshape(-1), (b,))
-    s = cache["k"].shape[cache_seq_axis(cfg.kv_cache_layout)]
-    ok = pos < s
-    if live is not None:
-        ok = ok & (live > 0)
+    pos = _positions(pos, b, token.device)
+    ok = _live(live, b, token.device)
     lay = cfg.kv_cache_layout
-    for i, blk in enumerate(params.layers):
+
+    def layer_attn(i, q, k, v):
         ck, cv = cache["k"][i], cache["v"][i]
-        h = norm_apply(x, blk.ln_attn, cfg.norm, cfg.norm_eps)
-        q, k, v = _qkv(h, blk.attn, cfg, pos[:, None])
         _write_token_kv(ck, k, pos, ok, lay)
         _write_token_kv(cv, v, pos, ok, lay)
-        o = decode_attention(q, ck, cv, pos + 1, layout=lay, policy=policy)
-        x = _finish_block(x, o.flatten(2) @ blk.attn.wo, blk, cfg)
-    return _final_logits(params, cfg, x), cache
+        return decode_attention(q, ck, cv, pos + 1, layout=lay,
+                                policy=policy)
+
+    return _decode_layers(params, cfg, token, pos, layer_attn), cache
+
+
+def attn_decode_sharded(q, k, v, cache_k, cache_v, pos, ok, *, shard,
+                        layout, policy):
+    """One layer's decode attention over a sequence-sharded cache: this
+    rank's ``cache_k`` / ``cache_v`` are rows [shard.offset,
+    shard.offset + shard.local_s) of the global cache. Every rank
+    computes the token's K/V (replicated), only the rank whose slice
+    holds ``pos`` lands it (the reference's ``oob_drop``), each rank
+    sweeps its slice in partial-statistics mode, and the ranks merge
+    through the policy's merge strategy: the only collectives of the
+    step. Returns (B, 1, H, hd), equal on every rank."""
+    from repro_torch.kernels.decode_attention import \
+        decode_attention_partial_merged
+    _write_token_kv(cache_k, k, pos, ok, layout, shard.offset)
+    _write_token_kv(cache_v, v, pos, ok, layout, shard.offset)
+    return decode_attention_partial_merged(
+        q, cache_k, cache_v, pos + 1, shard.offset, comm=shard.comm,
+        layout=layout, policy=policy)
+
+
+def decode_step_sharded(params, cfg, token, cache, pos, *, policy, shard,
+                        live=None):
+    """``decode_step`` over a sequence-sharded cache, run by every rank of
+    ``shard.comm`` with the same token, positions and live mask: ``cache``
+    holds this rank's (L, B, local_s, Hkv, hd) slice ("bshd"), written in
+    place. Everything outside attention is replicated compute; per layer
+    the merge is the step's only collective ("packed") or three of them
+    ("split"). Returns the (B, 1, V) logits, equal on every rank."""
+    b = token.shape[0]
+    pos = _positions(pos, b, token.device)
+    ok = _live(live, b, token.device)
+    lay = cfg.kv_cache_layout
+
+    def layer_attn(i, q, k, v):
+        return attn_decode_sharded(q, k, v, cache["k"][i], cache["v"][i],
+                                   pos, ok, shard=shard, layout=lay,
+                                   policy=policy)
+
+    return _decode_layers(params, cfg, token, pos, layer_attn), cache
 
 
 def _final_logits(params, cfg, x):
@@ -294,10 +360,10 @@ def init_paged_cache(cfg, n_pages, page, device):
 def _write_token_kv_paged(pool, kv, gids, offs, ok, layout):
     """Write one token's K (or V) per row in place into its pool page:
     kv (B, 1, Hkv, hd) at page ``gids[b]``, offset ``offs[b]``, only where
-    ``ok[b]``. Rows that must not write (dead slots, whose tables point at
-    the scratch page) write the old value back, as ``_write_token_kv``
-    does, so nothing is indexed out of range and no host sync is
-    needed."""
+    ``ok[b]``. Rows that must not write (dead slots, and on a sharded
+    pool the rows this rank does not own, all pointed at the scratch page
+    0) write the old value back, as ``_write_token_kv`` does, so nothing
+    is indexed out of range and no host sync is needed."""
     new = kv[:, 0].to(pool.dtype)                           # (B, Hkv, hd)
     if layout == "bhsd":
         old = pool[gids, :, offs]
@@ -305,6 +371,20 @@ def _write_token_kv_paged(pool, kv, gids, offs, ok, layout):
     else:
         old = pool[gids, offs]
         pool[gids, offs] = torch.where(ok[:, None, None], new, old)
+
+
+def _paged_coords(tables, pos, ok, page, offset=0):
+    """(page ids, in-page offsets, write mask) of each row's token at
+    global ``pos`` through ``tables``, whose logical page 0 sits at global
+    position ``offset``. Rows whose position lies outside the tables, or
+    that are not ``ok``, point at the scratch page 0 and do not write."""
+    b, ns = tables.shape
+    lp = pos - offset
+    ok = ok & (lp >= 0) & (lp < ns * page)
+    p = torch.clamp(lp, 0, ns * page - 1).long()
+    rows = torch.arange(b, device=tables.device)
+    gids = torch.where(ok, tables[rows, p // page].long(), 0)
+    return gids, p % page, ok
 
 
 def _paged_attn(q, pool_k, pool_v, tables, cache_len, cfg, policy):
@@ -324,25 +404,47 @@ def decode_step_paged(params, cfg, token, cache, tables, pos, *, policy,
     The pool is written in place and returned with the (B, 1, V) logits;
     the tables are read only. Rows with ``live == 0`` write nothing."""
     b = token.shape[0]
-    x = embed_inputs(params, cfg, torch.clamp(token, min=0))
     lay = cfg.kv_cache_layout
     page = cache["k"].shape[3 if lay == "bhsd" else 2]
-    ns = tables.shape[1]
-    pos = torch.as_tensor(pos, device=x.device).to(torch.int32)
-    pos = torch.broadcast_to(pos.reshape(-1), (b,))
-    ok = pos < ns * page
-    if live is not None:
-        ok = ok & (live > 0)
-    p = torch.clamp(pos, 0, ns * page - 1).long()
-    rows = torch.arange(b, device=x.device)
-    gids = tables[rows, p // page].long()
-    offs = p % page
-    for i, blk in enumerate(params.layers):
+    pos = _positions(pos, b, token.device)
+    gids, offs, ok = _paged_coords(tables, pos, _live(live, b, token.device),
+                                   page)
+
+    def layer_attn(i, q, k, v):
         pk, pv = cache["k"][i], cache["v"][i]
-        h = norm_apply(x, blk.ln_attn, cfg.norm, cfg.norm_eps)
-        q, k, v = _qkv(h, blk.attn, cfg, pos[:, None])
         _write_token_kv_paged(pk, k, gids, offs, ok, lay)
         _write_token_kv_paged(pv, v, gids, offs, ok, lay)
-        o = _paged_attn(q, pk, pv, tables, pos + 1, cfg, policy)
-        x = _finish_block(x, o.flatten(2) @ blk.attn.wo, blk, cfg)
-    return _final_logits(params, cfg, x), cache
+        return _paged_attn(q, pk, pv, tables, pos + 1, cfg, policy)
+
+    return _decode_layers(params, cfg, token, pos, layer_attn), cache
+
+
+def decode_step_paged_sharded(params, cfg, token, cache, tables, pos, *,
+                              policy, shard, live=None):
+    """``decode_step_paged`` over a sequence-sharded pool, run by every
+    rank of ``shard.comm`` with the same token, positions and live mask:
+    ``cache`` is this rank's own pool (its page 0 the scratch page),
+    ``tables`` its (B, nS_local) slice of the table columns holding local
+    page ids, whose logical page 0 sits at global position
+    ``shard.offset`` (= rank * nS_local * page). The token's K/V land
+    only on the rank owning the position; each rank walks its pages in
+    partial-statistics mode and the ranks merge through the policy's
+    merge strategy. Returns the (B, 1, V) logits, equal on every rank."""
+    from repro_torch.kernels.decode_attention import \
+        decode_attention_paged_partial_merged
+    b = token.shape[0]
+    lay = cfg.kv_cache_layout
+    page = cache["k"].shape[3 if lay == "bhsd" else 2]
+    pos = _positions(pos, b, token.device)
+    gids, offs, ok = _paged_coords(tables, pos, _live(live, b, token.device),
+                                   page, shard.offset)
+
+    def layer_attn(i, q, k, v):
+        pk, pv = cache["k"][i], cache["v"][i]
+        _write_token_kv_paged(pk, k, gids, offs, ok, lay)
+        _write_token_kv_paged(pv, v, gids, offs, ok, lay)
+        return decode_attention_paged_partial_merged(
+            q, pk, pv, tables, pos + 1, shard.offset, comm=shard.comm,
+            layout=lay, policy=policy)
+
+    return _decode_layers(params, cfg, token, pos, layer_attn), cache

@@ -28,6 +28,7 @@ from typing import Mapping, Optional
 
 EXP_BACKENDS = ("exact", "vexp", "vexp_hw")
 KERNEL_BACKENDS = ("cuda", "reference", "eager")
+MERGE_STRATEGIES = ("packed", "split")
 # names the reference package uses for the same tiers
 BACKEND_ALIASES = {"pallas": "cuda", "xla": "eager"}
 
@@ -39,6 +40,7 @@ _ENV_FIELDS = {
     "BLOCK_S": "block_s",
     "BLOCK_PAGE": "block_page",
     "ACCUM_DTYPE": "accum_dtype",
+    "MERGE_STRATEGY": "merge_strategy",
 }
 _INT_FIELDS = ("block_k", "block_s", "block_page")
 
@@ -58,6 +60,12 @@ class ExecPolicy:
                     online-update unit. Fixed when a pool is built.
     accum_dtype     "float32" only: the kernels keep (m, l, acc) in f32;
                     "bfloat16" scratch is not ported yet and raises.
+    merge_strategy  how sequence-sharded decode folds the per-shard
+                    softmax statistics: "packed" all_gathers one
+                    contiguous [acc | m | l] tile (one collective per
+                    merge) and folds it locally; "split" is all_reduce MAX
+                    of m, then two all_reduce SUMs of the rescaled l and
+                    acc (three collectives). The same algebra either way.
     """
 
     exp_backend: str = "vexp"
@@ -66,6 +74,7 @@ class ExecPolicy:
     block_s: int = 512
     block_page: int = 64
     accum_dtype: str = "float32"
+    merge_strategy: str = "packed"
 
     def __post_init__(self):
         kb = BACKEND_ALIASES.get(self.kernel_backend, self.kernel_backend)
@@ -80,6 +89,10 @@ class ExecPolicy:
             raise ValueError(
                 f"accum_dtype {self.accum_dtype!r} is not supported by the "
                 f"port yet (float32 only)")
+        if self.merge_strategy not in MERGE_STRATEGIES:
+            raise ValueError(
+                f"merge_strategy {self.merge_strategy!r} not in "
+                f"{MERGE_STRATEGIES}")
         for f in _INT_FIELDS:
             v = getattr(self, f)
             if not (isinstance(v, int) and v > 0):
@@ -96,7 +109,7 @@ class ExecPolicy:
         return (f"exp={self.exp_backend} kernel={self.kernel_backend} "
                 f"blocks=(k{self.block_k},s{self.block_s},"
                 f"p{self.block_page}) "
-                f"accum={self.accum_dtype}")
+                f"accum={self.accum_dtype} merge={self.merge_strategy}")
 
 
 def _parse(field: str, raw: str):

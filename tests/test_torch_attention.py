@@ -163,12 +163,20 @@ def test_cuda_tier_on_cpu_runs_the_plain_versions(qkv):
     assert torch.equal(got, want)
 
 
-def test_dispatch_table_complete_and_strict():
+def test_dispatch_table_complete_and_strict(monkeypatch):
+    """Every op has all three tiers; an unknown op, or an (op, tier) with
+    no entry, raises instead of falling back."""
+    import importlib
+    table = importlib.import_module("repro_torch.kernels.dispatch")._TABLE
     for op in OPS:
         for tier in KERNEL_BACKENDS:
             assert callable(dispatch(op, ExecPolicy(kernel_backend=tier)))
     with pytest.raises(ValueError):
-        dispatch("decode_attention_sharded", ExecPolicy())   # not ported
+        dispatch("decode_attention_windowed", ExecPolicy())   # no such op
+    monkeypatch.delitem(table, ("decode_attention_sharded", "eager"))
+    with pytest.raises(ValueError, match="no implementation"):
+        dispatch("decode_attention_sharded",
+                 ExecPolicy(kernel_backend="eager"))
 
 
 QOFF_SQ, QOFF_SK = 40, 104                  # 64 history keys + 40 queries

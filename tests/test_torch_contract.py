@@ -1,7 +1,8 @@
 """Contracts of the port that no numerical test shows.
 
-* Importing every ``repro_torch`` module (and ``chip_smoke.py``) pulls in
-  neither JAX nor anything of the reference package ``repro``.
+* Importing every ``repro_torch`` module (``distributed/`` included) and
+  ``chip_smoke.py`` pulls in neither JAX nor anything of the reference
+  package ``repro``.
 * With no CUDA device, the entry points (``Server``, ``api.*``, the CLI)
   raise unless the caller asks for the CPU; they never carry on there
   quietly. The card's absence is simulated, so this holds on any host.
@@ -43,7 +44,8 @@ def test_no_jax_and_no_reference_package_imported():
                      or m == "repro" or m.startswith("repro."))
         print(len(names), bad)
         assert not bad, bad
-        assert len(names) >= 20, names
+        assert len(names) >= 22, names
+        assert "repro_torch.distributed.sharding" in names, names
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=120)
