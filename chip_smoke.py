@@ -5,12 +5,15 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from ``src/repro_torch/csrc``, holds
-each against its plain PyTorch version on the card, times both, serves
-full-width gpt2-small through the port's ``Server`` on the contiguous
-cache and on the paged pool with a shared-prefix cache, then serves it
-sequence-sharded (``kv_mode="seq"``) on 2 ranks spawned on the one card
-(gloo, host-staged collectives), and checks what comes out. Every phase
-prints one JSON line; the first failure on any rank exits non-zero.
+each against its plain PyTorch version on the card, times each eagerly
+and as a CUDA graph of back-to-back calls (device time without the
+wrapper's host work) beside its plain version, its library call and its
+bound, serves full-width gpt2-small through the port's ``Server`` on the
+contiguous cache and on the paged pool with a shared-prefix cache, then
+serves it sequence-sharded (``kv_mode="seq"``) on 2 ranks spawned on the
+one card (gloo, host-staged collectives), and checks what comes out.
+Every phase prints one JSON line; the first failure on any rank exits
+non-zero.
 The last two lines are the kernel table and the device line. Without a
 CUDA device, or without the rest of the checkout, it exits non-zero and
 prints no result.
@@ -39,51 +42,9 @@ F32_FLOP_PER_S = 67e12
 # exponent add, four saturation selects), used only for its bound.
 VEXP_OPS_PER_ELEM = 20
 
-# Attention kernel vs plain version on the same inputs, per kernel and exp
-# backend: (largest |kernel - plain|, share of outputs whose bits differ).
-# A kernel sums its f32 dot products in another order than the plain
-# version; that moves an f32 result by ulps, which after the round to the
-# bf16 output flips a few outputs by one bf16 ulp. The card's readings at
-# these inputs (PERF.md): FA max 9.8e-4 / 3.9e-3 / 0 and share 6.6e-6 /
-# 7.2e-6 / 0 (exact / vexp / vexp_hw); decode max 6.1e-5 / 4.9e-4 / 7e-9
-# and share at most 1.5e-3 / 6.5e-4 / 1.6e-4 (one output in 6,144). The
-# limits sit 2-4x above them, and at 1e-6 where the reading is 0 or 7e-9.
-# Each phase also holds the plain version at half the online-update block
-# against the one at the full block, and a kernel with that wrong
-# partition must fail these limits. Under vexp the max alone cannot see
-# it (the half block moves outputs by at most 2e-3, inside the limit);
-# the share can: the half block changes 3-5 % (FA) and 19-22 % (decode)
-# of the outputs.
-ATT_LIMITS = {
-    "flash_attention": {"exact": (2e-3, 3e-5), "vexp": (8e-3, 3e-5),
-                        "vexp_hw": (1e-6, 1e-5)},
-    "decode_attention": {"exact": (1.5e-4, 5e-3), "vexp": (1e-3, 5e-3),
-                         "vexp_hw": (1e-6, 1e-3)},
-    # paged decode, read on the card (PERF.md): max 2.4e-4 / 1.2e-4 / 0
-    # and share 6.5e-4 / 1.6e-4 / 0 (4 and 1 outputs of 6,144 moved by
-    # one bf16 ulp). The exact limit allows such a flip at |o| ~ 0.25.
-    # The plain version at half a page moves 23-28 % of the outputs, by
-    # up to 3.9e-3, and must fail them: that shows the kernel updates
-    # once per page.
-    "decode_attention_paged": {"exact": (1e-3, 5e-3),
-                               "vexp": (1e-3, 5e-3),
-                               "vexp_hw": (1e-6, 1e-3)},
-    # the sequence-sharded kernels (phase_sharded_decode), each shard's
-    # statistics normalized on their own, live rows only. The paged ones
-    # (B8, B9) stay inside the paged limits: max 4.9e-4 / 4.9e-4 / 6e-8,
-    # share 6.5e-4 / 3.7e-4 / 5.9e-5 at 2 and 4 shards, both layouts. The
-    # contiguous ones (B5, B6) read max 9.8e-4 / 6.1e-5 / 9.8e-4 and share
-    # 9.3e-4 / 5.9e-5 / 1.1e-3: a shard's output normalizes over fewer
-    # keys than the whole row's, so it is larger, and the one-ulp bf16
-    # flips that summation order causes cost up to 2^-10 (the decode
-    # limits' exact 1.5e-4 and vexp_hw 1e-6 sit below one such flip at
-    # |o| > 1/64). These limits take one flip at |o| < 0.5 and twice the
-    # share read; the plain version at half a block still moves 13-21 %
-    # of the outputs and fails them.
-    "decode_attention_partial": {"exact": (2e-3, 5e-3),
-                                 "vexp": (1e-3, 5e-3),
-                                 "vexp_hw": (2e-3, 3e-3)},
-}
+# The attention kernels' limits against their plain versions (max |err|,
+# share of bf16 outputs changed) are ATT_LIMITS in
+# src/repro_torch/kernels/limits.py, with the card's readings behind them.
 
 # Fused softmax kernel vs its plain version, largest distance in f32 ulps
 # per exp backend. Both take the same row max (exact) and the same exp
@@ -120,6 +81,47 @@ def cuda_time_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cuda_graph_time_ms(fn, iters=20, warmup=3, replays=5) -> float:
+    """Device time per call of ``fn()`` without the host: ``iters`` calls
+    captured in one CUDA graph after ``warmup`` eager calls on the capture
+    stream, the graph replayed ``replays`` times between CUDA events.
+    Raises if the calls cannot be captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * iters)
+    del graph
+    return ms
+
+
+def graph_ms(fn, what, iters=20):
+    """``cuda_graph_time_ms``, or None after a line that says which call
+    could not be captured and why."""
+    try:
+        return cuda_graph_time_ms(fn, iters)
+    except Exception as e:          # noqa: BLE001 - reported, cell empty
+        torch.cuda.synchronize()
+        print(f"[chip_smoke] {what}: not captured in a CUDA graph, no "
+              f"graph_ms: {type(e).__name__}: {e}", flush=True)
+        return None
+
+
 def bound_ms(nbytes: float, flops: float, peak_flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
@@ -154,9 +156,12 @@ def kernel_vs_plain(out, ref, real=None):
 
 def check_attention(kernel, readings, where=""):
     """Fail unless every backend's kernel reading is inside ATT_LIMITS and
-    every plain version at half the online-update unit (block or page) is
-    outside them. ``readings`` maps (exp, "kernel" | "half_block" |
-    "half_page") to (max_abs_err, mismatch_share)."""
+    every negative control is outside them: the plain version at half the
+    online-update unit (block or page), and for FA the scan with p in two
+    bf16 terms against the same scan with p exact. ``readings`` maps
+    (exp, "kernel" | "half_block" | "half_page" | "p_two_terms") to
+    (max_abs_err, mismatch_share)."""
+    from repro_torch.kernels.limits import ATT_LIMITS
     for (exp, who), (err, share) in readings.items():
         lim_err, lim_share = ATT_LIMITS[kernel][exp]
         inside = err <= lim_err and share <= lim_share
@@ -165,9 +170,8 @@ def check_attention(kernel, readings, where=""):
                  f"{err} (limit {lim_err}), {share} of outputs differ "
                  f"(limit {lim_share})")
         if who != "kernel" and inside:
-            fail(f"{kernel}{where} {exp}: the plain version at {who} passes "
-                 f"the limits ({err}, {share}); they cannot see a wrong "
-                 f"online-update partition")
+            fail(f"{kernel}{where} {exp}: the negative control {who} passes "
+                 f"the limits ({err}, {share}); they cannot see that fault")
 
 
 # --------------------------------------------------------------- phases
@@ -251,17 +255,21 @@ def phase_vexp(kernels, policy_cls):
     ms = cuda_time_ms(lambda: kv.vexp(x, policy=pol))
     plain_ms = cuda_time_ms(lambda: kv.vexp_plain(x, "vexp"))
     lib_ms = cuda_time_ms(lambda: torch.exp(x))
+    g_ms = graph_ms(lambda: kv.vexp(x, policy=pol), "vexp_2d", iters=10)
+    lib_g_ms = graph_ms(lambda: torch.exp(x), "torch.exp", iters=10)
     b_ms, b_by = bound_ms(x.numel() * 8, x.numel() * VEXP_OPS_PER_ELEM,
                           F32_FLOP_PER_S)
     res.update({"shape": list(x.shape), "ms": ms, "plain_ms": plain_ms,
-                "library_ms": lib_ms})
+                "library_ms": lib_ms, "graph_ms": g_ms,
+                "library_graph_ms": lib_g_ms})
     emit({"phase": "vexp", **res})
     return {"name": "vexp_2d", "route": "cuda",
             "source": "src/repro_torch/csrc/vexp.cu",
             "replaces": "src/repro/kernels/vexp/kernel.py:33",
             "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms}
+            "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms,
+            "library_graph_ms": lib_g_ms}
 
 
 def phase_softmax(policy_cls):
@@ -297,21 +305,27 @@ def phase_softmax(policy_cls):
         plain_ms = cuda_time_ms(
             lambda: ks.softmax_plain(x, -1, exp_backend="vexp"), iters=5)
         lib_ms = cuda_time_ms(lambda: torch.softmax(x, -1))
+        g_ms = graph_ms(lambda: ks.softmax(x, -1, policy=pol),
+                        f"softmax_rows S={s}", iters=10)
+        lib_g_ms = graph_ms(lambda: torch.softmax(x, -1),
+                            f"torch.softmax S={s}", iters=10)
         b_ms, b_by = bound_ms(x.numel() * 8, x.numel() * VEXP_OPS_PER_ELEM,
                               F32_FLOP_PER_S)
         res.update({f"s{s}_plain_ms_vexp": plain_ms,
-                    f"s{s}_library_ms": lib_ms, f"s{s}_bound_ms": b_ms,
-                    f"s{s}_bound_by": b_by})
-        row = (ms, plain_ms, lib_ms, b_ms, b_by)      # the largest S
+                    f"s{s}_library_ms": lib_ms, f"s{s}_graph_ms": g_ms,
+                    f"s{s}_library_graph_ms": lib_g_ms,
+                    f"s{s}_bound_ms": b_ms, f"s{s}_bound_by": b_by})
+        row = (ms, g_ms, plain_ms, lib_ms, lib_g_ms, b_ms, b_by)  # largest S
         del x
     emit({"phase": "softmax", "sizes": list(SOFTMAX_SIZES), **res})
-    ms, plain_ms, lib_ms, b_ms, b_by = row
+    ms, g_ms, plain_ms, lib_ms, lib_g_ms, b_ms, b_by = row
     return {"name": "softmax_rows", "route": "cuda",
             "source": "src/repro_torch/csrc/softmax.cu",
             "replaces": "src/repro/kernels/softmax/kernel.py:41",
             "launches": None, "max_abs_err": worst_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms}
+            "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms,
+            "library_graph_ms": lib_g_ms}
 
 
 def _sdpa_mask_prefill(kv_len, sq, sk, q_offset=0):
@@ -321,10 +335,64 @@ def _sdpa_mask_prefill(kv_len, sq, sk, q_offset=0):
     return (causal & (kpos < kv_len[:, None, None]))[:, None]
 
 
+def _scan_p_terms(q, k, v, kv_len, q_offset, block_k, exp, terms):
+    """The plain scan (causal, keys below kv_len, queries at q_offset + i)
+    with p rounded to its ``terms`` leading bf16 terms in p . v: what a
+    tensor-core kernel that splits p too few times computes."""
+    from repro_torch.core.vexp import get_exp_fn
+    exp_fn = get_exp_fn(exp)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    qs = q.float().transpose(1, 2) * (1.0 / d ** 0.5)   # (B, H, Sq, D)
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    m = torch.full((b, h, sq), -1e30, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, h, sq, d), device=q.device)
+    for k0 in range(0, sk, block_k):
+        kb = k[:, k0:k0 + block_k].float().transpose(1, 2)
+        vb = v[:, k0:k0 + block_k].float().transpose(1, 2)
+        kpos = k0 + torch.arange(kb.shape[2], device=q.device)[None, :]
+        keep = ((kpos <= qpos)[None, None]
+                & (kpos < kv_len[:, None, None, None]))
+        sc = torch.where(keep, qs @ kb.transpose(-1, -2), -1e30)
+        m_new = torch.maximum(m, sc.amax(-1))
+        alpha = exp_fn(m - m_new)
+        p = torch.where(keep, exp_fn(sc - m_new[..., None]), 0.0)
+        l = l * alpha + p.sum(-1)
+        pt, r = torch.zeros_like(p), p
+        for _ in range(terms):
+            t = r.to(torch.bfloat16).float()
+            pt, r = pt + t, r - t
+        acc = acc * alpha[..., None] + pt @ vb
+        m = m_new
+    out = acc * (1.0 / torch.clamp(l, min=1e-30))[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def _truth64(q, k, v, kv_len, q_offset):
+    """Causal attention under the exact exp in float64, one pass, rounded
+    to bf16 once: what an exact evaluation of the function gives."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    qd, kd, vd = (t.double().transpose(1, 2) for t in (q, k, v))
+    sc = qd @ kd.transpose(-1, -2) * (1.0 / d ** 0.5)
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    keep = (kpos <= qpos)[None, None] & (kpos < kv_len[:, None, None, None])
+    sc = torch.where(keep, sc, -1e300)
+    p = torch.where(keep, torch.exp(sc - sc.amax(-1, keepdim=True)), 0.0)
+    out = (p @ vd) / p.sum(-1, keepdim=True).clamp_min(1e-300)
+    return out.transpose(1, 2).to(q.dtype)
+
+
 def _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, q_offset, tag):
-    """One FA case: kernel vs plain per backend (and the plain version at
-    half the block), times, library time and bound. Query i of row b sits
-    at q_offset + i; its real rows are those below kv_len[b]."""
+    """One FA case. The kernel vs the plain version per backend, and the
+    plain version at half the block and with p in two bf16 terms (both
+    must fail the limits); under the exact exp, both the kernel and the
+    plain version vs a float64 evaluation (reported). Times (eager and
+    graph), the library call's and the bound. Query i of row b sits at
+    q_offset + i; its real rows are those below kv_len[b]. Returns
+    (fields, limit readings)."""
     b, sq, h, d = q.shape
     qpos = torch.arange(sq, device="cuda")[None, :] + q_offset
     real = (qpos < kv_len[:, None])[:, :, None, None]
@@ -340,6 +408,17 @@ def _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, q_offset, tag):
             half = fa.flash_attention_plain(q, k, v, block_k=block_k // 2,
                                             exp_backend=exp, **kw)
             readings[exp, "half_block"] = kernel_vs_plain(half, ref, real)
+        if exp != "vexp_hw":     # vexp_hw's p is one bf16 term already
+            # against the same scan with p in three terms (p exactly), so
+            # that the rounding of p is the only difference
+            two, three = (_scan_p_terms(q, k, v, kv_len, q_offset, block_k,
+                                        exp, n) for n in (2, 3))
+            readings[exp, "p_two_terms"] = kernel_vs_plain(two, three, real)
+        if exp == "exact":
+            truth = _truth64(q, k, v, kv_len, q_offset)
+            for who, o in (("plain", ref), ("kernel", out)):
+                res[f"{tag}exact_{who}_vs_f64_mismatch_share"] = \
+                    kernel_vs_plain(o, truth, real)[1]
     for (exp, who), (err, share) in readings.items():
         res[f"{tag}{exp}_{who}_max_abs_err"] = err
         res[f"{tag}{exp}_{who}_mismatch_share"] = share
@@ -347,13 +426,19 @@ def _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, q_offset, tag):
         pol = policy_cls(exp_backend=exp, block_k=block_k)
         res[f"{tag}ms_{exp}"] = cuda_time_ms(
             lambda: fa.flash_attention(q, k, v, policy=pol, **kw))
+    res[f"{tag}graph_ms_vexp"] = graph_ms(
+        lambda: fa.flash_attention(q, k, v, policy=pol, **kw),
+        f"flash_attention {tag}")
     plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(
         q, k, v, block_k=block_k, exp_backend="vexp", **kw), iters=5)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     mask = _sdpa_mask_prefill(kv_len, sq, k.shape[1], q_offset)
-    lib_ms = cuda_time_ms(lambda: torch.nn.functional
-                          .scaled_dot_product_attention(qt, kt, vt,
-                                                        attn_mask=mask))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask)
+    lib_ms = cuda_time_ms(sdpa)
+    lib_g_ms = graph_ms(sdpa, f"sdpa {tag}")
     # the function's work: every query row attends, causally, to the keys
     # below its row's kv_len; q and o move whole, K and V up to kv_len
     pairs = float(torch.minimum(qpos.double() + 1,
@@ -363,16 +448,21 @@ def _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, q_offset, tag):
     nbytes = 2 * b * sq * h * d * 2 + 2 * live * h * d * 2
     b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
     res.update({f"{tag}plain_ms_vexp": plain_ms, f"{tag}library_ms": lib_ms,
+                f"{tag}library_graph_ms": lib_g_ms,
                 f"{tag}bound_ms": b_ms, f"{tag}bound_by": b_by,
                 f"{tag}kv_len": kv_len.tolist()})
     return res, readings
 
 
 def phase_flash_attention(policy_cls, block_k):
-    """Kernel 2 at gpt2-small prefill shapes: B=8, H=12, D=64, Sq=Sk=512,
-    ragged kv_len in [32, 512], causal; and the hot-prefix case of
-    suffix admission: 256 suffix queries at q_offset=256 over 512 keys
-    (history + suffix), ragged kv_len in [257, 512]."""
+    """Kernel 3 at gpt2-small prefill shapes: B=8, H=12, D=64, Sq=Sk=512,
+    ragged kv_len in [32, 512], causal; the hot-prefix case of suffix
+    admission: 256 suffix queries at q_offset=256 over 512 keys (history
+    + suffix), ragged kv_len in [257, 512]; and a D = 32 case (the
+    reduced config's heads: B=8, H=4, S=512, block_k 128, the policy
+    default, so rows walk several blocks) for the kernel's D = 32 path.
+    The plain version computed on the host is also read against itself
+    on the card, to show the order noise the limits leave no room for."""
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device="cuda").manual_seed(1)
     b, s, h, d = 8, 512, 12, 64
@@ -381,7 +471,19 @@ def phase_flash_attention(policy_cls, block_k):
     kv_len = torch.randint(32, s + 1, (b,), generator=g, device="cuda",
                            dtype=torch.int32)
     kv_len[0] = s
-    res, readings = _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, 0, "")
+    res, readings = _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, 0,
+                             "")
+    # the plain version on the host against itself on the card
+    host = fa.flash_attention_plain(
+        q.cpu(), k.cpu(), v.cpu(), block_k=block_k, exp_backend="exact",
+        causal=True, kv_len=kv_len.cpu()).cuda()
+    card = fa.flash_attention_plain(q, k, v, block_k=block_k,
+                                    exp_backend="exact", causal=True,
+                                    kv_len=kv_len)
+    real = (torch.arange(s, device="cuda")[None, :]
+            < kv_len[:, None])[:, :, None, None]
+    res["exact_plain_host_vs_card_mismatch_share"] = kernel_vs_plain(
+        host, card, real)[1]
     off = s // 2
     qh = torch.randn(b, s - off, h, d, generator=g,
                      device="cuda").to(torch.bfloat16)
@@ -391,20 +493,32 @@ def phase_flash_attention(policy_cls, block_k):
     hot, hot_readings = _fa_case(fa, policy_cls, block_k, qh, k, v, kv_hot,
                                  off, "hot_")
     res.update(hot)
+    g32 = torch.Generator(device="cuda").manual_seed(6)
+    b32, s32, h32, bk32 = 8, 512, 4, policy_cls().block_k
+    q32, k32, v32 = (torch.randn(b32, s32, h32, 32, generator=g32,
+                                 device="cuda").to(torch.bfloat16)
+                     for _ in range(3))
+    kv32 = torch.randint(32, s32 + 1, (b32,), generator=g32, device="cuda",
+                         dtype=torch.int32)
+    kv32[0] = s32
+    d32, d32_readings = _fa_case(fa, policy_cls, bk32, q32, k32, v32, kv32,
+                                 0, "d32_")
+    res.update(d32)
     emit({"phase": "flash_attention", "block_k": block_k, "hot_q_offset": off,
-          **res})
+          "d32_block_k": bk32, **res})
     check_attention("flash_attention", readings)
     check_attention("flash_attention", hot_readings, " hot")
-    worst = max(err for rd in (readings, hot_readings)
+    check_attention("flash_attention", d32_readings, " D=32")
+    worst = max(err for rd in (readings, hot_readings, d32_readings)
                 for (_, who), (err, _) in rd.items() if who == "kernel")
-    ms, plain_ms = res["ms_vexp"], res["plain_ms_vexp"]
-    lib_ms, b_ms, b_by = res["library_ms"], res["bound_ms"], res["bound_by"]
     return {"name": "flash_attention_bhsd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:104",
-            "launches": 0, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms}
+            "launches": 0, "max_abs_err": worst, "ms": res["ms_vexp"],
+            "graph_ms": res["graph_ms_vexp"], "plain_ms": res["plain_ms_vexp"],
+            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+            "library_ms": res["library_ms"],
+            "library_graph_ms": res["library_graph_ms"]}
 
 
 def phase_decode(policy_cls):
@@ -459,10 +573,15 @@ def phase_decode(policy_cls):
     kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
     mask = (torch.arange(s, device="cuda")[None, :]
             < cache_len[:, None])[:, None, None]
-    lib_ms = cuda_time_ms(lambda: torch.nn.functional
-                          .scaled_dot_product_attention(qt, kt, vt,
-                                                        attn_mask=mask),
-                          iters=50)
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask)
+    lib_ms = cuda_time_ms(sdpa, iters=50)
+    lib_g_ms = graph_ms(sdpa, "sdpa (decode)", iters=50)
+    pol = policy_cls(exp_backend="vexp")
+    g_ms = graph_ms(lambda: da.decode_attention(q, kc, vc, cache_len,
+                                                layout="bshd", policy=pol),
+                    "decode_attention_kernel", iters=50)
     live = float(cache_len.double().sum())
     nbytes = live * h * d * 2 * 2 + 2 * b * h * d * 2   # K+V rows, q, o
     flops = 4.0 * live * h * d
@@ -470,6 +589,7 @@ def phase_decode(policy_cls):
     ms, plain_ms = times["bshd"]
     res.update({"plain_ms_bshd": plain_ms,
                 "plain_ms_bhsd": times["bhsd"][1], "library_ms": lib_ms,
+                "graph_ms_bshd_vexp": g_ms, "library_graph_ms": lib_g_ms,
                 "bound_ms": b_ms, "bound_by": b_by,
                 "cache_len": cache_len.tolist()})
     emit({"phase": "decode_attention", **res})
@@ -478,9 +598,9 @@ def phase_decode(policy_cls):
     return {"name": "decode_attention_kernel", "route": "cuda",
             "source": "src/repro_torch/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention/kernel.py:196",
-            "launches": 0, "max_abs_err": worst, "ms": ms,
+            "launches": 0, "max_abs_err": worst, "ms": ms, "graph_ms": g_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, "library_graph_ms": lib_g_ms}
 
 
 def phase_paged_decode(policy_cls):
@@ -546,10 +666,15 @@ def phase_paged_decode(policy_cls):
     qt = q.transpose(1, 2)
     mask = (torch.arange(ns * page, device="cuda")[None, :]
             < cache_len[:, None])[:, None, None]
-    lib_ms = cuda_time_ms(lambda: torch.nn.functional
-                          .scaled_dot_product_attention(qt, kt, vt,
-                                                        attn_mask=mask),
-                          iters=50)
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask)
+    lib_ms = cuda_time_ms(sdpa, iters=50)
+    lib_g_ms = graph_ms(sdpa, "sdpa (paged decode, gathered)", iters=50)
+    pol = policy_cls(exp_backend="vexp", block_page=page)
+    g_ms = graph_ms(lambda: da.decode_attention_paged(
+        q, kp, vp, tab, cache_len, layout="bshd", policy=pol),
+        "decode_attention_kernel_paged", iters=50)
     # the bound reads each row's live pages (K and V) once, q and o once;
     # the operations count the live keys
     live_pages = float(extent.double().sum())
@@ -559,6 +684,7 @@ def phase_paged_decode(policy_cls):
     ms, plain_ms = times["bshd"]
     res.update({"page": page, "plain_ms_bshd": plain_ms,
                 "plain_ms_bhsd": times["bhsd"][1], "library_ms": lib_ms,
+                "graph_ms_bshd_vexp": g_ms, "library_graph_ms": lib_g_ms,
                 "library": "sdpa over the gathered contiguous cache "
                            "(gather not timed)",
                 "live_pages": int(live_pages), "bound_ms": b_ms,
@@ -569,9 +695,9 @@ def phase_paged_decode(policy_cls):
     return {"name": "decode_attention_kernel_paged", "route": "cuda",
             "source": "src/repro_torch/csrc/decode_attention_paged.cu",
             "replaces": "src/repro/kernels/decode_attention/kernel.py:470",
-            "launches": 0, "max_abs_err": worst, "ms": ms,
+            "launches": 0, "max_abs_err": worst, "ms": ms, "graph_ms": g_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, "library_graph_ms": lib_g_ms}
 
 
 # Sequence-sharded decode: the fold of the shards' statistics against
@@ -804,6 +930,8 @@ def phase_sharded_decode(policy_cls):
                 flops = 4.0 * float(live_k.double().sum()) * h * d
                 b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
                 ms = cuda_time_ms(lambda: kern(mode, pol, r), iters=50)
+                g_ms = graph_ms(lambda: kern(mode, pol, r),
+                                f"{name} shard {r}", iters=50)
                 blk = policy_cls().block_s if kind == "contig" else page
 
                 def run_plain():
@@ -820,11 +948,15 @@ def phase_sharded_decode(policy_cls):
                               for p in sl[r][:2])
                 mask = (torch.arange(kk.shape[2], device="cuda")[None, :]
                         < live_k[:, None])[:, None, None]
-                lib_ms = cuda_time_ms(
-                    lambda: torch.nn.functional.scaled_dot_product_attention(
-                        qt, kk, vv, attn_mask=mask), iters=50)
-                per.append({"seq_offset": off, "ms": ms,
+                def sdpa():
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        qt, kk, vv, attn_mask=mask)
+                lib_ms = cuda_time_ms(sdpa, iters=50)
+                lib_g_ms = graph_ms(sdpa, f"sdpa ({name} shard {r})",
+                                    iters=50)
+                per.append({"seq_offset": off, "ms": ms, "graph_ms": g_ms,
                             "plain_ms": plain_ms, "library_ms": lib_ms,
+                            "library_graph_ms": lib_g_ms,
                             "bound_ms": b_ms, "bound_by": b_by,
                             "live_keys": int(live_k.sum())})
             res[f"{name}_by_shard"] = per
@@ -839,8 +971,10 @@ def phase_sharded_decode(policy_cls):
                 "replaces": "src/repro/kernels/decode_attention/kernel.py:"
                             f"{line[mode]}",
                 "launches": 0, "max_abs_err": worst[kind], "ms": p0["ms"],
-                "plain_ms": p0["plain_ms"], "bound_ms": p0["bound_ms"],
-                "bound_by": p0["bound_by"], "library_ms": p0["library_ms"],
+                "graph_ms": p0["graph_ms"], "plain_ms": p0["plain_ms"],
+                "bound_ms": p0["bound_ms"], "bound_by": p0["bound_by"],
+                "library_ms": p0["library_ms"],
+                "library_graph_ms": p0["library_graph_ms"],
                 "library": "sdpa over the shard's slice (normalized output, "
                            "not the statistics)",
                 "shape": "B=8 Hkv=12 G=1 d=64 S=1024 bshd, shard 0 of 2, "

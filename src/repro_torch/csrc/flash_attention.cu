@@ -1,9 +1,10 @@
 // FlashAttention-2 forward with the policy's exponential, ragged keys.
 //
 // Replaces: repro/kernels/flash_attention/kernel.py, flash_attention_bhsd
-// (_fa_kernel). Same math: f32 dot products of (q * sm_scale) with k, the
-// online (m, l, acc) update once per KV block of `block_k` keys, p masked
-// after the exp (a masked lane would otherwise add vexp(0) = 1), output
+// (_fa_kernel). Same function: f32 dot products of (q * sm_scale) with k,
+// the online (m, l, acc) update once per KV block of `block_k` keys
+// counted from key 0, p masked after the exp (a masked lane would
+// otherwise add vexp(0) = 1), acc = acc * alpha + p . v, output
 // acc * 1/max(l, 1e-30) rounded to bf16. Adds per-row key lengths
 // (`kv_len`) and per-row query offsets (`q_offset`: query i of row b sits
 // at absolute position q_offset[b] + i, key j at j; causal keep is
@@ -12,264 +13,607 @@
 //
 // Bound on this card: bytes. At gpt2-small prefill (D = 64, 512 tokens,
 // ragged rows) moving q, o and each row's live K/V once at 3.35 TB/s
-// takes longer than the function's multiply-adds at the bf16 tensor-core
-// rate (chip_smoke.py computes both). This first version keeps the
-// reference's f32 dot products and runs them on the CUDA cores, not the
-// tensor cores (a bf16 wgmma would round q * sm_scale to bf16 and leave
-// the function the reference computes), so its own f32 datapath, not
-// memory, holds it far above that bound.
-// Design: one CTA per (batch, head, 64-query tile), 256 threads. The
-// q tile (scaled, f32) stays in shared memory; per KV block, K arrives in
-// 64-key f32 sub-tiles, every thread computes a 4 x 4 patch of scores
-// into a shared (64 x block_k) score tile, four threads per row take the
-// block's max, exp and sum, then V arrives in 64-key sub-tiles and each
-// thread accumulates a 4 x (D/16) patch of p @ v in registers. Threads
-// split a block internally; the (m, l, acc) update stays once per block,
-// so the block partition, and with it the vexp result, is the
-// reference's. Blocks are counted from key 0 whatever the query offset,
-// as the scan counts them. KV blocks past the causal bound, past kv_len
-// or below the window are skipped: for their rows they would be an exact
-// no-op (alpha = exp(0) = 1, p = 0). The score tile needs dynamic shared memory
-// above 48 KB (opted in per launch).
+// takes 0.0059 ms, longer than the function's multiply-adds at the bf16
+// tensor-core rate (chip_smoke.py computes both).
+//
+// Why the products stay on the CUDA cores. The kernel is held to its
+// plain version (the reference's scan in PyTorch f32) per exp backend
+// on the share of bf16 outputs whose bits differ: at most 3e-5 under
+// exact and vexp, 1e-5 and |err| <= 1e-6 under vexp_hw (ATT_LIMITS in
+// kernels/limits.py). Those limits admit only the plain version's own
+// summation order: each score a chain of f32 FMAs over d = 0 .. D-1 from
+// 0, each p . v a chain over the block's keys in order, as the card's f32
+// matrix product sums them. A tensor-core version that reproduces every
+// f32 product exactly (q * sm_scale and p split into three bf16 terms;
+// K and V are bf16 already) still sums in another order and moves 2-7e-4
+// of the outputs by one bf16 ulp, as the plain version computed on the
+// host moves 1.2e-4 of them against itself on the card (PERF.md). So the
+// products run as those FMA chains, and the design spends itself on
+// doing each of them once and on feeding them.
+//
+// Design: one CTA per (batch, head, 64-query tile), 256 threads; the
+// heaviest query tiles of every (batch, head) launch first. The scaled q
+// tile sits transposed in shared memory as f32. Per KV block of
+// `block_k` keys, K and then V arrive as bf16 64-key sub-tiles through
+// cp.async 16-byte copies into a two-stage ring (rows padded by 16 bytes;
+// keys past the block, kv_len or the causal bound are zero-filled, never
+// read), so the next sub-tile is in flight while one computes; each is
+// widened once into an f32 tile (K transposed). Every thread holds a
+// 4 x 4 patch: 4 query rows by 4 keys (tx, tx + 16, tx + 32, tx + 48 of
+// the sub-tile) for the scores, by D/16 output columns for p . v. The
+// block's scores are computed once, into a shared f32 score tile of up
+// to block_k keys, and the row max is taken when the block's last K
+// sub-tile is done; then p = exp(s - m_new), masked, overwrites each
+// score, and p . v runs into a fresh f32 patch per block. Only then,
+// once per block, l = l * alpha + sum(p) and acc = acc * alpha + pv with
+// rounded f32 operations, as the reference does; sub-tiling inside a
+// block is free, a second (m, l) update would not be. KV blocks and
+// sub-tiles past the causal bound, past kv_len or below the window are
+// skipped: for their rows they would be an exact no-op (alpha = exp(0) =
+// 1, p = 0). Dynamic shared memory is 53 KB plus 256 bytes per key of
+// the score tile at D = 64 (181 KB at block_k = 512: one CTA per SM; two
+// at block_k = 128), so block_k is bounded by it: 640 keys at D = 64 on
+// an H100. The shared-memory limit is raised once per instantiation and
+// device.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "vexp.cuh"
 
 namespace {
 
 constexpr int kBQ = 64;        // query rows per CTA
-constexpr int kTK = 64;        // keys per shared-memory sub-tile
-constexpr int kThreads = 256;  // 16 row groups x 16 key/column groups
+constexpr int kTK = 64;        // keys per sub-tile
+constexpr int kThreads = 256;  // eight warps
+constexpr int kTY = kBQ / 4;           // row groups of 4 rows
+constexpr int kTX = kThreads / kTY;    // threads per row group: tx
+constexpr int kKW = kTK / kTX;         // keys per thread: tx + kTX j
+constexpr int kLanesX = kTX / 2;       // tx in one warp; two warps share
+                                       // a row group
 constexpr float kNegInf = -1e30f;
+constexpr int kLdQ = kBQ + 4;  // f32 row of q^T (per d)
+constexpr int kLdS = kBQ;      // f32 row of the score tile (per key)
+constexpr int kLdK = kTK + 4;  // f32 row of K^T (per d)
+
+// A key's row of the score tile holds its kTY 16-byte chunks (4 rows
+// each) in an order XORed with the key, so that eight neighbouring keys
+// at one row group fall in eight different bank groups.
+__device__ __forceinline__ int sidx(int key, int ty) {
+  return key * kLdS + 4 * (ty ^ (key & 7));
+}
 
 struct Strides {               // element strides; the last dim is packed
   long long b, h, s;
 };
 
-__device__ __forceinline__ bool keep_key(int kp, int qp, int klen,
+// Shared-memory layout, in bytes from the start, per head dim D; the
+// score tile, last, holds `nk` keys.
+template <int D>
+struct Smem {
+  static constexpr int kRowB = D + 8;            // bf16 ring row: eight
+                                                 // rows at one column
+                                                 // hit eight bank groups
+  static constexpr int kStage = kTK * kRowB;     // one ring stage, elements
+  static constexpr int kLdV = D + 4;             // f32 V row
+  static constexpr int kTile = D * kLdK > kTK * kLdV ? D * kLdK
+                                                     : kTK * kLdV;
+  static constexpr size_t ring = 0;              // [2][kTK][kRowB]
+  static constexpr size_t q_t = ring + 2 * kStage * sizeof(__nv_bfloat16);
+  static constexpr size_t tile = q_t + (size_t)D * kLdQ * sizeof(float);
+  static constexpr size_t red = tile + (size_t)kTile * sizeof(float);
+  static constexpr size_t s = red + 2 * 2 * kBQ * sizeof(float);
+  static size_t bytes(int nk) {
+    return s + (size_t)nk * kLdS * sizeof(float);
+  }
+};
+
+// keys the score tile holds for a block of `block_k`: whole sub-tiles
+inline int score_keys(int block_k) {
+  return (block_k + kTK - 1) / kTK * kTK;
+}
+
+__device__ __forceinline__ bool keep_key(int kp, int qp, int kmax,
                                          int causal, int window) {
-  return kp < klen && (!causal || kp <= qp) &&
+  return kp < kmax && (!causal || kp <= qp) &&
          (window <= 0 || kp > qp - window);
 }
 
+// 16 bytes global -> shared; src_bytes = 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Where a CTA is in its sweep: KV block, pass (0: K and the scores, 1: V
+// and p . v) and sub-tile j of the block's live sub-tiles [j0, j1).
+struct Item {
+  int blk, pass, j, j0, j1;
+};
+
+// A query tile's walk over its KV blocks, counted from key 0 in units of
+// block_k: blocks past the causal bound, past kv_len or below the window
+// are skipped, and so are the sub-tiles of a block that lie wholly
+// outside [kstart, kend). Each live block is walked twice, pass 0 then
+// pass 1, over the same sub-tiles.
+struct Sweep {
+  int block_k, kstart, kend, blk_end;
+
+  __device__ Sweep(int klen, int qa0, int causal, int window, int bk)
+      : block_k(bk) {
+    kend = causal ? min(klen, qa0 + kBQ) : klen;   // exclusive
+    kstart = window > 0 ? max(0, qa0 - window + 1) : 0;
+    blk_end = (kend + block_k - 1) / block_k;
+  }
+  // keys of block blk that may be live: [blk * block_k, kmax)
+  __device__ int kmax(int blk) const {
+    return min(blk * block_k + block_k, kend);
+  }
+  __device__ int key0(const Item& it) const {
+    return it.blk * block_k + it.j * kTK;
+  }
+  __device__ bool first_from(Item& it, int blk) const {
+    for (; blk < blk_end; ++blk) {
+      const int k0 = blk * block_k, km = kmax(blk);
+      it.j0 = kstart > k0 ? (kstart - k0) / kTK : 0;
+      it.j1 = km > k0 ? (km - k0 + kTK - 1) / kTK : 0;
+      if (it.j0 < it.j1) {
+        it.blk = blk;
+        it.pass = 0;
+        it.j = it.j0;
+        return true;
+      }
+    }
+    return false;
+  }
+  __device__ bool first(Item& it) const {
+    return first_from(it, kstart / block_k);
+  }
+  __device__ bool advance(Item& it) const {
+    if (++it.j < it.j1) return true;
+    if (it.pass == 0) {
+      it.pass = 1;
+      it.j = it.j0;
+      return true;
+    }
+    return first_from(it, it.blk + 1);
+  }
+  // whether every key of sub-tile j of block blk is kept for every row
+  // of the tile (rows at absolute positions qa0 .. qa0 + kBQ - 1)
+  __device__ bool interior(int blk, int j, int qa0, int causal,
+                           int window) const {
+    const int k0 = blk * block_k + j * kTK;
+    return k0 + kTK <= kmax(blk) && (!causal || k0 + kTK - 1 <= qa0) &&
+           (window <= 0 || k0 > qa0 + kBQ - 1 - window);
+  }
+};
+
+// The item's sub-tile (K in pass 0, V in pass 1) into ring stage `stage`;
+// rows at or past the block's kmax are zero-filled.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void issue(__nv_bfloat16* ring, int stage,
+                                      const Sweep& sw, const Item& it,
+                                      const __nv_bfloat16* kb, long long kss,
+                                      const __nv_bfloat16* vb,
+                                      long long vss) {
+  constexpr int CH = D / 8;                    // 16-byte chunks per row
+  __nv_bfloat16* dst = ring + stage * Smem<D>::kStage;
+  const __nv_bfloat16* src = it.pass == 0 ? kb : vb;
+  const long long stride = it.pass == 0 ? kss : vss;
+  const int km = sw.kmax(it.blk), k0 = sw.key0(it);
+#pragma unroll
+  for (int n = 0; n < kTK * CH / kThreads; ++n) {
+    const int i = threadIdx.x + n * kThreads;
+    const int r = i / CH, c = i % CH;
+    const int key = k0 + r;
+    const bool ok = key < km;
+    cp_async16(dst + r * Smem<D>::kRowB + c * 8,
+               ok ? src + key * stride + c * 8 : src, ok ? 16 : 0);
+  }
+}
+
+__device__ __forceinline__ void widen8(uint4 w, float (&f)[8]) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(u[i] << 16);
+    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+// K sub-tile (bf16 rows) -> K^T f32, d-major; key r = kTX j + t sits at
+// column kKW t + j, so thread tx reads its keys tx + kTX j in one load
+template <int D>
+__device__ __forceinline__ void widen_k(const __nv_bfloat16* ring,
+                                        float* kt) {
+  constexpr int CH = D / 8;
+#pragma unroll
+  for (int n = 0; n < kTK * CH / kThreads; ++n) {
+    const int i = threadIdx.x + n * kThreads;
+    const int r = i % kTK, c = i / kTK;        // neighbours: next key
+    float f[8];
+    widen8(*reinterpret_cast<const uint4*>(ring + r * Smem<D>::kRowB +
+                                           c * 8), f);
+    const int col = kKW * (r % kTX) + r / kTX;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) kt[(c * 8 + e) * kLdK + col] = f[e];
+  }
+}
+
+// V sub-tile (bf16 rows) -> V f32, key-major
+template <int D>
+__device__ __forceinline__ void widen_v(const __nv_bfloat16* ring,
+                                        float* vf) {
+  constexpr int CH = D / 8;
+#pragma unroll
+  for (int n = 0; n < kTK * CH / kThreads; ++n) {
+    const int i = threadIdx.x + n * kThreads;
+    const int r = i / CH, c = i % CH;
+    float f[8];
+    widen8(*reinterpret_cast<const uint4*>(ring + r * Smem<D>::kRowB +
+                                           c * 8), f);
+    float4* dst = reinterpret_cast<float4*>(vf + r * Smem<D>::kLdV + c * 8);
+    dst[0] = make_float4(f[0], f[1], f[2], f[3]);
+    dst[1] = make_float4(f[4], f[5], f[6], f[7]);
+  }
+}
+
+// N consecutive f32 of shared memory (N = 4 or 2), in one load
+template <int N>
+__device__ __forceinline__ void load_f32(const float* p, float* v) {
+  if constexpr (N == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  }
+}
+
+// The scores of one K sub-tile for the thread's 4 rows and its keys
+// tx + kTX j: one FMA chain per score over d. Each goes to the score tile
+// at `slot` (key-major), and the kept ones into the row maxima mx.
+template <int D>
+__device__ __forceinline__ void score_tile(const float* sQt, const float* sKt,
+                                           float* slot, int tx, int ty,
+                                           int key0, int kmax, int qa,
+                                           bool inner, int causal,
+                                           int window, float (&mx)[4]) {
+  float s[4][kKW];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kKW; ++j) s[i][j] = 0.0f;
+#pragma unroll 16
+  for (int d = 0; d < D; ++d) {
+    float qr[4], kr[kKW];
+    load_f32<4>(sQt + d * kLdQ + 4 * ty, qr);
+    load_f32<kKW>(sKt + d * kLdK + kKW * tx, kr);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < kKW; ++j) s[i][j] = fmaf(qr[i], kr[j], s[i][j]);
+  }
+#pragma unroll
+  for (int j = 0; j < kKW; ++j) {
+    const int kk = tx + kTX * j;               // key within the sub-tile
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (inner || keep_key(key0 + kk, qa + i, kmax, causal, window))
+        mx[i] = fmaxf(mx[i], s[i][j]);
+    *reinterpret_cast<float4*>(slot + sidx(kk, ty)) =
+        make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+  }
+}
+
+// p = exp(s - m_new), masked, from the thread's own scores at `sl` (the
+// sub-tile from key key0), written over them, and their sum into rsum
+template <int BACKEND>
+__device__ __forceinline__ void make_p(float* sl, int key0, bool inner,
+                                       int kmax, int qa, int causal,
+                                       int window, int tx, int ty,
+                                       const float (&m_new)[4],
+                                       float (&rsum)[4]) {
+#pragma unroll
+  for (int j = 0; j < kKW; ++j) {
+    float4* at = reinterpret_cast<float4*>(sl + sidx(tx + kTX * j, ty));
+    const float4 sv = *at;
+    const float sr[4] = {sv.x, sv.y, sv.z, sv.w};
+    float p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float ex = vexp::apply_exp(BACKEND, __fsub_rn(sr[i], m_new[i]));
+      p[i] = inner || keep_key(key0 + tx + kTX * j, qa + i, kmax, causal,
+                               window) ? ex : 0.0f;
+      rsum[i] = __fadd_rn(rsum[i], p[i]);
+    }
+    *at = make_float4(p[0], p[1], p[2], p[3]);
+  }
+}
+
+template <int D, int BACKEND>
+__global__ void __launch_bounds__(kThreads, 2)
 fa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
               __nv_bfloat16* __restrict__ o, const int* __restrict__ kv_len,
-              const int* __restrict__ q_offset, int H, int Hkv, int Sq,
-              int Sk, Strides qs, Strides ks, Strides vs, Strides os,
-              float sm_scale, int causal, int window, int block_k,
-              int backend) {
-  constexpr int DP = D + 1;              // padded row: no bank conflicts
-  constexpr int NC = D / 16;             // output columns per thread
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+              const int* __restrict__ q_offset, int q_off, int H, int Hkv,
+              int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os,
+              float sm_scale, int causal, int window, int block_k) {
+  using L = Smem<D>;
+  constexpr int CW = D / kTX;              // p . v columns per thread
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem + L::ring);
+  float* sQt = reinterpret_cast<float*>(smem + L::q_t);   // D x kLdQ
+  float* sT = reinterpret_cast<float*>(smem + L::tile);   // K^T or V
+  float* sMax = reinterpret_cast<float*>(smem + L::red);  // [2][kBQ]
+  float* sSum = sMax + 2 * kBQ;                           // [2][kBQ]
+  float* sS = reinterpret_cast<float*>(smem + L::s);      // nk x kLdS
+
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;   // heavy tiles first
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
   const int hk = h / (H / Hkv);
   const int tid = threadIdx.x;
-  const int SS = block_k + 4;            // score row stride
-
-  extern __shared__ float smem[];
-  float* sQ = smem;                      // kBQ x DP
-  float* sKV = sQ + kBQ * DP;            // kTK x DP (K, then V)
-  float* sS = sKV + kTK * DP;            // kBQ x SS scores, then p
-  float* sM = sS + kBQ * SS;
-  float* sL = sM + kBQ;
-  float* sA = sL + kBQ;
+  const int lane = tid % 32, warp = tid / 32;
+  const int half = warp % 2;                  // which half of the tx
+  const int tx = lane % kLanesX + kLanesX * half;   // keys tx + kTX j;
+                                                    // columns CW tx ..
+  const int ty = lane / kLanesX + 32 / kLanesX * (warp / 2);   // rows
+                                                    // 4 ty .. 4 ty + 3
 
   const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
   const __nv_bfloat16* kb = k + b * ks.b + hk * ks.h;
   const __nv_bfloat16* vb = v + b * vs.b + hk * vs.h;
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    float val = 0.0f;
-    if (q0 + r < Sq)
-      val = __fmul_rn(__bfloat162float(qb[(q0 + r) * qs.s + d]), sm_scale);
-    sQ[r * DP + d] = val;
-  }
-  for (int r = tid; r < kBQ; r += kThreads) {
-    sM[r] = kNegInf;
-    sL[r] = 0.0f;
-  }
-
   const int klen = kv_len != nullptr ? min(kv_len[b], Sk) : Sk;
-  const int qoff = q_offset != nullptr ? q_offset[b] : 0;
+  const int qoff = q_offset != nullptr ? q_offset[b] : q_off;
   const int qa0 = qoff + q0;                      // absolute pos of row 0
-  int kend = klen;                                // exclusive
-  if (causal) kend = min(kend, qa0 + kBQ);
-  const int kstart = window > 0 ? max(0, qa0 - window + 1) : 0;
-  const int blk_first = kstart / block_k;
-  const int blk_end = (kend + block_k - 1) / block_k;
+  const int qa = qa0 + 4 * ty;                    // ... of the thread's
+  const Sweep sw(klen, qa0, causal, window, block_k);
 
-  const int rg = tid / 16;     // rows rg*4 .. rg*4+3
-  const int cg = tid % 16;     // keys / columns cg + 16*j
-  float acc[4][NC];
+  Item cur;
+  bool live = sw.first(cur);
+  if (live) issue<D>(ring, 0, sw, cur, kb, ks.s, vb, vs.s);
+  cp_async_commit();
+
+  // q * sm_scale, transposed: sQt[d][r]; every 16-byte load is in flight
+  // before the first is used
+  {
+    constexpr int CH = D / 8, N = (kBQ * CH + kThreads - 1) / kThreads;
+    uint4 w[N];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int n = 0; n < N; ++n) {
+      const int i = tid + n * kThreads, r = i / CH, c = i % CH;
+      w[n] = i < kBQ * CH && q0 + r < Sq
+                 ? *reinterpret_cast<const uint4*>(qb + (q0 + r) * qs.s +
+                                                   c * 8)
+                 : make_uint4(0, 0, 0, 0);
+    }
 #pragma unroll
-    for (int j = 0; j < NC; ++j) acc[i][j] = 0.0f;
-  __syncthreads();
+    for (int n = 0; n < N; ++n) {
+      const int i = tid + n * kThreads, r = i / CH, c = i % CH;
+      if (i >= kBQ * CH) break;
+      float f[8];
+      widen8(w[n], f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        sQt[(c * 8 + e) * kLdQ + r] = __fmul_rn(f[e], sm_scale);
+    }
+  }
 
-  for (int blk = blk_first; blk < blk_end; ++blk) {
-    const int k0 = blk * block_k;
-    const int bk = min(block_k, Sk - k0);
+  // per row i of the thread's four: running (m, l, acc); per block: the
+  // thread's part of the row max and of the p sum, (m_new, alpha), p . v
+  float m_run[4], l_run[4], acc[4][CW], pv[4][CW];
+  float mx[4], m_new[4], alpha[4], rsum[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_run[i] = m_new[i] = mx[i] = kNegInf;
+    l_run[i] = rsum[i] = 0.0f;
+    alpha[i] = 1.0f;
+#pragma unroll
+    for (int j = 0; j < CW; ++j) acc[i][j] = pv[i][j] = 0.0f;
+  }
 
-    // ---- scores s = (q * scale) . k for the whole block, masked
-    for (int t0 = 0; t0 < bk; t0 += kTK) {
-      for (int i = tid; i < kTK * D; i += kThreads) {
-        const int c = i / D, d = i % D;
-        float val = 0.0f;
-        if (t0 + c < bk) val = __bfloat162float(kb[(k0 + t0 + c) * ks.s + d]);
-        sKV[c * DP + d] = val;
-      }
+  int stage = 0;
+  while (live) {
+    Item nxt = cur;
+    const bool more = sw.advance(nxt);
+    if (more) issue<D>(ring, stage ^ 1, sw, nxt, kb, ks.s, vb, vs.s);
+    cp_async_commit();
+    cp_async_wait_one();             // the current stage has landed
+    __syncthreads();                 // ... for every thread; the f32
+                                     // tile of the last item is free
+    const __nv_bfloat16* rt = ring + stage * L::kStage;
+    float* slot = sS + (cur.j - cur.j0) * kTK * kLdS;   // the sub-tile's
+                                                        // keys, p^T rows
+    if (cur.pass == 0) {
+      widen_k<D>(rt, sT);
       __syncthreads();
-      float s[4][4];
+      // ---- scores, into the score tile and the row maxima
+      if (cur.j == cur.j0) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) mx[i] = kNegInf;
+      }
+      const int kmax = sw.kmax(cur.blk);
+      score_tile<D>(sQt, sT, slot, tx, ty, sw.key0(cur), kmax, qa,
+                    sw.interior(cur.blk, cur.j, qa0, causal, window), causal,
+                    window, mx);
+      if (cur.j + 1 == cur.j1) {
+        // ---- the block's row max: the 8 lanes of a row group, then the
+        // two warps that share its rows
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        float qv[4], kv[4];
+        for (int i = 0; i < 4; ++i) {
+          float m = mx[i];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) qv[i] = sQ[(rg * 4 + i) * DP + d];
+          for (int x = 1; x < kLanesX; x *= 2)
+            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, x));
+          if (lane % kLanesX == 0) sMax[half * kBQ + 4 * ty + i] = m;
+        }
+        __syncthreads();
 #pragma unroll
-        for (int j = 0; j < 4; ++j) kv[j] = sKV[(cg + 16 * j) * DP + d];
+        for (int i = 0; i < 4; ++i) {
+          const float m = fmaxf(sMax[4 * ty + i], sMax[kBQ + 4 * ty + i]);
+          m_new[i] = fmaxf(m_run[i], m);
+          alpha[i] = vexp::apply_exp(BACKEND, __fsub_rn(m_run[i], m_new[i]));
+          rsum[i] = 0.0f;
+#pragma unroll
+          for (int j = 0; j < CW; ++j) pv[i][j] = 0.0f;
+        }
+        // ---- p = exp(s - m_new), masked, over the thread's own scores
+        for (int jj = cur.j0; jj < cur.j1; ++jj)
+          make_p<BACKEND>(sS + (jj - cur.j0) * kTK * kLdS,
+                          cur.blk * block_k + jj * kTK,
+                          sw.interior(cur.blk, jj, qa0, causal, window), kmax,
+                          qa, causal, window, tx, ty, m_new, rsum);
+      }
+    } else {
+      widen_v<D>(rt, sT);
+      __syncthreads();               // V and every thread's p
+      // ---- pv += p . v, one FMA chain per output over the keys in order
+#pragma unroll 16
+      for (int c = 0; c < kTK; ++c) {
+        float pr[4], vr[CW];
+        load_f32<4>(slot + sidx(c, ty), pr);
+        load_f32<CW>(sT + c * L::kLdV + CW * tx, vr);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          for (int j = 0; j < CW; ++j) pv[i][j] = fmaf(pr[i], vr[j], pv[i][j]);
       }
+      if (cur.j + 1 == cur.j1) {
+        // ---- the block's one online update
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = rg * 4 + i;
+        for (int i = 0; i < 4; ++i) {
+          float sum = rsum[i];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = t0 + cg + 16 * j;
-          if (c < bk)
-            sS[r * SS + c] = keep_key(k0 + c, qa0 + r, klen, causal, window)
-                                 ? s[i][j] : kNegInf;
+          for (int x = 1; x < kLanesX; x *= 2)
+            sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, x));
+          if (lane % kLanesX == 0) sSum[half * kBQ + 4 * ty + i] = sum;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float sum = __fadd_rn(sSum[4 * ty + i],
+                                      sSum[kBQ + 4 * ty + i]);
+          l_run[i] = __fadd_rn(__fmul_rn(l_run[i], alpha[i]), sum);
+          m_run[i] = m_new[i];
+#pragma unroll
+          for (int j = 0; j < CW; ++j)
+            acc[i][j] = __fadd_rn(__fmul_rn(acc[i][j], alpha[i]), pv[i][j]);
         }
       }
-      __syncthreads();
     }
-
-    // ---- row max, rescale factor, p = exp(s - m_new) masked, row sum
-    {
-      const int r = tid / 4, part = tid % 4;
-      const int qp = qa0 + r;
-      float* row = sS + r * SS;
-      float mx = kNegInf;
-      for (int c = part; c < bk; c += 4) mx = fmaxf(mx, row[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_prev = sM[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float alpha = vexp::apply_exp(backend, __fsub_rn(m_prev, m_new));
-      float sum = 0.0f;
-      for (int c = part; c < bk; c += 4) {
-        const float p = keep_key(k0 + c, qp, klen, causal, window)
-            ? vexp::apply_exp(backend, __fsub_rn(row[c], m_new)) : 0.0f;
-        row[c] = p;
-        sum = __fadd_rn(sum, p);
-      }
-      sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 1));
-      sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 2));
-      if (part == 0) {
-        sL[r] = __fadd_rn(__fmul_rn(sL[r], alpha), sum);
-        sM[r] = m_new;
-        sA[r] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // ---- acc = acc * alpha + p @ v
-    float pv[4][NC];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NC; ++j) pv[i][j] = 0.0f;
-    for (int t0 = 0; t0 < bk; t0 += kTK) {
-      for (int i = tid; i < kTK * D; i += kThreads) {
-        const int c = i / D, d = i % D;
-        float val = 0.0f;
-        if (t0 + c < bk) val = __bfloat162float(vb[(k0 + t0 + c) * vs.s + d]);
-        sKV[c * DP + d] = val;
-      }
-      __syncthreads();
-      const int nk = min(kTK, bk - t0);
-      for (int c = 0; c < nk; ++c) {
-        float p[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) p[i] = sS[(rg * 4 + i) * SS + t0 + c];
-#pragma unroll
-        for (int j = 0; j < NC; ++j) {
-          const float vv = sKV[c * DP + cg + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) pv[i][j] = fmaf(p[i], vv, pv[i][j]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = sA[rg * 4 + i];
-#pragma unroll
-      for (int j = 0; j < NC; ++j)
-        acc[i][j] = __fadd_rn(__fmul_rn(acc[i][j], alpha), pv[i][j]);
-    }
-    // the next block's score pass rewrites sS/sA only after this
-    // block's last __syncthreads above
+    if (!more) break;
+    cur = nxt;
+    stage ^= 1;
   }
 
   __nv_bfloat16* ob = o + b * os.b + h * os.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int r = rg * 4 + i;
-    if (q0 + r >= Sq) continue;
-    const float inv = 1.0f / fmaxf(sL[r], 1e-30f);
+    const int row = q0 + 4 * ty + i;
+    if (row >= Sq) continue;
+    const float inv = 1.0f / fmaxf(l_run[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < NC; ++j)
-      ob[(q0 + r) * os.s + cg + 16 * j] =
-          __float2bfloat16_rn(__fmul_rn(acc[i][j], inv));
+    for (int j = 0; j < CW; j += 2)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row * os.s + CW * tx + j) =
+          __floats2bfloat162_rn(__fmul_rn(acc[i][j], inv),
+                                __fmul_rn(acc[i][j + 1], inv));
   }
 }
 
-template <int D>
+size_t smem_bytes(int D, int block_k) {
+  const int nk = score_keys(block_k);
+  return D == 32 ? Smem<32>::bytes(nk) : Smem<64>::bytes(nk);
+}
+
+template <int D, int BACKEND>
 int launch(const void* q, const void* k, const void* v, void* o,
-           const void* kv_len, const void* q_offset, int B, int H, int Hkv,
-           int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os,
-           float sm_scale, int causal, int window, int block_k, int backend,
-           cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-      ((size_t)kBQ * (D + 1) + (size_t)kTK * (D + 1) +
-       (size_t)kBQ * (block_k + 4) + 3 * kBQ);
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+           const void* kv_len, const void* q_offset, int q_off, int B,
+           int H, int Hkv, int Sq, int Sk, Strides qs, Strides ks,
+           Strides vs, Strides os, float sm_scale, int causal, int window,
+           int block_k, cudaStream_t stream) {
+  // the shared-memory limit, raised to the card's once per instantiation
+  // and device
+  constexpr int kMaxDevices = 64;
+  static bool raised[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  fa_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    int optin = 0;
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 dev);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(fa_fwd_kernel<D, BACKEND>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+    if (err != cudaSuccess) return (int)err;
+    raised[dev] = true;
+  }
+  const size_t smem = Smem<D>::bytes(score_keys(block_k));
+  dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
+  fa_fwd_kernel<D, BACKEND><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<__nv_bfloat16*>(o), static_cast<const int*>(kv_len),
-      static_cast<const int*>(q_offset), H, Hkv, Sq, Sk, qs, ks, vs, os,
-      sm_scale, causal, window, block_k, backend);
+      static_cast<const int*>(q_offset), q_off, H, Hkv, Sq, Sk, qs, ks, vs,
+      os, sm_scale, causal, window, block_k);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_exp(int backend, const void* q, const void* k, const void* v,
+               void* o, const void* kv_len, const void* q_offset, int q_off,
+               int B, int H, int Hkv, int Sq, int Sk, Strides qs, Strides ks,
+               Strides vs, Strides os, float sm_scale, int causal,
+               int window, int block_k, cudaStream_t s) {
+  switch (backend) {
+    case vexp::kExact:
+      return launch<D, vexp::kExact>(q, k, v, o, kv_len, q_offset, q_off, B,
+                                     H, Hkv, Sq, Sk, qs, ks, vs, os,
+                                     sm_scale, causal, window, block_k, s);
+    case vexp::kVexp:
+      return launch<D, vexp::kVexp>(q, k, v, o, kv_len, q_offset, q_off, B,
+                                    H, Hkv, Sq, Sk, qs, ks, vs, os, sm_scale,
+                                    causal, window, block_k, s);
+    case vexp::kVexpHw:
+      return launch<D, vexp::kVexpHw>(q, k, v, o, kv_len, q_offset, q_off,
+                                      B, H, Hkv, Sq, Sk, qs, ks, vs, os,
+                                      sm_scale, causal, window, block_k, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+bool aligned16(const void* p, const Strides& s) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.b % 8 == 0 &&
+         s.h % 8 == 0 && s.s % 8 == 0;
 }
 
 }  // namespace
 
-// q (B,H,Sq,D), k/v (B,Hkv,Sk,D), o (B,H,Sq,D): bf16, any strides with the
-// last dim packed. kv_len: (B,) int32 or null (every key real). q_offset:
-// (B,) int32 or null (all 0). window <= 0 means no window. Returns
-// cudaGetLastError() after the launch.
+// q (B,H,Sq,D), k/v (B,Hkv,Sk,D), o (B,H,Sq,D): bf16, the last dim packed;
+// q, k and v 16-byte aligned with every stride a multiple of 8 elements
+// (whole 16-byte rows), o 4-byte aligned with even strides
+// (bf16 pairs are stored). kv_len: (B,) int32 or null (every key real).
+// q_offset: (B,) int32, or null and then q_off for every row. window <= 0
+// means no window. Returns cudaGetLastError() after the launch.
 extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
                       const void* kv_len, const void* q_offset, int B,
                       int H, int Hkv, int Sq, int Sk, int D,
@@ -277,30 +621,34 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
                       long long ksb, long long ksh, long long kss,
                       long long vsb, long long vsh, long long vss,
                       long long osb, long long osh, long long oss,
-                      float sm_scale, int causal, int window,
-                      int block_k, int backend, void* stream) {
+                      float sm_scale, int causal, int window, int block_k,
+                      int q_off, int backend, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
+  if (block_k < 1 || Hkv < 1 || H % Hkv != 0 || !aligned16(q, qs) ||
+      !aligned16(k, ks) || !aligned16(v, vs) ||
+      reinterpret_cast<uintptr_t>(o) % 4 != 0 ||
+      (os.b | os.h | os.s) % 2 != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return launch<32>(q, k, v, o, kv_len, q_offset, B, H, Hkv, Sq, Sk, qs,
-                        ks, vs, os, sm_scale, causal, window, block_k,
-                        backend, s);
+      return launch_exp<32>(backend, q, k, v, o, kv_len, q_offset, q_off, B,
+                            H, Hkv, Sq, Sk, qs, ks, vs, os, sm_scale, causal,
+                            window, block_k, s);
     case 64:
-      return launch<64>(q, k, v, o, kv_len, q_offset, B, H, Hkv, Sq, Sk, qs,
-                        ks, vs, os, sm_scale, causal, window, block_k,
-                        backend, s);
+      return launch_exp<64>(backend, q, k, v, o, kv_len, q_offset, q_off, B,
+                            H, Hkv, Sq, Sk, qs, ks, vs, os, sm_scale, causal,
+                            window, block_k, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 // Dynamic shared memory bytes a launch needs (the wrapper checks it
-// against the card's per-block limit before launching).
+// against the card's per-block limit before launching): the score tile
+// holds a block of block_k keys, rounded up to whole sub-tiles.
 extern "C" long long fa_smem_bytes(int D, int block_k) {
-  return (long long)sizeof(float) *
-         ((long long)kBQ * (D + 1) + (long long)kTK * (D + 1) +
-          (long long)kBQ * (block_k + 4) + 3LL * kBQ);
+  return (long long)smem_bytes(D, block_k);
 }

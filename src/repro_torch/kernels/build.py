@@ -94,17 +94,18 @@ def build_all(sources) -> dict:
 class KernelLib:
     """A compiled source's ctypes handle and one launch counter.
 
-    ``fn(name)`` returns the C entry with its argument types set; each C
-    entry returns ``cudaGetLastError()`` and ``check`` raises on a
-    non-zero code. ``launches`` counts the kernel launches made through
-    the wrappers that check against this object and nothing else; a
-    source with several kernels has one object per kernel, sharing the
-    loaded library."""
+    ``fn(name)`` returns the C entry with its argument types set, looked
+    up once per name; each C entry returns ``cudaGetLastError()`` and
+    ``check`` raises on a non-zero code. ``launches`` counts the kernel
+    launches made through the wrappers that check against this object
+    and nothing else; a source with several kernels has one object per
+    kernel, sharing the loaded library."""
 
     def __init__(self, source: str):
         self.source = source
         self.launches = 0
         self._lib = None
+        self._fns = {}
 
     def load(self):
         if self._lib is None:
@@ -113,9 +114,12 @@ class KernelLib:
         return self._lib
 
     def fn(self, name: str, argtypes, restype=ctypes.c_int):
-        f = getattr(self.load(), name)
-        f.argtypes = argtypes
-        f.restype = restype
+        f = self._fns.get(name)
+        if f is None:
+            f = getattr(self.load(), name)
+            f.argtypes = argtypes
+            f.restype = restype
+            self._fns[name] = f
         return f
 
     def check(self, code: int, what: str):

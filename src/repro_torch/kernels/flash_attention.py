@@ -20,6 +20,7 @@ from .build import BACKEND_CODE, F, I, KernelLib, LL, P
 
 LIB = KernelLib("flash_attention.cu")
 HEAD_DIMS = (32, 64)      # gpt2-small, and its --reduced config
+_SMEM_OK = set()          # (device, head dim, block_k) that fit
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None, kv_len=None,
@@ -37,6 +38,12 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, kv_len=None,
                            kv_valid=kv_valid)
 
 
+def _rows16(t):
+    """16-byte aligned rows, as the kernel's cp.async copies need."""
+    return t.data_ptr() % 16 == 0 and all(
+        t.stride(i) % 8 == 0 for i in range(3))
+
+
 def flash_attention(q, k, v, *, causal=True, window=None, kv_len=None,
                     q_offset=0, sm_scale=None, policy):
     """q (B,Sq,H,D), k/v (B,Sk,Hkv,D) -> (B,Sq,H,D) in q's dtype.
@@ -44,7 +51,8 @@ def flash_attention(q, k, v, *, causal=True, window=None, kv_len=None,
     ``kv_len`` (B,) int: real keys per row (None: all Sk). ``q_offset``
     int or (B,) int: query i of row b sits at position q_offset[b] + i.
     The policy gives the exp backend and ``block_k``, the online-update
-    block."""
+    block; the kernel holds a block's scores in shared memory, so on the
+    card ``block_k`` is bounded by it (640 keys at D = 64 on an H100)."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     block_k = min(policy.block_k, sk)
@@ -69,27 +77,37 @@ def flash_attention(q, k, v, *, causal=True, window=None, kv_len=None,
                          f"{HEAD_DIMS}, or H={h} not a multiple of "
                          f"Hkv={hkv}, or v {tuple(v.shape)} != k "
                          f"{tuple(k.shape)}")
-    smem = LIB.fn("fa_smem_bytes", [I, I], LL)(d, block_k)
-    limit = torch.cuda.get_device_properties(
-        q.device).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(f"flash_attention kernel: block_k={block_k} needs "
-                         f"{smem} B of shared memory, the card allows "
-                         f"{limit}")
+    if (q.device, d, block_k) not in _SMEM_OK:
+        smem = LIB.fn("fa_smem_bytes", [I, I], LL)(d, block_k)
+        limit = torch.cuda.get_device_properties(
+            q.device).shared_memory_per_block_optin
+        if smem > limit:
+            raise ValueError(f"flash_attention kernel: block_k={block_k} "
+                             f"needs {smem} B of shared memory, the card "
+                             f"allows {limit}")
+        _SMEM_OK.add((q.device, d, block_k))
+    # the kernel copies whole 16-byte rows (and reads q in pairs): realign
+    # a view that has none
+    q, k, v = (t if _rows16(t) else t.clone(
+        memory_format=torch.contiguous_format) for t in (q, k, v))
     if kv_len is not None:
         kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
         if kv_len.shape != (b,):
             raise ValueError(f"kv_len must be ({b},), got "
                              f"{tuple(kv_len.shape)}")
-    qoff = None
-    if not (isinstance(q_offset, int) and q_offset == 0):
+    # an int offset goes to the kernel as a scalar: no tensor to copy to
+    # the card, so a CUDA graph can capture the call
+    qoff, q_off = None, 0
+    if isinstance(q_offset, int):
+        q_off = q_offset
+    else:
         qoff = torch.broadcast_to(
             torch.as_tensor(q_offset, device=q.device).to(torch.int32)
             .reshape(-1), (b,)).contiguous()
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     launch = LIB.fn("fa_fwd", [P] * 6 + [I] * 6 + [LL] * 12
-                    + [F, I, I, I, I, P])
+                    + [F, I, I, I, I, I, P])
 
     def bhs(t):          # (B, S, H, D) strides in (b, h, s) order
         return t.stride(0), t.stride(2), t.stride(1)
@@ -99,7 +117,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, kv_len=None,
         None if kv_len is None else kv_len.data_ptr(),
         None if qoff is None else qoff.data_ptr(),
         b, h, hkv, sq, sk, d, *bhs(q), *bhs(k), *bhs(v), *bhs(out),
-        scale, int(causal), window or 0, block_k,
+        scale, int(causal), window or 0, block_k, q_off,
         BACKEND_CODE[policy.exp_backend],
         torch.cuda.current_stream(q.device).cuda_stream),
         "flash_attention")

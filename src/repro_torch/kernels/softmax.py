@@ -17,6 +17,7 @@ from .build import BACKEND_CODE, I, KernelLib, LL, P
 
 LIB = KernelLib("softmax.cu")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_SMEM_OK = set()          # (device, row length) checked to fit
 
 
 def softmax_plain(x: torch.Tensor, axis: int = -1, *,
@@ -41,12 +42,15 @@ def softmax(x: torch.Tensor, axis: int = -1, *, policy) -> torch.Tensor:
                         f"got {x.dtype}")
     xt = torch.movedim(x, axis, -1)
     n = xt.shape[-1]
-    smem = LIB.fn("softmax_smem_bytes", [I], LL)(n)
-    limit = getattr(torch.cuda.get_device_properties(x.device),
-                    "shared_memory_per_block_optin", None)
-    if limit is not None and smem > limit:
-        raise ValueError(f"softmax kernel: a row of {n} lanes needs {smem} "
-                         f"B of shared memory, the card allows {limit}")
+    if (x.device, n) not in _SMEM_OK:
+        smem = LIB.fn("softmax_smem_bytes", [I], LL)(n)
+        limit = getattr(torch.cuda.get_device_properties(x.device),
+                        "shared_memory_per_block_optin", None)
+        if limit is not None and smem > limit:
+            raise ValueError(f"softmax kernel: a row of {n} lanes needs "
+                             f"{smem} B of shared memory, the card allows "
+                             f"{limit}")
+        _SMEM_OK.add((x.device, n))
     x2 = xt.reshape(-1, n).contiguous()
     y2 = torch.empty_like(x2)
     launch = LIB.fn("softmax_fwd", [P, P, LL, I, I, I, P])
