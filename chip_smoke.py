@@ -8,7 +8,8 @@ It builds the hand-written kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version on the card, times each eagerly
 and as a CUDA graph of back-to-back calls (device time without the
 wrapper's host work) beside its plain version, its library call and its
-bound, serves full-width gpt2-small through the port's ``Server`` on the
+bound (the decode kernels also per CUDA kernel, from torch.profiler, and
+at batch 1), serves full-width gpt2-small through the port's ``Server`` on the
 contiguous cache and on the paged pool with a shared-prefix cache, then
 serves it sequence-sharded (``kv_mode="seq"``) on 2 ranks spawned on the
 one card (gloo, host-staged collectives), and checks what comes out.
@@ -157,10 +158,12 @@ def kernel_vs_plain(out, ref, real=None):
 def check_attention(kernel, readings, where=""):
     """Fail unless every backend's kernel reading is inside ATT_LIMITS and
     every negative control is outside them: the plain version at half the
-    online-update unit (block or page), and for FA the scan with p in two
-    bf16 terms against the same scan with p exact. ``readings`` maps
-    (exp, "kernel" | "half_block" | "half_page" | "p_two_terms") to
-    (max_abs_err, mismatch_share)."""
+    online-update unit (block or page), for the decode kernels the
+    textbook split-KV merge (``textbook_partial``), and for FA the scan
+    with p in two bf16 terms against the same scan with p exact.
+    ``readings`` maps (exp, "kernel" | "half_block" | "half_page" |
+    "textbook_merge" | "p_two_terms") to (max_abs_err,
+    mismatch_share)."""
     from repro_torch.kernels.limits import ATT_LIMITS
     for (exp, who), (err, share) in readings.items():
         lim_err, lim_share = ATT_LIMITS[kernel][exp]
@@ -172,6 +175,77 @@ def check_attention(kernel, readings, where=""):
         if who != "kernel" and inside:
             fail(f"{kernel}{where} {exp}: the negative control {who} passes "
                  f"the limits ({err}, {share}); they cannot see that fault")
+
+
+def textbook_partial(q, k_cache, v_cache, cache_len, seq_offset, *, layout,
+                     exp):
+    """Negative control for the split decode kernels: the usual split-KV
+    merge over the same 64-key tiles (each update block's keys from its
+    start in steps of 64; the slice and the block are whole tiles here),
+    each tile's p taken against the tile's own max and the tiles folded
+    with one exp(m_t - m) each. Under vexp and vexp_hw
+    exp(a) * exp(b) != exp(a + b), so this is another function than the
+    plain sweep's running max per update block. Returns the raw
+    (m, l) (B,Hkv,G,1) and acc (B,Hkv,G,d), f32."""
+    import math
+    from repro_torch.core.attention import NEG_INF
+    from repro_torch.core.vexp import get_exp_fn
+    exp_fn = get_exp_fn(exp)
+    kk, vv = ((k_cache, v_cache) if layout == "bhsd"
+              else (k_cache.transpose(1, 2), v_cache.transpose(1, 2)))
+    b, _, h, d = q.shape
+    hkv, smax = kk.shape[1], kk.shape[2]
+    g, nt = h // hkv, smax // 64
+    if smax % 64:
+        raise ValueError("textbook_partial takes whole 64-key tiles")
+    qg = ((q.float() * (1.0 / math.sqrt(d))).to(kk.dtype).float()
+          .reshape(b, hkv, g, d))
+    keep = ((seq_offset + torch.arange(smax, device=q.device))[None, :]
+            < cache_len.reshape(-1, 1))[:, None, None]
+    s = torch.where(keep, torch.einsum("bkgd,bktd->bkgt", qg, kk.float()),
+                    NEG_INF).reshape(b, hkv, g, nt, 64)
+    m_t = s.amax(-1)
+    p = torch.where(keep.reshape(b, 1, 1, nt, 64),
+                    exp_fn(s - m_t[..., None]), 0.0)
+    pv_t = torch.einsum("bkgnt,bkntd->bkgnd", p.to(kk.dtype).float(),
+                        vv.float().reshape(b, hkv, nt, 64, d))
+    m = m_t.amax(-1)
+    w = exp_fn(m_t - m[..., None])
+    return (m[..., None], (w * p.sum(-1)).sum(-1)[..., None],
+            (w[..., None] * pv_t).sum(-2))
+
+
+def stage_device_us(fn, iters=20):
+    """Device time per call of each kernel ``fn`` launches, by kernel
+    name, in microseconds, from one torch.profiler window over ``iters``
+    calls; "not measured" when the trace holds no device events."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.split("(")[0].removeprefix("void ")
+            by_name[name] = (by_name.get(name, 0.0)
+                             + e.time_range.elapsed_us() / iters)
+    return by_name or "not measured"
+
+
+def b1_reading(kernel, sdpa, nbytes, flops):
+    """The B = 1 case (where a grid of one CTA per KV head and batch row
+    had 12 CTAs): eager and graph ms of ``kernel`` and of the library
+    call ``sdpa``, the bound, and the kernel's per-stage device time."""
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+    return {"ms": cuda_time_ms(kernel, iters=50),
+            "graph_ms": graph_ms(kernel, "kernel at B = 1", iters=50),
+            "library_ms": cuda_time_ms(sdpa, iters=50),
+            "library_graph_ms": graph_ms(sdpa, "sdpa at B = 1", iters=50),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "stage_us": stage_device_us(kernel)}
 
 
 # --------------------------------------------------------------- phases
@@ -522,8 +596,10 @@ def phase_flash_attention(policy_cls, block_k):
 
 
 def phase_decode(policy_cls):
-    """Kernel 3 at decode shapes: B=8, Hkv=12, G=1, d=64, S=1024, ragged
-    cache_len, both cache layouts."""
+    """Kernel B2 at decode shapes: B=8, Hkv=12, G=1, d=64, S=1024, ragged
+    cache_len, both cache layouts; the half-block and textbook-merge
+    controls; the device time of each of its kernels (torch.profiler);
+    and the B = 1 case beside SDPA's."""
     from repro_torch.kernels import decode_attention as da
     g = torch.Generator(device="cuda").manual_seed(2)
     b, s, h, d = 8, 1024, 12, 64
@@ -553,6 +629,10 @@ def phase_decode(policy_cls):
                     q, kl, vl, cache_len, layout=layout,
                     block_s=pol.block_s // 2, exp_backend=exp)
                 readings[exp, "half_block"] = kernel_vs_plain(half, ref)
+                tb = textbook_partial(q, kl, vl, cache_len, 0,
+                                      layout=layout, exp=exp)
+                readings[exp, "textbook_merge"] = kernel_vs_plain(
+                    _norm_stats(*tb).reshape(ref.shape), ref)
         for (exp, who), (err, share) in readings.items():
             res[f"{layout}_{exp}_{who}_max_abs_err"] = err
             res[f"{layout}_{exp}_{who}_mismatch_share"] = share
@@ -582,15 +662,26 @@ def phase_decode(policy_cls):
     g_ms = graph_ms(lambda: da.decode_attention(q, kc, vc, cache_len,
                                                 layout="bshd", policy=pol),
                     "decode_attention_kernel", iters=50)
+    stage_us = stage_device_us(lambda: da.decode_attention(
+        q, kc, vc, cache_len, layout="bshd", policy=pol))
     live = float(cache_len.double().sum())
     nbytes = live * h * d * 2 * 2 + 2 * b * h * d * 2   # K+V rows, q, o
     flops = 4.0 * live * h * d
     b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+    # B = 1: row 0, whose cache is full
+    live1 = float(cache_len[0])
+    b1 = b1_reading(
+        lambda: da.decode_attention(q[:1], kc[:1], vc[:1], cache_len[:1],
+                                    layout="bshd", policy=pol),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt[:1], kt[:1], vt[:1], attn_mask=mask[:1]),
+        live1 * h * d * 2 * 2 + 2 * h * d * 2, 4.0 * live1 * h * d)
     ms, plain_ms = times["bshd"]
     res.update({"plain_ms_bshd": plain_ms,
                 "plain_ms_bhsd": times["bhsd"][1], "library_ms": lib_ms,
                 "graph_ms_bshd_vexp": g_ms, "library_graph_ms": lib_g_ms,
                 "bound_ms": b_ms, "bound_by": b_by,
+                "stage_us_bshd_vexp": stage_us, "b1_bshd_vexp": b1,
                 "cache_len": cache_len.tolist()})
     emit({"phase": "decode_attention", **res})
     for layout, readings in checks:
@@ -606,7 +697,9 @@ def phase_decode(policy_cls):
 def phase_paged_decode(policy_cls):
     """Kernel B7 at gpt2-small decode shapes over a page pool: B=8,
     Hkv=12, G=1, d=64, page=64, 16 pages per row (1,024 keys) from a
-    shuffled table, ragged cache_len in [37, 1024], both pool layouts."""
+    shuffled table, ragged cache_len in [37, 1024], both pool layouts;
+    the half-page and textbook-merge controls; the device time of each
+    of its kernels (torch.profiler); and the B = 1 case beside SDPA's."""
     from repro_torch.kernels import decode_attention as da
     g = torch.Generator(device="cuda").manual_seed(4)
     b, ns, h, d, page = 8, 16, 12, 64, PAGE
@@ -643,6 +736,12 @@ def phase_paged_decode(policy_cls):
                     q, kl, vl, tab, cache_len, layout=layout,
                     exp_backend=exp, block=page // 2)
                 readings[exp, "half_page"] = kernel_vs_plain(half, ref)
+                tb = textbook_partial(
+                    q, da.paged_gather(kl, tab, layout),
+                    da.paged_gather(vl, tab, layout), cache_len, 0,
+                    layout=layout, exp=exp)
+                readings[exp, "textbook_merge"] = kernel_vs_plain(
+                    _norm_stats(*tb).reshape(ref.shape), ref)
         for (exp, who), (err, share) in readings.items():
             res[f"{layout}_{exp}_{who}_max_abs_err"] = err
             res[f"{layout}_{exp}_{who}_mismatch_share"] = share
@@ -675,12 +774,24 @@ def phase_paged_decode(policy_cls):
     g_ms = graph_ms(lambda: da.decode_attention_paged(
         q, kp, vp, tab, cache_len, layout="bshd", policy=pol),
         "decode_attention_kernel_paged", iters=50)
+    stage_us = stage_device_us(lambda: da.decode_attention_paged(
+        q, kp, vp, tab, cache_len, layout="bshd", policy=pol))
     # the bound reads each row's live pages (K and V) once, q and o once;
     # the operations count the live keys
     live_pages = float(extent.double().sum())
     nbytes = live_pages * page * h * d * 2 * 2 + 2 * b * h * d * 2
     flops = 4.0 * float(cache_len.double().sum()) * h * d
     b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+    # B = 1: row 0, whose 16 pages are all live
+    live1 = float(cache_len[0])
+    b1 = b1_reading(
+        lambda: da.decode_attention_paged(q[:1], kp, vp, tab[:1],
+                                          cache_len[:1], layout="bshd",
+                                          policy=pol),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt[:1], kt[:1], vt[:1], attn_mask=mask[:1]),
+        float(extent[0]) * page * h * d * 2 * 2 + 2 * h * d * 2,
+        4.0 * live1 * h * d)
     ms, plain_ms = times["bshd"]
     res.update({"page": page, "plain_ms_bshd": plain_ms,
                 "plain_ms_bhsd": times["bhsd"][1], "library_ms": lib_ms,
@@ -688,7 +799,8 @@ def phase_paged_decode(policy_cls):
                 "library": "sdpa over the gathered contiguous cache "
                            "(gather not timed)",
                 "live_pages": int(live_pages), "bound_ms": b_ms,
-                "bound_by": b_by, "cache_len": cache_len.tolist()})
+                "bound_by": b_by, "stage_us_bshd_vexp": stage_us,
+                "b1_bshd_vexp": b1, "cache_len": cache_len.tolist()})
     emit({"phase": "decode_attention_paged", **res})
     for layout, readings in checks:
         check_attention("decode_attention_paged", readings, f" {layout}")
@@ -722,23 +834,26 @@ def _fold_out(tiles, exp, q):
         q.dtype)
 
 
-def _sharded_case(kernel, kern, plain, unsharded, q, cache_len, offsets,
-                  block, exps, policy_cls, problems):
+def _sharded_case(kernel, kern, plain, textbook, unsharded, q, cache_len,
+                  offsets, block, exps, policy_cls, problems):
     """One (kernel, layout, shard count) case. ``kern(mode, pol, r)`` runs
     shard r's partial ("partial" -> (m, l, acc)) or packed ("packed" ->
     tile) kernel, ``plain(exp, r, block)`` the partial plain version,
+    ``textbook(exp, r)`` the textbook merge's statistics,
     ``unsharded(pol)`` the unsharded kernel. Checks the packed tile equal
     to the partial statistics bit for bit, empty rows at the identity,
     each shard's kernel against its plain version (both normalized per
     shard, live rows only) inside ATT_LIMITS[kernel] and the plain
-    version at half the update unit outside them, and the fold of the
+    version at half the update unit and the textbook merge outside them,
+    and the fold of the
     packed tiles within FOLD_LIMIT of the unsharded kernel; what fails is
     appended to ``problems``. Returns (readings, fold errors)."""
     from repro_torch.core.softmax import KERNEL_NEG_INF
     readings, fold = {}, {}
     for exp in exps:
         pol = policy_cls(exp_backend=exp)
-        outs = {"kernel": [], "plain": [], "half_block": []}
+        outs = {"kernel": [], "plain": [], "half_block": [],
+                "textbook_merge": []}
         tiles = []
         for r, off in enumerate(offsets):
             live = cache_len > off
@@ -761,8 +876,10 @@ def _sharded_case(kernel, kern, plain, unsharded, q, cache_len, offsets,
             if exp != "exact":
                 outs["half_block"].append(
                     _norm_stats(*plain(exp, r, block // 2))[live])
+                outs["textbook_merge"].append(
+                    _norm_stats(*textbook(exp, r))[live])
         ref = torch.cat(outs["plain"])
-        for who in ("kernel", "half_block"):
+        for who in ("kernel", "half_block", "textbook_merge"):
             if outs[who]:
                 readings[exp, who] = kernel_vs_plain(torch.cat(outs[who]),
                                                      ref)
@@ -782,7 +899,9 @@ def phase_sharded_decode(policy_cls):
     the cache cut into 2 and 4 sequence slices, on one process: each
     shard's kernel against its plain version at its seq_offset, the
     empty-shard identity, the fold against the unsharded kernel, the
-    overflow case (q x 60), and per-shard times beside the bound."""
+    overflow case (q x 60), the half-block and textbook-merge controls,
+    per-shard times beside the bound, and the device time of each CUDA
+    kernel a mode launches on shard 0 (torch.profiler)."""
     from repro_torch.kernels import decode_attention as da
     g = torch.Generator(device="cuda").manual_seed(5)
     b, s, h, d, page = 8, 1024, 12, 64, PAGE
@@ -829,10 +948,14 @@ def phase_sharded_decode(policy_cls):
                 qq, *sl[r], cache_len, offs[r], layout=layout, block_s=blk,
                 exp_backend=exp)
 
+        def textbook(exp, r):
+            return textbook_partial(qq, *sl[r], cache_len, offs[r],
+                                    layout=layout, exp=exp)
+
         def unsharded(pol):
             return da.decode_attention(qq, kl, vl, cache_len, layout=layout,
                                        policy=pol)
-        return kern, plain, unsharded, offs, sl
+        return kern, plain, textbook, unsharded, offs, sl
 
     def paged_fns(layout, qq, n):
         kl, vl = ((kp, vp) if layout == "bshd" else
@@ -862,10 +985,17 @@ def phase_sharded_decode(policy_cls):
                 qq, *shards[r], cache_len, offs[r], layout=layout,
                 exp_backend=exp, block=blk)
 
+        def textbook(exp, r):
+            kpool, vpool, t = shards[r]
+            return textbook_partial(
+                qq, da.paged_gather(kpool, t, layout),
+                da.paged_gather(vpool, t, layout), cache_len, offs[r],
+                layout=layout, exp=exp)
+
         def unsharded(pol):
             return da.decode_attention_paged(qq, kl, vl, tab, cache_len,
                                              layout=layout, policy=pol)
-        return kern, plain, unsharded, offs, shards
+        return kern, plain, textbook, unsharded, offs, shards
 
     for kind, fns, kernel in (("contig", contig_fns,
                                "decode_attention_partial"),
@@ -873,12 +1003,13 @@ def phase_sharded_decode(policy_cls):
                                "decode_attention_paged")):
         for layout in ("bshd", "bhsd"):
             for n in SHARD_COUNTS:
-                kern, plain, unsharded, offs, _ = fns(layout, q, n)
+                kern, plain, textbook, unsharded, offs, _ = fns(layout, q,
+                                                                n)
                 block = (min(policy_cls().block_s, s // n)
                          if kind == "contig" else page)
                 readings, fold = _sharded_case(
-                    kernel, kern, plain, unsharded, q, cache_len, offs,
-                    block, exps, policy_cls, problems)
+                    kernel, kern, plain, textbook, unsharded, q, cache_len,
+                    offs, block, exps, policy_cls, problems)
                 tag = f"{kind}_{layout}_n{n}_"
                 for (exp, who), (err, share) in readings.items():
                     res[f"{tag}{exp}_{who}_max_abs_err"] = err
@@ -891,7 +1022,7 @@ def phase_sharded_decode(policy_cls):
                 checks.append((kernel, readings, f" {layout} n={n}"))
                 # overflow guard: per-shard maxima hundreds apart
                 q60 = (q.float() * 60.0).to(torch.bfloat16)
-                kern60, _, uns60, _, _ = fns(layout, q60, n)
+                kern60, _, _, uns60, _, _ = fns(layout, q60, n)
                 for exp in exps:
                     pol = policy_cls(exp_backend=exp)
                     out = _fold_out([kern60("packed", pol, r)
@@ -908,7 +1039,7 @@ def phase_sharded_decode(policy_cls):
     qt = q.transpose(1, 2)
     q_bytes = b * h * d * 2
     for kind, fns in (("contig", contig_fns), ("paged", paged_fns)):
-        kern, plain, _, offs, sl = fns("bshd", q, 2)
+        kern, plain, _, _, offs, sl = fns("bshd", q, 2)
         local = s // 2
         for mode in ("partial", "packed"):
             name = {("contig", "partial"): "decode_attention_kernel_partial",
@@ -960,6 +1091,8 @@ def phase_sharded_decode(policy_cls):
                             "bound_ms": b_ms, "bound_by": b_by,
                             "live_keys": int(live_k.sum())})
             res[f"{name}_by_shard"] = per
+            res[f"{name}_stage_us_shard0"] = stage_device_us(
+                lambda: kern(mode, pol, 0))
             src = ("src/repro_torch/csrc/decode_attention.cu"
                    if kind == "contig"
                    else "src/repro_torch/csrc/decode_attention_paged.cu")

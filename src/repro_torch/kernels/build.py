@@ -29,7 +29,9 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas=-v"]
-HEADERS = ("vexp.cuh",)
+HEADERS = ("vexp.cuh",)                 # included by every source
+SOURCE_HEADERS = {"decode_attention.cu": ("decode_split.cuh",),
+                  "decode_attention_paged.cu": ("decode_split.cuh",)}
 
 
 def nvcc_path() -> str:
@@ -45,7 +47,7 @@ def nvcc_path() -> str:
 
 def _digest(source: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in (source,) + HEADERS:
+    for name in (source,) + HEADERS + SOURCE_HEADERS.get(source, ()):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

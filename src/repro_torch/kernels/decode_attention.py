@@ -28,6 +28,13 @@ A row with no key on the slice gets the merge identity
 ``policy.merge_strategy`` (``core.softmax``'s collective merges) into the
 normalized output; ``decode_attention_sharded`` is the dispatch entry.
 Each kernel has its own C entry, launch counter and plain version.
+
+On the card every mode of both sweeps is the sequence-split sweep of
+``csrc/decode_split.cuh``: 64-key tiles spread over CTAs, p taken against
+each update block's running max (the plain sweep's exp arguments, bit for
+bit), the blocks chained in order. One C entry call launches its two
+kernels and counts as one launch; the wrapper hands it one uninitialized
+scratch buffer (``_split_scratch``).
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ PAGED_PARTIAL_LIB = KernelLib("decode_attention_paged.cu")
 PAGED_PACKED_LIB = KernelLib("decode_attention_paged.cu")
 HEAD_DIMS = (32, 64)      # gpt2-small, and its --reduced config
 MAX_GROUP = 8
+TILE = 64                 # keys per tile of the split sweep (decode_split.cuh)
 
 
 def _as_bhsd(cache, layout):
@@ -158,8 +166,11 @@ def _check_bf16(what, device, **tensors):
 
 def _lens(cache_len, b, device):
     cl = torch.as_tensor(cache_len, device=device)
-    return torch.broadcast_to(cl.to(torch.int32).reshape(-1),
-                              (b,)).contiguous()
+    if cl.dtype != torch.int32:
+        cl = cl.to(torch.int32)
+    if cl.shape != (b,):
+        cl = torch.broadcast_to(cl.reshape(-1), (b,))
+    return cl.contiguous()
 
 
 def _stat_outputs(qg, mode):
@@ -181,6 +192,19 @@ def _ptrs(outs):
     """(o, om, ol) pointers; the modes without m / l pass null."""
     p = [t.data_ptr() for t in outs]
     return p + [None] * (3 - len(p))
+
+
+def _split_scratch(qg, keys, block):
+    """The split sweep's scratch for ``keys`` slice rows updated once per
+    ``block`` keys: scores, tile maxes, tile l, the tile's block alpha,
+    tile p @ v and one ticket counter per (b, KV head), one flat f32
+    buffer (uninitialized: the kernels write what they read). Returns
+    (buffer, its length)."""
+    b, hkv, g, d = qg.shape
+    bs = max(min(block, keys), 1)
+    tiles = max(-(-keys // bs) * -(-bs // TILE), 1)
+    n = b * hkv * (g * tiles * (TILE + 3 + d) + 1)
+    return torch.empty(n, dtype=torch.float32, device=qg.device), n
 
 
 _CONTIG_ENTRY = {"normalized": ("decode_fwd", LIB),
@@ -210,13 +234,15 @@ def _launch_contig(mode, q, k_cache, v_cache, cache_len, seq_offset, *,
     cl = _lens(cache_len, b, q.device)
     qg = q.reshape(b, hkv, g, d).contiguous()
     outs = _stat_outputs(qg, mode)
+    scratch, n = _split_scratch(qg, smax, policy.block_s)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    launch = lib.fn(entry, [P] * 7 + [I] * 5 + [LL] * 3 + [F] + [I] * 4
-                    + [P])
+    launch = lib.fn(entry, [P] * 7 + [LL, P] + [I] * 5 + [LL] * 3 + [F]
+                    + [I] * 4 + [P])
     lib.check(launch(
         qg.data_ptr(), kk.data_ptr(), vv.data_ptr(), *_ptrs(outs),
-        cl.data_ptr(), b, hkv, g, smax, d, *kk.stride()[:3], scale,
-        window or 0, policy.block_s, int(seq_offset),
+        scratch.data_ptr(), n, cl.data_ptr(), b, hkv, g, smax, d,
+        *kk.stride()[:3], scale, window or 0, policy.block_s,
+        int(seq_offset),
         BACKEND_CODE[policy.exp_backend],
         torch.cuda.current_stream(q.device).cuda_stream), what)
     return outs
@@ -427,13 +453,14 @@ def _launch_paged(mode, q, k_pool, v_pool, block_tab, cache_len, seq_offset,
     cl = _lens(cache_len, b, q.device)
     qg = q.reshape(b, hkv, g, d).contiguous()
     outs = _stat_outputs(qg, mode)
+    scratch, n = _split_scratch(qg, tab.shape[1] * page, page)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    launch = lib.fn(entry, [P] * 8 + [I] * 6 + [LL] * 3 + [F] + [I] * 3
-                    + [P])
+    launch = lib.fn(entry, [P] * 7 + [LL] + [P] * 2 + [I] * 6 + [LL] * 3
+                    + [F] + [I] * 3 + [P])
     lib.check(launch(
         qg.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *_ptrs(outs),
-        tab.data_ptr(), cl.data_ptr(), b, hkv, g, d, page, tab.shape[1],
-        *st, scale, window or 0, int(seq_offset),
+        scratch.data_ptr(), n, tab.data_ptr(), cl.data_ptr(), b, hkv, g, d,
+        page, tab.shape[1], *st, scale, window or 0, int(seq_offset),
         BACKEND_CODE[policy.exp_backend],
         torch.cuda.current_stream(q.device).cuda_stream), what)
     return outs
