@@ -9,8 +9,10 @@ each against its plain PyTorch version on the card, times each eagerly
 and as a CUDA graph of back-to-back calls (device time without the
 wrapper's host work) beside its plain version, its library call and its
 bound (the decode kernels also per CUDA kernel, from torch.profiler, and
-at batch 1), serves full-width gpt2-small through the port's ``Server`` on the
-contiguous cache and on the paged pool with a shared-prefix cache, then
+at batch 1; the exp kernel per backend and dtype beside torch.exp, with
+its SASS instructions per element from ``cuobjdump -sass``), serves
+full-width gpt2-small through the port's ``Server`` on the contiguous
+cache and on the paged pool with a shared-prefix cache, then
 serves it sequence-sharded (``kv_mode="seq"``) on 2 ranks spawned on the
 one card (gloo, host-staged collectives), and checks what comes out.
 Every phase prints one JSON line; the first failure on any rank exits
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -38,9 +41,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
-# f32 / int operations per element of the elementwise exp (vexp_f32's
-# datapath: scale, floor, subtract, two polynomial branches, select,
-# exponent add, four saturation selects), used only for its bound.
+# f32 / int operations per element of vexp_f32's datapath (scale, floor,
+# subtract, two polynomial branches, select, exponent add, four saturation
+# selects), used only for the softmax phase's bound; the vexp phase counts
+# the instructions of the built library's SASS instead.
 VEXP_OPS_PER_ELEM = 20
 
 # The attention kernels' limits against their plain versions (max |err|,
@@ -279,6 +283,199 @@ def all_f32_in(lo: float, hi: float, chunk: int):
             yield (bits | sign).to(torch.int32).view(torch.float32)
 
 
+# SASS instruction kinds by opcode prefix (first match wins); anything
+# else (moves, special registers, uniform-datapath and control
+# instructions) is "other". Every kind takes an issue slot.
+SASS_KINDS = (
+    ("int", ("IADD", "IMAD", "IMUL", "LOP", "SHF", "SHL", "SHR", "ISETP",
+             "IMNMX", "VIMNMX", "SEL", "PRMT", "LEA", "IABS", "BMSK",
+             "FLO", "POPC", "BREV", "ICMP", "PLOP3", "P2R", "R2P")),
+    ("fp32", ("FFMA", "FADD", "FMUL", "FSETP", "FSEL", "FMNMX", "FCHK",
+              "FRND", "FSWZADD", "HFMA2", "HADD2", "HMUL2")),
+    ("conv", ("F2I", "I2F", "F2F", "F2FP", "I2I", "MUFU")),
+    ("mem", ("LD", "ST", "ATOM", "RED")),
+)
+STORE_BYTES = ((".128", 16), (".64", 8), (".U16", 2), (".S16", 2),
+               (".U8", 1), (".S8", 1))
+VEXP_SHAPE = (8 * 12 * 512, 512)        # B x H x S score rows of 512 keys
+VEXP_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+EXP_BACKENDS = ("exact", "vexp", "vexp_hw")
+
+
+def sass_functions(lib: str) -> dict:
+    """{mangled kernel name: [(address, opcode, operands), ...]} from
+    ``cuobjdump -sass`` of a built library, predicates stripped."""
+    import shutil
+    from pathlib import Path
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    if not tool.exists():
+        tool = shutil.which("cuobjdump")
+    if not tool:
+        fail("cuobjdump not found beside nvcc: no SASS count")
+    text = subprocess.run([str(tool), "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if m and cur is not None:
+            ins = re.sub(r"^@!?U?P[T0-9]+\s+", "", m.group(2).strip())
+            op, _, args = ins.partition(" ")
+            cur.append((int(m.group(1), 16), op, args))
+    return funcs
+
+
+def sass_per_element(instrs, elem_bytes: int):
+    """Instructions of a kernel's largest loop (from a backward branch's
+    target to the branch, NOPs aside) per element that the loop stores,
+    by kind; None if the kernel has no such loop."""
+    best = []
+    for addr, op, args in instrs:
+        targets = re.findall(r"0x[0-9a-f]+", args)
+        if op.startswith("BRA") and targets:
+            t = int(targets[-1], 16)
+            if t <= addr:
+                body = [i for i in instrs
+                        if t <= i[0] <= addr and i[1] != "NOP"]
+                if len(body) > len(best):
+                    best = body
+    stored = sum(next((b for sfx, b in STORE_BYTES if sfx in op), 4)
+                 for _, op, _ in best if op.startswith("STG"))
+    elems = stored // elem_bytes
+    if not elems:
+        return None
+    per = {k: 0.0 for k, _ in SASS_KINDS}
+    per["other"] = 0.0
+    for _, op, _ in best:
+        kind = next((k for k, pre in SASS_KINDS if op.startswith(pre)),
+                    "other")
+        per[kind] += 1.0 / elems
+    per["total"] = len(best) / elems
+    per["loop_elements"] = elems
+    return per
+
+
+def vexp_kernel_key(name: str):
+    """(key "<form>_<backend>_<dtype>", element bytes) of a vexp library
+    kernel by its mangled name, or None for another function. The
+    computed form of vexp_hw in the shipped library is the loop of the
+    table-building kernel (vexp_hw_bits on bf16 patterns, 8 a step)."""
+    if "vexp_hw_table_build_kernel" in name:
+        return "computed_vexp_hw_bf16", 2
+    if "vexp_stream_kernel" not in name and "vexp_hw_table_kernel" not in name:
+        return None
+    f32 = "kernelIf" in name
+    form = "computed" if "stream" in name else "table"
+    m = re.search(r"Li(\d)E", name)
+    exp = EXP_BACKENDS[int(m.group(1))] if m else "vexp_hw"
+    return f"{form}_{exp}_{'f32' if f32 else 'bf16'}", 4 if f32 else 2
+
+
+def vexp_sass_counts(lib=None) -> dict:
+    """SASS instructions per element of each kernel of a built vexp
+    library (the package's by default), keyed by ``vexp_kernel_key``."""
+    from repro_torch.kernels import build
+    out = {}
+    for name, instrs in sass_functions(
+            str(lib or build.lib_path("vexp.cu"))).items():
+        key = vexp_kernel_key(name)
+        if key is None:
+            continue
+        out[key[0]] = sass_per_element(instrs, key[1])
+        if out[key[0]] is None:
+            fail(f"vexp SASS: no counted loop in {name}")
+    return out
+
+
+def instr_bound_ms(per_elem: float, n: int, sms: int, clock_hz: float,
+                   lanes: int) -> float:
+    """Time to issue ``per_elem`` instructions for each of ``n`` elements
+    at ``lanes`` lanes per SM per clock."""
+    return per_elem * n / (sms * lanes * clock_hz) * 1e3
+
+
+def max_clock_hz() -> float:
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]
+    return float(mhz) * 1e6
+
+
+def check_vexp_case(kernels, kv, policy_cls, x, what):
+    """The op on ``x`` for every backend against its plain version: vexp
+    and vexp_hw bitwise (NaN-aware), exact within 2 ulps of x's dtype;
+    each call one launch of the vexp kernel."""
+    for exp in EXP_BACKENDS:
+        before = kernels.launch_counts()["vexp"]
+        out = kv.vexp(x, policy=policy_cls(exp_backend=exp))
+        torch.cuda.synchronize()
+        if kernels.launch_counts()["vexp"] != before + 1:
+            fail(f"vexp {what} {exp}: not one launch of the kernel")
+        ref = kv.vexp_plain(x, exp)
+        if out.shape != x.shape or out.dtype != x.dtype:
+            fail(f"vexp {what} {exp}: {out.shape} {out.dtype} out")
+        if exp == "exact":
+            ints = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+            o, r = out.reshape(-1), ref.reshape(-1)
+            nan = torch.isnan(o)
+            if not torch.equal(nan, torch.isnan(r)):
+                fail(f"vexp {what} exact: NaNs differ from torch.exp")
+            d = int((o.view(ints).long() - r.view(ints).long())[~nan]
+                    .abs().max()) if bool((~nan).any()) else 0
+            if d > 2:
+                fail(f"vexp {what} exact: {d} ulp from torch.exp (limit 2)")
+        else:
+            bad = int((~nan_aware_equal(out, ref)).sum())
+            if bad:
+                fail(f"vexp {what} {exp}: {bad} of {x.numel()} differ")
+
+
+def vexp_edge_cases(kernels, kv, policy_cls) -> dict:
+    """Views at odd offsets (unaligned pointers), every tail length, one
+    element, a non-contiguous view, and the device table: each held to
+    its plain version."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    special = torch.tensor(
+        [float("nan"), float("inf"), float("-inf"), 0.0, -0.0, 1e-45,
+         -1e-45, 1e-39, -126.0 * 0.6931471805599453,
+         128.0 * 0.6931471805599453, 88.7, -87.4, 200.0, -200.0],
+        device="cuda")
+    cases = 0
+    for dname, dt in VEXP_DTYPES.items():
+        base = (torch.randn(100_004, generator=g, device="cuda") * 4.0
+                ).to(dt)
+        base[1:1 + special.numel()] = special.to(dt)
+        for off in (1, 3):                        # odd element offsets
+            x = base[off:]
+            if x.data_ptr() % 16 == 0:
+                fail(f"vexp unaligned case {dname}: pointer is aligned")
+            check_vexp_case(kernels, kv, policy_cls, x,
+                            f"{dname} view at offset {off}")
+            cases += 1
+        for n in list(range(1, 8)) + [8 * 1000 + r for r in range(8)]:
+            check_vexp_case(kernels, kv, policy_cls, base[:n].clone(),
+                            f"{dname} n={n}")
+            cases += 1
+        for x in (base[:1].clone(), base[1].clone(),
+                  base[:64].reshape(2, 4, 8)[:, 1:3, :]):
+            check_vexp_case(kernels, kv, policy_cls, x,
+                            f"{dname} shape {tuple(x.shape)}")
+            cases += 1
+    table = kv.vexp_hw_table(torch.device("cuda"))
+    if not torch.equal(table.cpu(), kv.vexp_table_plain()):
+        fail("vexp_hw table on the card != vexp_table_plain()")
+    builds = kernels.launch_counts()["vexp_hw_table"]
+    if builds != 1:
+        fail(f"vexp_hw table built {builds} times on one device")
+    return {"edge_cases": cases, "table_equal_plain": True,
+            "table_builds": builds}
+
+
 def phase_vexp(kernels, policy_cls):
     from repro_torch.kernels import vexp as kv
     res = {}
@@ -312,38 +509,99 @@ def phase_vexp(kernels, policy_cls):
         fail(f"vexp f32 sweep: mismatches {worst}")
     if worst["exact"] > 2:
         fail(f"exact exp: {worst['exact']} ulp from torch.exp (limit 2)")
+    res.update(vexp_edge_cases(kernels, kv, policy_cls))
 
     # the exp op, dispatch("vexp"), on a score-sized f32 tensor: parity and
     # time only. Serving does not call it (the attention kernels inline
     # the same exp), so the kernel table takes its launches, 0, from the
     # serve run like every other row's.
     from repro_torch.kernels import dispatch
-    x = torch.randn(8 * 12 * 512, 512, device="cuda") * 4.0
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x32 = torch.randn(VEXP_SHAPE, generator=g, device="cuda") * 4.0
     pol = policy_cls(exp_backend="vexp")
     kernels.reset_launch_counts()
-    y = dispatch("vexp", pol)(x, policy=pol)
+    y = dispatch("vexp", pol)(x32, policy=pol)
     torch.cuda.synchronize()
     if kernels.launch_counts()["vexp"] != 1:
         fail("the vexp op did not launch the vexp kernel once")
-    err = float((y - kv.vexp_plain(x, "vexp")).abs().max())
-    ms = cuda_time_ms(lambda: kv.vexp(x, policy=pol))
-    plain_ms = cuda_time_ms(lambda: kv.vexp_plain(x, "vexp"))
-    lib_ms = cuda_time_ms(lambda: torch.exp(x))
-    g_ms = graph_ms(lambda: kv.vexp(x, policy=pol), "vexp_2d", iters=10)
-    lib_g_ms = graph_ms(lambda: torch.exp(x), "torch.exp", iters=10)
-    b_ms, b_by = bound_ms(x.numel() * 8, x.numel() * VEXP_OPS_PER_ELEM,
-                          F32_FLOP_PER_S)
-    res.update({"shape": list(x.shape), "ms": ms, "plain_ms": plain_ms,
-                "library_ms": lib_ms, "graph_ms": g_ms,
-                "library_graph_ms": lib_g_ms})
+    err = float((y - kv.vexp_plain(x32, "vexp")).abs().max())
+
+    # every backend x dtype at the smoke shape: eager and graph ms beside
+    # torch.exp of the same dtype (graph ms taken in turns with it), the
+    # byte bound, and the instruction bounds from the library's SASS
+    sass = vexp_sass_counts()
+    want = {f"computed_{e}_{d}" for e in ("exact", "vexp")
+            for d in VEXP_DTYPES}
+    want |= {f"table_vexp_hw_{d}" for d in VEXP_DTYPES}
+    want.add("computed_vexp_hw_bf16")
+    if set(sass) != want:
+        fail(f"vexp SASS: kernels {sorted(sass)}, expected {sorted(want)}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = max_clock_hz()
+    n = x32.numel()
+    readings = {}
+    for dname, dt in VEXP_DTYPES.items():
+        x = x32.to(dt)
+        byte_ms = n * x.element_size() * 2 / HBM_BYTES_PER_S * 1e3
+        pols = {exp: policy_cls(exp_backend=exp) for exp in EXP_BACKENDS}
+        calls = {"torch.exp": lambda: torch.exp(x)}
+        calls.update({exp: (lambda p=pols[exp]: kv.vexp(x, policy=p))
+                      for exp in EXP_BACKENDS})
+        # graph ms in turns, library call and kernels forward then back,
+        # after one turn not kept (a dtype's first captures read slow)
+        for k in calls:
+            graph_ms(calls[k], f"{k} {dname}", iters=20)
+        turns = {k: [] for k in calls}
+        for k in list(calls) + list(calls)[::-1]:
+            turns[k].append(graph_ms(calls[k], f"{k} {dname}", iters=20))
+        g_ms = {k: (None if None in t else sum(t) / len(t))
+                for k, t in turns.items()}
+        lib_ms = cuda_time_ms(calls["torch.exp"])
+        for exp in EXP_BACKENDS:
+            out, ref = calls[exp](), kv.vexp_plain(x, exp)
+            form = "table" if exp == "vexp_hw" else "computed"
+            per = sass[f"{form}_{exp}_{dname}"]
+            r = {"ms": cuda_time_ms(calls[exp]), "graph_ms": g_ms[exp],
+                 "graph_ms_turns": turns[exp],
+                 "plain_ms": cuda_time_ms(lambda: kv.vexp_plain(x, exp),
+                                          iters=5),
+                 "library_ms": lib_ms,
+                 "library_graph_ms": g_ms["torch.exp"],
+                 "library_graph_ms_turns": turns["torch.exp"],
+                 "byte_bound_ms": byte_ms,
+                 "max_abs_err": float((out.float() - ref.float()).abs()
+                                      .max()),
+                 "form": form, "instr_per_elem": per}
+            for lanes in (64, 128):
+                r[f"instr_bound_ms_{lanes}"] = instr_bound_ms(
+                    per["total"], n, sms, clock, lanes)
+            if exp == "vexp_hw":
+                comp = sass["computed_vexp_hw_bf16"]
+                r["computed_instr_per_elem"] = comp
+                for lanes in (64, 128):
+                    r[f"computed_instr_bound_ms_{lanes}"] = instr_bound_ms(
+                        comp["total"], n, sms, clock, lanes)
+            readings[f"{exp}_{dname}"] = r
+        del x
+    res.update({"shape": list(VEXP_SHAPE), "sms": sms,
+                "max_sm_clock_hz": clock, "readings": readings})
     emit({"phase": "vexp", **res})
+    head = readings["vexp_f32"]           # the row's own numbers: vexp, f32
+    b_ms = max(head["byte_bound_ms"], head["instr_bound_ms_128"])
     return {"name": "vexp_2d", "route": "cuda",
             "source": "src/repro_torch/csrc/vexp.cu",
             "replaces": "src/repro/kernels/vexp/kernel.py:33",
-            "launches": None, "max_abs_err": err, "ms": ms,
-            "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms,
-            "library_graph_ms": lib_g_ms}
+            "launches": None, "max_abs_err": err, "ms": head["ms"],
+            "graph_ms": head["graph_ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": b_ms,
+            "bound_by": ("bytes" if head["byte_bound_ms"] >= b_ms
+                         else "operations"),
+            "library_ms": head["library_ms"],
+            "library_graph_ms": head["library_graph_ms"],
+            "readings": {k: {f: v[f] for f in (
+                "form", "ms", "graph_ms", "library_graph_ms",
+                "byte_bound_ms", "instr_bound_ms_64", "instr_bound_ms_128")}
+                for k, v in readings.items()}}
 
 
 def phase_softmax(policy_cls):

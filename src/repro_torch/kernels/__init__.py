@@ -8,7 +8,8 @@ tensors, runs the plain version on CPU tensors), its plain version and a
 from . import build, decode_attention, flash_attention, softmax, vexp
 from .dispatch import dispatch
 
-LIBS = {"vexp": vexp.LIB, "softmax": softmax.LIB,
+LIBS = {"vexp": vexp.LIB, "vexp_hw_table": vexp.TABLE_LIB,
+        "softmax": softmax.LIB,
         "flash_attention": flash_attention.LIB,
         "decode_attention": decode_attention.LIB,
         "decode_attention_partial": decode_attention.PARTIAL_LIB,

@@ -8,11 +8,14 @@ emulations of faulty kernels outside them.
 A kernel sums its f32 dot products in another order than the plain
 version; that moves an f32 result by ulps, which after the round to the
 bf16 output flips a few outputs by one bf16 ulp. The card's readings at
-the smoke inputs (PERF.md): FA (cold, hot and D = 32) max 9.8e-4 / 2.0e-3
-/ 0 and share at most 5.1e-6 / 9.2e-6 / 0 (exact / vexp / vexp_hw);
-decode max 6.1e-5 / 4.9e-4 / 7e-9 and share at most 1.5e-3 / 6.5e-4 /
-1.6e-4 (one output in 6,144). The limits sit 2-4x above them, and at 1e-6
-where the reading is 0 or 7e-9.
+the smoke inputs (PERF.md, exact / vexp / vexp_hw): FA on the CUDA-core
+kernel, cold, max 1.95e-3 / 2.0e-3 / 0 and share 3.3e-6 / 4.4e-6 / 0;
+its hot and D = 32 cases share 3.4-6.8e-6 (PERF.md gives no newer max
+for them). So FA's exact max sits just inside its 2e-3 limit: 1.95e-3
+is one bf16 ulp on an output in [0.25, 0.5). The split decode sweep
+max 6.1e-5 / 4.9e-4 / 7.5e-9 and share 1.3e-3 / 6.5e-4 / 1.6e-4 (one
+output in 6,144); the decode limits sit 2-4x above them, and at 1e-6
+where the reading is 0 or 7.5e-9.
 
 Each kernel phase also holds the plain version at half the online-update
 block against the one at the full block, and a kernel with that wrong
