@@ -12,7 +12,9 @@ bound (the decode kernels also per CUDA kernel, from torch.profiler, and
 at batch 1; the exp kernel per backend and dtype beside torch.exp, with
 its SASS instructions per element from ``cuobjdump -sass``), serves
 full-width gpt2-small through the port's ``Server`` on the contiguous
-cache and on the paged pool with a shared-prefix cache, then
+cache and on the paged pool with a shared-prefix cache (each group's
+decode step as one CUDA graph, and eagerly, in turns; the replays held
+to the eager step by the capture audit), then
 serves it sequence-sharded (``kv_mode="seq"``) on 2 ranks spawned on the
 one card (gloo, host-staged collectives), and checks what comes out.
 Every phase prints one JSON line; the first failure on any rank exits
@@ -1625,45 +1627,186 @@ def gpt2_small_setup():
     return cfg, params, policy, groups
 
 
-def phase_serve(kernels, smi, cfg, params, policy, groups):
-    """Full-width gpt2-small through the port's Server: max_batch 8,
-    max_seq 1024, 16 requests with prompt lengths in [32, 512], 64 new
-    tokens each, policy groups eval=exact, bulk=vexp, hw=vexp_hw."""
-    from repro_torch.launch.serve import Server, make_requests
+ARMS = ("graph", "eager")
+ARM_TURNS = 2          # graph, eager, graph, eager: the host spreads by 1.7x
 
-    def server():
-        return Server(cfg, params, max_batch=8, max_seq=1024, policy=policy,
-                      policy_groups=groups, device="cuda")
 
-    # warm-up (cuBLAS handles, library loads), not measured
-    server().run(make_requests(cfg, 3, 64, 4, groups=sorted(groups),
-                               seed=1))
-    torch.cuda.synchronize()
-
-    srv = server()
-    reqs = make_requests(cfg, 16, 512, 64, mixed_lengths=True, min_len=32,
-                         groups=sorted(groups), seed=0)
-    secs, counts, sdpa_calls, peak, clocks = timed_serve(kernels, srv, reqs)
-    check_requests(cfg, reqs, 64)
-    st = srv.stats()
+def check_serve_counts(cfg, st, counts, sdpa_calls, decode, other, what):
+    """A serve's launches: ``decode`` = layers x decode steps, FA =
+    layers x admission waves, none of the ``other`` decode kernel, no
+    SDPA call. Returns (waves, steps)."""
     waves = sum(s["admit_waves"] for s in st.values())
     steps = sum(s["decode_steps"] for s in st.values())
     if counts["flash_attention"] != cfg.n_layers * waves:
-        fail(f"flash_attention launches {counts['flash_attention']} != "
-             f"{cfg.n_layers} layers x {waves} admission waves")
-    if counts["decode_attention"] != cfg.n_layers * steps:
-        fail(f"decode_attention launches {counts['decode_attention']} != "
+        fail(f"{what}: flash_attention launches {counts['flash_attention']} "
+             f"!= {cfg.n_layers} layers x {waves} admission waves")
+    if counts[decode] != cfg.n_layers * steps:
+        fail(f"{what}: {decode} launches {counts[decode]} != "
              f"{cfg.n_layers} layers x {steps} decode steps")
-    if counts["decode_attention_paged"]:
-        fail("the contiguous serve launched the paged decode kernel")
+    if counts[other]:
+        fail(f"{what}: launched {other} {counts[other]} times")
     if sdpa_calls:
-        fail(f"{sdpa_calls} library attention calls on the port's path")
+        fail(f"{what}: {sdpa_calls} library attention calls on the port's "
+             f"path")
+    return waves, steps
 
+
+def check_graph_stats(cfg, st, arm, replayed, decode, what):
+    """Graph arm: one capture per group, made when the Server was built
+    (before the serve's counts were reset), and every decode step a
+    replay (replays = decode steps), and the decode kernel's replayed
+    launches = layers x replays. Eager arm: no capture, no replay.
+    Returns {group: (captures, replays)}."""
+    out = {}
+    for n, s in st.items():
+        cap, rep = s["graph_captures"], s["graph_replays"]
+        if arm == "graph":
+            if s["step_mode"] != "graph" or cap != 1 or \
+                    rep != s["decode_steps"]:
+                fail(f"{what} group {n}: {s['step_mode']}, {cap} captures, "
+                     f"{rep} replays in {s['decode_steps']} decode steps "
+                     f"(want one capture, then a replay a step)")
+        elif cap or rep:
+            fail(f"{what} group {n} ({arm}): {cap} captures, {rep} replays")
+        out[n] = (cap, rep)
+    replays = sum(rep for _, rep in out.values())
+    if replayed[decode] != cfg.n_layers * replays:
+        fail(f"{what}: {replayed[decode]} replayed {decode} launches != "
+             f"{cfg.n_layers} layers x {replays} replays")
+    return out
+
+
+def serve_in_turns(kernels, cfg, make_server, make_reqs, decode, other,
+                   what, after=None):
+    """Serve ``make_reqs()`` through ``make_server(cuda_graphs)`` with
+    graphs and eagerly, in turns (graph, eager, graph, eager), every
+    serve with its launch counts set to 0 just before and read just
+    after and checked; ``after(srv, stats)`` runs on each drained
+    server. Returns {arm: [turn, ...]}, each turn a dict with the
+    requests, stats, counts and readings."""
+    runs = {arm: [] for arm in ARMS}
+    for _ in range(ARM_TURNS):
+        for arm in ARMS:
+            srv = make_server(arm == "graph")
+            reqs = make_reqs()
+            secs, counts, sdpa_calls, peak, clocks = timed_serve(kernels,
+                                                                 srv, reqs)
+            replayed = kernels.replay_counts()
+            st = srv.stats()
+            where = f"{what} ({arm} arm)"
+            waves, steps = check_serve_counts(cfg, st, counts, sdpa_calls,
+                                              decode, other, where)
+            graphs = check_graph_stats(cfg, st, arm, replayed, decode, where)
+            if after is not None:
+                after(srv, st)
+            some = next(iter(st.values()))
+            runs[arm].append({
+                "reqs": reqs, "stats": st, "counts": counts,
+                "readings": {
+                    **serve_metrics(reqs, secs),
+                    "wall_per_decode_step_s": some["wall_per_decode_step_s"],
+                    "p50_host_dispatch_s": {
+                        n: s["p50_host_dispatch_s"] for n, s in st.items()
+                        if s["decode_steps"]},
+                    "admit_s_total": sum(s["admit_s_total"]
+                                         for s in st.values()),
+                    "graph_capture_s": sum(s["graph_capture_s"]
+                                           for s in st.values()),
+                    "admit_waves": waves, "decode_steps": steps,
+                    "graph_captures": sum(c for c, _ in graphs.values()),
+                    "graph_replays": sum(r for _, r in graphs.values()),
+                    "replayed_launches": replayed[decode],
+                    "peak_memory_bytes": peak, "clocks_power": clocks}})
+    return runs
+
+
+def compare_arms(runs, what):
+    """Each turn's graph-arm tokens against the same turn's eager arm:
+    the same kernels on the same inputs, so every token must be equal.
+    Returns the count of identical requests per turn."""
+    same = []
+    for t, (g, e) in enumerate(zip(runs["graph"], runs["eager"])):
+        for r, o in zip(g["reqs"], e["reqs"]):
+            if list(r.out) != list(o.out):
+                i = next((i for i, (a, b) in enumerate(zip(r.out, o.out))
+                          if a != b), min(len(r.out), len(o.out)))
+                fail(f"{what} turn {t}: graph-arm request {r.rid} "
+                     f"({r.group}) leaves its eager-arm tokens at step {i}")
+        same.append({"identical": len(g["reqs"])})
+    return same
+
+
+def capture_audits(cfg, make_server, make_reqs, what):
+    """A graph-arm server stepped past each group's capture: every group
+    with live slots passes ``graph_audit.capture_audit`` (replay ==
+    eager step from the same carry), and the serve then drains as it
+    would have. Returns {group: audit}."""
+    from repro_torch.analysis import graph_audit
+    srv = make_server(True)
+    reqs = make_reqs()
+    for r in reqs:
+        srv.submit(r)
+    for _ in range(3):               # admission, then replays
+        srv.step()
+    audits = {}
+    for name, g in srv._groups.items():
+        if not g.busy:
+            continue
+        try:
+            audits[name] = graph_audit.capture_audit(g.state, g.last,
+                                                     g.live_dev)
+        except graph_audit.AuditError as e:
+            fail(f"{what} capture audit, group {name}: {e}")
+    if len(audits) != len({r.group for r in reqs}):
+        fail(f"{what} capture audit: groups audited {sorted(audits)}")
+    srv.drain()
+    check_requests(cfg, reqs, reqs[0].max_new)
+    return audits
+
+
+def arm_summary(runs, profiles, audits, compare, what):
+    """The per-arm readings of one serve path, one JSON line."""
+    emit({"phase": f"{what}_arms", "turns": ARM_TURNS,
+          "arms": {arm: {"turns": [t["readings"] for t in runs[arm]],
+                         "profile": profiles[arm]} for arm in ARMS},
+          "capture_audit": audits, "graph_vs_eager_tokens": compare})
+
+
+def phase_serve(kernels, smi, cfg, params, policy, groups):
+    """Full-width gpt2-small through the port's Server: max_batch 8,
+    max_seq 1024, 16 requests with prompt lengths in [32, 512], 64 new
+    tokens each, policy groups eval=exact, bulk=vexp, hw=vexp_hw; served
+    with each group's decode step as one CUDA graph and eagerly, in
+    turns. Returns {path: launch counts} of the first turn of each arm."""
+    from repro_torch.launch.serve import Server, make_requests
+
+    def server(cuda_graphs=True):
+        return Server(cfg, params, max_batch=8, max_seq=1024, policy=policy,
+                      policy_groups=groups, device="cuda",
+                      cuda_graphs=cuda_graphs)
+
+    def requests():
+        return make_requests(cfg, 16, 512, 64, mixed_lengths=True,
+                             min_len=32, groups=sorted(groups), seed=0)
+
+    # warm-up (cuBLAS handles, library loads), not measured
+    for arm in ARMS:
+        server(arm == "graph").run(make_requests(
+            cfg, 3, 64, 4, groups=sorted(groups), seed=1))
+    torch.cuda.synchronize()
+
+    runs = serve_in_turns(kernels, cfg, server, requests,
+                          "decode_attention", "decode_attention_paged",
+                          "serve")
+    first = runs["graph"][0]
+    reqs, counts = first["reqs"], first["counts"]
+    for arm in ARMS:
+        for t in runs[arm]:
+            check_requests(cfg, t["reqs"], 64)
+    compare = compare_arms(runs, "serve")
     res = {"phase": "serve", "arch": cfg.arch_id, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "vocab_padded": cfg.vocab_padded,
-           **serve_metrics(reqs, secs), "admit_waves": waves,
-           "decode_steps": steps, "launches": counts,
-           "peak_memory_bytes": peak, "clocks_power": clocks,
+           "arm": "graph", **first["readings"], "launches": counts,
            "prompt_lens": [len(r.prompt) for r in reqs], "nvidia_smi": smi}
 
     # teacher-forced replay of 2 requests per group: cuda vs reference tier
@@ -1675,64 +1818,67 @@ def phase_serve(kernels, smi, cfg, params, policy, groups):
                             pol.replace(kernel_backend="reference"))
         worst[name] = check_replay(name, two, fast, ref)
     res["replay_max_abs_logit_diff"] = worst
-    res["profile"] = profile_serve(server, make_requests(
-        cfg, 8, 512, 16, mixed_lengths=True, min_len=32,
-        groups=sorted(groups), seed=2))
+
+    def short():
+        return make_requests(cfg, 8, 512, 16, mixed_lengths=True,
+                             min_len=32, groups=sorted(groups), seed=2)
+
+    profiles = {arm: profile_serve(kernels, lambda a=arm: server(a == "graph"),
+                                   short(), f"serve ({arm} arm)")
+                for arm in ARMS}
+    res["profile"] = profiles["graph"]
+    audits = capture_audits(cfg, server, lambda: make_requests(
+        cfg, 6, 64, 8, groups=sorted(groups), seed=3), "serve")
     emit(res)
-    return counts
+    arm_summary(runs, profiles, audits, compare, "serve")
+    return {"serve": counts, "serve_eager": runs["eager"][0]["counts"]}
 
 
 def phase_serve_paged(kernels, smi, cfg, params, policy, groups):
     """Full-width gpt2-small through Server(paged=True): max_batch 8,
     max_seq 1024, page 64, 32 requests on one shared 256-token prefix
     plus a suffix of [32, 256] tokens (seed 0), 64 new tokens each, the
-    same three policy groups. Each group's first wave is cold and
-    publishes the prefix; its later waves attach it and prefill only the
-    suffixes (FA at q_offset=256)."""
+    same three policy groups, with graphs and eagerly in turns. Each
+    group's first wave is cold and publishes the prefix; its later waves
+    attach it and prefill only the suffixes (FA at q_offset=256).
+    Returns ({path: launch counts}, the first graph turn's requests)."""
     from repro_torch.launch.serve import Request, Server, make_requests
     shared, suffix, max_new = 256, 256, 64     # as in paged_requests
     policy = policy.replace(block_page=PAGE)
     groups = {n: p.replace(block_page=PAGE) for n, p in groups.items()}
 
-    def server(pol=policy, grp=groups):
+    def server(cuda_graphs=True, pol=policy, grp=groups):
         return Server(cfg, params, max_batch=8, max_seq=1024, policy=pol,
-                      policy_groups=grp, device="cuda", paged=True)
+                      policy_groups=grp, device="cuda", paged=True,
+                      cuda_graphs=cuda_graphs)
 
-    srv = server()
-    reqs = paged_requests(cfg, groups)
-    secs, counts, sdpa_calls, peak, clocks = timed_serve(kernels, srv, reqs)
-    check_requests(cfg, reqs, max_new)
-    st = srv.stats()
-    waves = sum(s["admit_waves"] for s in st.values())
-    steps = sum(s["decode_steps"] for s in st.values())
-    if counts["decode_attention_paged"] != cfg.n_layers * steps:
-        fail(f"decode_attention_paged launches "
-             f"{counts['decode_attention_paged']} != {cfg.n_layers} layers "
-             f"x {steps} decode steps")
-    if counts["decode_attention"]:
-        fail(f"the paged serve launched the contiguous decode kernel "
-             f"{counts['decode_attention']} times")
-    if counts["flash_attention"] != cfg.n_layers * waves:
-        fail(f"flash_attention launches {counts['flash_attention']} != "
-             f"{cfg.n_layers} layers x {waves} admission waves")
-    if sdpa_calls:
-        fail(f"{sdpa_calls} library attention calls on the port's path")
+    def hot_and_clean(srv, st):
+        for name in groups:         # the server's idle "default" group aside
+            s, pool = st[name], st[name]["pool"]
+            if (s["admit_waves"] < 2 or s["hot_waves"] < 1
+                    or pool["prefix"]["hits"] <= 0):
+                fail(f"paged group {name}: {s['admit_waves']} waves, "
+                     f"{s['hot_waves']} hot, {pool['prefix']['hits']} "
+                     f"prefix hits; every group needs a hot wave")
+        srv.assert_idle_clean()     # drops the prefix cache: stats first
+
+    runs = serve_in_turns(kernels, cfg, server,
+                          lambda: paged_requests(cfg, groups),
+                          "decode_attention_paged", "decode_attention",
+                          "serve_paged", after=hot_and_clean)
+    first = runs["graph"][0]
+    reqs, st, counts = first["reqs"], first["stats"], first["counts"]
+    for arm in ARMS:
+        for t in runs[arm]:
+            check_requests(cfg, t["reqs"], max_new)
     pools = {name: st[name]["pool"] for name in groups}
-    for name in groups:            # the server's idle "default" group aside
-        s = st[name]
-        if (s["admit_waves"] < 2 or s["hot_waves"] < 1
-                or pools[name]["prefix"]["hits"] <= 0):
-            fail(f"paged group {name}: {s['admit_waves']} waves, "
-                 f"{s['hot_waves']} hot, {pools[name]['prefix']['hits']} "
-                 f"prefix hits; every group needs a hot wave")
     hot_reqs = [r for r in reqs if r.prefix_hit]
-    srv.assert_idle_clean()          # drops the prefix cache: stats first
+    compare = compare_arms(runs, "serve_paged")
 
     hit_tokens = sum(p["prefix"]["hit_tokens"] for p in pools.values())
     res = {"phase": "serve_paged", "arch": cfg.arch_id, "page": PAGE,
-           "shared_prefix": shared, **serve_metrics(reqs, secs),
-           "admit_waves": waves, "decode_steps": steps, "launches": counts,
-           "hot_requests": len(hot_reqs),
+           "shared_prefix": shared, "arm": "graph", **first["readings"],
+           "launches": counts, "hot_requests": len(hot_reqs),
            # admission wall (synced), per group: all waves and hot waves
            "admit_s": {n: {"waves": st[n]["admit_waves"],
                            "total": st[n]["admit_s_total"],
@@ -1749,8 +1895,8 @@ def phase_serve_paged(kernels, smi, cfg, params, policy, groups):
            "pages_allocatable": pools[sorted(pools)[0]]["pages_allocatable"],
            "peak_oversubscription": {n: p["peak_oversubscription"]
                                      for n, p in pools.items()},
-           "pool": pools, "peak_memory_bytes": peak, "clocks_power": clocks,
-           "prompt_lens": [len(r.prompt) for r in reqs], "nvidia_smi": smi}
+           "pool": pools, "prompt_lens": [len(r.prompt) for r in reqs],
+           "nvidia_smi": smi}
 
     # teacher-forced replay through the hot path, 2 hot requests per
     # group: cuda vs reference tier
@@ -1768,16 +1914,28 @@ def phase_serve_paged(kernels, smi, cfg, params, policy, groups):
     solos = []
     for r in hot_reqs:
         solo = Request(r.rid, r.prompt.copy(), max_new)
-        server(groups[r.group], None).run([solo])
+        server(True, groups[r.group], None).run([solo])
         solos.append(solo.out)
     res["hot_equals_cold_solo"] = near_tie_compare(
         cfg, params, groups, hot_reqs, solos, "hot request",
         "its cold solo tokens")
-    res["profile"] = profile_serve(server, make_requests(
-        cfg, 8, suffix, 16, mixed_lengths=True, min_len=32,
-        groups=sorted(groups), seed=2, shared_prefix=shared))
+
+    def short():
+        return make_requests(cfg, 8, suffix, 16, mixed_lengths=True,
+                             min_len=32, groups=sorted(groups), seed=2,
+                             shared_prefix=shared)
+
+    profiles = {arm: profile_serve(kernels, lambda a=arm: server(a == "graph"),
+                                   short(), f"serve_paged ({arm} arm)")
+                for arm in ARMS}
+    res["profile"] = profiles["graph"]
+    audits = capture_audits(cfg, server, lambda: make_requests(
+        cfg, 6, 64, 8, groups=sorted(groups), seed=3, shared_prefix=PAGE),
+        "serve_paged")
     emit(res)
-    return counts, reqs
+    arm_summary(runs, profiles, audits, compare, "serve_paged")
+    return ({"serve_paged": counts,
+             "serve_paged_eager": runs["eager"][0]["counts"]}, reqs)
 
 
 # The sharded serves: 2 ranks on the one card (NCCL refuses two ranks on
@@ -1945,6 +2103,10 @@ def phase_serve_sharded(kernels, smi, cfg, params, policy, groups,
             if g["shards"] != SHARD_RANKS:
                 fail(f"{path} group {n}: {g['shards']} shards, not "
                      f"{SHARD_RANKS}")
+            if g["graph_captures"] or g["graph_replays"]:
+                fail(f"{path} group {n}: a sharded step was captured "
+                     f"({g['graph_captures']} captures); it must run "
+                     f"eagerly")
             per = cfg.n_layers * (3 if g["merge_strategy"] == "split" else 1)
             if g["collectives"] != per * g["decode_steps"]:
                 fail(f"{path} group {n}: {g['collectives']} collectives in "
@@ -1964,7 +2126,9 @@ def phase_serve_sharded(kernels, smi, cfg, params, policy, groups,
                "backend": ranks[0]["backend"],
                "host_staged": ranks[0]["host_staged"],
                **r0["metrics"],
-               "p50_step_s": {n: st[n]["p50_step_s"] for n in groups},
+               "p50_host_dispatch_s": {n: st[n]["p50_host_dispatch_s"]
+                                       for n in groups},
+               "step_mode": {n: st[n]["step_mode"] for n in groups},
                "decode_steps": {n: st[n]["decode_steps"] for n in groups},
                "collectives_per_step": {n: st[n]["collectives_per_step"]
                                         for n in groups},
@@ -1990,19 +2154,29 @@ def phase_serve_sharded(kernels, smi, cfg, params, policy, groups,
     return by_path
 
 
-def profile_serve(make_server, reqs):
+DECODE_LIBS = ("decode_attention", "decode_attention_paged")
+
+
+def profile_serve(kernels, make_server, reqs, what):
     """Device busy share and kernel time by name over one short serve
-    (torch.profiler, CUDA activity). Returns "not measured" fields when
-    the trace holds no device events."""
+    (torch.profiler, CUDA activity). Fails unless the trace holds every
+    decode launch the serve counted (one ``split_scores`` kernel each,
+    replayed ones included), so the counted replays ran."""
     from torch.profiler import ProfilerActivity, profile
     srv = make_server()
     torch.cuda.synchronize()
+    before = kernels.launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         srv.run(reqs)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    after = kernels.launch_counts()
+    launched = sum(after[n] - before[n] for n in DECODE_LIBS)
+    traced = sum(1 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "split_scores" in e.name)
     by_name, busy = {}, 0.0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -2010,13 +2184,15 @@ def profile_serve(make_server, reqs):
         us = e.time_range.elapsed_us()
         busy += us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
-    if busy == 0.0:
-        return {"device_busy_share": "not measured",
-                "wall_s": wall_us / 1e6}
+    held = {"decode_launches": launched,
+            "decode_kernels_in_trace": traced}
+    if not launched or traced != launched:
+        fail(f"{what} profile: the trace holds {traced} split_scores "
+             f"kernels for {launched} counted decode launches")
     st = srv.stats()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_s": wall_us / 1e6, "device_busy_s": busy / 1e6,
-            "device_busy_share": busy / wall_us,
+            "device_busy_share": busy / wall_us, **held,
             "decode_steps": sum(g["decode_steps"] for g in st.values()),
             "admit_waves": sum(g["admit_waves"] for g in st.values()),
             "device_events": sum(1 for e in prof.events()
@@ -2044,12 +2220,13 @@ def main():
     rows.extend(phase_sharded_decode(ExecPolicy))
     # each serve path runs with the counts set to 0 just before it and
     # read just after; a kernel's launches are the sum over the paths,
-    # and launches_by_path keeps each run's own count (a sharded path's
+    # and launches_by_path keeps each run's own count (replayed launches
+    # included; the eager arms are paths of their own; a sharded path's
     # from rank 0, whose counts equal every rank's)
-    by_path = {"serve": phase_serve(kernels, smi, cfg, params, policy,
-                                    groups)}
-    by_path["serve_paged"], paged_reqs = phase_serve_paged(
-        kernels, smi, cfg, params, policy, groups)
+    by_path = phase_serve(kernels, smi, cfg, params, policy, groups)
+    paged_counts, paged_reqs = phase_serve_paged(kernels, smi, cfg, params,
+                                                 policy, groups)
+    by_path.update(paged_counts)
     by_path.update(phase_serve_sharded(kernels, smi, cfg, params, policy,
                                        groups, paged_reqs))
     for row, name in zip(rows, ("vexp", "softmax", "flash_attention",

@@ -37,7 +37,9 @@ _GAMMA2_Q15 = 71168
 
 
 def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
+    # a fill on the device, not a host->device copy, so a captured step
+    # (runtime.graphs) can hold it
+    return torch.full((), v, dtype=torch.float32, device=like.device)
 
 
 def _pcorr_f32(f: torch.Tensor) -> torch.Tensor:

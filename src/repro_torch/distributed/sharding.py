@@ -48,7 +48,9 @@ _ALL_GATHER = getattr(dist, "all_gather_single", None) or \
 class ShardGroup:
     """A process group with the sharded decode's two collectives.
 
-    ``calls`` counts the collectives issued through it. CUDA tensors go
+    ``calls`` counts the collectives issued through it and ``kinds``
+    the same by kind ("all_gather", "all_reduce_max", "all_reduce_sum"),
+    which ``analysis.graph_audit`` holds to a step's budget. CUDA tensors go
     to the collectives as they are: NCCL moves them between cards, gloo
     (CPU ranks, or ranks sharing one card, which NCCL refuses) stages
     them through host memory itself (``host_staged``), so times taken
@@ -61,6 +63,11 @@ class ShardGroup:
         self.backend = str(dist.get_backend(group))
         self.host_staged = self.backend == "gloo"
         self.calls = 0
+        self.kinds: dict = {}
+
+    def _count(self, kind: str) -> None:
+        self.calls += 1
+        self.kinds[kind] = self.kinds.get(kind, 0) + 1
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's ``t`` stacked in rank order: (world, *t.shape)."""
@@ -68,7 +75,7 @@ class ShardGroup:
         out = torch.empty((self.world * src.numel(),), dtype=src.dtype,
                           device=src.device)
         _ALL_GATHER(out, src, group=self.group)
-        self.calls += 1
+        self._count("all_gather")
         return out.view(self.world, *t.shape)
 
     def all_reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
@@ -76,7 +83,7 @@ class ShardGroup:
         as a new tensor."""
         buf = t.contiguous().clone()
         dist.all_reduce(buf, op=_OPS[op], group=self.group)
-        self.calls += 1
+        self._count(f"all_reduce_{op}")
         return buf
 
 

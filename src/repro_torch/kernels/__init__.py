@@ -25,13 +25,19 @@ def build_kernels() -> dict:
 
 
 def launch_counts() -> dict:
+    """Kernel launches per library, replayed ones included."""
     return {name: lib.launches for name, lib in LIBS.items()}
+
+
+def replay_counts() -> dict:
+    """The share of ``launch_counts()`` that ran from CUDA-graph replays."""
+    return {name: lib.replayed for name, lib in LIBS.items()}
 
 
 def reset_launch_counts() -> None:
     for lib in LIBS.values():
-        lib.launches = 0
+        lib.reset()
 
 
-__all__ = ["dispatch", "build_kernels", "launch_counts",
+__all__ = ["dispatch", "build_kernels", "launch_counts", "replay_counts",
            "reset_launch_counts", "LIBS"]

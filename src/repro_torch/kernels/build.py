@@ -101,11 +101,16 @@ class KernelLib:
     ``check`` raises on a non-zero code. ``launches`` counts the kernel
     launches made through the wrappers that check against this object
     and nothing else; a source with several kernels has one object per
-    kernel, sharing the loaded library."""
+    kernel, sharing the loaded library. A launch recorded into a CUDA
+    graph runs once per replay, not where the wrapper was called:
+    ``runtime.graphs.StepGraph`` takes back what capture counted and adds
+    it on every replay (``add_replayed``), so ``launches`` counts kernels
+    run either way and ``replayed`` the share that ran from a graph."""
 
     def __init__(self, source: str):
         self.source = source
         self.launches = 0
+        self.replayed = 0
         self._lib = None
         self._fns = {}
 
@@ -129,6 +134,14 @@ class KernelLib:
             raise RuntimeError(f"{what}: CUDA error {code} "
                                f"(cudaGetLastError after launch)")
         self.launches += 1
+
+    def add_replayed(self, n: int) -> None:
+        """Count ``n`` launches run by a CUDA graph's replay."""
+        self.launches += n
+        self.replayed += n
+
+    def reset(self) -> None:
+        self.launches = self.replayed = 0
 
 
 # exp backend codes of csrc/vexp.cuh (enum Backend)

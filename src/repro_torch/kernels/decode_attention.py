@@ -242,7 +242,7 @@ def _launch_contig(mode, q, k_cache, v_cache, cache_len, seq_offset, *,
         qg.data_ptr(), kk.data_ptr(), vv.data_ptr(), *_ptrs(outs),
         scratch.data_ptr(), n, cl.data_ptr(), b, hkv, g, smax, d,
         *kk.stride()[:3], scale, window or 0, policy.block_s,
-        int(seq_offset),
+        seq_offset,
         BACKEND_CODE[policy.exp_backend],
         torch.cuda.current_stream(q.device).cuda_stream), what)
     return outs
@@ -460,7 +460,7 @@ def _launch_paged(mode, q, k_pool, v_pool, block_tab, cache_len, seq_offset,
     lib.check(launch(
         qg.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *_ptrs(outs),
         scratch.data_ptr(), n, tab.data_ptr(), cl.data_ptr(), b, hkv, g, d,
-        page, tab.shape[1], *st, scale, window or 0, int(seq_offset),
+        page, tab.shape[1], *st, scale, window or 0, seq_offset,
         BACKEND_CODE[policy.exp_backend],
         torch.cuda.current_stream(q.device).cuda_stream), what)
     return outs

@@ -32,11 +32,22 @@ contiguous or paged KV cache, monolithic ragged admission).
   reference keeps non-pallas groups off its sharded program. Scheduling
   reads only token counts, so every rank makes the same decisions.
 
-Emitted tokens stay on the device; each request's tokens reach the host
-once, when it finishes. Chunked prefill, fault handling (the backoff /
-shed ladder) and speculative decoding are not ported yet. Until
-quarantine is, a slot that emits the non-finite sentinel (-1) stops the
-server with an error.
+The decode step is the reference's (``serve.py:715-760``: one donated,
+jitted program per group that syncs on nothing) in the port's form: each
+unsharded group's state runs it as one CUDA graph over a carry written in
+place (``models.decode_state``, ``runtime.graphs.StepGraph``), captured
+when the Server builds the group, before any request, and replayed by
+every decode step. The engine keeps its own carry tensors (``last``,
+``live_dev``) static too and writes them with in-place ops only.
+``Server(cuda_graphs=False)`` runs the identical in-place step eagerly
+(the measurement's eager arm).
+
+Emitted tokens stay on the device: each step's tokens are copied out of
+the step's static output buffer once (one device copy per step), and
+each request's tokens reach the host once, when it finishes. Chunked
+prefill, fault handling (the backoff / shed ladder) and speculative
+decoding are not ported yet. Until quarantine is, a slot that emits the
+non-finite sentinel (-1) stops the server with an error.
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.registry import hot_path
 from repro_torch.configs import get_config
 from repro_torch.distributed import KV_MODES, init_from_env, resolve_kv_shards
 from repro_torch.models import api
@@ -73,11 +85,6 @@ class Request:
     t_done: float = 0.0
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 class _Group:
     """One policy group: ExecPolicy + slot pool + scheduling. Scheduling
     depends only on token counts, never on token values, so tokens stay on
@@ -85,7 +92,7 @@ class _Group:
 
     def __init__(self, cfg, params, policy, max_batch, cache_s, device, *,
                  paged=False, block_budget=None, prefix_cache=True,
-                 comm=None):
+                 comm=None, cuda_graphs=True):
         self.cfg, self.policy = cfg, policy
         self.max_batch, self.device = max_batch, device
         self.paged = paged
@@ -94,25 +101,27 @@ class _Group:
               if paged else {})
         self.state = decode_state_for(cfg, paged=paged)(
             cfg, params, policy, max_batch, cache_s, device=device,
-            comm=comm, **kw)
+            comm=comm, cuda_graphs=cuda_graphs, **kw)
         self.queue: deque = deque()
         self.reqs: list = [None] * max_batch
         self.lens = np.zeros(max_batch, np.int64)   # tokens held per slot
         self.ntok = np.zeros(max_batch, np.int64)   # tokens emitted per slot
+        # the step's carry on the engine side: written in place only
         self.last = torch.zeros((max_batch, 1), dtype=torch.int32,
                                 device=device)
         self.live_dev = torch.zeros(max_batch, dtype=torch.int32,
                                     device=device)
+        self.state.capture(self.last, self.live_dev)
         self.decode_steps = 0
         self.collectives = 0        # issued by decode steps (sharded)
-        self.decode_s: list = []    # per-step host dispatch time
+        self.decode_s: list = []    # per-step host dispatch time (no sync)
         self.admit_s: list = []     # per-wave admission time (synced)
         self.admit_hist: list = []  # per-wave prefix-cache tokens per row
         self.req_lat: list = []     # submit -> tokens on the host
         self.ttft: list = []        # submit -> first token on the device
         self.peak_logical = 0       # max summed live tokens (paged)
         self.peak_pages = 0         # max physical pages in use (paged)
-        self._toks: dict = {}       # slot -> [(B, 1) token tensors]
+        self._toks: dict = {}       # slot -> [(B, 1) per-step token copies]
 
     def _take_wave(self, free):
         """The maximal FIFO prefix of the queue that shares the head
@@ -158,6 +167,7 @@ class _Group:
             f"request {r.rid} ({len(r.prompt)} prompt tokens) cannot be "
             f"admitted with nothing in flight: {why}")
 
+    @hot_path
     def admit(self, admit_log=None):
         """Fill freed slots from the queue with one ragged prefill."""
         free = [j for j in range(self.max_batch) if self.reqs[j] is None]
@@ -187,13 +197,14 @@ class _Group:
             if not self._in_flight():
                 self._unservable("the page pool ran out (OutOfBlocks)")
             return
-        _sync(self.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         self.admit_s.append(time.perf_counter() - t0)
         hist = self.state.wave_hist if self.paged else 0
         self.admit_hist.append(hist)
         sl = torch.as_tensor(slots, device=self.device)
-        self.last = self.last.index_copy(0, sl, first[sl])
-        self.live_dev = self.live_dev.index_fill(0, sl, 1)
+        self.last.index_copy_(0, sl, first[sl])
+        self.live_dev.index_fill_(0, sl, 1)
         now = time.perf_counter()
         for j, r in take:
             self.reqs[j] = r
@@ -227,8 +238,12 @@ class _Group:
         self.state.check_integrity(
             {j for j in range(self.max_batch) if self.reqs[j] is not None})
 
+    @hot_path
     def decode_once(self):
-        """One batched decode step over the live slots (no-op when idle)."""
+        """One batched decode step over the live slots (no-op when idle).
+        The step's output buffer is rewritten by the next step, so its
+        tokens are copied once: into ``last`` (the next step's input) and
+        into a per-step copy the finished request gathers."""
         cap = self.state.max_len()
         for j in range(self.max_batch):
             if self.reqs[j] is not None and self.lens[j] >= cap:
@@ -238,8 +253,9 @@ class _Group:
             return
         t0 = time.perf_counter()
         calls = 0 if self.comm is None else self.comm.calls
-        nxt = self.state.step(self.last, self.live_dev)
-        self.last = nxt
+        out = self.state.step(self.last, self.live_dev)
+        self.last.copy_(out)
+        nxt = out.clone()
         self.decode_s.append(time.perf_counter() - t0)
         if self.comm is not None:
             self.collectives += self.comm.calls - calls
@@ -251,6 +267,7 @@ class _Group:
             if self.ntok[j] >= self.reqs[j].max_new:
                 self._finish(j, "max_new")
 
+    @hot_path
     def _finish(self, j, reason):
         """One device->host copy per finished request, then free the slot."""
         r = self.reqs[j]
@@ -264,8 +281,7 @@ class _Group:
         r.t_done = time.perf_counter()
         self.req_lat.append(r.t_done - r.t_submit)
         self.reqs[j] = None
-        self.live_dev = self.live_dev.index_fill(
-            0, torch.tensor([j], device=self.device), 0)
+        self.live_dev[j] = 0
         self.state.reset_slots([j])
 
     @property
@@ -285,14 +301,16 @@ class Server:
     ``distributed.ShardGroup``) places the cache:
     ``distributed.resolve_kv_shards`` says when "seq" shards a group's
     cache over the group's ranks; every rank then constructs the same
-    Server and runs the same requests."""
+    Server and runs the same requests. ``cuda_graphs=False`` runs each
+    unsharded group's in-place decode step eagerly instead of replaying
+    its CUDA graph (on the card; the CPU always runs it eagerly)."""
 
     def __init__(self, cfg, params, *, max_batch=4, max_seq=512,
                  policy: Optional[ExecPolicy] = None,
                  policy_groups: Optional[dict] = None, device=None,
                  paged: bool = False, block_budget: Optional[int] = None,
                  prefix_cache: bool = True, kv_mode: str = "auto",
-                 shards=None):
+                 shards=None, cuda_graphs: bool = True):
         self.device = resolve_device(device)
         if params.embed.device.type != self.device.type:
             raise ValueError(f"params live on {params.embed.device}, the "
@@ -313,8 +331,9 @@ class Server:
                 cfg, params, pol, max_batch, self.cache_s, self.device,
                 paged=paged, block_budget=block_budget,
                 prefix_cache=prefix_cache,
-                comm=shards if sharded else None)
+                comm=shards if sharded else None, cuda_graphs=cuda_graphs)
         self.admit_log: list = []    # rids in admission order
+        self.serve_s = 0.0           # wall time spent in drain()
 
     def submit(self, r: Request) -> None:
         if r.group not in self._groups:
@@ -331,6 +350,7 @@ class Server:
         r.t_submit = time.perf_counter()
         self._groups[r.group].queue.append(r)
 
+    @hot_path
     def step(self) -> bool:
         """One scheduler tick: admit into freed slots, then one decode
         step per busy group. Returns True while work remains."""
@@ -341,8 +361,10 @@ class Server:
         return any(g.busy for g in self._groups.values())
 
     def drain(self) -> None:
+        t0 = time.perf_counter()
         while self.step():
             pass
+        self.serve_s += time.perf_counter() - t0
 
     def run(self, requests: list) -> list:
         for r in requests:
@@ -351,18 +373,29 @@ class Server:
         return requests
 
     def stats(self) -> dict:
-        """Per-group decode steps, request latency, TTFT and decode-step
-        (host) time percentiles, admission waves and queue depth, the
-        cache's shard count with its merge strategy and the collectives
-        its decode steps issued, from host-side records only.
-        Paged groups add their pool and the hot waves (those whose rows
-        attached prefix-cache pages) with their admission time."""
+        """Per-group decode steps, request latency, TTFT and host
+        dispatch time percentiles (the host time to enqueue a decode
+        step, taken with no sync: not the step's time), admission waves
+        and queue depth, how the step runs (``step_mode``: "graph",
+        "eager", or eager because the cache is sharded) with its graph
+        captures and replays, the cache's shard count with its merge
+        strategy and the collectives its decode steps issued, from
+        host-side records only. ``wall_per_decode_step_s`` is the
+        server's, the same in every group: wall time in ``drain`` minus
+        every group's (synced) admission time, over every group's decode
+        steps. Paged groups add their pool and the hot waves (those whose
+        rows attached prefix-cache pages) with their admission time."""
         def pct(xs, q):
             xs = sorted(xs)
             return xs[min(len(xs) * q // 100, len(xs) - 1)] if xs else 0.0
 
+        groups = self._groups.values()
+        steps = sum(g.decode_steps for g in groups)
+        admit = sum(sum(g.admit_s, 0.0) for g in groups)
+        per_step = (self.serve_s - admit) / steps if steps else 0.0
         out = {}
         for name, g in self._groups.items():
+            gs = g.state.graph_stats()
             out[name] = {"decode_steps": g.decode_steps,
                          "p50_req_s": pct(g.req_lat, 50),
                          "p95_req_s": pct(g.req_lat, 95),
@@ -371,7 +404,12 @@ class Server:
                          "queue_depth": len(g.queue),
                          "p50_ttft_s": pct(g.ttft, 50),
                          "p95_ttft_s": pct(g.ttft, 95),
-                         "p50_step_s": pct(g.decode_s, 50),
+                         "p50_host_dispatch_s": pct(g.decode_s, 50),
+                         "wall_per_decode_step_s": per_step,
+                         "step_mode": gs["mode"],
+                         "graph_captures": gs["captures"],
+                         "graph_replays": gs["replays"],
+                         "graph_capture_s": gs["capture_s"],
                          "policy": g.policy.describe(),
                          "shards": g.state.shards,
                          "merge_strategy": (g.policy.merge_strategy
@@ -535,7 +573,10 @@ def main(argv=None):
             f"request latency p50 {s['p50_req_s'] * 1e3:.1f}ms "
             f"p95 {s['p95_req_s'] * 1e3:.1f}ms, "
             f"ttft p50 {s['p50_ttft_s'] * 1e3:.1f}ms "
-            f"p95 {s['p95_ttft_s'] * 1e3:.1f}ms"
+            f"p95 {s['p95_ttft_s'] * 1e3:.1f}ms, step {s['step_mode']} "
+            f"({s['graph_captures']} capture(s), {s['graph_replays']} "
+            f"replays), wall per decode step (all groups) "
+            f"{s['wall_per_decode_step_s'] * 1e3:.2f}ms"
             + (f", {s['shards']} shards, merge {s['merge_strategy']}, "
                f"{s['collectives_per_step']:.0f} collectives/step"
                if s["shards"] > 1 else ""))

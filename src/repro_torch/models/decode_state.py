@@ -20,6 +20,18 @@ own scratch page 0. Every rank runs the same prefill (replicated, on the
 FlashAttention kernel) and keeps its slice, and decodes through the
 partial-statistics kernels and the policy's merge. Admission is
 monolithic, as the reference's sharded states are.
+
+The decode step is the reference's donated step (``decode_state.py:
+509-515,1501``, jitted with ``donate_argnums`` at ``:131`` / ``:1026``)
+in the port's form: its carry (``carry()``: the cache leaves, positions,
+block tables, the engine's input tokens and live mask, and a static
+(pool_width, 1) output buffer ``out``) is allocated once and written in
+place, never rebound, and an unsharded state runs the step through one
+``runtime.graphs.StepGraph``: captured by ``capture`` when the engine
+builds the group, over the empty pool, so no request waits on the
+capture; replayed by every step after (the pool width is fixed, so one
+graph serves the group). Sharded states step eagerly: their gloo
+collectives stage through the host, which a graph cannot hold.
 """
 
 from __future__ import annotations
@@ -27,6 +39,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.analysis.registry import hot_path
+from repro_torch.runtime.graphs import StepGraph
 from . import transformer
 
 
@@ -58,14 +72,18 @@ class DecodeState:
     is_paged = False
 
     def __init__(self, cfg, params, policy, pool_width, cache_s, *, device,
-                 comm=None):
+                 comm=None, cuda_graphs=True):
         self.cfg, self.params, self.policy = cfg, params, policy
         self.pool_width, self.cache_s = pool_width, cache_s
         self.device = device
-        self.data = None                 # allocated on first admission
+        self.data = None       # allocated by capture or first admission
         self.pos_dev = torch.zeros(pool_width, dtype=torch.int32,
                                    device=device)
+        self.out = torch.zeros((pool_width, 1), dtype=torch.int32,
+                               device=device)      # the step's tokens
         self.shard = self._shard_spec(comm)
+        self.graph = (None if self.shard is not None else
+                      StepGraph(device, enabled=cuda_graphs))
 
     def _shard_spec(self, comm):
         """This rank's slice of the sequence axis (None: the whole)."""
@@ -102,8 +120,7 @@ class DecodeState:
         off, local = ((0, self.cache_s) if self.shard is None
                       else (self.shard.offset, self.shard.local_s))
         if self.data is None:
-            self.data = transformer.init_cache(self.cfg, self.pool_width,
-                                               local, self.device)
+            self.data = self._new_cache()
         sl = torch.as_tensor(np.asarray(slots), device=self.device)
         end = min(off + local, toks.shape[1])    # this slice's prompt rows
         if end > off:
@@ -116,19 +133,76 @@ class DecodeState:
         self.pos_dev[sl] = plens_t[sl].to(torch.int32)
         return _guard_tokens(logits)
 
+    def _new_cache(self):
+        local = self.cache_s if self.shard is None else self.shard.local_s
+        return transformer.init_cache(self.cfg, self.pool_width, local,
+                                      self.device)
+
+    def capture(self, last, live):
+        """Allocate the cache and capture the decode step before any
+        request, where the step is a graph on the card (elsewhere a
+        no-op). Every slot is dead (``live`` all 0), so the warm-up step
+        writes only what a step writes for dead slots: KV at position 0
+        of a contiguous row, which admission overwrites, and the paged
+        scratch page."""
+        if self.graph is None or not self.graph.use_graph:
+            return
+        if self.data is None:
+            self.data = self._new_cache()
+        self.graph(self._step, self.carry(last, live))
+
+    @hot_path
+    def carry(self, last, live) -> dict:
+        """Every tensor the decode step reads or writes, by name: the
+        engine's input tokens ``last`` (pool_width, 1) and live mask
+        ``live`` (pool_width,), the positions, the output buffer and the
+        cache leaves. All allocated once; the step writes them in place."""
+        c = {"last": last, "live": live, "pos": self.pos_dev,
+             "out": self.out}
+        c.update(self.data)
+        return c
+
+    @hot_path
     def step(self, last, live):
         """One decode step over the pool; live slots' positions advance
-        by one on the device. Returns the (pool_width, 1) next tokens."""
-        if self.shard is None:
-            logits, self.data = transformer.decode_step(
-                self.params, self.cfg, last, self.data, self.pos_dev,
-                policy=self.policy, live=live)
+        by one on the device. Returns ``out``, the static (pool_width, 1)
+        buffer holding the next tokens until the next step."""
+        c = self.carry(last, live)
+        if self.graph is None:
+            self._step(c)          # sharded: gloo stages through the host
         else:
-            logits, self.data = transformer.decode_step_sharded(
-                self.params, self.cfg, last, self.data, self.pos_dev,
-                policy=self.policy, shard=self.shard, live=live)
-        self.pos_dev = self.pos_dev + live
-        return _guard_tokens(logits, last)
+            self.graph(self._step, c)
+        return self.out
+
+    @hot_path
+    def _step(self, c):
+        """The step over the carry ``c``, in place: tokens into ``out``,
+        positions of live slots advanced."""
+        logits = self._logits(c)
+        c["out"].copy_(_guard_tokens(logits, c["last"]))
+        c["pos"].add_(c["live"])
+
+    @hot_path
+    def _logits(self, c):
+        cache = {"k": c["k"], "v": c["v"]}
+        if self.shard is None:
+            logits, _ = transformer.decode_step(
+                self.params, self.cfg, c["last"], cache, c["pos"],
+                policy=self.policy, live=c["live"])
+        else:
+            logits, _ = transformer.decode_step_sharded(
+                self.params, self.cfg, c["last"], cache, c["pos"],
+                policy=self.policy, shard=self.shard, live=c["live"])
+        return logits
+
+    def graph_stats(self) -> dict:
+        """How the step runs ("graph", "eager", or eager because the
+        cache is sharded), with its captures and replays."""
+        if self.graph is None:
+            return {"mode": "eager (sharded: collectives stage through the "
+                            "host)", "captures": 0, "replays": 0,
+                    "capture_s": 0.0}
+        return self.graph.stats()
 
     def reset_slots(self, slots):
         """Park freed slots at position 0. KV rows are not zeroed: decode
@@ -258,12 +332,13 @@ class PagedKVDecodeState(KVDecodeState):
     is_paged = True
 
     def __init__(self, cfg, params, policy, pool_width, cache_s, *, device,
-                 comm=None, n_pages=None, prefix_cache=True):
+                 comm=None, cuda_graphs=True, n_pages=None,
+                 prefix_cache=True):
         from .block_pool import BlockAllocator, PrefixCache
         self.page = policy.block_page
         self.ns = -(-cache_s // self.page)          # table columns per slot
         super().__init__(cfg, params, policy, pool_width, cache_s,
-                         device=device, comm=comm)
+                         device=device, comm=comm, cuda_graphs=cuda_graphs)
         nsh = self.shards
         self.n_pages = int(n_pages if n_pages is not None
                            else nsh + pool_width * self.ns)
@@ -364,8 +439,7 @@ class PagedKVDecodeState(KVDecodeState):
         propagates, so the engine can re-queue the wave."""
         from .block_pool import OutOfBlocks
         if self.data is None:
-            self.data = transformer.init_paged_cache(
-                self.cfg, self.alloc.per_part, self.page, self.device)
+            self.data = self._new_cache()
         slots = [int(j) for j in np.asarray(slots).reshape(-1)]
         toks = np.asarray(toks)
         plens = np.asarray(plens).reshape(-1)
@@ -470,6 +544,10 @@ class PagedKVDecodeState(KVDecodeState):
         self.wave_hist = h
         return _guard_tokens(logits)
 
+    def _new_cache(self):
+        return transformer.init_paged_cache(self.cfg, self.alloc.per_part,
+                                            self.page, self.device)
+
     def _local_ids(self, gids):
         """Pool page ids of this rank for global page ids (partition-local
         on a sharded pool: each rank indexes its own pool)."""
@@ -492,18 +570,25 @@ class PagedKVDecodeState(KVDecodeState):
         return torch.cat([got[c // cols, :, :, c * page:(c + 1) * page]
                           for c in range(hist_tab.shape[1])], dim=2)
 
-    def step(self, last, live):
+    @hot_path
+    def carry(self, last, live) -> dict:
+        c = super().carry(last, live)
+        c["tables"] = self.tables
+        return c
+
+    @hot_path
+    def _logits(self, c):
+        cache = {"k": c["k"], "v": c["v"]}
         if self.shard is None:
-            logits, self.data = transformer.decode_step_paged(
-                self.params, self.cfg, last, self.data, self.tables,
-                self.pos_dev, policy=self.policy, live=live)
+            logits, _ = transformer.decode_step_paged(
+                self.params, self.cfg, c["last"], cache, c["tables"],
+                c["pos"], policy=self.policy, live=c["live"])
         else:
-            logits, self.data = transformer.decode_step_paged_sharded(
-                self.params, self.cfg, last, self.data, self.tables,
-                self.pos_dev, policy=self.policy, shard=self.shard,
-                live=live)
-        self.pos_dev = self.pos_dev + live
-        return _guard_tokens(logits, last)
+            logits, _ = transformer.decode_step_paged_sharded(
+                self.params, self.cfg, c["last"], cache, c["tables"],
+                c["pos"], policy=self.policy, shard=self.shard,
+                live=c["live"])
+        return logits
 
     def reset_slots(self, slots):
         """Park freed slots, release their pages (shared pages keep their

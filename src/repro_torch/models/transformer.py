@@ -11,7 +11,10 @@ logits are an f32 matmul against ``embed.T``.
 
 The KV cache is a dict {"k", "v"} of stacked (L, B, S, Hkv, hd) ("bshd")
 or (L, B, Hkv, S, hd) ("bhsd") bf16 tensors. ``decode_step`` writes it in
-place (the reference donates it through a jitted step instead). The paged
+place (the reference donates it through a jitted step instead), and the
+decode steps read only device tensors (positions, live mask, tables) and
+copy nothing from the host, so one CUDA graph can hold a whole step
+(``runtime.graphs.StepGraph``). The paged
 pool (``init_paged_cache``) stacks pages instead of slots; per-row block
 tables map each row's logical pages to pool pages, and
 ``decode_step_paged`` writes it in place through them.
@@ -24,6 +27,7 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.analysis.registry import hot_path
 from repro_torch.core.attention import attention, decode_attention
 from repro_torch.kernels.dispatch import dispatch
 from .layers import apply_rope, mask_padded_logits, mlp_apply, norm_apply
@@ -275,6 +279,7 @@ def _live(live, b, device):
     return ok if live is None else ok & (live > 0)
 
 
+@hot_path
 def decode_step(params, cfg, token, cache, pos, *, policy, live=None):
     """One decode step. token (B, 1) int; pos (B,) int, each row's token
     position; ``cache`` is updated in place and returned with the
@@ -316,6 +321,7 @@ def attn_decode_sharded(q, k, v, cache_k, cache_v, pos, ok, *, shard,
         layout=layout, policy=policy)
 
 
+@hot_path
 def decode_step_sharded(params, cfg, token, cache, pos, *, policy, shard,
                         live=None):
     """``decode_step`` over a sequence-sharded cache, run by every rank of
@@ -396,6 +402,7 @@ def _paged_attn(q, pool_k, pool_v, tables, cache_len, cfg, policy):
         layout=cfg.kv_cache_layout, policy=policy)
 
 
+@hot_path
 def decode_step_paged(params, cfg, token, cache, tables, pos, *, policy,
                       live=None):
     """One decode step over a paged pool. token (B, 1) int; ``cache`` the
@@ -419,6 +426,7 @@ def decode_step_paged(params, cfg, token, cache, tables, pos, *, policy,
     return _decode_layers(params, cfg, token, pos, layer_attn), cache
 
 
+@hot_path
 def decode_step_paged_sharded(params, cfg, token, cache, tables, pos, *,
                               policy, shard, live=None):
     """``decode_step_paged`` over a sequence-sharded pool, run by every

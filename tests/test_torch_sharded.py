@@ -14,7 +14,8 @@ unsharded port.
   contiguous and paged, merge "split" and "packed"): every rank's
   tokens equal, equal to the unsharded port's and to the JAX ``Server``'s
   up to a near tie, 1 or 3 collectives per layer and step, no page
-  leaked.
+  leaked; one step per group held to ``graph_audit``'s budget by kind
+  (none when the cache stays whole).
 * Per-partition page budgets (``OutOfBlocks`` in one partition), and a
   "bhsd" cache under "seq" raising.
 
@@ -437,6 +438,25 @@ _RANK = textwrap.dedent("""
                      "stats": {n: {k2: stats[n][k2] for k2 in (
                          "shards", "merge_strategy", "collectives",
                          "decode_steps")} for n in stats}}
+
+    # the collectives of one decode step per group, by kind, with every
+    # group's slots live: sharded ("seq") and unsharded ("auto") caches
+    from repro_torch.analysis import graph_audit
+    for path, paged in (("contig", False), ("paged", True)):
+        for mode in ("seq", "auto"):
+            srv = Server(cfg, params, max_batch=2, max_seq=spec["max_seq"],
+                         policy=base, policy_groups=groups, device="cpu",
+                         paged=paged, kv_mode=mode, shards=comm)
+            for i, (p, g) in enumerate(zip(spec["prompts"][:4],
+                                           spec["req_groups"])):
+                srv.submit(Request(i, np.asarray(p, np.int32),
+                                   spec["max_new"], group=g))
+            for g in srv._groups.values():
+                g.admit()
+            out[f"step_collectives_{path}_{mode}"] = {
+                n: graph_audit.collective_counts(g.decode_once, comm)
+                for n, g in srv._groups.items() if g.busy}
+            srv.drain()
     json.dump(out, open(f"{tmp}/rank{rank}.json", "w"))
     torch.distributed.destroy_process_group()
 """)
@@ -566,6 +586,23 @@ def test_sharded_server_counts_collectives(ranks, models, path):
         assert g["collectives"] == per * g["decode_steps"]
     if path == "paged":
         assert any(got[0][path]["hits"])
+
+
+@pytest.mark.parametrize("path", ["contig", "paged"])
+def test_step_collective_budget(ranks, models, path):
+    """One decode step per group, by kind (``graph_audit``): sequence-
+    sharded, one all_gather per layer (packed) or one all_reduce MAX and
+    two SUMs per layer (split); with the cache whole ("auto"), none."""
+    from repro_torch.analysis import graph_audit
+    got, _, spec, _ = ranks
+    _, _, cfg, _ = models
+    for mode in ("seq", "auto"):
+        counts = got[0][f"step_collectives_{path}_{mode}"]
+        assert set(counts) == set(spec["groups"])
+        for name, (_, strategy) in spec["groups"].items():
+            budget = graph_audit.step_budget(
+                cfg.n_layers, strategy if mode == "seq" else None)
+            assert graph_audit.budget_mismatch(counts[name], budget) is None
 
 
 def _first_divergence(a, b):
