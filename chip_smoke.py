@@ -14,8 +14,11 @@ its SASS instructions per element from ``cuobjdump -sass``), serves
 full-width gpt2-small through the port's ``Server`` on the contiguous
 cache and on the paged pool with a shared-prefix cache (each group's
 decode step as one CUDA graph, and eagerly, in turns; the replays held
-to the eager step by the capture audit), then
-serves it sequence-sharded (``kv_mode="seq"``) on 2 ranks spawned on the
+to the eager step by the capture audit), both again with chunked
+prefill (each group's chunk program a second CUDA graph; tokens held to
+the monolithic serves'), a chaos serve (paged, chunked, a seeded fault
+injector at all six points, a squeezed page budget, the degradation
+ladder, a cancel and a deadline), then serves it sequence-sharded (``kv_mode="seq"``) on 2 ranks spawned on the
 one card (gloo, host-staged collectives), and checks what comes out.
 Every phase prints one JSON line; the first failure on any rank exits
 non-zero.
@@ -662,11 +665,17 @@ def phase_softmax(policy_cls):
             "library_graph_ms": lib_g_ms}
 
 
+def _qpos(sq, q_offset):
+    """(1|B, Sq) absolute query positions: query i of row b sits at
+    q_offset + i, q_offset an int or a (B,) tensor of per-row offsets."""
+    off = torch.as_tensor(q_offset, device="cuda").reshape(-1, 1)
+    return torch.arange(sq, device="cuda")[None, :] + off
+
+
 def _sdpa_mask_prefill(kv_len, sq, sk, q_offset=0):
-    qpos = torch.arange(sq, device="cuda")[:, None] + q_offset
-    kpos = torch.arange(sk, device="cuda")[None, :]
-    causal = (kpos <= qpos)[None]
-    return (causal & (kpos < kv_len[:, None, None]))[:, None]
+    qpos = _qpos(sq, q_offset)[:, :, None]
+    kpos = torch.arange(sk, device="cuda")[None, None, :]
+    return ((kpos <= qpos) & (kpos < kv_len[:, None, None]))[:, None]
 
 
 def _scan_p_terms(q, k, v, kv_len, q_offset, block_k, exp, terms):
@@ -678,16 +687,15 @@ def _scan_p_terms(q, k, v, kv_len, q_offset, block_k, exp, terms):
     b, sq, h, d = q.shape
     sk = k.shape[1]
     qs = q.float().transpose(1, 2) * (1.0 / d ** 0.5)   # (B, H, Sq, D)
-    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    qpos = _qpos(sq, q_offset)[:, None, :, None]      # (1|B, 1, Sq, 1)
     m = torch.full((b, h, sq), -1e30, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros((b, h, sq, d), device=q.device)
     for k0 in range(0, sk, block_k):
         kb = k[:, k0:k0 + block_k].float().transpose(1, 2)
         vb = v[:, k0:k0 + block_k].float().transpose(1, 2)
-        kpos = k0 + torch.arange(kb.shape[2], device=q.device)[None, :]
-        keep = ((kpos <= qpos)[None, None]
-                & (kpos < kv_len[:, None, None, None]))
+        kpos = k0 + torch.arange(kb.shape[2], device=q.device)
+        keep = (kpos <= qpos) & (kpos < kv_len[:, None, None, None])
         sc = torch.where(keep, qs @ kb.transpose(-1, -2), -1e30)
         m_new = torch.maximum(m, sc.amax(-1))
         alpha = exp_fn(m - m_new)
@@ -710,9 +718,9 @@ def _truth64(q, k, v, kv_len, q_offset):
     sk = k.shape[1]
     qd, kd, vd = (t.double().transpose(1, 2) for t in (q, k, v))
     sc = qd @ kd.transpose(-1, -2) * (1.0 / d ** 0.5)
-    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
-    kpos = torch.arange(sk, device=q.device)[None, :]
-    keep = (kpos <= qpos)[None, None] & (kpos < kv_len[:, None, None, None])
+    qpos = _qpos(sq, q_offset)[:, None, :, None]      # (1|B, 1, Sq, 1)
+    kpos = torch.arange(sk, device=q.device)
+    keep = (kpos <= qpos) & (kpos < kv_len[:, None, None, None])
     sc = torch.where(keep, sc, -1e300)
     p = torch.where(keep, torch.exp(sc - sc.amax(-1, keepdim=True)), 0.0)
     out = (p @ vd) / p.sum(-1, keepdim=True).clamp_min(1e-300)
@@ -728,7 +736,7 @@ def _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, q_offset, tag):
     q_offset + i; its real rows are those below kv_len[b]. Returns
     (fields, limit readings)."""
     b, sq, h, d = q.shape
-    qpos = torch.arange(sq, device="cuda")[None, :] + q_offset
+    qpos = _qpos(sq, q_offset)
     real = (qpos < kv_len[:, None])[:, :, None, None]
     kw = dict(causal=True, kv_len=kv_len, q_offset=q_offset)
     res, readings = {}, {}
@@ -785,6 +793,8 @@ def _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, q_offset, tag):
                 f"{tag}library_graph_ms": lib_g_ms,
                 f"{tag}bound_ms": b_ms, f"{tag}bound_by": b_by,
                 f"{tag}kv_len": kv_len.tolist()})
+    if not isinstance(q_offset, int):
+        res[f"{tag}q_offset"] = q_offset.tolist()
     return res, readings
 
 
@@ -794,9 +804,14 @@ def phase_flash_attention(policy_cls, block_k):
     admission: 256 suffix queries at q_offset=256 over 512 keys (history
     + suffix), ragged kv_len in [257, 512]; and a D = 32 case (the
     reduced config's heads: B=8, H=4, S=512, block_k 128, the policy
-    default, so rows walk several blocks) for the kernel's D = 32 path.
-    The plain version computed on the host is also read against itself
-    on the card, to show the order noise the limits leave no room for."""
+    default, so rows walk several blocks) for the kernel's D = 32 path;
+    and the chunk program's call: 128 chunk queries over the 1,024-row
+    cache at per-row offsets given as a (B,) device tensor (0, one
+    chunk crossing a block_k boundary, 896, two inert rows with no
+    tokens, one of them at offset 0 and so with no key at all, ...),
+    kv_len = offset + tokens. The plain version computed on the host is
+    also read against itself on the card, to show the order noise the
+    limits leave no room for."""
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device="cuda").manual_seed(1)
     b, s, h, d = 8, 512, 12, 64
@@ -838,12 +853,41 @@ def phase_flash_attention(policy_cls, block_k):
     d32, d32_readings = _fa_case(fa, policy_cls, bk32, q32, k32, v32, kv32,
                                  0, "d32_")
     res.update(d32)
+    gc = torch.Generator(device="cuda").manual_seed(7)
+    sq_c, sk_c = 128, 1024
+    qc = torch.randn(b, sq_c, h, d, generator=gc,
+                     device="cuda").to(torch.bfloat16)
+    kc, vc = (torch.randn(b, sk_c, h, d, generator=gc, device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    offs = torch.tensor([0, block_k - 64, 896, 0, 600, 128, 300, 768],
+                        dtype=torch.int32, device="cuda")
+    clens = torch.tensor([128, 128, 128, 0, 0, 100, 37, 128],
+                         dtype=torch.int32, device="cuda")
+    kv_c = offs + clens
+    chunk, chunk_readings = _fa_case(fa, policy_cls, block_k, qc, kc, vc,
+                                     kv_c, offs, "chunk_")
+    res.update(chunk)
+    # what the kernel writes for the row with no key (kv_len 0): neither
+    # a cache row nor a token reads it; reported beside the plain version
+    empty = kv_c == 0
+    for exp in ("exact", "vexp", "vexp_hw"):
+        pol = policy_cls(exp_backend=exp, block_k=block_k)
+        kw = dict(causal=True, kv_len=kv_c, q_offset=offs)
+        out = fa.flash_attention(qc, kc, vc, policy=pol, **kw)
+        ref = fa.flash_attention_plain(qc, kc, vc, block_k=block_k,
+                                       exp_backend=exp, **kw)
+        res[f"chunk_{exp}_empty_row_kernel_max_abs"] = float(
+            out[empty].float().abs().max())
+        res[f"chunk_{exp}_empty_row_plain_max_abs"] = float(
+            ref[empty].float().abs().max())
     emit({"phase": "flash_attention", "block_k": block_k, "hot_q_offset": off,
           "d32_block_k": bk32, **res})
     check_attention("flash_attention", readings)
     check_attention("flash_attention", hot_readings, " hot")
     check_attention("flash_attention", d32_readings, " D=32")
-    worst = max(err for rd in (readings, hot_readings, d32_readings)
+    check_attention("flash_attention", chunk_readings, " chunk")
+    worst = max(err for rd in (readings, hot_readings, d32_readings,
+                               chunk_readings)
                 for (_, who), (err, _) in rd.items() if who == "kernel")
     return {"name": "flash_attention_bhsd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -852,7 +896,12 @@ def phase_flash_attention(policy_cls, block_k):
             "graph_ms": res["graph_ms_vexp"], "plain_ms": res["plain_ms_vexp"],
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
             "library_ms": res["library_ms"],
-            "library_graph_ms": res["library_graph_ms"]}
+            "library_graph_ms": res["library_graph_ms"],
+            "chunk_shape": f"B={b} Sq={sq_c} Sk={sk_c} H={h} D={d}, (B,) "
+                           f"q_offset tensor",
+            **{f"chunk_{k}": res[f"chunk_{k}"] for k in (
+                "ms_vexp", "graph_ms_vexp", "plain_ms_vexp", "bound_ms",
+                "bound_by", "library_ms", "library_graph_ms")}}
 
 
 def phase_decode(policy_cls):
@@ -1633,13 +1682,15 @@ ARM_TURNS = 2          # graph, eager, graph, eager: the host spreads by 1.7x
 
 def check_serve_counts(cfg, st, counts, sdpa_calls, decode, other, what):
     """A serve's launches: ``decode`` = layers x decode steps, FA =
-    layers x admission waves, none of the ``other`` decode kernel, no
-    SDPA call. Returns (waves, steps)."""
+    layers x (admission waves + prefill chunks), none of the ``other``
+    decode kernel, no SDPA call. Returns (waves, chunks, steps)."""
     waves = sum(s["admit_waves"] for s in st.values())
+    chunks = sum(s["prefill_chunks"] for s in st.values())
     steps = sum(s["decode_steps"] for s in st.values())
-    if counts["flash_attention"] != cfg.n_layers * waves:
+    if counts["flash_attention"] != cfg.n_layers * (waves + chunks):
         fail(f"{what}: flash_attention launches {counts['flash_attention']} "
-             f"!= {cfg.n_layers} layers x {waves} admission waves")
+             f"!= {cfg.n_layers} layers x ({waves} admission waves + "
+             f"{chunks} prefill chunks)")
     if counts[decode] != cfg.n_layers * steps:
         fail(f"{what}: {decode} launches {counts[decode]} != "
              f"{cfg.n_layers} layers x {steps} decode steps")
@@ -1648,31 +1699,44 @@ def check_serve_counts(cfg, st, counts, sdpa_calls, decode, other, what):
     if sdpa_calls:
         fail(f"{what}: {sdpa_calls} library attention calls on the port's "
              f"path")
-    return waves, steps
+    return waves, chunks, steps
 
 
 def check_graph_stats(cfg, st, arm, replayed, decode, what):
-    """Graph arm: one capture per group, made when the Server was built
-    (before the serve's counts were reset), and every decode step a
-    replay (replays = decode steps), and the decode kernel's replayed
-    launches = layers x replays. Eager arm: no capture, no replay.
-    Returns {group: (captures, replays)}."""
+    """Graph arm: one decode capture per group, made when the Server was
+    built (before the serve's counts were reset), and every decode step
+    a replay (replays = decode steps), and the decode kernel's replayed
+    launches = layers x replays; a chunked group also one chunk-program
+    capture, every chunk a replay, and FA's replayed launches = layers x
+    chunk replays. Eager arm: no capture, no replay. Returns {group:
+    (captures, replays, chunk captures, chunk replays)}."""
     out = {}
     for n, s in st.items():
         cap, rep = s["graph_captures"], s["graph_replays"]
+        ccap, crep = s["chunk_graph_captures"], s["chunk_graph_replays"]
         if arm == "graph":
             if s["step_mode"] != "graph" or cap != 1 or \
                     rep != s["decode_steps"]:
                 fail(f"{what} group {n}: {s['step_mode']}, {cap} captures, "
                      f"{rep} replays in {s['decode_steps']} decode steps "
                      f"(want one capture, then a replay a step)")
-        elif cap or rep:
-            fail(f"{what} group {n} ({arm}): {cap} captures, {rep} replays")
-        out[n] = (cap, rep)
-    replays = sum(rep for _, rep in out.values())
+            if ccap != (1 if s["prefill_chunk"] else 0) or \
+                    crep != s["prefill_chunks"]:
+                fail(f"{what} group {n}: {ccap} chunk captures, {crep} "
+                     f"replays in {s['prefill_chunks']} chunks")
+        elif cap or rep or ccap or crep:
+            fail(f"{what} group {n} ({arm}): {cap} / {ccap} captures, "
+                 f"{rep} / {crep} replays")
+        out[n] = (cap, rep, ccap, crep)
+    replays = sum(v[1] for v in out.values())
     if replayed[decode] != cfg.n_layers * replays:
         fail(f"{what}: {replayed[decode]} replayed {decode} launches != "
              f"{cfg.n_layers} layers x {replays} replays")
+    chunk_replays = sum(v[3] for v in out.values())
+    if replayed["flash_attention"] != cfg.n_layers * chunk_replays:
+        fail(f"{what}: {replayed['flash_attention']} replayed "
+             f"flash_attention launches != {cfg.n_layers} layers x "
+             f"{chunk_replays} chunk replays")
     return out
 
 
@@ -1694,8 +1758,8 @@ def serve_in_turns(kernels, cfg, make_server, make_reqs, decode, other,
             replayed = kernels.replay_counts()
             st = srv.stats()
             where = f"{what} ({arm} arm)"
-            waves, steps = check_serve_counts(cfg, st, counts, sdpa_calls,
-                                              decode, other, where)
+            waves, chunks, steps = check_serve_counts(
+                cfg, st, counts, sdpa_calls, decode, other, where)
             graphs = check_graph_stats(cfg, st, arm, replayed, decode, where)
             if after is not None:
                 after(srv, st)
@@ -1713,9 +1777,24 @@ def serve_in_turns(kernels, cfg, make_server, make_reqs, decode, other,
                     "graph_capture_s": sum(s["graph_capture_s"]
                                            for s in st.values()),
                     "admit_waves": waves, "decode_steps": steps,
-                    "graph_captures": sum(c for c, _ in graphs.values()),
-                    "graph_replays": sum(r for _, r in graphs.values()),
+                    "prefill_chunks": chunks,
+                    "chunk_dispatch_s_total": sum(s["chunk_s_total"]
+                                                  for s in st.values()),
+                    "p50_chunk_dispatch_s": {
+                        n: s["p50_chunk_dispatch_s"] for n, s in st.items()
+                        if s["prefill_chunks"]},
+                    "decode_steps_prefilling": sum(
+                        s["decode_steps_prefilling"] for s in st.values()),
+                    "graph_captures": sum(v[0] for v in graphs.values()),
+                    "graph_replays": sum(v[1] for v in graphs.values()),
+                    "chunk_graph_captures": sum(v[2]
+                                                for v in graphs.values()),
+                    "chunk_graph_replays": sum(v[3]
+                                               for v in graphs.values()),
+                    "chunk_graph_capture_s": sum(s["chunk_graph_capture_s"]
+                                                 for s in st.values()),
                     "replayed_launches": replayed[decode],
+                    "replayed_flash_attention": replayed["flash_attention"],
                     "peak_memory_bytes": peak, "clocks_power": clocks}})
     return runs
 
@@ -1777,7 +1856,8 @@ def phase_serve(kernels, smi, cfg, params, policy, groups):
     max_seq 1024, 16 requests with prompt lengths in [32, 512], 64 new
     tokens each, policy groups eval=exact, bulk=vexp, hw=vexp_hw; served
     with each group's decode step as one CUDA graph and eagerly, in
-    turns. Returns {path: launch counts} of the first turn of each arm."""
+    turns. Returns ({path: launch counts} of the first turn of each
+    arm, the first graph turn's requests)."""
     from repro_torch.launch.serve import Server, make_requests
 
     def server(cuda_graphs=True):
@@ -1831,7 +1911,7 @@ def phase_serve(kernels, smi, cfg, params, policy, groups):
         cfg, 6, 64, 8, groups=sorted(groups), seed=3), "serve")
     emit(res)
     arm_summary(runs, profiles, audits, compare, "serve")
-    return {"serve": counts, "serve_eager": runs["eager"][0]["counts"]}
+    return {"serve": counts, "serve_eager": runs["eager"][0]["counts"]}, reqs
 
 
 def phase_serve_paged(kernels, smi, cfg, params, policy, groups):
@@ -1936,6 +2016,256 @@ def phase_serve_paged(kernels, smi, cfg, params, policy, groups):
     arm_summary(runs, profiles, audits, compare, "serve_paged")
     return ({"serve_paged": counts,
              "serve_paged_eager": runs["eager"][0]["counts"]}, reqs)
+
+
+def chunked_groups(policy, groups, chunk, page=None):
+    """The policy and groups with ``prefill_chunk=chunk`` (and pages of
+    ``page`` tokens where given)."""
+    kw = {"prefill_chunk": chunk}
+    if page is not None:
+        kw["block_page"] = page
+    return policy.replace(**kw), {n: p.replace(**kw)
+                                  for n, p in groups.items()}
+
+
+def check_overlap(runs, what):
+    """Every turn ran decode steps while a prompt was still streaming in
+    (the point of chunking); returns the counts per arm and turn."""
+    out = {}
+    for arm in ARMS:
+        out[arm] = [t["readings"]["decode_steps_prefilling"]
+                    for t in runs[arm]]
+        if min(out[arm]) < 1:
+            fail(f"{what} ({arm} arm): no decode step ran while a prompt "
+                 f"was prefilling ({out[arm]})")
+    return out
+
+
+def phase_serve_chunked(kernels, smi, cfg, params, policy, groups, mono):
+    """The contiguous serve's requests with ``prefill_chunk=128``: each
+    prompt streams into its slot one 128-token chunk a tick, one chunk
+    program per group (one FA launch per layer over the 1,024-row cache
+    with a (B,) q_offset tensor) between decode steps; graph and eager
+    arms in turns. Tokens against the monolithic serve's (``mono``, its
+    first graph turn) up to a near tie. Returns {path: launch counts}."""
+    from repro_torch.launch.serve import Server, make_requests
+    pol, grp = chunked_groups(policy, groups, 128)
+
+    def server(cuda_graphs=True):
+        return Server(cfg, params, max_batch=8, max_seq=1024, policy=pol,
+                      policy_groups=grp, device="cuda",
+                      cuda_graphs=cuda_graphs)
+
+    def requests():
+        return make_requests(cfg, 16, 512, 64, mixed_lengths=True,
+                             min_len=32, groups=sorted(groups), seed=0)
+
+    for arm in ARMS:                  # warm-up, not measured
+        server(arm == "graph").run(make_requests(
+            cfg, 3, 200, 4, groups=sorted(groups), seed=1))
+    torch.cuda.synchronize()
+    runs = serve_in_turns(kernels, cfg, server, requests,
+                          "decode_attention", "decode_attention_paged",
+                          "serve_chunked")
+    for arm in ARMS:
+        for t in runs[arm]:
+            check_requests(cfg, t["reqs"], 64)
+    first = runs["graph"][0]
+    res = {"phase": "serve_chunked", "prefill_chunk": 128, "arm": "graph",
+           **first["readings"], "launches": first["counts"],
+           "overlap_decode_steps": check_overlap(runs, "serve_chunked"),
+           "graph_vs_eager_tokens": compare_arms(runs, "serve_chunked"),
+           "chunked_equals_monolithic": near_tie_compare(
+               cfg, params, grp, first["reqs"], [m.out for m in mono],
+               "chunked request", "its monolithic tokens"),
+           "nvidia_smi": smi}
+    emit(res)
+    arm_summary(runs, {arm: None for arm in ARMS}, None,
+                res["graph_vs_eager_tokens"], "serve_chunked")
+    return {"serve_chunked": first["counts"],
+            "serve_chunked_eager": runs["eager"][0]["counts"]}
+
+
+def phase_serve_paged_chunked(kernels, smi, cfg, params, policy, groups,
+                              mono):
+    """The paged serve's requests with ``prefill_chunk=96`` on 64-token
+    pages, so chunks straddle pages: each request reserves its table and
+    attaches its own prefix-cache hits when admitted, its cursor past
+    them; graph and eager arms in turns. Tokens against the monolithic
+    paged serve's (``mono``) up to a near tie; every group attaches
+    prefix pages to some request; each hot request against the same
+    request served cold and alone; ``assert_idle_clean()``."""
+    from repro_torch.launch.serve import Request, Server
+    pol, grp = chunked_groups(policy, groups, 96, PAGE)
+
+    def server(cuda_graphs=True, p=pol, g=grp):
+        return Server(cfg, params, max_batch=8, max_seq=1024, policy=p,
+                      policy_groups=g, device="cuda", paged=True,
+                      cuda_graphs=cuda_graphs)
+
+    def hot_and_clean(srv, st):
+        for name in groups:
+            if st[name]["pool"]["prefix"]["hits"] <= 0:
+                fail(f"paged chunked group {name}: no prefix hit")
+        srv.assert_idle_clean()
+
+    runs = serve_in_turns(kernels, cfg, server,
+                          lambda: paged_requests(cfg, groups),
+                          "decode_attention_paged", "decode_attention",
+                          "serve_paged_chunked", after=hot_and_clean)
+    for arm in ARMS:
+        for t in runs[arm]:
+            check_requests(cfg, t["reqs"], 64)
+            for name in groups:
+                if not any(r.prefix_hit for r in t["reqs"]
+                           if r.group == name):
+                    fail(f"paged chunked ({arm}) group {name}: no request "
+                         f"attached prefix pages")
+    first = runs["graph"][0]
+    reqs = first["reqs"]
+    hot = [r for r in reqs if r.prefix_hit]
+    solos = []
+    for r in hot:
+        solo = Request(r.rid, r.prompt.copy(), r.max_new)
+        server(True, grp[r.group], None).run([solo])
+        solos.append(solo.out)
+    res = {"phase": "serve_paged_chunked", "prefill_chunk": 96,
+           "page": PAGE, "arm": "graph", **first["readings"],
+           "launches": first["counts"],
+           "prefix_hit_tokens_per_request": [r.prefix_hit for r in reqs],
+           "pool": {n: first["stats"][n]["pool"] for n in groups},
+           "overlap_decode_steps": check_overlap(runs, "serve_paged_chunked"),
+           "graph_vs_eager_tokens": compare_arms(runs,
+                                                 "serve_paged_chunked"),
+           "chunked_equals_monolithic": near_tie_compare(
+               cfg, params, grp, reqs, [m.out for m in mono],
+               "paged chunked request", "its monolithic tokens"),
+           "hot_equals_cold_solo": near_tie_compare(
+               cfg, params, grp, hot, solos, "hot chunked request",
+               "its cold solo tokens"),
+           "nvidia_smi": smi}
+    emit(res)
+    arm_summary(runs, {arm: None for arm in ARMS}, None,
+                res["graph_vs_eager_tokens"], "serve_paged_chunked")
+    return {"serve_paged_chunked": first["counts"],
+            "serve_paged_chunked_eager": runs["eager"][0]["counts"]}
+
+
+CHAOS_SEED = 0
+CHAOS_BUDGET = 1 + 4 * 16      # four full 16-page reservations a group
+
+
+def chaos_requests(cfg, groups):
+    """18 requests on the paged serve's shared 256-token prefix with a
+    [32, 256]-token suffix, 16 new tokens each (seed 4); the last one
+    with a 1 ms deadline, which expires while it waits."""
+    from repro_torch.launch.serve import make_requests
+    reqs = make_requests(cfg, 18, 256, 16, mixed_lengths=True, min_len=32,
+                         groups=sorted(groups), seed=4, shared_prefix=256)
+    reqs[-1].deadline_s = 1e-3
+    return reqs
+
+
+def phase_serve_chaos(kernels, smi, cfg, params, policy, groups):
+    """Paged, chunked (96) serving under a seeded FaultInjector at
+    ``default_chaos_rates()`` over all six points, with a 65-page budget
+    per group (four full reservations: the pool comes under pressure),
+    ``degrade_groups=("bulk",)``, request 0 cancelled mid-chunk and the
+    last request given a deadline that expires; graph arm. Checks every
+    request ends with a reason, no quarantined request streams a token
+    (and no served one a -1), step-fault victims outside the degraded
+    group are re-served with an undisturbed serve's tokens (near ties
+    aside), the ladder reaches L2 and comes back to 0 (idle ticks after
+    the drain), and ``check_invariants()`` / ``assert_idle_clean()``.
+    Returns {path: launch counts}."""
+    from repro_torch.ft import FaultInjector, default_chaos_rates
+    from repro_torch.launch.serve import RESTORE_AFTER, Request, Server
+    pol, grp = chunked_groups(policy, groups, 96, PAGE)
+    inj = FaultInjector(seed=CHAOS_SEED, rates=default_chaos_rates())
+    srv = Server(cfg, params, max_batch=8, max_seq=1024, policy=pol,
+                 policy_groups=grp, device="cuda", paged=True,
+                 block_budget=CHAOS_BUDGET, injector=inj,
+                 degrade_groups=("bulk",))
+    reqs = chaos_requests(cfg, groups)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        srv.submit(r)
+    g0 = srv._groups[reqs[0].group]
+    for _ in range(50):               # until request 0 streams its prompt
+        srv.step()
+        if 0 in [r.rid for r, _ in g0.prefilling.values()]:
+            break
+    else:
+        fail("chaos: request 0 never reached chunked prefill")
+    srv.cancel(reqs[0].rid)
+    srv.drain()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    check_serve_counts(cfg, srv.stats(), counts, 0,
+                       "decode_attention_paged", "decode_attention",
+                       "serve_chaos")
+    peak = srv.fault_stats()["degrade_peak"]
+    idle_ticks = 0
+    while srv.degrade_level and idle_ticks < 4 * RESTORE_AFTER:
+        srv.step()
+        idle_ticks += 1
+    fs = srv.fault_stats()
+    st = srv.stats()
+    reasons = {}
+    for r in reqs:
+        reasons[r.finish_reason] = reasons.get(r.finish_reason, 0) + 1
+        if r.finish_reason is None:
+            fail(f"chaos: request {r.rid} ended without a reason")
+        if r.finish_reason in ("max_new", "length_cap"):
+            if len(r.out) != r.max_new or min(r.out) < 0:
+                fail(f"chaos: served request {r.rid} has {len(r.out)} "
+                     f"tokens, min {min(r.out, default=None)}")
+        elif r.out:
+            fail(f"chaos: request {r.rid} ({r.finish_reason}) streamed "
+                 f"{len(r.out)} tokens")
+    if reqs[0].finish_reason != "cancelled":
+        fail(f"chaos: request 0 ended {reqs[0].finish_reason}, not "
+             f"cancelled")
+    if reqs[-1].finish_reason != "deadline":
+        fail(f"chaos: request {reqs[-1].rid} ended "
+             f"{reqs[-1].finish_reason}, not at its deadline")
+    if peak < 2 or fs["degrade_level"]:
+        fail(f"chaos: the ladder peaked at {peak} and ended at "
+             f"{fs['degrade_level']} after {idle_ticks} idle ticks (want 2, "
+             f"then 0)")
+    srv.check_invariants()
+    srv.assert_idle_clean()
+    victims = [r for r in reqs if r.retries and r.group != "bulk"
+               and r.finish_reason == "max_new"]
+    base = Server(cfg, params, max_batch=8, max_seq=1024, policy=pol,
+                  policy_groups=grp, device="cuda", paged=True)
+    calm = [Request(r.rid, r.prompt.copy(), r.max_new, group=r.group)
+            for r in victims]
+    base.run(calm)
+    res = {"phase": "serve_chaos", "seed": CHAOS_SEED,
+           "rates": default_chaos_rates(), "block_budget": CHAOS_BUDGET,
+           "requests": len(reqs), "seconds": secs,
+           "finish_reasons": reasons, "injector": fs["injector"],
+           "degrade_peak": peak, "degrade_level_end": fs["degrade_level"],
+           "idle_ticks_to_restore": idle_ticks,
+           "lifecycle": {n: {k: st[n][k] for k in (
+               "cancelled", "deadline_missed", "quarantined", "step_faults",
+               "requeued", "shed", "admit_retries", "prefill_chunks",
+               "decode_steps", "decode_steps_prefilling",
+               "graph_captures", "chunk_graph_captures")}
+               for n in st},
+           "step_fault_victims": [r.rid for r in victims],
+           "victims_equal_undisturbed": near_tie_compare(
+               cfg, params, grp, victims, [c.out for c in calm],
+               "re-served request", "its undisturbed tokens"),
+           "launches": counts, "nvidia_smi": smi}
+    emit(res)
+    print(f"[chip_smoke] chaos injector: {json.dumps(fs['injector'])}",
+          flush=True)
+    return {"serve_chaos": counts}
 
 
 # The sharded serves: 2 ranks on the one card (NCCL refuses two ranks on
@@ -2223,10 +2553,16 @@ def main():
     # and launches_by_path keeps each run's own count (replayed launches
     # included; the eager arms are paths of their own; a sharded path's
     # from rank 0, whose counts equal every rank's)
-    by_path = phase_serve(kernels, smi, cfg, params, policy, groups)
+    by_path, mono = phase_serve(kernels, smi, cfg, params, policy, groups)
     paged_counts, paged_reqs = phase_serve_paged(kernels, smi, cfg, params,
                                                  policy, groups)
     by_path.update(paged_counts)
+    by_path.update(phase_serve_chunked(kernels, smi, cfg, params, policy,
+                                       groups, mono))
+    by_path.update(phase_serve_paged_chunked(kernels, smi, cfg, params,
+                                             policy, groups, paged_reqs))
+    by_path.update(phase_serve_chaos(kernels, smi, cfg, params, policy,
+                                     groups))
     by_path.update(phase_serve_sharded(kernels, smi, cfg, params, policy,
                                        groups, paged_reqs))
     for row, name in zip(rows, ("vexp", "softmax", "flash_attention",

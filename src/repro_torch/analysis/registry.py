@@ -59,7 +59,8 @@ HOT_PATH_FUNCTIONS = {
     "repro_torch/models/transformer.py": (
         "_decode_layers", "_positions", "_live", "_write_token_kv",
         "_write_token_kv_paged", "_paged_coords", "_paged_attn",
-        "_final_logits",
+        "_final_logits", "_chunk_lanes", "_chunk_layers", "_chunk_logits",
+        "_write_chunk_kv", "_write_chunk_kv_paged",
     ),
     "repro_torch/models/decode_state.py": ("_guard_tokens",),
 }
@@ -74,6 +75,8 @@ STEP_STRICT = (
     ("repro_torch/models/decode_state.py", "*.carry"),
     ("repro_torch/models/decode_state.py", "_guard_tokens"),
     ("repro_torch/models/transformer.py", "decode_step*"),
+    ("repro_torch/models/transformer.py", "prefill_chunk*"),
+    ("repro_torch/models/decode_state.py", "*._chunk_*"),
     ("repro_torch/runtime/graphs.py", "StepGraph.__call__"),
     ("repro_torch/runtime/graphs.py", "StepGraph.replay"),
     ("repro_torch/kernels/decode_attention.py", "decode_attention*"),
@@ -94,6 +97,13 @@ REFS_PRIMITIVES = ("incref", "decref", "_alloc_one", "__init__", "check")
 ALLOC_CALLS = ("_alloc_one", "alloc_cols", "incref", "attach")
 # Call names that release page references (what a guard must reach).
 RELEASE_CALLS = ("decref", "_evict_one", "drop_all", "release")
+# Slot-reservation pairing in the engine: ``begin_chunk`` reserves a
+# slot's pool state (pages, prefix references, table row) before the
+# request is published into the in-flight map, so inside an admission
+# loop a raise between the two must reach a slot release.
+SLOT_MODULES = ("repro_torch/launch/serve.py",)
+SLOT_RESERVE_CALLS = ("begin_chunk",)
+SLOT_RELEASE_CALLS = ("abort_chunk", "reset_slots", "decref", "recover")
 
 # The engine stays family-agnostic: no family branch, no not-implemented
 # escape hatch.

@@ -23,9 +23,13 @@ The catalog (severities in parentheses):
 
 ``refcount-pairing``
     Raw mutation of ``.refs`` outside the refcount primitives (error: a
-    raw decrement skips the free-list return), and allocation or incref
+    raw decrement skips the free-list return), allocation or incref
     loops with no release-on-exception guard (error: a raise mid-loop
-    strands every reference already taken).
+    strands every reference already taken), and in the engine a
+    ``begin_chunk`` inside an admission loop with no try in that loop
+    whose handlers reach a slot release (``abort_chunk`` /
+    ``reset_slots``; error ``unguarded-slot-reserve``: a raise between
+    reserve and publish strands the slot's pages).
 
 ``capture-hazard`` (the counterpart of ``jit-retrace-hazard``)
     A mutable default argument on a ``@hot_path`` function (error: state
@@ -301,17 +305,22 @@ class RefcountRule(Rule):
 
     name = "refcount-pairing"
 
-    def __init__(self, targets=None):
+    def __init__(self, targets=None, slot_targets=None):
         self.targets = tuple(targets or registry.ALLOC_MODULES)
+        self.slot_targets = tuple(slot_targets or registry.SLOT_MODULES)
 
     def check(self, mod):
-        if not _suffix_match(mod.path, self.targets):
-            return []
         out = []
+        alloc = _suffix_match(mod.path, self.targets)
+        slots = _suffix_match(mod.path, self.slot_targets)
         for node in ast.walk(mod.tree):
-            out.extend(self._raw_refs(mod, node))
+            if alloc:
+                out.extend(self._raw_refs(mod, node))
             if isinstance(node, ast.Call):
-                out.extend(self._unguarded_alloc(mod, node))
+                if alloc:
+                    out.extend(self._unguarded_alloc(mod, node))
+                if slots:
+                    out.extend(self._unguarded_slot_reserve(mod, node))
         return out
 
     def _raw_refs(self, mod, node):
@@ -362,12 +371,40 @@ class RefcountRule(Rule):
                     f"release-on-exception guard: a raise mid-loop "
                     f"strands every page already taken")]
 
+    def _unguarded_slot_reserve(self, mod, call):
+        """A slot reserve (``begin_chunk``) inside a loop needs some try
+        in that loop whose handlers or finally reach a slot release (port
+        of the reference's check, ``rules.py:368-410``)."""
+        name = _call_name(call)
+        if name not in registry.SLOT_RESERVE_CALLS:
+            return []
+        loop = None
+        for anc in mod.ancestors(call):
+            if isinstance(anc, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                break
+            if isinstance(anc, (ast.For, ast.While)):
+                loop = anc
+                break
+        if loop is None or any(
+                isinstance(n, ast.Try) and self._releases(
+                    n, registry.SLOT_RELEASE_CALLS)
+                for n in ast.walk(loop)):
+            return []
+        return [Finding(
+            rule=self.name, severity=Severity.ERROR, path=mod.path,
+            line=call.lineno, symbol=mod.enclosing_function(call),
+            detail="unguarded-slot-reserve",
+            message=f"{name}(...) reserves a slot's pages and prefix "
+                    f"references inside an admission loop with no slot "
+                    f"release (abort_chunk / reset_slots) on the raise "
+                    f"path: one raise between reserve and publish strands "
+                    f"the reservation")]
+
     @staticmethod
-    def _releases(try_node) -> bool:
+    def _releases(try_node, names=registry.RELEASE_CALLS) -> bool:
         region = [s for h in try_node.handlers for s in h.body]
         region += try_node.finalbody
-        return any(isinstance(n, ast.Call)
-                   and _call_name(n) in registry.RELEASE_CALLS
+        return any(isinstance(n, ast.Call) and _call_name(n) in names
                    for stmt in region for n in ast.walk(stmt))
 
 

@@ -1,7 +1,7 @@
 """Model API of the port (the ``repro/models/api.py`` subset ported so
 far): init_params / forward / prefill (with an optional shared-prefix
-history) / init_cache / decode_step / init_paged_cache /
-decode_step_paged.
+history) / prefill_chunk / init_cache / decode_step / init_paged_cache /
+prefill_chunk_paged / decode_step_paged.
 
 Every entry runs on the card unless the caller passes ``device="cpu"``;
 with no card and no explicit device they raise. Inputs may be numpy
@@ -59,6 +59,34 @@ def prefill(params, cfg, batch, *, policy=None, device=None):
         policy=_policy(cfg, policy),
         hist=None if hist is None else {k: torch.as_tensor(v, device=dev)
                                         for k, v in hist.items()})
+
+
+def prefill_chunk(params, cfg, tokens, cache, off, clens, *, policy=None,
+                  device=None):
+    """Resumable chunked prefill over a contiguous pool ``cache``: every
+    row advances by its ``clens[b]`` tokens of the (B, C) ``tokens`` at
+    its cursor ``off[b]`` (0 tokens: the row's cache stays bit for bit).
+    The cache is written in place and returned with the (B, 1, V) logits
+    of each row's last valid lane."""
+    dev = resolve_device(device)
+    _check_params(params, dev)
+    return transformer.prefill_chunk(
+        params, cfg, torch.as_tensor(tokens, device=dev), cache,
+        torch.as_tensor(off, device=dev), torch.as_tensor(clens, device=dev),
+        policy=_policy(cfg, policy))
+
+
+def prefill_chunk_paged(params, cfg, tokens, cache, tables, off, clens, *,
+                        policy=None, device=None):
+    """``prefill_chunk`` over a paged pool through the (B, nS) block
+    ``tables``; the pool is written in place and returned with the
+    logits."""
+    dev = resolve_device(device)
+    _check_params(params, dev)
+    return transformer.prefill_chunk_paged(
+        params, cfg, torch.as_tensor(tokens, device=dev), cache,
+        torch.as_tensor(tables, device=dev), torch.as_tensor(off, device=dev),
+        torch.as_tensor(clens, device=dev), policy=_policy(cfg, policy))
 
 
 def init_cache(cfg, batch_size, seq_len, *, device=None):

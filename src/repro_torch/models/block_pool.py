@@ -100,7 +100,8 @@ class BlockAllocator:
         # whether to force OutOfBlocks — mid-alloc_cols, so every rollback
         # path upstream (all-or-nothing release, attach decref, wave
         # requeue) is exercised, not just the clean "pool actually full"
-        # case. Tests drive it.
+        # case. The Server's injector reaches it through the paged
+        # state's ``set_injector``.
         self.injector = None
 
     # ------------------------------------------------------------ queries
@@ -373,9 +374,9 @@ class PrefixCache:
         """Drop ``n`` cached entries (all of them when ``n`` is None),
         leaf-first so chains stay walkable, releasing the cache's own
         reference on each page. This is the recovery action for detected
-        prefix corruption — a suspect entry is dropped, never served.
-        (The engine's fault handling that calls it is not ported yet;
-        the refcount storms in the tests drive it.) Live slots are
+        prefix corruption — a suspect entry is dropped, never served
+        (the engine calls it through ``corrupt_prefix`` when the
+        ``prefix.corrupt`` fault fires). Live slots are
         untouched: only the cache's claim is released, and the cache is
         transparent to serving semantics (a dropped entry costs a future
         re-prefill, never a wrong token). ``rng`` (numpy Generator)

@@ -11,6 +11,18 @@ budget queries (``free_with_evictable`` / ``admission_need`` /
 and emitted tokens stay there: a decode step ships nothing to the host.
 ``decode_state_for`` picks the class.
 
+Chunked admission (port of ``decode_state.py:545-621``; paged
+``:1545-1620``): ``begin_chunk`` reserves a slot and pins its position
+at the prompt length while the slot stays dead to decode,
+``prefill_chunk_into`` advances every prefilling row by one chunk in one
+fixed-shape program over the whole pool (rows with no tokens this tick
+stay bit for bit), ``finish_chunk`` completes the admission (paged:
+publishes the full pages to the prefix cache) and ``abort_chunk`` rolls
+the reservation back. The lifecycle (``:609-700``; paged
+``:1622-1690``): ``set_injector``, ``poison_slot``, ``corrupt_prefix``,
+``scrub_slot`` (the quarantine release: zero the slot's rows, so no NaN
+outlives its request), ``recover`` and ``set_policy``.
+
 Given a ``distributed.ShardGroup`` (``comm``), a state holds only its
 rank's slice of the sequence axis (port of the reference's sequence-
 sharded ``KVDecodeState`` / ``PagedKVDecodeState``,
@@ -27,11 +39,16 @@ in the port's form: its carry (``carry()``: the cache leaves, positions,
 block tables, the engine's input tokens and live mask, and a static
 (pool_width, 1) output buffer ``out``) is allocated once and written in
 place, never rebound, and an unsharded state runs the step through one
-``runtime.graphs.StepGraph``: captured by ``capture`` when the engine
-builds the group, over the empty pool, so no request waits on the
-capture; replayed by every step after (the pool width is fixed, so one
-graph serves the group). Sharded states step eagerly: their gloo
-collectives stage through the host, which a graph cannot hold.
+``runtime.graphs.StepGraph`` per policy it can run: captured by
+``capture`` when the engine builds the group, over the empty pool, so no
+request waits on the capture; replayed by every step after (the pool
+width is fixed, so one graph serves each policy). The chunk program is a
+second ``StepGraph`` per (policy, chunk width), captured there too,
+over static input buffers that each tick writes with one host-to-device
+copy. Switching policy (the degradation ladder) is then a lookup.
+``recover`` zeroes the carry in place, so the graphs stay valid. Sharded
+states step eagerly: their gloo collectives stage through the host,
+which a graph cannot hold.
 """
 
 from __future__ import annotations
@@ -42,6 +59,18 @@ import torch
 from repro_torch.analysis.registry import hot_path
 from repro_torch.runtime.graphs import StepGraph
 from . import transformer
+from .block_pool import OutOfBlocks
+
+
+def host_to_device(arr, device):
+    """A host array on ``device``. On the card the copy is queued from
+    pinned memory without waiting (the pinned block is not reused until
+    the copy has run), so a tick that ships its inputs keeps the host
+    ahead of the device."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _guard_tokens(logits, last=None):
@@ -82,8 +111,12 @@ class DecodeState:
         self.out = torch.zeros((pool_width, 1), dtype=torch.int32,
                                device=device)      # the step's tokens
         self.shard = self._shard_spec(comm)
-        self.graph = (None if self.shard is not None else
-                      StepGraph(device, enabled=cuda_graphs))
+        self.cuda_graphs = cuda_graphs
+        self.graphs: dict = {}      # policy -> decode StepGraph
+        self.chunk_progs: dict = {}  # (policy, width) -> chunk program
+        self._sealed = False        # capture done: no graph made after
+        self.graph = self._decode_graph(policy)
+        self.injector = None        # ft.inject.FaultInjector (chaos)
 
     def _shard_spec(self, comm):
         """This rank's slice of the sequence axis (None: the whole)."""
@@ -112,6 +145,7 @@ class DecodeState:
         slots. ``toks`` (pool_width, sp) right-padded prompts, ``plens``
         (pool_width,) real lengths (1 for rows without a request). Returns
         the (pool_width, 1) first greedy tokens on the device."""
+        self._maybe_inject_admission_fault()
         toks_t = torch.as_tensor(toks, device=self.device)
         plens_t = torch.as_tensor(plens, device=self.device)
         logits, pref = transformer.prefill(self.params, self.cfg, toks_t,
@@ -119,8 +153,7 @@ class DecodeState:
                                            policy=self.policy)
         off, local = ((0, self.cache_s) if self.shard is None
                       else (self.shard.offset, self.shard.local_s))
-        if self.data is None:
-            self.data = self._new_cache()
+        self._ensure_cache()
         sl = torch.as_tensor(np.asarray(slots), device=self.device)
         end = min(off + local, toks.shape[1])    # this slice's prompt rows
         if end > off:
@@ -138,18 +171,50 @@ class DecodeState:
         return transformer.init_cache(self.cfg, self.pool_width, local,
                                       self.device)
 
-    def capture(self, last, live):
-        """Allocate the cache and capture the decode step before any
-        request, where the step is a graph on the card (elsewhere a
-        no-op). Every slot is dead (``live`` all 0), so the warm-up step
-        writes only what a step writes for dead slots: KV at position 0
-        of a contiguous row, which admission overwrites, and the paged
-        scratch page."""
-        if self.graph is None or not self.graph.use_graph:
-            return
+    def _new_graph(self, key, what):
+        """A StepGraph for ``key``, unless every graph was captured
+        already: on the card a new graph would capture on the request
+        path."""
+        if self._sealed and self.cuda_graphs and self.device.type == "cuda":
+            raise RuntimeError(f"{what} for {key!r} was not captured when "
+                               f"the group was built")
+        graph = StepGraph(self.device, enabled=self.cuda_graphs)
+        graph.what = what
+        return graph
+
+    def _decode_graph(self, policy):
+        if self.shard is not None:
+            return None          # sharded: the step runs eagerly
+        if policy not in self.graphs:
+            self.graphs[policy] = self._new_graph(policy, "decode step")
+        return self.graphs[policy]
+
+    def _ensure_cache(self):
         if self.data is None:
             self.data = self._new_cache()
-        self.graph(self._step, self.carry(last, live))
+
+    def capture(self, last, live, policies=(), chunks=()):
+        """Allocate the cache and capture, before any request, the decode
+        step under the state's policy and each of ``policies``, and the
+        chunk program at each (policy, width) of ``chunks``, where steps
+        are graphs on the card (elsewhere a no-op). Every slot is dead
+        (``live`` all 0) and every chunk row inert (no tokens), so the
+        warm-ups write only what a step writes for dead slots: KV at
+        position 0 of a contiguous row, which admission overwrites, and
+        the paged scratch page."""
+        if self.graph is None or not self.graph.use_graph:
+            return
+        self._ensure_cache()
+        base = self.policy
+        for pol in (base, *policies):
+            self.set_policy(pol)
+            self.graph(self._step, self.carry(last, live))
+        for pol, width in chunks:
+            self.set_policy(pol)
+            prog = self._chunk_prog(width)
+            prog["graph"](self._chunk_step, self._chunk_carry(prog))
+        self.set_policy(base)
+        self._sealed = True
 
     @hot_path
     def carry(self, last, live) -> dict:
@@ -197,12 +262,172 @@ class DecodeState:
 
     def graph_stats(self) -> dict:
         """How the step runs ("graph", "eager", or eager because the
-        cache is sharded), with its captures and replays."""
+        cache is sharded), with the decode graphs' captures and replays
+        and the chunk programs' (``chunk_*``), summed over policies and
+        widths."""
+        def total(graphs, prefix=""):
+            gs = [g.stats() for g in graphs]
+            return {f"{prefix}captures": sum(g["captures"] for g in gs),
+                    f"{prefix}replays": sum(g["replays"] for g in gs),
+                    f"{prefix}capture_s": sum(g["capture_s"] for g in gs)}
+
+        out = total([p["graph"] for p in self.chunk_progs.values()],
+                    "chunk_")
         if self.graph is None:
             return {"mode": "eager (sharded: collectives stage through the "
-                            "host)", "captures": 0, "replays": 0,
-                    "capture_s": 0.0}
-        return self.graph.stats()
+                            "host)", **total([]), **out}
+        return {"mode": self.graph.stats()["mode"],
+                **total(self.graphs.values()), **out}
+
+    # ------------------------------------------------------ chunked prefill
+
+    def supports_chunked(self) -> bool:
+        """Whether this pool admits prompts through the chunk protocol.
+        Contiguous pools can; ``chunk_width`` refuses a sharded one."""
+        return True
+
+    def chunk_width(self, c: int) -> int:
+        """The chunk program's width for a requested chunk of ``c``
+        tokens: at least 1 and at most the cache length (a prompt never
+        needs more lanes, and the chunk's write relies on C <= S)."""
+        if self.shard is not None:
+            raise NotImplementedError(
+                "chunked prefill of a sequence-sharded contiguous cache is "
+                "not ported (ROADMAP A10: the sharded chunk program); "
+                "serve this group with prefill_chunk=0")
+        return max(1, min(int(c), self.cache_s))
+
+    def begin_chunk(self, slot, prompt, plen) -> int:
+        """Start chunked admission of a ``plen``-token prompt into
+        ``slot``; returns the cursor (tokens already cached). The slot's
+        position is pinned at ``plen`` now: decode steps in between see a
+        dead row (live == 0) and leave its cache and position untouched,
+        so the completion tick only flips the slot live."""
+        del prompt
+        self._ensure_cache()
+        self._maybe_inject_admission_fault()
+        self.pos_dev[int(slot)] = int(plen)
+        return 0
+
+    def finish_chunk(self, slot, prompt, plen):
+        """Complete a chunked admission (paged pools publish the prompt's
+        full pages to the prefix cache)."""
+
+    def abort_chunk(self, slot):
+        """Roll back a chunked admission: release what ``begin_chunk``
+        reserved (pages, prefix references, table row, pinned position)
+        and park the slot; ``reset_slots`` is that release."""
+        self.reset_slots([int(slot)])
+
+    def _chunk_prog(self, width):
+        """The chunk program at ``width`` under the state's policy: its
+        StepGraph, a static (pool_width, width + 2) int32 input buffer
+        (tokens, then the cursor and the valid count of each row) and a
+        static (pool_width, 1) output buffer."""
+        key = (self.policy, int(width))
+        prog = self.chunk_progs.get(key)
+        if prog is None:
+            dev = self.device
+            prog = {"graph": self._new_graph(key, "chunk program"),
+                    "in": torch.zeros((self.pool_width, key[1] + 2),
+                                      dtype=torch.int32, device=dev),
+                    "out": torch.zeros((self.pool_width, 1),
+                                       dtype=torch.int32, device=dev)}
+            self.chunk_progs[key] = prog
+        return prog
+
+    @hot_path
+    def _chunk_carry(self, prog) -> dict:
+        c = {"in": prog["in"], "out": prog["out"]}
+        c.update(self.data)
+        return c
+
+    @hot_path
+    def prefill_chunk_into(self, toks, offs, clens):
+        """One chunk over the whole pool: ``toks`` (pool_width, C) host
+        tokens, ``offs`` / ``clens`` (pool_width,) each row's cursor and
+        valid count (0: the row is not prefilling this tick and stays bit
+        for bit). The inputs reach the program's static buffer in one
+        host-to-device copy. Returns the program's static (pool_width, 1)
+        output: the greedy token at each row's last valid lane, until the
+        next chunk."""
+        self._ensure_cache()
+        prog = self._chunk_prog(toks.shape[1])
+        host = np.concatenate([toks, offs[:, None], clens[:, None]], axis=1)
+        prog["in"].copy_(host_to_device(host.astype(np.int32), self.device))
+        prog["graph"](self._chunk_step, self._chunk_carry(prog))
+        return prog["out"]
+
+    @hot_path
+    def _chunk_step(self, c):
+        width = c["in"].shape[1] - 2
+        logits = self._chunk_logits(c, c["in"][:, :width], c["in"][:, width],
+                                    c["in"][:, width + 1])
+        c["out"].copy_(_guard_tokens(logits))
+
+    @hot_path
+    def _chunk_logits(self, c, toks, offs, clens):
+        cache = {"k": c["k"], "v": c["v"]}
+        logits, _ = transformer.prefill_chunk(self.params, self.cfg, toks,
+                                              cache, offs, clens,
+                                              policy=self.policy)
+        return logits
+
+    # ------------------------------------------------------------ lifecycle
+
+    def set_injector(self, inj):
+        """Wire the chaos harness (``ft.inject.FaultInjector``) into this
+        pool's admission paths; None disables it."""
+        self.injector = inj
+
+    def _maybe_inject_admission_fault(self):
+        if self.injector is not None and \
+                self.injector.fire("admit.out_of_blocks"):
+            raise OutOfBlocks("injected: admission rejected")
+
+    def poison_slot(self, slot) -> bool:
+        """Write NaN over one slot's cache rows (the ``decode.poison``
+        fault); the step's finite-logits guard must turn it into the
+        sentinel token. False when there is nothing to poison yet."""
+        if self.data is None:
+            return False
+        for t in self.data.values():
+            t[:, int(slot)] = float("nan")
+        return True
+
+    def corrupt_prefix(self, injector) -> int:
+        """Drop prefix-cache entries (the ``prefix.corrupt`` fault: a
+        suspect entry is dropped, never served). Contiguous pools have no
+        cache. Returns the entries dropped."""
+        return 0
+
+    def scrub_slot(self, slot):
+        """Quarantine release: zero every row of the slot, in place, then
+        park it. ``reset_slots`` keeps KV rows (decode masks them by
+        length), but the plain tiers compute ``p @ v`` over every row,
+        and 0 x NaN is NaN: a NaN row past a later occupant's length
+        would reach its output."""
+        if self.data is not None:
+            for t in self.data.values():
+                t[:, int(slot)] = 0
+        self.reset_slots([int(slot)])
+
+    def recover(self):
+        """Reset the pool after a failed decode dispatch: every carry
+        tensor is zeroed in place (positions and the cache), so the
+        captured graphs, which hold their storage, stay valid. The engine
+        re-queues every in-flight request."""
+        self.pos_dev.zero_()
+        if self.data is not None:
+            for t in self.data.values():
+                t.zero_()
+
+    def set_policy(self, policy):
+        """Run the decode step and the chunk programs under ``policy``
+        (the degradation ladder's lever): a lookup of graphs captured at
+        construction, never a capture on the request path."""
+        self.graph = self._decode_graph(policy)
+        self.policy = policy
 
     def reset_slots(self, slots):
         """Park freed slots at position 0. KV rows are not zeroed: decode
@@ -354,6 +579,7 @@ class PagedKVDecodeState(KVDecodeState):
         self.tables = torch.zeros((pool_width, self.ns // nsh),
                                   dtype=torch.int32, device=device)
         self.wave_hist = 0      # prefix-cache tokens of the last wave's rows
+        self._chunk_hit = {}    # slot -> prefix-hit pages (chunked)
 
     def _shard_spec(self, comm):
         if comm is None:
@@ -437,9 +663,8 @@ class PagedKVDecodeState(KVDecodeState):
         pages to the cache, and write the table rows and positions. On
         OutOfBlocks every page the wave holds is released before it
         propagates, so the engine can re-queue the wave."""
-        from .block_pool import OutOfBlocks
-        if self.data is None:
-            self.data = self._new_cache()
+        self._ensure_cache()
+        self._maybe_inject_admission_fault()
         slots = [int(j) for j in np.asarray(slots).reshape(-1)]
         toks = np.asarray(toks)
         plens = np.asarray(plens).reshape(-1)
@@ -590,6 +815,69 @@ class PagedKVDecodeState(KVDecodeState):
                 live=c["live"])
         return logits
 
+    # ---------------------------------------------------- chunked prefill
+
+    def supports_chunked(self) -> bool:
+        # a chunk writes through the device tables, whose ids are this
+        # rank's only on an unsharded pool: sharded paged pools admit
+        # monolithically, as the reference's do
+        return self.shard is None
+
+    def begin_chunk(self, slot, prompt, plen) -> int:
+        """Reserve the slot's whole table now (the full-reservation
+        invariant of monolithic admission) and attach this prompt's own
+        prefix-cache hits (its own depth, not a wave's). The cursor
+        starts past the attached pages; chunks never write them (only
+        full pages are shared, and writes begin at the cursor). On
+        OutOfBlocks everything taken is released first."""
+        self._ensure_cache()
+        self._maybe_inject_admission_fault()
+        j, plen = int(slot), int(plen)
+        prompt = np.asarray(prompt).reshape(-1)[:plen]
+        h_pages, held = 0, []
+        if self.pcache is not None:
+            # a hit must leave >= 1 suffix token to emit logits from
+            h_pages = min(self.pcache.probe(prompt), (plen - 1) // self.page)
+            if h_pages:
+                held = self.pcache.attach(prompt, max_pages=h_pages)
+                h_pages = len(held)
+        try:
+            tab = held + self.alloc.alloc_cols(range(h_pages, self.ns))
+        except OutOfBlocks:
+            for gid in held:
+                self.alloc.decref(int(gid))
+            raise
+        self.slot_pages[j] = tab
+        self._chunk_hit[j] = h_pages
+        self.tables[j].copy_(host_to_device(self._local_ids(tab), self.device))
+        self.pos_dev[j] = plen
+        return h_pages * self.page
+
+    def finish_chunk(self, slot, prompt, plen):
+        """Publish the prompt's full pages past the attached hits to the
+        prefix cache (the cache takes its own references)."""
+        j, plen = int(slot), int(plen)
+        h0 = self._chunk_hit.pop(j, 0)
+        if self.pcache is None:
+            return
+        prompt = np.asarray(prompt).reshape(-1)[:plen]
+        for c in range(h0, plen // self.page):
+            self.pcache.insert(prompt, c, self.slot_pages[j][c])
+
+    @hot_path
+    def _chunk_carry(self, prog) -> dict:
+        c = super()._chunk_carry(prog)
+        c["tables"] = self.tables
+        return c
+
+    @hot_path
+    def _chunk_logits(self, c, toks, offs, clens):
+        cache = {"k": c["k"], "v": c["v"]}
+        logits, _ = transformer.prefill_chunk_paged(
+            self.params, self.cfg, toks, cache, c["tables"], offs, clens,
+            policy=self.policy)
+        return logits
+
     def reset_slots(self, slots):
         """Park freed slots, release their pages (shared pages keep their
         other references) and zero their table rows."""
@@ -598,8 +886,63 @@ class PagedKVDecodeState(KVDecodeState):
             for gid in self.slot_pages[int(j)]:
                 self.alloc.decref(int(gid))
             self.slot_pages[int(j)] = []
+            self._chunk_hit.pop(int(j), None)
         self.tables[torch.as_tensor(np.asarray(slots),
                                     device=self.device)] = 0
+
+    # ------------------------------------------------------------ lifecycle
+
+    def set_injector(self, inj):
+        super().set_injector(inj)
+        self.alloc.injector = inj        # alloc.out_of_blocks fires there
+
+    def _private_pages(self, slot):
+        """Pool ids of the slot's pages held by nobody else."""
+        gids = [int(g) for g in self.slot_pages[int(slot)]
+                if self.alloc.refcount(int(g)) == 1]
+        return torch.as_tensor(self._local_ids(gids), dtype=torch.long,
+                               device=self.device)
+
+    def poison_slot(self, slot) -> bool:
+        """NaN only the slot's private pages: shared prefix pages back
+        other requests. A slot with no private page reports False."""
+        ids = self._private_pages(slot)
+        if self.data is None or not len(ids):
+            return False
+        for t in self.data.values():
+            t[:, ids] = float("nan")
+        return True
+
+    def corrupt_prefix(self, injector) -> int:
+        if self.pcache is None or not self.pcache._entries:
+            return 0
+        n = max(1, len(self.pcache._entries) // 2)
+        return self.pcache.invalidate(n=n, rng=injector.rng)
+
+    def scrub_slot(self, slot):
+        """Zero the slot's private pages before ``reset_slots`` returns
+        them to the free list: a NaN page handed to a later request
+        would sit past its length, where the plain tiers' ``p @ v``
+        still reads it."""
+        ids = self._private_pages(slot)
+        if self.data is not None and len(ids):
+            for t in self.data.values():
+                t[:, ids] = 0
+        self.reset_slots([int(slot)])
+
+    def recover(self):
+        """Also release every page the slots hold and drop the prefix
+        cache, whose entries point at zeroed pages, then zero the tables
+        in place."""
+        for j in range(self.pool_width):
+            for gid in self.slot_pages[j]:
+                self.alloc.decref(int(gid))
+            self.slot_pages[j] = []
+        self._chunk_hit.clear()
+        if self.pcache is not None:
+            self.pcache.drop_all()
+        self.tables.zero_()
+        super().recover()
 
     def check_integrity(self, live_slots=()):
         super().check_integrity(live_slots)

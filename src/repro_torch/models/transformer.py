@@ -230,6 +230,96 @@ def prefill(params, cfg, tokens, *, prompt_len=None, policy, hist=None):
                                       "v": torch.stack(vs)}
 
 
+# ------------------------------------------------------------ chunked prefill
+
+def _chunk_lanes(off, clens, c, device):
+    """(positions (B, C), valid lanes (B, C), cursors (B,), key lengths
+    (B,)) of a chunk whose row b holds ``clens[b]`` tokens at positions
+    ``off[b]`` on."""
+    off = torch.as_tensor(off, device=device).to(torch.int32).reshape(-1)
+    clens = torch.as_tensor(clens, device=device).to(torch.int32).reshape(-1)
+    lane = torch.arange(c, device=device, dtype=torch.int32)[None, :]
+    return off[:, None] + lane, lane < clens[:, None], off, off + clens
+
+
+def _write_chunk_kv(cache, kv, pos, ok, layout):
+    """Write a C-token chunk's K (or V) in place: kv (B, C, Hkv, hd) at
+    positions ``pos`` (B, C), only where ``ok`` (B, C). One layer's
+    (B, S, Hkv, hd) ("bshd") / (B, Hkv, S, hd) ("bhsd") cache. Lanes that
+    must not write put the old value back, as ``_write_token_kv`` does,
+    at ``pos % S``: a row's lanes then land on distinct rows (C <= S, and
+    a lane past S wraps below the row's cursor, which its valid lanes
+    never reach), so no write races another lane's."""
+    b, c = pos.shape
+    s = cache.shape[cache_seq_axis(layout, stacked=False)]
+    rows = torch.arange(b, device=cache.device)[:, None]
+    p = torch.remainder(pos, s).long()
+    new = kv.to(cache.dtype)
+    keep = ok[:, :, None, None]
+    if layout == "bhsd":
+        old = cache[rows, :, p]                         # (B, C, Hkv, hd)
+        cache[rows, :, p] = torch.where(keep, new, old)
+    else:
+        old = cache[rows, p]
+        cache[rows, p] = torch.where(keep, new, old)
+
+
+def _chunk_logits(params, cfg, x, clens):
+    """(B, 1, V) logits of each row's last valid lane."""
+    x = norm_apply(x, params.ln_f, cfg.norm, cfg.norm_eps)
+    b, c, _ = x.shape
+    idx = torch.clamp(clens.long() - 1, 0, c - 1)
+    xl = x[torch.arange(b, device=x.device), idx][:, None]
+    return _logits(params, cfg, xl)
+
+
+def _chunk_layers(params, cfg, tokens, lanes, layer_attn):
+    """The chunk program's layer loop over ``lanes`` (``_chunk_lanes``):
+    ``layer_attn(i, q, k, v)`` lands the chunk's K/V in layer i's cache
+    and returns its attention output (B, C, H, hd). Returns the
+    last-valid-lane logits (B, 1, V)."""
+    pos, _, off, kv_len = lanes
+    x = embed_inputs(params, cfg, tokens)
+    for i, blk in enumerate(params.layers):
+        h = norm_apply(x, blk.ln_attn, cfg.norm, cfg.norm_eps)
+        q, k, v = _qkv(h, blk.attn, cfg, pos)
+        o = layer_attn(i, q, k, v)
+        x = _finish_block(x, o.flatten(2) @ blk.attn.wo, blk, cfg)
+    return _chunk_logits(params, cfg, x, kv_len - off)
+
+
+@hot_path
+def prefill_chunk(params, cfg, tokens, cache, off, clens, *, policy):
+    """Resumable prefill (port of the reference's ``prefill_chunk``,
+    ``transformer.py:579``): advance every row of the pool's contiguous
+    ``cache`` by one chunk, written in place.
+
+    tokens (B, C) int; off (B,) each row's cursor (tokens already
+    cached); clens (B,) valid tokens this chunk, 0 for rows that are not
+    prefilling (decoding or free slots), whose cache rows stay bit for
+    bit. The chunk's K/V land at positions off .. off + clens - 1, then
+    its queries attend causally over the updated cache (the cached
+    prefix and the chunk's own keys) with ``q_offset=off`` and ``kv_len =
+    off + clens``: on the ``cuda`` tier one FlashAttention launch per
+    layer with a (B,) offset tensor. Returns (logits (B, 1, V) at each
+    row's last valid lane, meaningful where the prompt completes with
+    this chunk, and the cache)."""
+    lay = cfg.kv_cache_layout
+    lanes = _chunk_lanes(off, clens, tokens.shape[1], tokens.device)
+    pos, ok, off, kv_len = lanes
+
+    def layer_attn(i, q, k, v):
+        ck, cv = cache["k"][i], cache["v"][i]
+        _write_chunk_kv(ck, k, pos, ok, lay)
+        _write_chunk_kv(cv, v, pos, ok, lay)
+        if lay == "bhsd":
+            ck, cv = ck.transpose(1, 2), cv.transpose(1, 2)
+        return attention(q, ck, cv, causal=True, kv_len=kv_len,
+                         q_offset=off, policy=policy)
+
+    return _chunk_layers(params, cfg, tokens, lanes, layer_attn), cache
+
+
 def _write_token_kv(cache, kv, pos, ok, layout, offset=0):
     """Write one token's K (or V) per row in place: kv (B, 1, Hkv, hd) at
     global position ``pos[b]``, only where ``ok[b]`` and the position
@@ -424,6 +514,58 @@ def decode_step_paged(params, cfg, token, cache, tables, pos, *, policy,
         return _paged_attn(q, pk, pv, tables, pos + 1, cfg, policy)
 
     return _decode_layers(params, cfg, token, pos, layer_attn), cache
+
+
+def _write_chunk_kv_paged(pool, kv, gids, offs, ok, layout):
+    """Write a C-token chunk's K (or V) per row in place into its pool
+    pages: kv (B, C, Hkv, hd) at pages ``gids`` (B, C), in-page offsets
+    ``offs``, only where ``ok``. Lanes that must not write point at the
+    scratch page 0 and put its old value back; they may share a row
+    there, but all write the same value, and no valid lane writes page
+    0."""
+    new = kv.to(pool.dtype)
+    keep = ok[:, :, None, None]
+    if layout == "bhsd":
+        old = pool[gids, :, offs]                       # (B, C, Hkv, hd)
+        pool[gids, :, offs] = torch.where(keep, new, old)
+    else:
+        old = pool[gids, offs]
+        pool[gids, offs] = torch.where(keep, new, old)
+
+
+@hot_path
+def prefill_chunk_paged(params, cfg, tokens, cache, tables, off, clens, *,
+                        policy):
+    """``prefill_chunk`` over a paged pool (port of the reference's
+    ``prefill_chunk_paged``, ``transformer.py:949``): each row's chunk
+    K/V scatter into its reserved pages through ``tables`` (B, nS) at its
+    cursor, then the row's pages are gathered through its table (shared
+    prefix pages, attached at admission, included) and its queries
+    attend causally over them (``q_offset=off``, ``kv_len = off +
+    clens``). Rows with ``clens == 0`` write nothing. The pool is
+    written in place and returned with the (B, 1, V) logits."""
+    from repro_torch.kernels.decode_attention import paged_gather
+    lay = cfg.kv_cache_layout
+    page = cache["k"].shape[3 if lay == "bhsd" else 2]
+    ns = tables.shape[1]
+    lanes = _chunk_lanes(off, clens, tokens.shape[1], tokens.device)
+    pos, ok, off, kv_len = lanes
+    rows = torch.arange(pos.shape[0], device=pos.device)[:, None]
+    cols = torch.clamp(pos // page, 0, ns - 1).long()
+    gids = torch.where(ok, tables[rows, cols].long(), 0)
+    offs = torch.remainder(pos, page).long()
+
+    def layer_attn(i, q, k, v):
+        pk, pv = cache["k"][i], cache["v"][i]
+        _write_chunk_kv_paged(pk, k, gids, offs, ok, lay)
+        _write_chunk_kv_paged(pv, v, gids, offs, ok, lay)
+        kk, vv = paged_gather(pk, tables, lay), paged_gather(pv, tables, lay)
+        if lay == "bhsd":
+            kk, vv = kk.transpose(1, 2), vv.transpose(1, 2)
+        return attention(q, kk, vv, causal=True, kv_len=kv_len,
+                         q_offset=off, policy=policy)
+
+    return _chunk_layers(params, cfg, tokens, lanes, layer_attn), cache
 
 
 @hot_path

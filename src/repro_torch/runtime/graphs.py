@@ -7,6 +7,10 @@ A ``StepGraph`` runs a step function that reads and writes only its
 carry: a dict of tensors allocated once (the KV cache leaves, positions,
 block tables, the input tokens, the live mask, the output buffer) and
 updated in place, so a graph recorded over their storage stays valid.
+The serving states hold one per policy for the decode step and one per
+(policy, chunk width) for the chunked-prefill program, whose carry is
+the cache, the tables and the program's static input and output
+buffers.
 The caller hands the step function in on every call (only the first is
 captured), so the graph holds no reference back to its owner.
 
@@ -47,6 +51,8 @@ def carry_signature(carry: dict) -> dict:
 class StepGraph:
     """One step over a fixed carry: captured once and replayed on the
     card, run eagerly on the CPU or when ``enabled`` is false."""
+
+    what = "decode step"                 # the step's name in errors
 
     def __init__(self, device, *, enabled: bool = True):
         self.device = torch.device(device)
@@ -91,7 +97,7 @@ class StepGraph:
             moved = sorted(k for k in got.keys() | self.signature.keys()
                            if got.get(k) != self.signature.get(k))
             raise RuntimeError(
-                f"decode step: carry {moved} is not the tensor first seen "
+                f"{self.what}: carry {moved} is not the tensor first seen "
                 f"(rebound, reshaped, retyped or moved); the step must "
                 f"update its carry in place")
 
@@ -110,7 +116,7 @@ class StepGraph:
             with torch.cuda.graph(graph):
                 fn(carry)
         except Exception as e:
-            raise RuntimeError(f"CUDA-graph capture of the decode step "
+            raise RuntimeError(f"CUDA-graph capture of the {self.what} "
                                f"failed: {e}") from e
         finally:
             # capture ran no kernel: take back what the wrappers counted

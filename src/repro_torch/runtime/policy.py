@@ -41,8 +41,10 @@ _ENV_FIELDS = {
     "BLOCK_PAGE": "block_page",
     "ACCUM_DTYPE": "accum_dtype",
     "MERGE_STRATEGY": "merge_strategy",
+    "PREFILL_CHUNK": "prefill_chunk",
+    "DEGRADE_EXP_BACKEND": "degrade_exp_backend",
 }
-_INT_FIELDS = ("block_k", "block_s", "block_page")
+_INT_FIELDS = ("block_k", "block_s", "block_page")   # positive ints
 
 
 @dataclass(frozen=True)
@@ -66,6 +68,16 @@ class ExecPolicy:
                     merge) and folds it locally; "split" is all_reduce MAX
                     of m, then two all_reduce SUMs of the rescaled l and
                     acc (three collectives). The same algebra either way.
+    prefill_chunk   serving prefill chunk in tokens. 0 keeps the
+                    monolithic wave prefill; > 0 streams each prompt into
+                    its slot in chunks of this many tokens, one chunk per
+                    engine tick between decode steps, so a long prompt
+                    holds decode back by one chunk at most.
+    degrade_exp_backend
+                    the exp backend a group named in the Server's
+                    ``degrade_groups`` drops to on the degradation
+                    ladder's second rung (sustained pool pressure); the
+                    group's own backend comes back when pressure clears.
     """
 
     exp_backend: str = "vexp"
@@ -75,6 +87,8 @@ class ExecPolicy:
     block_page: int = 64
     accum_dtype: str = "float32"
     merge_strategy: str = "packed"
+    prefill_chunk: int = 0
+    degrade_exp_backend: str = "vexp_hw"
 
     def __post_init__(self):
         kb = BACKEND_ALIASES.get(self.kernel_backend, self.kernel_backend)
@@ -82,6 +96,10 @@ class ExecPolicy:
         if self.exp_backend not in EXP_BACKENDS:
             raise ValueError(
                 f"exp_backend {self.exp_backend!r} not in {EXP_BACKENDS}")
+        if self.degrade_exp_backend not in EXP_BACKENDS:
+            raise ValueError(
+                f"degrade_exp_backend {self.degrade_exp_backend!r} not in "
+                f"{EXP_BACKENDS}")
         if kb not in KERNEL_BACKENDS:
             raise ValueError(
                 f"kernel_backend {kb!r} not in {KERNEL_BACKENDS}")
@@ -97,6 +115,10 @@ class ExecPolicy:
             v = getattr(self, f)
             if not (isinstance(v, int) and v > 0):
                 raise ValueError(f"{f} must be a positive int, got {v!r}")
+        pc = self.prefill_chunk
+        if not (isinstance(pc, int) and pc >= 0):
+            raise ValueError(f"prefill_chunk must be an int >= 0 "
+                             f"(0 = monolithic prefill), got {pc!r}")
 
     def exp_fn(self):
         from repro_torch.core.vexp import get_exp_fn
@@ -109,11 +131,13 @@ class ExecPolicy:
         return (f"exp={self.exp_backend} kernel={self.kernel_backend} "
                 f"blocks=(k{self.block_k},s{self.block_s},"
                 f"p{self.block_page}) "
-                f"accum={self.accum_dtype} merge={self.merge_strategy}")
+                f"accum={self.accum_dtype} merge={self.merge_strategy} "
+                f"chunk={self.prefill_chunk} "
+                f"degrade={self.degrade_exp_backend}")
 
 
 def _parse(field: str, raw: str):
-    if field in _INT_FIELDS:
+    if field in _INT_FIELDS + ("prefill_chunk",):
         try:
             return int(raw)
         except ValueError:

@@ -130,6 +130,36 @@ def test_refcount_pairing(tmp_path):
     assert not run_rules([path], rules=[RefcountRule()])[0]
 
 
+def test_refcount_pairing_unguarded_slot_reserve(tmp_path):
+    """A ``begin_chunk`` in an admission loop needs a slot release on its
+    raise path; a guarded loop, a reserve outside any loop, and the
+    engine's own chunk admission pass."""
+    path = _plant(tmp_path, "engine.py", """
+        class Group:
+            def admit_bad(self):
+                while self.queue:
+                    cur = self.state.begin_chunk(0, self.queue[0], 4)
+                    self.prefilling[0] = (self.queue.popleft(), cur)
+            def admit_guarded(self):
+                for j in self.free:
+                    try:
+                        cur = self.state.begin_chunk(j, self.queue[0], 4)
+                        self.prefilling[j] = (self.queue.popleft(), cur)
+                    except BaseException:
+                        self.state.abort_chunk(j)
+                        raise
+            def admit_once(self):
+                return self.state.begin_chunk(0, self.queue[0], 4)
+    """)
+    rule = RefcountRule(targets=("none.py",), slot_targets=("engine.py",))
+    fs, _ = run_rules([path], rules=[rule])
+    assert [(f.symbol, f.detail, f.severity) for f in fs] == [
+        ("Group.admit_bad", "unguarded-slot-reserve", Severity.ERROR)]
+    engine = os.path.join(SRC, "repro_torch", "launch", "serve.py")
+    assert "begin_chunk" in open(engine).read()
+    assert not run_rules([engine], rules=[RefcountRule()])[0]
+
+
 def test_capture_hazard(tmp_path):
     path = _plant(tmp_path, "hazard.py", """
         import functools

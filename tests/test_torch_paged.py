@@ -780,8 +780,9 @@ def test_out_of_blocks_requeues_the_wave_without_leaking(cfg, params,
                                                          monkeypatch):
     """An OutOfBlocks escaping admission while work is in flight puts the
     wave back at the head of the queue (FIFO kept) and it admits later;
-    no page leaks. With nothing in flight the server raises instead,
-    naming the head request."""
+    no page leaks. With nothing in flight the bounded retry policy backs
+    off, then sheds the head request (finish_reason "failed") and the
+    drain returns."""
     pol = _policy(cfg, "vexp", 8)
     prompts = _prompts(cfg, (10, 20), seed=23)       # distinct buckets
     ref, _ = _serve(cfg, params, prompts, paged=False, max_new=6,
@@ -814,9 +815,11 @@ def test_out_of_blocks_requeues_the_wave_without_leaking(cfg, params,
     # 8 pages per reservation + scratch > 8: nothing can ever admit
     tiny = Server(cfg, params, max_batch=2, max_seq=64, policy=pol,
                   paged=True, block_budget=8, device="cpu")
-    tiny.submit(Request(7, prompts[0].copy(), 2))
-    with pytest.raises(RuntimeError, match="request 7"):
-        tiny.drain()
+    shed = Request(7, prompts[0].copy(), 2)
+    tiny.run([shed])
+    assert shed.finish_reason == "failed" and shed.out == []
+    assert tiny.stats()["default"]["shed"] == 1
+    tiny.assert_idle_clean()
 
 
 def test_prefix_cache_off_still_serves(cfg, params):
