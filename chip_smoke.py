@@ -19,7 +19,12 @@ prefill (each group's chunk program a second CUDA graph; tokens held to
 the monolithic serves'), a chaos serve (paged, chunked, a seeded fault
 injector at all six points, a squeezed page budget, the degradation
 ladder, a cancel and a deadline), then serves it sequence-sharded (``kv_mode="seq"``) on 2 ranks spawned on the
-one card (gloo, host-staged collectives), and checks what comes out.
+one card (gloo, host-staged collectives), then self-speculatively on both
+pools (spec_k = 4, drafts under vexp_hw, verify "scan" and "chunk",
+each burst k draft-step replays and one verify replay; scan tokens held
+to the plain serves' request by request, chunk tokens up to a near
+tie, the hw group's own-backend drafts as a control), and checks what
+comes out.
 Every phase prints one JSON line; the first failure on any rank exits
 non-zero.
 The last two lines are the kernel table and the device line. Without a
@@ -798,6 +803,110 @@ def _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, q_offset, tag):
     return res, readings
 
 
+SPEC_K = 4                     # draft tokens a burst: W = 5 lanes
+VERIFY_DRAWS = 8               # independent inputs of the verify case
+
+
+def _fa_verify_case(fa, policy_cls, block_k):
+    """The chunk verify's call: B=8 rows of W = SPEC_K + 1 queries over
+    the 1,024-row cache, per-row offsets a (B,) device tensor with a row
+    at the cap (1,024: no lane of room, kv_len 1,024), one with 3 lanes
+    of room, a dead row (no lane; kv_len its cursor) and rows crossing
+    block_k boundaries; kv_len = offset + lanes, as the verify passes
+    them. Held to ATT_LIMITS per backend over VERIFY_DRAWS independent
+    draws of q, K and V, pooled (one draw has ~21,500 real outputs, so a
+    single one-ulp flip would read 4.6e-5 against the 3e-5 share limit;
+    the pooled share is the kernel's rate).
+
+    The plain version is evaluated with its queries padded to the
+    kernel's 64-row tile (zero rows after the W real ones, dropped
+    after): the same function, since rows are independent, but the f32
+    matrix products then run at the row count the limits were read at.
+    At 5 rows the card's library picks another summation order for the
+    plain version's own products, and the plain version at 5 rows
+    against itself at 64 is reported (``plain_rows_vs_padded``) beside
+    the kernel against each, and both against a float64 evaluation under
+    the exact exp. The negative controls are reported, not held: at 5
+    queries a row the two-term p moves too few outputs to show. Times on
+    draw 0 against SDPA and the bound. Returns (fields, kernel limit
+    readings)."""
+    b, w, sk, h, d = 8, SPEC_K + 1, 1024, 12, 64
+    offs = torch.tensor([0, 1024, 1021, 300, block_k - 2, 600, 511, 1019],
+                        dtype=torch.int32, device="cuda")
+    lanes = torch.clamp(sk - offs, 0, w)
+    lanes[3] = 0                                       # the dead row
+    kv = offs + lanes
+    g = torch.Generator(device="cuda").manual_seed(11)
+    draws = [tuple(torch.randn(b, n, h, d, generator=g, device="cuda")
+                   .to(torch.bfloat16) for n in (w, sk, sk))
+             for _ in range(VERIFY_DRAWS)]
+    real = (_qpos(w, offs) < kv[:, None])[:, :, None, None]
+    kw = dict(causal=True, kv_len=kv, q_offset=offs)
+    res, readings = {}, {}
+    def padded(q):                     # the W rows, then zeros to 64
+        return torch.cat([q, q.new_zeros(b, 64 - w, h, d)], dim=1)
+
+    sel = real.expand(b, w, h, d)
+    for exp in ("exact", "vexp", "vexp_hw"):
+        pol = policy_cls(exp_backend=exp, block_k=block_k)
+        outs, refs, rows = [], [], []
+        for q, k, v in draws:
+            outs.append(fa.flash_attention(q, k, v, policy=pol, **kw)[sel])
+            refs.append(fa.flash_attention_plain(
+                padded(q), k, v, block_k=block_k, exp_backend=exp,
+                **kw)[:, :w][sel])
+            rows.append(fa.flash_attention_plain(
+                q, k, v, block_k=block_k, exp_backend=exp, **kw)[sel])
+        o, r, r5 = torch.cat(outs), torch.cat(refs), torch.cat(rows)
+        readings[exp, "kernel"] = kernel_vs_plain(o, r)
+        res[f"verify_{exp}_kernel_max_abs_err"] = readings[exp, "kernel"][0]
+        res[f"verify_{exp}_kernel_mismatch_share"] = \
+            readings[exp, "kernel"][1]
+        res[f"verify_{exp}_kernel_vs_plain_rows_mismatch_share"] = \
+            kernel_vs_plain(o, r5)[1]
+        res[f"verify_{exp}_plain_rows_vs_padded_mismatch_share"] = \
+            kernel_vs_plain(r5, r)[1]
+        res[f"verify_{exp}_real_outputs"] = int(o.numel())
+        if exp == "exact":
+            truth = torch.cat([_truth64(q, k, v, kv, offs)[sel]
+                               for q, k, v in draws])
+            for who, t in (("kernel", o), ("plain", r), ("plain_rows", r5)):
+                res[f"verify_exact_{who}_vs_f64_mismatch_share"] = \
+                    kernel_vs_plain(t, truth)[1]
+        else:
+            half = torch.cat([fa.flash_attention_plain(
+                padded(q), k, v, block_k=block_k // 2, exp_backend=exp,
+                **kw)[:, :w][sel] for q, k, v in draws])
+            res[f"verify_{exp}_half_block_mismatch_share"] = \
+                kernel_vs_plain(half, r)[1]
+    q, k, v = draws[0]
+    pol = policy_cls(exp_backend="vexp", block_k=block_k)
+    res["verify_ms_vexp"] = cuda_time_ms(
+        lambda: fa.flash_attention(q, k, v, policy=pol, **kw))
+    res["verify_graph_ms_vexp"] = graph_ms(
+        lambda: fa.flash_attention(q, k, v, policy=pol, **kw),
+        "flash_attention verify")
+    res["verify_plain_ms_vexp"] = cuda_time_ms(
+        lambda: fa.flash_attention_plain(q, k, v, block_k=block_k,
+                                         exp_backend="vexp", **kw), iters=5)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = _sdpa_mask_prefill(kv, w, sk, offs)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask)
+    res["verify_library_ms"] = cuda_time_ms(sdpa)
+    res["verify_library_graph_ms"] = graph_ms(sdpa, "sdpa verify")
+    pairs = float(torch.minimum(_qpos(w, offs).double() + 1,
+                                kv.double()[:, None]).sum())
+    nbytes = 2 * b * w * h * d * 2 + 2 * float(kv.double().sum()) * h * d * 2
+    res["verify_bound_ms"], res["verify_bound_by"] = bound_ms(
+        nbytes, 4.0 * h * d * pairs, BF16_FLOP_PER_S)
+    res["verify_q_offset"] = offs.tolist()
+    res["verify_kv_len"] = kv.tolist()
+    return res, readings
+
+
 def phase_flash_attention(policy_cls, block_k):
     """Kernel 3 at gpt2-small prefill shapes: B=8, H=12, D=64, Sq=Sk=512,
     ragged kv_len in [32, 512], causal; the hot-prefix case of suffix
@@ -880,14 +989,17 @@ def phase_flash_attention(policy_cls, block_k):
             out[empty].float().abs().max())
         res[f"chunk_{exp}_empty_row_plain_max_abs"] = float(
             ref[empty].float().abs().max())
+    verify, verify_readings = _fa_verify_case(fa, policy_cls, block_k)
+    res.update(verify)
     emit({"phase": "flash_attention", "block_k": block_k, "hot_q_offset": off,
           "d32_block_k": bk32, **res})
     check_attention("flash_attention", readings)
     check_attention("flash_attention", hot_readings, " hot")
     check_attention("flash_attention", d32_readings, " D=32")
     check_attention("flash_attention", chunk_readings, " chunk")
+    check_attention("flash_attention", verify_readings, " verify")
     worst = max(err for rd in (readings, hot_readings, d32_readings,
-                               chunk_readings)
+                               chunk_readings, verify_readings)
                 for (_, who), (err, _) in rd.items() if who == "kernel")
     return {"name": "flash_attention_bhsd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -900,6 +1012,11 @@ def phase_flash_attention(policy_cls, block_k):
             "chunk_shape": f"B={b} Sq={sq_c} Sk={sk_c} H={h} D={d}, (B,) "
                            f"q_offset tensor",
             **{f"chunk_{k}": res[f"chunk_{k}"] for k in (
+                "ms_vexp", "graph_ms_vexp", "plain_ms_vexp", "bound_ms",
+                "bound_by", "library_ms", "library_graph_ms")},
+            "verify_shape": f"B={b} Sq={SPEC_K + 1} Sk=1024 H={h} D={d}, "
+                            f"(B,) q_offset tensor",
+            **{f"verify_{k}": res[f"verify_{k}"] for k in (
                 "ms_vexp", "graph_ms_vexp", "plain_ms_vexp", "bound_ms",
                 "bound_by", "library_ms", "library_graph_ms")}}
 
@@ -2151,6 +2268,318 @@ def phase_serve_paged_chunked(kernels, smi, cfg, params, policy, groups,
             "serve_paged_chunked_eager": runs["eager"][0]["counts"]}
 
 
+# ------------------------------------------------ self-speculative decode
+
+SPEC_VERIFIES = ("scan", "chunk")
+
+
+def spec_policy_groups(groups, verify, page=None):
+    """The policy groups speculating: spec_k = SPEC_K, drafts under
+    vexp_hw (the hw group drafts under its own backend), ``verify`` the
+    verify impl; pages of ``page`` tokens where given. The server's base
+    policy stays plain, so its idle "default" group does not speculate."""
+    kw = dict(spec_k=SPEC_K, draft_exp_backend="vexp_hw",
+              spec_verify=verify)
+    if page is not None:
+        kw["block_page"] = page
+    return {n: p.replace(**kw) for n, p in groups.items()}
+
+
+def check_spec_serve(cfg, st, before, counts, replayed, sdpa_calls, decode,
+                     other, verify, arm, what):
+    """A speculating serve's launches and graphs. Per group, bursts =
+    decode steps; decode launches = 12 x (2k + 1) a scan burst and 12 x k
+    a chunk burst, FA = 12 x (waves + chunks + chunk bursts), none of the
+    ``other`` decode kernel, no SDPA call. Graph arm: every burst k
+    draft replays and one verify replay, replayed launches = all decode
+    launches (and the chunk bursts' FA launches), and the captures
+    those the group made when it was built (``before``): none during
+    the serve. Returns the bursts per group."""
+    k, n = SPEC_K, cfg.n_layers
+    bursts = {g: s["decode_steps"] for g, s in st.items() if "spec_k" in s}
+    total = sum(bursts.values())
+    plain = sum(s["decode_steps"] for g, s in st.items() if g not in bursts)
+    waves = sum(s["admit_waves"] for s in st.values())
+    chunks = sum(s["prefill_chunks"] for s in st.values())
+    per_burst = 2 * k + 1 if verify == "scan" else k
+    want_fa = n * (waves + chunks + (total if verify == "chunk" else 0))
+    if plain or counts[decode] != n * per_burst * total:
+        fail(f"{what}: {decode} launches {counts[decode]} != {n} layers x "
+             f"{per_burst} x {total} bursts ({plain} plain steps)")
+    if counts["flash_attention"] != want_fa:
+        fail(f"{what}: flash_attention launches "
+             f"{counts['flash_attention']} != {want_fa}")
+    if counts[other] or sdpa_calls:
+        fail(f"{what}: {counts[other]} {other} launches, {sdpa_calls} SDPA "
+             f"calls")
+    for g, s in st.items():
+        if g not in bursts:
+            continue
+        caps = (s["graph_captures"], s["spec_graph_captures"])
+        if arm == "eager":
+            if any(caps) or s["graph_replays"] or s["spec_graph_replays"]:
+                fail(f"{what} group {g} (eager): captures {caps}")
+            continue
+        if caps != (before[g]["graph_captures"],
+                    before[g]["spec_graph_captures"]) or caps[1] != 1:
+            fail(f"{what} group {g}: captures {caps} after the serve, "
+                 f"{before[g]['graph_captures']} / "
+                 f"{before[g]['spec_graph_captures']} when built")
+        if s["spec_graph_replays"] != bursts[g] or \
+                s["graph_replays"] != k * bursts[g]:
+            fail(f"{what} group {g}: {s['graph_replays']} draft and "
+                 f"{s['spec_graph_replays']} verify replays in {bursts[g]} "
+                 f"bursts")
+    if arm == "graph":
+        fa_rep = n * total if verify == "chunk" else 0
+        if replayed[decode] != counts[decode] or \
+                replayed["flash_attention"] != fa_rep:
+            fail(f"{what}: replayed {replayed[decode]} {decode} / "
+                 f"{replayed['flash_attention']} FA launches of "
+                 f"{counts[decode]} / {fa_rep}")
+    return bursts
+
+
+def check_own_draft_control(cfg, st, reqs, group, verify, what):
+    """The hw group drafts under its own backend: with the scan verify
+    every draft lane agrees, so a request of max_new tokens and no cap
+    clamp takes ceil((max_new - 1) / W) bursts and accepts all but the
+    last burst's clamped lanes. Returns the group's counts."""
+    s = st[group]
+    rs = [r for r in reqs if r.group == group]
+    w = SPEC_K + 1
+    want_b = sum(-(-(len(r.out) - 1) // w) for r in rs)
+    want_acc = sum(len(r.out) - 1 for r in rs) - want_b
+    got = {"bursts": s["spec_bursts"], "accepted": s["spec_accepted"],
+           "want_bursts": want_b, "want_accepted": want_acc}
+    if verify == "scan" and (s["spec_bursts"], s["spec_accepted"]) != \
+            (want_b, want_acc):
+        fail(f"{what}: the {group} group's drafts under its own backend "
+             f"disagree with its scan verify: {got}")
+    return got
+
+
+def spec_readings(reqs, st, secs, peak, clocks):
+    """Per group: tok/s over the group's own wall (first submit to last
+    token), bursts, tokens per burst, drafted / accepted / rolled back
+    and the acceptance share, capture s; and the serve's tok/s, wall per
+    burst and peak memory."""
+    out = {"tok_s": sum(len(r.out) for r in reqs) / secs, "seconds": secs,
+           "wall_per_burst_s": next(iter(st.values()))[
+               "wall_per_decode_step_s"],
+           "peak_memory_bytes": peak, "clocks_power": clocks, "groups": {}}
+    for g, s in st.items():
+        rs = [r for r in reqs if r.group == g]
+        if not rs:
+            continue
+        wall = max(r.t_done for r in rs) - min(r.t_submit for r in rs)
+        ntok = sum(len(r.out) for r in rs)
+        row = {"tokens": ntok, "tok_s": ntok / wall, "wall_s": wall,
+               "capture_s": s["graph_capture_s"]
+               + s.get("spec_graph_capture_s", 0.0)}
+        if "spec_k" in s:
+            b = max(s["spec_bursts"], 1)
+            row.update({k: s[k] for k in (
+                "spec_bursts", "spec_drafted", "spec_accepted",
+                "spec_rolled_back", "spec_acceptance")})
+            row["tokens_per_burst"] = (ntok - len(rs)) / b
+        out["groups"][g] = row
+    return out
+
+
+def spec_graph_ms(make_server, reqs, group):
+    """Graph ms of one draft step, one verify and one plain decode step
+    of ``group``'s state, each its captured graph replayed back to back
+    between CUDA events, on a live pool (the first wave admitted, one
+    burst run); replays advance positions by at most 23 rows."""
+    srv = make_server()
+    for r in reqs:
+        srv.submit(r)
+    srv.step()
+    srv.step()
+    st = srv._groups[group].state
+    out = {"draft_step": cuda_time_ms(st._draft_graph.graph.replay),
+           "verify": cuda_time_ms(st._verify["graph"].graph.replay),
+           "plain_step": cuda_time_ms(st.graph.graph.replay),
+           "live_slots": int(srv._groups[group].live_dev.sum())}
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_serve_spec(kernels, smi, cfg, params, policy, groups, mono):
+    """Self-speculative decode on the contiguous serve's 16 requests
+    (prompts in [32, 512], 64 new tokens, the three groups, max_batch 8,
+    max_seq 1,024): each group at spec_k = 4, drafts under vexp_hw,
+    verify "scan" and "chunk", in turns with a plain graph serve of the
+    same requests (plain, scan, chunk, twice), then the scan serve once
+    eagerly. Scan tokens equal the plain serve's (``mono``, the first
+    monolithic graph turn, and this phase's own plain turns) request by
+    request; chunk tokens up to a near tie; the hw group's drafts agree
+    with its scan verify on every unclamped lane; a sharded group asked
+    to speculate raises. Returns {path: launch counts}."""
+    from repro_torch.launch.serve import Server, make_requests
+
+    class _OneRankOfTwo:             # rank 0 of a two-rank ShardGroup
+        world, rank, calls = 2, 0, 0
+
+    try:
+        Server(cfg, params, max_batch=8, max_seq=1024, policy=policy,
+               policy_groups=spec_policy_groups(groups, "scan"),
+               device="cuda", kv_mode="seq", shards=_OneRankOfTwo())
+        fail("a sequence-sharded group accepted speculative decode")
+    except ValueError as e:
+        sharded_refusal = str(e)
+
+    def server(verify, cuda_graphs=True):
+        grp = groups if verify is None else spec_policy_groups(groups,
+                                                               verify)
+        return Server(cfg, params, max_batch=8, max_seq=1024, policy=policy,
+                      policy_groups=grp, device="cuda",
+                      cuda_graphs=cuda_graphs)
+
+    def requests():
+        return make_requests(cfg, 16, 512, 64, mixed_lengths=True,
+                             min_len=32, groups=sorted(groups), seed=0)
+
+    for verify in SPEC_VERIFIES:                 # warm-up, not measured
+        server(verify).run(make_requests(cfg, 3, 64, 8,
+                                         groups=sorted(groups), seed=1))
+    torch.cuda.synchronize()
+    runs = {mode: [] for mode in ("plain", *SPEC_VERIFIES)}
+    counts_by_path = {}
+    arms = [(m, "graph") for _ in range(ARM_TURNS)
+            for m in ("plain", *SPEC_VERIFIES)] + [("scan", "eager")]
+    for mode, arm in arms:
+        verify = None if mode == "plain" else mode
+        srv = server(verify, arm == "graph")
+        before = srv.stats()
+        reqs = requests()
+        secs, counts, sdpa_calls, peak, clocks = timed_serve(kernels, srv,
+                                                             reqs)
+        replayed = kernels.replay_counts()
+        st = srv.stats()
+        where = f"serve_spec {mode} ({arm} arm)"
+        check_requests(cfg, reqs, 64)
+        if verify is None:
+            check_serve_counts(cfg, st, counts, sdpa_calls,
+                               "decode_attention", "decode_attention_paged",
+                               where)
+            check_graph_stats(cfg, st, arm, replayed, "decode_attention",
+                              where)
+        else:
+            check_spec_serve(cfg, st, before, counts, replayed, sdpa_calls,
+                             "decode_attention", "decode_attention_paged",
+                             verify, arm, where)
+        turn = {"arm": arm, "reqs": reqs, "counts": counts,
+                "readings": spec_readings(reqs, st, secs, peak, clocks)}
+        if verify is not None:
+            turn["own_draft_control"] = check_own_draft_control(
+                cfg, st, reqs, "hw", verify, where)
+        path = f"serve_spec_{mode}" + ("_eager" if arm == "eager" else "")
+        counts_by_path.setdefault(path, counts)
+        runs[mode].append(turn)
+    plain = [r.out for r in mono]
+    for mode in ("plain", "scan"):
+        for t in runs[mode]:
+            for r, want in zip(t["reqs"], plain):
+                if list(r.out) != list(want):
+                    i = next((i for i, (a, b) in enumerate(zip(r.out, want))
+                              if a != b), min(len(r.out), len(want)))
+                    fail(f"serve_spec {mode} ({t['arm']}): request {r.rid} "
+                         f"({r.group}) leaves the plain serve's tokens at "
+                         f"step {i}")
+    chunk_vs_plain = [near_tie_compare(
+        cfg, params, groups, t["reqs"], plain, "chunk-verify request",
+        "the plain serve's tokens") for t in runs["chunk"]]
+    timing = {"scan": spec_graph_ms(lambda: server("scan"), requests()[:8],
+                                    "eval"),
+              "chunk": spec_graph_ms(lambda: server("chunk"),
+                                     requests()[:8], "eval")}
+    res = {"phase": "serve_spec", "spec_k": SPEC_K, "draft": "vexp_hw",
+           "turns": {m: [dict(t["readings"], arm=t["arm"],
+                              **({"own_draft_control":
+                                  t["own_draft_control"]}
+                                 if "own_draft_control" in t else {}))
+                         for t in ts] for m, ts in runs.items()},
+           "launches": {m: ts[0]["counts"] for m, ts in runs.items()},
+           "scan_equals_plain": {"requests": len(plain), "identical": True},
+           "chunk_vs_plain": chunk_vs_plain,
+           "graph_ms_eval": timing, "sharded_refusal": sharded_refusal,
+           "nvidia_smi": smi}
+    emit(res)
+    return counts_by_path
+
+
+def phase_serve_paged_spec(kernels, smi, cfg, params, policy, groups,
+                           mono):
+    """Self-speculative decode on the paged serve's 32 requests (the
+    shared 256-token prefix, page 64, 64 new tokens), verify "scan" then
+    "chunk", graph arm. Scan tokens equal the plain paged serve's
+    (``mono``) request by request, chunk tokens up to a near tie; every
+    group attaches prefix pages (hot waves) and the first three hot
+    requests of each serve equal themselves served cold and alone (a
+    pool without a prefix cache) up to a near tie; the hw control;
+    ``assert_idle_clean()``: rollback moves no page. Returns {path:
+    launch counts}."""
+    from repro_torch.launch.serve import Request, Server
+    pol = policy.replace(block_page=PAGE)
+    counts_by_path, res = {}, {"phase": "serve_paged_spec", "page": PAGE,
+                               "spec_k": SPEC_K, "nvidia_smi": smi}
+    for verify in SPEC_VERIFIES:
+        grp = spec_policy_groups(groups, verify, PAGE)
+        srv = Server(cfg, params, max_batch=8, max_seq=1024, policy=pol,
+                     policy_groups=grp, device="cuda", paged=True)
+        before = srv.stats()
+        reqs = paged_requests(cfg, groups)
+        secs, counts, sdpa_calls, peak, clocks = timed_serve(kernels, srv,
+                                                             reqs)
+        replayed = kernels.replay_counts()
+        st = srv.stats()
+        where = f"serve_paged_spec {verify}"
+        check_requests(cfg, reqs, 64)
+        check_spec_serve(cfg, st, before, counts, replayed, sdpa_calls,
+                         "decode_attention_paged", "decode_attention",
+                         verify, "graph", where)
+        for name in groups:
+            if st[name]["hot_waves"] < 1:
+                fail(f"{where} group {name}: no hot wave")
+        srv.assert_idle_clean()
+        hot = [r for r in reqs if r.prefix_hit][:3]
+        solo_srv = Server(cfg, params, max_batch=8, max_seq=1024,
+                          policy=pol, policy_groups=grp, device="cuda",
+                          paged=True, prefix_cache=False)
+        solos = []
+        for r in hot:
+            solo = Request(r.rid, r.prompt.copy(), r.max_new, group=r.group)
+            solo_srv.run([solo])
+            solos.append(solo.out)
+        solo_srv.assert_idle_clean()
+        if verify == "scan":
+            for r, want in zip(reqs, mono):
+                if list(r.out) != list(want.out):
+                    fail(f"{where}: request {r.rid} ({r.group}) leaves the "
+                         f"plain paged serve's tokens")
+            vs_plain = {"requests": len(reqs), "identical": True}
+        else:
+            vs_plain = near_tie_compare(cfg, params, groups, reqs,
+                                        [m.out for m in mono],
+                                        "paged chunk-verify request",
+                                        "the plain paged serve's tokens")
+        res[verify] = {
+            **spec_readings(reqs, st, secs, peak, clocks),
+            "launches": counts, "vs_plain": vs_plain,
+            "hot_requests": sum(1 for r in reqs if r.prefix_hit),
+            "hot_equals_cold_solo": near_tie_compare(
+                cfg, params, groups, hot, solos, "hot speculating request",
+                "its cold solo tokens"),
+            "own_draft_control": check_own_draft_control(
+                cfg, st, reqs, "hw", verify, where),
+            "pool": {n: st[n]["pool"] for n in groups}}
+        counts_by_path[f"serve_paged_spec_{verify}"] = counts
+    emit(res)
+    return counts_by_path
+
+
 CHAOS_SEED = 0
 CHAOS_BUDGET = 1 + 4 * 16      # four full 16-page reservations a group
 
@@ -2563,6 +2992,10 @@ def main():
                                              policy, groups, paged_reqs))
     by_path.update(phase_serve_chaos(kernels, smi, cfg, params, policy,
                                      groups))
+    by_path.update(phase_serve_spec(kernels, smi, cfg, params, policy,
+                                    groups, mono))
+    by_path.update(phase_serve_paged_spec(kernels, smi, cfg, params, policy,
+                                          groups, paged_reqs))
     by_path.update(phase_serve_sharded(kernels, smi, cfg, params, policy,
                                        groups, paged_reqs))
     for row, name in zip(rows, ("vexp", "softmax", "flash_attention",

@@ -14,6 +14,10 @@ programs. Here the step is a CUDA graph over an in-place carry
   A rebound carry tensor leaves a captured graph reading the old one.
 * **carry stability**: the carry keeps its names, shapes, dtypes and
   devices across the step.
+* **burst buffers** (speculative decode): the decode carry and the
+  burst buffers (``pos0``, ``toks``, ``rem``, ``block``, ``nlast``) keep
+  their storage across a burst, as the decode carry does across a step:
+  the draft steps and the verify are replays over them.
 * **capture audit** (on the card only): the group's step was captured,
   and replaying it from a carry gives the same tokens and positions as
   the eager step from the same carry.
@@ -139,6 +143,23 @@ def audit_step(state, last, live, step=None) -> dict:
     else:
         step()
     after = carry_signature(state.carry(last, live))
+    assert_carry_kept(before, after)
+    return after
+
+
+def burst_carry(state, last, live) -> dict:
+    """Every tensor a speculative burst reads or writes, by name: the
+    decode carry of the draft steps and the verify's burst buffers."""
+    return {**state.carry(last, live), **state.spec_carry(live)}
+
+
+def audit_burst(state, last, live, burst) -> dict:
+    """Run one speculative burst (``burst()``) and hold the decode carry
+    and the burst buffers in place and stable. Returns their signature
+    after the burst."""
+    before = carry_signature(burst_carry(state, last, live))
+    burst()
+    after = carry_signature(burst_carry(state, last, live))
     assert_carry_kept(before, after)
     return after
 

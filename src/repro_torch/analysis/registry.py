@@ -60,6 +60,7 @@ HOT_PATH_FUNCTIONS = {
         "_decode_layers", "_positions", "_live", "_write_token_kv",
         "_write_token_kv_paged", "_paged_coords", "_paged_attn",
         "_final_logits", "_chunk_lanes", "_chunk_layers", "_chunk_logits",
+        "_chunk_all_logits",
         "_write_chunk_kv", "_write_chunk_kv_paged",
     ),
     "repro_torch/models/decode_state.py": ("_guard_tokens",),
@@ -69,6 +70,7 @@ HOT_PATH_FUNCTIONS = {
 # covering one is rejected (exit 2). (path suffix, qualname glob).
 STEP_STRICT = (
     ("repro_torch/launch/serve.py", "_Group.decode_once"),
+    ("repro_torch/launch/serve.py", "_Group.decode_spec_once"),
     ("repro_torch/launch/serve.py", "Server.step"),
     ("repro_torch/models/decode_state.py", "*step"),
     ("repro_torch/models/decode_state.py", "*._logits"),
@@ -77,6 +79,9 @@ STEP_STRICT = (
     ("repro_torch/models/transformer.py", "decode_step*"),
     ("repro_torch/models/transformer.py", "prefill_chunk*"),
     ("repro_torch/models/decode_state.py", "*._chunk_*"),
+    ("repro_torch/models/decode_state.py", "_spec_*"),
+    ("repro_torch/models/decode_state.py", "*.spec_*"),
+    ("repro_torch/models/decode_state.py", "*._draft"),
     ("repro_torch/runtime/graphs.py", "StepGraph.__call__"),
     ("repro_torch/runtime/graphs.py", "StepGraph.replay"),
     ("repro_torch/kernels/decode_attention.py", "decode_attention*"),
@@ -104,6 +109,13 @@ RELEASE_CALLS = ("decref", "_evict_one", "drop_all", "release")
 SLOT_MODULES = ("repro_torch/launch/serve.py",)
 SLOT_RESERVE_CALLS = ("begin_chunk",)
 SLOT_RELEASE_CALLS = ("abort_chunk", "reset_slots", "decref", "recover")
+# Speculative-burst snapshot pairing: ``spec_snapshot`` hands the engine
+# the burst's only rollback token before the draft steps advance the
+# pool's positions in place, so a raise before the verify folds them
+# back must reach a rollback or recovery call.
+SPEC_SNAPSHOT_CALLS = ("spec_snapshot",)
+SPEC_SNAPSHOT_RELEASES = ("spec_restore", "verify_step", "reset_slots",
+                          "_recover_step_fault")
 
 # The engine stays family-agnostic: no family branch, no not-implemented
 # escape hatch.

@@ -29,7 +29,12 @@ The catalog (severities in parentheses):
     ``begin_chunk`` inside an admission loop with no try in that loop
     whose handlers reach a slot release (``abort_chunk`` /
     ``reset_slots``; error ``unguarded-slot-reserve``: a raise between
-    reserve and publish strands the slot's pages).
+    reserve and publish strands the slot's pages), and a
+    ``spec_snapshot`` outside any try whose handlers reach a rollback or
+    recovery (``spec_restore`` / ``verify_step`` / ``reset_slots`` /
+    ``_recover_step_fault``; error ``unguarded-spec-snapshot``: a raise
+    mid-burst leaves the positions advanced by the drafts with no way
+    back).
 
 ``capture-hazard`` (the counterpart of ``jit-retrace-hazard``)
     A mutable default argument on a ``@hot_path`` function (error: state
@@ -321,6 +326,7 @@ class RefcountRule(Rule):
                     out.extend(self._unguarded_alloc(mod, node))
                 if slots:
                     out.extend(self._unguarded_slot_reserve(mod, node))
+                    out.extend(self._unguarded_spec_snapshot(mod, node))
         return out
 
     def _raw_refs(self, mod, node):
@@ -399,6 +405,34 @@ class RefcountRule(Rule):
                     f"release (abort_chunk / reset_slots) on the raise "
                     f"path: one raise between reserve and publish strands "
                     f"the reservation")]
+
+    def _unguarded_spec_snapshot(self, mod, call):
+        """A ``spec_snapshot`` must sit in the body of some try whose
+        handlers or finally reach a rollback or recovery call (port of
+        the reference's check, ``rules.py:412-450``). Unlike
+        ``begin_chunk`` it is a straight-line reserve: it hands back the
+        burst's only rollback token, then the draft steps advance the
+        pool's positions in place, so every snapshot is checked, in a
+        loop or not."""
+        name = _call_name(call)
+        if name not in registry.SPEC_SNAPSHOT_CALLS:
+            return []
+        for anc in mod.ancestors(call):
+            if isinstance(anc, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                break
+            if isinstance(anc, ast.Try) and \
+                    any(_contains(s, call) for s in anc.body) and \
+                    self._releases(anc, registry.SPEC_SNAPSHOT_RELEASES):
+                return []
+        return [Finding(
+            rule=self.name, severity=Severity.ERROR, path=mod.path,
+            line=call.lineno, symbol=mod.enclosing_function(call),
+            detail="unguarded-spec-snapshot",
+            message=f"{name}(...) takes the burst's rollback token with no "
+                    f"rollback or recovery (spec_restore / verify_step / "
+                    f"reset_slots / _recover_step_fault) on the raise "
+                    f"path: a raise mid-burst strands the pool with the "
+                    f"drafts' positions and no way back")]
 
     @staticmethod
     def _releases(try_node, names=registry.RELEASE_CALLS) -> bool:

@@ -65,7 +65,20 @@ every decode step. The engine keeps its own carry tensors (``last``,
 Emitted tokens stay on the device: each step's tokens are copied out of
 the step's static output buffer once (one device copy per step), and
 each request's tokens reach the host once, when it finishes.
-Speculative decoding is not ported yet.
+
+Self-speculative decode (``ExecPolicy.spec_k >= 2``; reference
+``serve.py:443-455,764-871``): a speculating group replaces its decode
+step by a burst (``decode_spec_once``): ``spec_k`` draft steps under the
+policy's ``draft_exp_backend``, then one verify under the group's own
+policy ("scan" or "chunk", ``spec_verify``) that accepts the longest
+agreeing draft prefix plus one bonus token and folds the rollback into
+the device carry. Each draft and the verify is a CUDA-graph replay of a
+program captured when the Server builds the group, over static burst
+buffers (``models.decode_state``). The accepted lengths stay on the
+device: the host's per-slot counters advance by the burst width as
+upper bounds, and a slot whose counter crosses its budget or the cache
+cap settles with one sync (``_settle_slot``). ``spec_groups`` names the
+groups that speculate (default: every group whose policy asks).
 """
 
 from __future__ import annotations
@@ -83,10 +96,12 @@ import torch
 from repro_torch.analysis.registry import hot_path
 from repro_torch.configs import get_config
 from repro_torch.distributed import KV_MODES, init_from_env, resolve_kv_shards
-from repro_torch.ft import FAULT_SEED_ENV, FaultInjector, default_chaos_rates
+from repro_torch.ft import (FAULT_SEED_ENV, FaultInjector, InjectedFault,
+                            default_chaos_rates)
 from repro_torch.models import api
 from repro_torch.models.block_pool import OutOfBlocks
-from repro_torch.models.decode_state import (_len_bucket,  # noqa: F401  (re-export)
+from repro_torch.models.decode_state import (SPEC_PAD,
+                                             _len_bucket,  # noqa: F401  (re-export)
                                              decode_state_for,
                                              host_to_device)
 from repro_torch.runtime import (ExecPolicy, parse_policy_groups,
@@ -145,7 +160,7 @@ class _Group:
     def __init__(self, cfg, params, policy, max_batch, cache_s, device, *,
                  paged=False, block_budget=None, prefix_cache=True,
                  comm=None, cuda_graphs=True, ladder=False,
-                 degradable=False):
+                 degradable=False, spec_k=0):
         self.cfg, self.policy = cfg, policy
         self.max_batch, self.device = max_batch, device
         self.paged = paged
@@ -173,6 +188,16 @@ class _Group:
                                 device=device)
         self.live_dev = torch.zeros(max_batch, dtype=torch.int32,
                                     device=device)
+        # ---- speculative decode (spec_k >= 2; the Server decides which
+        # groups speculate): burst counters, host side
+        self.spec_k = 0                 # 0: plain one-token decode
+        self._bursts = [0] * max_batch  # per slot, of the request in flight
+        self.spec_bursts = 0            # bursts of finished requests
+        self.spec_drafted = 0           # draft tokens proposed
+        self.spec_accepted = 0          # draft tokens accepted
+        self.spec_rolled_back = 0       # draft tokens rolled back
+        if spec_k:
+            self.enable_spec(spec_k)
         self.state.capture(self.last, self.live_dev,
                            *self._ladder_plan(ladder))
         self.decode_steps = 0
@@ -213,7 +238,8 @@ class _Group:
     def _ladder_plan(self, ladder):
         """(extra decode policies, (policy, chunk width) pairs) the group
         can run: with the ladder on, every rung's, so that the state
-        captures them all before any request."""
+        captures them all before any request (a speculating state also
+        captures each rung's draft step and verify program)."""
         base, deg = self.base_policy, self._degraded_policy()
         policies = (deg,) if ladder and deg != base else ()
         chunks = []
@@ -250,6 +276,24 @@ class _Group:
         if self.paged:
             return self.state.pool_stats()["utilization"] >= PRESSURE_HIGH
         return False
+
+    def enable_spec(self, spec_k: int):
+        """Opt this group into self-speculative decode (reference
+        ``serve.py:443-455``): each tick runs ``spec_k`` draft steps and
+        one verify. Raises if the pool cannot roll a rejected burst back
+        (``supports_speculative``). The construction calls it before the
+        capture, so the burst's programs are captured with the group;
+        the emission budgets live in the state's ``spec_rem`` buffer."""
+        self.state.enable_speculative(spec_k)
+        self.spec_k = int(spec_k)
+
+    def _seed_budgets(self, sl, reqs):
+        """Device emission budgets of newly live slots ``sl``: the tokens
+        each request may emit after its first."""
+        if self.spec_k:
+            self.state.spec_rem.index_copy_(0, sl, host_to_device(
+                np.array([r.max_new - 1 for r in reqs], np.int32),
+                self.device))
 
     # ------------------------------------------------- lifecycle / faults
 
@@ -307,6 +351,7 @@ class _Group:
         self._bump_peaks()
         r = self.reqs[j]
         self._toks.pop(j, None)
+        self._bursts[j] = 0
         self.reqs[j] = None
         self.live_dev[j] = 0
         self.state.reset_slots([j])
@@ -354,6 +399,7 @@ class _Group:
         self.live_dev.zero_()
         self.lens[:] = 0
         self.ntok[:] = 0
+        self._bursts = [0] * self.max_batch
         for r in sorted(victims, key=lambda v: v.t_submit, reverse=True):
             r.retries += 1
             if r.retries > MAX_STEP_RETRIES:
@@ -462,6 +508,7 @@ class _Group:
         sl = torch.as_tensor(slots, device=self.device)
         self.last.index_copy_(0, sl, first[sl])
         self.live_dev.index_fill_(0, sl, 1)
+        self._seed_budgets(sl, [r for _, r in take])
         now = time.perf_counter()
         for j, r in take:
             self.reqs[j] = r
@@ -554,6 +601,7 @@ class _Group:
         sl = host_to_device(done, self.device)
         self.last.index_copy_(0, sl, first[sl])
         self.live_dev.index_fill_(0, sl, 1)
+        self._seed_budgets(sl, [self.prefilling[j][0] for j in done])
         now = time.perf_counter()
         for j in done:
             r, _ = self.prefilling.pop(j)
@@ -626,14 +674,99 @@ class _Group:
                 self._finish(j, "max_new")
 
     @hot_path
+    def decode_spec_once(self):
+        """One speculative burst over the live slots (no-op when idle;
+        reference ``serve.py:764-821``): snapshot, ``spec_k`` draft steps
+        under the draft policy, one verify under the group's policy that
+        accepts the longest agreeing prefix plus one bonus token and
+        folds the rollback into the device carry. Every step is a graph
+        replay, and nothing reaches the host: the counters below advance
+        by the burst width W as upper bounds, and a counter that crosses
+        the budget or the cap goes through ``_settle_slot``, the one
+        sync. Every emitted token is the group policy's argmax, so with
+        the "scan" verify the stream is token-identical to plain
+        decode."""
+        live = [j for j in range(self.max_batch) if self.reqs[j] is not None]
+        if not live:
+            return
+        if self.injector is not None and \
+                self.injector.fire("decode.poison"):
+            self.state.poison_slot(self.injector.choose(live))
+        t0 = time.perf_counter()
+        try:
+            snap = self.state.spec_snapshot(self.last)
+            for _ in range(self.spec_k):
+                self.state.draft_step(self.last, self.live_dev)
+            if self.injector is not None and \
+                    self.injector.fire("decode.step_error"):
+                # the injected dispatch fault, mid-burst: the drafts have
+                # advanced the positions and only the verify would fold
+                # them back; a CUDA error inside a replay is not caught
+                raise InjectedFault("decode dispatch failed mid-burst")
+            block, nlast = self.state.verify_step(snap, self.live_dev)
+        except InjectedFault:
+            self.step_faults += 1
+            self._recover_step_fault()
+            return
+        self.last.copy_(nlast)
+        block = block.clone()
+        self.decode_s.append(time.perf_counter() - t0)
+        self.decode_steps += 1
+        if self.prefilling:
+            self.decode_steps_prefilling += 1
+        cap = self.state.max_len()
+        w = self.spec_k + 1
+        for j in live:
+            r = self.reqs[j]
+            self._bursts[j] += 1
+            self._toks[j].append(block)
+            self.ntok[j] = min(self.ntok[j] + w, r.max_new)
+            self.lens[j] = min(self.lens[j] + w, cap)
+            if self.ntok[j] >= r.max_new or self.lens[j] >= cap:
+                self._settle_slot(j)
+
+    def _settle_slot(self, j):
+        """A speculating slot whose upper-bound counters crossed its
+        budget (``max_new``) or the cache cap (reference
+        ``serve.py:823-845``): one device->host copy of its token column.
+        A budget truly spent finishes the request (quarantine is decided
+        in ``_finish``); otherwise the counters become exact and the slot
+        decodes on. While budget and room remain every burst emits >= 1
+        token, so settling cannot spin."""
+        r = self.reqs[j]
+        col = torch.cat(self._toks[j], dim=1)[j].cpu().numpy()
+        col = col[col != SPEC_PAD]
+        n = len(col)
+        pos = len(r.prompt) + n - 1          # cache rows the slot holds
+        if (col < 0).any() or n >= r.max_new:
+            self._finish(j, "max_new")
+        elif pos >= self.state.max_len():
+            self._finish(j, "length_cap")
+        else:
+            self.ntok[j] = n
+            self.lens[j] = pos
+
+    @hot_path
     def _finish(self, j, reason):
         """One device->host copy per finished request, then free the
         slot. A token column holding the non-finite sentinel (-1) is
         quarantined instead: its tokens are never streamed, and the slot
-        is scrubbed (every row zeroed, not just parked) before reuse."""
+        is scrubbed (every row zeroed, not just parked) before reuse. A
+        speculating group drops the SPEC_PAD lanes of its bursts and
+        books the burst's drafts as accepted or rolled back."""
         self._bump_peaks()
         r = self.reqs[j]
         toks = torch.cat(self._toks.pop(j), dim=1)[j].cpu().numpy()
+        toks = toks[toks != SPEC_PAD]
+        if self.spec_k:
+            b, self._bursts[j] = self._bursts[j], 0
+            self.spec_bursts += b
+            self.spec_drafted += b * self.spec_k
+            # a burst that emitted anything spent one bonus token; the
+            # rest of the column after the first token is accepted drafts
+            acc = min(max(0, len(toks) - 1 - b), b * self.spec_k)
+            self.spec_accepted += acc
+            self.spec_rolled_back += b * self.spec_k - acc
         if (toks < 0).any():
             self.reqs[j] = None
             self.live_dev[j] = 0
@@ -682,7 +815,8 @@ class Server:
                  prefix_cache: bool = True, kv_mode: str = "auto",
                  shards=None, cuda_graphs: bool = True,
                  injector: Optional[FaultInjector] = None,
-                 deadline_s: Optional[float] = None, degrade_groups=()):
+                 deadline_s: Optional[float] = None, degrade_groups=(),
+                 spec_groups=None):
         self.device = resolve_device(device)
         if params.embed.device.type != self.device.type:
             raise ValueError(f"params live on {params.embed.device}, the "
@@ -699,6 +833,7 @@ class Server:
         if unknown:
             raise ValueError(f"unknown degrade group(s) {sorted(unknown)}; "
                              f"have {sorted(groups)}")
+        spec = self._spec_plan(groups, spec_groups)
         self._groups = {}
         for name, pol in groups.items():
             n = resolve_kv_shards(cfg, kv_mode, shards, self.cache_s,
@@ -709,7 +844,8 @@ class Server:
                 paged=paged, block_budget=block_budget,
                 prefix_cache=prefix_cache,
                 comm=shards if sharded else None, cuda_graphs=cuda_graphs,
-                ladder=bool(degrade), degradable=name in degrade)
+                ladder=bool(degrade), degradable=name in degrade,
+                spec_k=spec[name])
         self.admit_log: list = []    # rids in admission order
         self.serve_s = 0.0           # wall time spent in drain()
         self.injector = injector
@@ -724,6 +860,28 @@ class Server:
         self.degrade_level = 0
         self.degrade_peak = 0            # highest rung reached
         self._pressure_ticks = self._clear_ticks = 0
+
+    @staticmethod
+    def _spec_plan(groups, spec_groups) -> dict:
+        """{group: spec_k} (0: plain decode; reference
+        ``serve.py:1002-1020``): a group speculates when its policy asks
+        (``spec_k >= 2``) and, where ``spec_groups`` names groups, it is
+        named. Naming an unknown group, or one whose policy does not ask,
+        raises."""
+        named = None if spec_groups is None else set(spec_groups)
+        if named is not None:
+            unknown = named - set(groups)
+            if unknown:
+                raise ValueError(f"unknown spec group(s) {sorted(unknown)}; "
+                                 f"have {sorted(groups)}")
+            for name in sorted(named):
+                if groups[name].spec_k < 2:
+                    raise ValueError(
+                        f"group {name} named in spec_groups but its policy "
+                        f"has spec_k={groups[name].spec_k} (need >= 2)")
+        return {name: pol.spec_k if pol.spec_k >= 2
+                and (named is None or name in named) else 0
+                for name, pol in groups.items()}
 
     def submit(self, r: Request) -> None:
         if r.group not in self._groups:
@@ -758,9 +916,10 @@ class Server:
     def step(self) -> bool:
         """One scheduler tick: reap cancelled and expired requests, admit
         into freed slots, move the degradation ladder, then per busy
-        group at most one prefill chunk and one decode step. The chunk
-        comes first, so a prompt that completes goes live this tick.
-        Returns True while work remains."""
+        group at most one prefill chunk and one decode step (a
+        speculating group's: one burst). The chunk comes first, so a
+        prompt that completes goes live this tick. Returns True while
+        work remains."""
         for g in self._groups.values():
             g.reap()
         for g in self._groups.values():
@@ -769,7 +928,10 @@ class Server:
         for g in self._groups.values():
             g.prefill_chunk_once()
         for g in self._groups.values():
-            g.decode_once()
+            if g.spec_k:
+                g.decode_spec_once()
+            else:
+                g.decode_once()
         return any(g.busy for g in self._groups.values())
 
     def _degradation_tick(self):
@@ -831,7 +993,12 @@ class Server:
         deadline_missed, quarantined, step_faults, requeued, shed,
         admit_retries, the ladder rung) come from the same host records.
         Paged groups add their pool and the hot waves (those whose rows
-        attached prefix-cache pages) with their admission time."""
+        attached prefix-cache pages) with their admission time. A
+        speculating group's decode steps are its bursts, and it adds the
+        burst telemetry (``spec_*``: bursts, drafted, accepted and rolled
+        back draft tokens of finished requests, the acceptance share, and
+        the verify programs' captures and replays; its draft steps are
+        among the decode graph's replays)."""
         def pct(xs, q):
             xs = sorted(xs)
             return xs[min(len(xs) * q // 100, len(xs) - 1)] if xs else 0.0
@@ -882,6 +1049,21 @@ class Server:
                          "collectives": g.collectives,
                          "collectives_per_step": (g.collectives
                                                   / max(g.decode_steps, 1))}
+            if g.spec_k:
+                drafted = g.spec_drafted
+                out[name].update({
+                    "spec_k": g.spec_k,
+                    "spec_verify": g.policy.spec_verify,
+                    "draft_exp_backend": g.policy.draft_exp_backend,
+                    "spec_bursts": g.spec_bursts,
+                    "spec_drafted": drafted,
+                    "spec_accepted": g.spec_accepted,
+                    "spec_rolled_back": g.spec_rolled_back,
+                    "spec_acceptance": (g.spec_accepted / drafted
+                                        if drafted else 0.0),
+                    "spec_graph_captures": gs["spec_captures"],
+                    "spec_graph_replays": gs["spec_replays"],
+                    "spec_graph_capture_s": gs["spec_capture_s"]})
             if g.paged:
                 hot = [s for s, h in zip(g.admit_s, g.admit_hist) if h]
                 out[name]["hot_waves"] = len(hot)
@@ -1010,6 +1192,29 @@ def main(argv=None):
     ap.add_argument("--cancel-frac", type=float, default=0.0,
                     help="cancel about this share of the requests right "
                          "after submitting them")
+    ap.add_argument("--spec-k", type=int, default=None,
+                    help="self-speculative decode: draft tokens per burst, "
+                         "the policy's spec_k (0: plain decode; >= 2: "
+                         "k draft steps under --draft-backend, then one "
+                         "verify under the group's policy that accepts "
+                         "the longest agreeing prefix + 1 bonus token)")
+    ap.add_argument("--draft-backend", default=None,
+                    choices=["exact", "vexp", "vexp_hw"],
+                    help="exp backend of the draft steps, the policy's "
+                         "draft_exp_backend (default vexp_hw, the model "
+                         "of the proposed BF16 block; emitted tokens "
+                         "always come from the verify)")
+    ap.add_argument("--spec-verify", default=None, choices=["scan", "chunk"],
+                    help='how the verify scores a burst: "scan" runs the '
+                         'policy\'s decode step once per lane (tokens '
+                         'identical to plain decode); "chunk" scores all '
+                         'lanes in one chunk program on the '
+                         'FlashAttention kernel (may break near ties '
+                         'differently)')
+    ap.add_argument("--spec-groups", default=None,
+                    help="comma-separated policy groups that speculate "
+                         "(their policies need spec_k >= 2); omit to "
+                         "speculate in every group whose policy asks")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' "
                          "runs the kernels' plain versions)")
@@ -1026,7 +1231,10 @@ def main(argv=None):
     policy = resolve_policy(cfg, exp_backend=args.exp_backend,
                             kernel_backend=args.kernel_backend,
                             block_page=args.block_page,
-                            prefill_chunk=args.prefill_chunk)
+                            prefill_chunk=args.prefill_chunk,
+                            spec_k=args.spec_k,
+                            draft_exp_backend=args.draft_backend,
+                            spec_verify=args.spec_verify)
     groups = None
     if args.policy_groups:
         groups = parse_policy_groups(args.policy_groups, cfg, base=policy)
@@ -1046,11 +1254,20 @@ def main(argv=None):
         say(f"[serve] chaos: seed={seed} rates={default_chaos_rates()}")
     degrade = tuple(n.strip() for n in (args.degrade_groups or "").split(",")
                     if n.strip())
+    spec_groups = (tuple(n.strip() for n in args.spec_groups.split(",")
+                         if n.strip())
+                   if args.spec_groups is not None else None)
     server = Server(cfg, params, max_batch=args.max_batch,
                     max_seq=args.max_seq, policy=policy,
                     policy_groups=groups, device=device, paged=args.paged,
                     kv_mode=args.kv_mode, shards=comm, injector=injector,
-                    deadline_s=args.deadline, degrade_groups=degrade)
+                    deadline_s=args.deadline, degrade_groups=degrade,
+                    spec_groups=spec_groups)
+    for name, g in server._groups.items():
+        if g.spec_k:
+            say(f"[serve] group {name}: speculative decode k={g.spec_k} "
+                f"draft={g.policy.draft_exp_backend} "
+                f"verify={g.policy.spec_verify}")
     stats = server.stats()
     if args.kv_mode == "seq":
         world = 1 if comm is None else comm.world
@@ -1103,6 +1320,14 @@ def main(argv=None):
                 line += (f", prefix hit rate "
                          f"{p['prefix']['hit_rate']:.2f}")
             say(line)
+        if "spec_k" in s:
+            bursts = max(s["spec_bursts"], 1)
+            say(f"    speculative: {s['spec_bursts']} bursts of k="
+                f"{s['spec_k']} ({s['spec_verify']} verify), drafted "
+                f"{s['spec_drafted']}, accepted {s['spec_accepted']} "
+                f"({s['spec_acceptance']:.2f}), rolled back "
+                f"{s['spec_rolled_back']}; "
+                f"{s['spec_accepted'] / bursts + 1:.2f} tokens/burst")
         if s["prefill_chunks"]:
             say(f"    chunked prefill: width {s['prefill_chunk']}, "
                 f"{s['prefill_chunks']} chunks "

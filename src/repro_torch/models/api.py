@@ -62,31 +62,33 @@ def prefill(params, cfg, batch, *, policy=None, device=None):
 
 
 def prefill_chunk(params, cfg, tokens, cache, off, clens, *, policy=None,
-                  device=None):
+                  all_lanes=False, device=None):
     """Resumable chunked prefill over a contiguous pool ``cache``: every
     row advances by its ``clens[b]`` tokens of the (B, C) ``tokens`` at
     its cursor ``off[b]`` (0 tokens: the row's cache stays bit for bit).
     The cache is written in place and returned with the (B, 1, V) logits
-    of each row's last valid lane."""
+    of each row's last valid lane, or with ``all_lanes`` (the speculative
+    verify) the (B, C, V) logits of every lane."""
     dev = resolve_device(device)
     _check_params(params, dev)
     return transformer.prefill_chunk(
         params, cfg, torch.as_tensor(tokens, device=dev), cache,
         torch.as_tensor(off, device=dev), torch.as_tensor(clens, device=dev),
-        policy=_policy(cfg, policy))
+        policy=_policy(cfg, policy), all_lanes=all_lanes)
 
 
 def prefill_chunk_paged(params, cfg, tokens, cache, tables, off, clens, *,
-                        policy=None, device=None):
+                        policy=None, all_lanes=False, device=None):
     """``prefill_chunk`` over a paged pool through the (B, nS) block
     ``tables``; the pool is written in place and returned with the
-    logits."""
+    logits (every lane's with ``all_lanes``)."""
     dev = resolve_device(device)
     _check_params(params, dev)
     return transformer.prefill_chunk_paged(
         params, cfg, torch.as_tensor(tokens, device=dev), cache,
         torch.as_tensor(tables, device=dev), torch.as_tensor(off, device=dev),
-        torch.as_tensor(clens, device=dev), policy=_policy(cfg, policy))
+        torch.as_tensor(clens, device=dev), policy=_policy(cfg, policy),
+        all_lanes=all_lanes)
 
 
 def init_cache(cfg, batch_size, seq_len, *, device=None):

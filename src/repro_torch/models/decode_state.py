@@ -49,6 +49,27 @@ copy. Switching policy (the degradation ladder) is then a lookup.
 ``recover`` zeroes the carry in place, so the graphs stay valid. Sharded
 states step eagerly: their gloo collectives stage through the host,
 which a graph cannot hold.
+
+Self-speculative decode (port of ``decode_state.py:181-378,709-810``;
+paged ``:1507-1534``): ``enable_speculative(k)`` gives an unsharded pool
+static burst buffers (``pos0``, ``toks``, ``rem``, ``block``, ``nlast``)
+and a verify program per (policy, W = k + 1, mode, impl). A burst is
+``spec_snapshot`` (positions into ``pos0``, the engine's last tokens
+into ``toks[:, 0]``), ``k`` replays of the draft policy's decode-step
+graph (the policy with only its exp backend swapped to
+``draft_exp_backend``; each draft's token copied into the next lane of
+``toks`` and into the next draft's input) and one replay of the verify
+graph, which scores the W candidates under the group's own policy and
+folds the acceptance into the carry: positions advance by the accepted
+length m, the budget ``rem`` shrinks by m, and ``block`` / ``nlast``
+hold the emitted tokens (``SPEC_PAD`` past m) and the next input. The
+verify is "scan" (W decode steps of the policy at the plain step's
+shape, token-identical to plain decode by construction) or "chunk" (one
+all-lanes chunk program at width W on the FlashAttention kernel). The
+cursor rewind is the whole rollback: rejected rows past the new
+position are masked by length and overwritten by the next burst, and a
+paged pool touches its allocator zero times (every slot holds its full
+reservation from admission).
 """
 
 from __future__ import annotations
@@ -84,6 +105,144 @@ def _guard_tokens(logits, last=None):
     return torch.where(bad, -1, tok)
 
 
+# Block-padding sentinel for lanes past a burst's accepted length. Not
+# the poison sentinel (-1): the engine filters PAD out of a finished
+# stream, while -1 still quarantines the slot.
+SPEC_PAD = -2
+
+
+@hot_path
+def _spec_accept(toks, logits, clens, rem, live):
+    """The acceptance fold of one verify pass (port of the reference's
+    ``_spec_accept``, ``decode_state.py:189-218``).
+
+    ``toks`` (B, W) the burst's candidates [t0, d1..dk] (t0 the pre-burst
+    last token, d_i the drafts); ``logits`` (B, W, V) the verify
+    policy's scores of every lane; ``clens`` (B,) the lanes actually
+    scored (0: a dead or cap-full row); ``rem`` (B,) the remaining
+    emission budget; ``live`` (B,). Emits ``m = min(n_acc + 1, clens,
+    rem)`` tokens a row: the longest draft prefix that agrees with the
+    verify argmaxes, plus the bonus token the verify proposes after it,
+    so every emitted token is the verify policy's argmax. A non-finite
+    lane poisons itself and every later lane of the burst (the sentinel
+    -1), and a row whose t0 is -1 stays poisoned. Elementwise ops and
+    lane reductions only. Returns (block (B, W) with SPEC_PAD past m,
+    nlast (B, 1), m (B,))."""
+    w = toks.shape[1]
+    lanes = torch.arange(w, dtype=torch.int32, device=toks.device)[None, :]
+    e = logits.argmax(dim=-1).to(torch.int32)                     # (B, W)
+    badlane = ~torch.isfinite(logits).all(dim=-1)
+    bad = (torch.cumsum(badlane.to(torch.int32), dim=1) > 0) \
+        | (toks[:, :1] < 0)
+    agree = (toks[:, 1:] == e[:, :-1]).to(torch.int32)            # (B, k)
+    n_acc = torch.cumprod(agree, dim=1).sum(dim=1, dtype=torch.int32)
+    m = torch.minimum(torch.minimum(n_acc + 1, clens), rem)
+    m = torch.where(live > 0, torch.clamp(m, min=0), 0).to(torch.int32)
+    tokv = torch.where(bad, -1, e)
+    block = torch.where(lanes < m[:, None], tokv, SPEC_PAD)
+    nlast = torch.gather(tokv, 1, torch.clamp(m - 1, 0, w - 1)[:, None]
+                         .to(torch.int64))
+    nlast = torch.where((m > 0)[:, None], nlast, toks[:, :1])
+    return block.to(torch.int32), nlast.to(torch.int32), m
+
+
+@hot_path
+def _spec_clens(pos0, live, cap, w):
+    """Lanes a burst may score per row: the room left below the linear
+    cache capacity ``cap``, at most ``w``, and 0 for a dead row (the
+    reference's ``_clens``, ``decode_state.py:284-287``), so m never runs
+    past the cap."""
+    room = torch.clamp(cap - pos0, 0, w)
+    return torch.where(live > 0, room, 0).to(torch.int32)
+
+
+@hot_path
+def _spec_fold(c, logits, clens):
+    """Fold one verify's acceptance into the burst carry ``c`` in place:
+    the block and next input, positions at ``pos0 + m``, the budget
+    shrunk by m."""
+    block, nlast, m = _spec_accept(c["toks"], logits, clens, c["rem"],
+                                   c["live"])
+    c["block"].copy_(block)
+    c["nlast"].copy_(nlast)
+    c["pos"].copy_(c["pos0"] + m)
+    c["rem"].sub_(m)
+
+
+SPEC_MODES = ("kv", "kv_paged")
+
+
+def _spec_verify_fn(params, cfg, policy, w, mode, cap, impl):
+    """The verify program of a W-lane burst under ``policy`` (port of
+    the reference's ``_spec_programs``, ``decode_state.py:226-378``, for
+    the KV modes): a function of the burst carry (``spec_carry``), run
+    eagerly or captured once as a CUDA graph.
+
+    ``impl="scan"``: W decode steps of ``policy`` through the very
+    ``transformer.decode_step[_paged]`` of the plain step, at its
+    (pool_width, 1) shape; step i runs with ``live * (i < clens)``, so a
+    lane that must not score leaves the cache and the position alone.
+    Every accepted token then comes out of the plain step's program on
+    the plain step's inputs: token-identical to plain decode by
+    construction. Step i rewrites row pos0 + i with the policy's K/V
+    before anything reads it, over the draft's row.
+
+    ``impl="chunk"``: one ``prefill_chunk[_paged](..., all_lanes=True)``
+    at width W, cursor ``pos0`` and ``clens`` valid lanes: one
+    FlashAttention launch a layer scores every lane. Tokens are the
+    policy's argmaxes of the chunk program, which may break a near tie
+    differently from the decode step.
+
+    Either way the acceptance is folded in on the device
+    (``_spec_fold``), so a burst syncs on nothing. ``cap`` is the linear
+    cache capacity: lanes at or past it are not scored."""
+    if impl not in ("scan", "chunk"):
+        raise ValueError(f"unknown speculative verify impl {impl!r}")
+    if mode not in SPEC_MODES:
+        raise NotImplementedError(
+            f"speculative verify of a {mode!r} pool is not ported: the "
+            f"recurrent modes (a replay from a state snapshot) wait for "
+            f"the recurrent families (ROADMAP A11)")
+    paged = mode == "kv_paged"
+
+    @hot_path
+    def scan(c):
+        toks, pos0, live = c["toks"], c["pos0"], c["live"]
+        clens = _spec_clens(pos0, live, cap, w)
+        cache = {"k": c["k"], "v": c["v"]}
+        pos, lanes = pos0, []
+        for i in range(w):
+            lv = live * (clens > i).to(live.dtype)
+            if paged:
+                logits, _ = transformer.decode_step_paged(
+                    params, cfg, toks[:, i:i + 1], cache, c["tables"], pos,
+                    policy=policy, live=lv)
+            else:
+                logits, _ = transformer.decode_step(
+                    params, cfg, toks[:, i:i + 1], cache, pos,
+                    policy=policy, live=lv)
+            lanes.append(logits[:, 0])
+            pos = pos + lv
+        _spec_fold(c, torch.stack(lanes, dim=1), clens)
+
+    @hot_path
+    def chunk(c):
+        toks, pos0 = c["toks"], c["pos0"]
+        clens = _spec_clens(pos0, c["live"], cap, w)
+        cache = {"k": c["k"], "v": c["v"]}
+        if paged:
+            logits, _ = transformer.prefill_chunk_paged(
+                params, cfg, toks, cache, c["tables"], pos0, clens,
+                policy=policy, all_lanes=True)
+        else:
+            logits, _ = transformer.prefill_chunk(
+                params, cfg, toks, cache, pos0, clens, policy=policy,
+                all_lanes=True)
+        _spec_fold(c, logits, clens)
+
+    return scan if impl == "scan" else chunk
+
+
 def _len_bucket(n: int, cap: int) -> int:
     """Pow2-rounded prefill length (>= 8), capped at the cache capacity,
     so ragged admission shares a small set of prefill shapes."""
@@ -114,6 +273,9 @@ class DecodeState:
         self.cuda_graphs = cuda_graphs
         self.graphs: dict = {}      # policy -> decode StepGraph
         self.chunk_progs: dict = {}  # (policy, width) -> chunk program
+        # (policy, W, mode, impl) -> speculative verify program
+        self.spec_progs: dict = {}
+        self.spec_k = 0             # 0: plain decode (no burst buffers)
         self._sealed = False        # capture done: no graph made after
         self.graph = self._decode_graph(policy)
         self.injector = None        # ft.inject.FaultInjector (chaos)
@@ -197,11 +359,14 @@ class DecodeState:
         """Allocate the cache and capture, before any request, the decode
         step under the state's policy and each of ``policies``, and the
         chunk program at each (policy, width) of ``chunks``, where steps
-        are graphs on the card (elsewhere a no-op). Every slot is dead
-        (``live`` all 0) and every chunk row inert (no tokens), so the
-        warm-ups write only what a step writes for dead slots: KV at
-        position 0 of a contiguous row, which admission overwrites, and
-        the paged scratch page."""
+        are graphs on the card (elsewhere a no-op); a speculating state
+        also captures, under each of those policies, its draft policy's
+        decode step (shared where it is the policy's own) and the verify
+        program. Every slot is dead (``live`` all 0) and every chunk row
+        inert (no tokens), so the warm-ups write only what a step writes
+        for dead slots: KV at position 0 of a contiguous row, which
+        admission overwrites, the paged scratch page, and the burst
+        buffers' PAD blocks."""
         if self.graph is None or not self.graph.use_graph:
             return
         self._ensure_cache()
@@ -209,6 +374,11 @@ class DecodeState:
         for pol in (base, *policies):
             self.set_policy(pol)
             self.graph(self._step, self.carry(last, live))
+            if self.spec_k:
+                if self._draft_graph.signature is None:  # not shared
+                    self._draft_graph(self._draft, self.carry(last, live))
+                self._verify["graph"](self._verify["fn"],
+                                      self.spec_carry(live))
         for pol, width in chunks:
             self.set_policy(pol)
             prog = self._chunk_prog(width)
@@ -240,31 +410,34 @@ class DecodeState:
         return self.out
 
     @hot_path
-    def _step(self, c):
-        """The step over the carry ``c``, in place: tokens into ``out``,
-        positions of live slots advanced."""
-        logits = self._logits(c)
+    def _step(self, c, policy=None):
+        """The step over the carry ``c`` under ``policy`` (default: the
+        state's), in place: tokens into ``out``, positions of live slots
+        advanced."""
+        logits = self._logits(c, policy)
         c["out"].copy_(_guard_tokens(logits, c["last"]))
         c["pos"].add_(c["live"])
 
     @hot_path
-    def _logits(self, c):
+    def _logits(self, c, policy=None):
+        policy = self.policy if policy is None else policy
         cache = {"k": c["k"], "v": c["v"]}
         if self.shard is None:
             logits, _ = transformer.decode_step(
                 self.params, self.cfg, c["last"], cache, c["pos"],
-                policy=self.policy, live=c["live"])
+                policy=policy, live=c["live"])
         else:
             logits, _ = transformer.decode_step_sharded(
                 self.params, self.cfg, c["last"], cache, c["pos"],
-                policy=self.policy, shard=self.shard, live=c["live"])
+                policy=policy, shard=self.shard, live=c["live"])
         return logits
 
     def graph_stats(self) -> dict:
         """How the step runs ("graph", "eager", or eager because the
         cache is sharded), with the decode graphs' captures and replays
-        and the chunk programs' (``chunk_*``), summed over policies and
-        widths."""
+        (the draft steps' among them), the chunk programs' (``chunk_*``)
+        and the speculative verify programs' (``spec_*``), summed over
+        policies and widths."""
         def total(graphs, prefix=""):
             gs = [g.stats() for g in graphs]
             return {f"{prefix}captures": sum(g["captures"] for g in gs),
@@ -273,6 +446,8 @@ class DecodeState:
 
         out = total([p["graph"] for p in self.chunk_progs.values()],
                     "chunk_")
+        out.update(total([p["graph"] for p in self.spec_progs.values()],
+                         "spec_"))
         if self.graph is None:
             return {"mode": "eager (sharded: collectives stage through the "
                             "host)", **total([]), **out}
@@ -418,32 +593,175 @@ class DecodeState:
         captured graphs, which hold their storage, stay valid. The engine
         re-queues every in-flight request."""
         self.pos_dev.zero_()
+        for t in self._burst_buffers():
+            t.zero_()
         if self.data is not None:
             for t in self.data.values():
                 t.zero_()
 
     def set_policy(self, policy):
-        """Run the decode step and the chunk programs under ``policy``
-        (the degradation ladder's lever): a lookup of graphs captured at
-        construction, never a capture on the request path."""
+        """Run the decode step, the chunk programs and a speculating
+        state's draft and verify under ``policy`` (the degradation
+        ladder's lever; the reference re-wires its draft and verify the
+        same way, ``decode_state.py:702-706``): a lookup of graphs
+        captured at construction, never a capture on the request path."""
         self.graph = self._decode_graph(policy)
         self.policy = policy
+        if self.spec_k:
+            self._wire_spec()
 
     def reset_slots(self, slots):
-        """Park freed slots at position 0. KV rows are not zeroed: decode
-        masks them by cache_len and admission overwrites them."""
-        self.pos_dev[torch.as_tensor(np.asarray(slots),
-                                     device=self.device)] = 0
+        """Park freed slots at position 0, their burst buffers' rows
+        zeroed (no budget outlives its request). KV rows are not zeroed:
+        decode masks them by cache_len and admission overwrites them."""
+        idx = torch.as_tensor(np.asarray(slots), device=self.device)
+        self.pos_dev[idx] = 0
+        for t in self._burst_buffers():
+            t[idx] = 0
 
     def check_integrity(self, live_slots=()):
         """Invariant sweep (it syncs; never on the decode path): freed
         slots must be parked at position 0."""
         live = {int(j) for j in live_slots}
         pos = self.pos_dev.cpu().numpy()
+        rem = self.spec_rem.cpu().numpy() if self.spec_k else None
         for j in range(self.pool_width):
             if j not in live and int(pos[j]) != 0:
                 raise AssertionError(
                     f"freed slot {j} parked at pos {int(pos[j])}")
+            if rem is not None and j not in live and int(rem[j]) != 0:
+                raise AssertionError(
+                    f"freed slot {j} keeps an emission budget of "
+                    f"{int(rem[j])}")
+
+    # ------------------------------------------------- speculative decoding
+
+    def supports_speculative(self) -> bool:
+        """Whether this pool can run draft bursts and a verify that rolls
+        a rejected draft back (the self-speculative decode path)."""
+        return False
+
+    def _spec_mode(self) -> str:
+        raise NotImplementedError
+
+    def enable_speculative(self, spec_k: int) -> None:
+        """Switch the pool to self-speculative decode (reference
+        ``decode_state.py:727-739``): ``spec_k``-step draft bursts under
+        the policy's ``draft_exp_backend``, verified by one pass under
+        the policy itself. Allocates the static burst buffers and wires
+        the draft and verify programs of the active policy; call it
+        before ``capture``, which captures them with the decode step."""
+        if not self.supports_speculative():
+            raise ValueError(
+                f"{self.kind} state cannot run speculative decode"
+                + ("" if self.shard is None else
+                   " (its cache is sequence-sharded; the verify program is "
+                   "unsharded, as in the reference)"))
+        if not (isinstance(spec_k, int) and spec_k >= 2):
+            raise ValueError(f"spec_k must be an int >= 2, got {spec_k!r}")
+        self.spec_k = int(spec_k)
+        w, dev = self.spec_k + 1, self.device
+
+        def buf(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+        self.spec_pos0 = buf(self.pool_width)       # pre-burst positions
+        self.spec_toks = buf(self.pool_width, w)    # [t0, d1 .. dk]
+        self.spec_rem = buf(self.pool_width)        # emission budget
+        self.spec_block = buf(self.pool_width, w)   # emitted, PAD past m
+        self.spec_nlast = buf(self.pool_width, 1)   # the next input token
+        self._draft_lane = 0
+        self._wire_spec()
+
+    def _burst_buffers(self):
+        if not self.spec_k:
+            return ()
+        return (self.spec_pos0, self.spec_toks, self.spec_rem,
+                self.spec_block, self.spec_nlast)
+
+    def _draft_policy(self):
+        """The active policy with only its exp backend swapped: draft and
+        verify differ in exactly one execution choice."""
+        return self.policy.replace(exp_backend=self.policy.draft_exp_backend)
+
+    def _spec_impl(self) -> str:
+        return self.policy.spec_verify
+
+    def _wire_spec(self):
+        """Look up (or, before capture, make) the draft step's graph and
+        the verify program of the active policy."""
+        self._draft_pol = self._draft_policy()
+        self._draft_graph = self._decode_graph(self._draft_pol)
+        pol, w, mode, impl = key = (self.policy, self.spec_k + 1,
+                                    self._spec_mode(), self._spec_impl())
+        prog = self.spec_progs.get(key)
+        if prog is None:
+            prog = {"graph": self._new_graph(key, "speculative verify"),
+                    "fn": _spec_verify_fn(self.params, self.cfg, pol, w,
+                                          mode, self.max_len(), impl)}
+            self.spec_progs[key] = prog
+        self._verify = prog
+
+    @hot_path
+    def spec_carry(self, live) -> dict:
+        """Every tensor the verify reads or writes: the burst buffers,
+        the live mask, the positions and the cache leaves."""
+        c = {"toks": self.spec_toks, "pos0": self.spec_pos0,
+             "rem": self.spec_rem, "block": self.spec_block,
+             "nlast": self.spec_nlast, "live": live, "pos": self.pos_dev}
+        c.update(self.data)
+        return c
+
+    @hot_path
+    def spec_snapshot(self, last):
+        """Pre-burst snapshot into the static buffers: the positions into
+        ``pos0`` and the engine's ``last`` tokens into lane 0 of ``toks``.
+        Returns ``pos0``, the burst's rollback token (positions only: on
+        a KV pool the cursor rewind is the whole rollback)."""
+        self.spec_pos0.copy_(self.pos_dev)
+        self.spec_toks[:, :1].copy_(last)
+        self._draft_lane = 0
+        return self.spec_pos0
+
+    def spec_restore(self, snap):
+        """Roll every slot back to the snapshot's positions, in place.
+        ``verify_step`` is the normal consumer of a snapshot (the
+        acceptance folds the rewind into the verify), so this is the
+        abort path and the protocol's testable rollback: stale draft rows
+        past the restored positions are masked by length and overwritten
+        by the next burst, and a paged pool touches its allocator zero
+        times (reference ``decode_state.py:773-786``)."""
+        self.pos_dev.copy_(snap)
+
+    @hot_path
+    def draft_step(self, last, live):
+        """One decode step under the draft policy over the decode carry
+        (its graph is the draft policy's decode-step graph). The token it
+        writes to ``out`` goes into the next lane of ``toks`` and into
+        ``last``, the next draft's input. Returns ``out``."""
+        self._draft_graph(self._draft, self.carry(last, live))
+        lane = self._draft_lane + 1
+        self.spec_toks[:, lane:lane + 1].copy_(self.out)
+        last.copy_(self.out)
+        self._draft_lane = lane
+        return self.out
+
+    @hot_path
+    def _draft(self, c):
+        self._step(c, self._draft_pol)
+
+    @hot_path
+    def verify_step(self, snap, live):
+        """One verify over the burst (the active policy's program, a
+        graph replay on the card) from the positions of ``snap``, the
+        token ``spec_snapshot`` returned (the static ``pos0`` the program
+        reads). Returns the static ``(block, nlast)``: the (pool, W)
+        accepted tokens, SPEC_PAD past each row's accepted length, and
+        the (pool, 1) next input. Positions and ``rem`` are advanced in
+        place."""
+        del snap                     # the carry's pos0
+        self._verify["graph"](self._verify["fn"], self.spec_carry(live))
+        return self.spec_block, self.spec_nlast
 
 
 class KVDecodeState(DecodeState):
@@ -455,6 +773,15 @@ class KVDecodeState(DecodeState):
         # a linear cache is exhausted when the next write would fall past
         # its last row
         return self.cache_s
+
+    def supports_speculative(self) -> bool:
+        # a linear, unsharded cache (reference decode_state.py:845-853):
+        # the verify program is unsharded, and the position-only rollback
+        # relies on rejected rows staying masked until overwritten
+        return self.shard is None
+
+    def _spec_mode(self) -> str:
+        return "kv"
 
 
 # --------------------------------------------------------------- paged pool
@@ -802,18 +1129,39 @@ class PagedKVDecodeState(KVDecodeState):
         return c
 
     @hot_path
-    def _logits(self, c):
+    def _logits(self, c, policy=None):
+        policy = self.policy if policy is None else policy
         cache = {"k": c["k"], "v": c["v"]}
         if self.shard is None:
             logits, _ = transformer.decode_step_paged(
                 self.params, self.cfg, c["last"], cache, c["tables"],
-                c["pos"], policy=self.policy, live=c["live"])
+                c["pos"], policy=policy, live=c["live"])
         else:
             logits, _ = transformer.decode_step_paged_sharded(
                 self.params, self.cfg, c["last"], cache, c["tables"],
-                c["pos"], policy=self.policy, shard=self.shard,
+                c["pos"], policy=policy, shard=self.shard,
                 live=c["live"])
         return logits
+
+    # ------------------------------------------------- speculative decoding
+
+    def supports_speculative(self) -> bool:
+        # the preconditions of per-slot chunk admission (reference
+        # decode_state.py:1509-1512): the verify writes through the device
+        # tables, whose ids are this rank's only on an unsharded pool
+        return self.supports_chunked()
+
+    def _spec_mode(self) -> str:
+        return "kv_paged"
+
+    @hot_path
+    def spec_carry(self, live) -> dict:
+        # the tables are read only, and a rollback frees no page: every
+        # slot holds its full reservation from admission (prefill_into,
+        # begin_chunk), accepted prefix included
+        c = super().spec_carry(live)
+        c["tables"] = self.tables
+        return c
 
     # ---------------------------------------------------- chunked prefill
 

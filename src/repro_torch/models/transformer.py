@@ -273,11 +273,20 @@ def _chunk_logits(params, cfg, x, clens):
     return _logits(params, cfg, xl)
 
 
-def _chunk_layers(params, cfg, tokens, lanes, layer_attn):
+def _chunk_all_logits(params, cfg, x):
+    """(B, C, V) logits of every lane (port of the reference's
+    ``_chunk_all_logits``, ``transformer.py:566``): the speculative
+    verify scores all of a burst's candidates from one chunk pass. Lanes
+    at or past a row's valid count are garbage the caller masks."""
+    return _final_logits(params, cfg, x)
+
+
+def _chunk_layers(params, cfg, tokens, lanes, layer_attn, all_lanes=False):
     """The chunk program's layer loop over ``lanes`` (``_chunk_lanes``):
     ``layer_attn(i, q, k, v)`` lands the chunk's K/V in layer i's cache
     and returns its attention output (B, C, H, hd). Returns the
-    last-valid-lane logits (B, 1, V)."""
+    last-valid-lane logits (B, 1, V), or with ``all_lanes`` every lane's
+    (B, C, V)."""
     pos, _, off, kv_len = lanes
     x = embed_inputs(params, cfg, tokens)
     for i, blk in enumerate(params.layers):
@@ -285,11 +294,14 @@ def _chunk_layers(params, cfg, tokens, lanes, layer_attn):
         q, k, v = _qkv(h, blk.attn, cfg, pos)
         o = layer_attn(i, q, k, v)
         x = _finish_block(x, o.flatten(2) @ blk.attn.wo, blk, cfg)
+    if all_lanes:
+        return _chunk_all_logits(params, cfg, x)
     return _chunk_logits(params, cfg, x, kv_len - off)
 
 
 @hot_path
-def prefill_chunk(params, cfg, tokens, cache, off, clens, *, policy):
+def prefill_chunk(params, cfg, tokens, cache, off, clens, *, policy,
+                  all_lanes=False):
     """Resumable prefill (port of the reference's ``prefill_chunk``,
     ``transformer.py:579``): advance every row of the pool's contiguous
     ``cache`` by one chunk, written in place.
@@ -303,7 +315,9 @@ def prefill_chunk(params, cfg, tokens, cache, off, clens, *, policy):
     off + clens``: on the ``cuda`` tier one FlashAttention launch per
     layer with a (B,) offset tensor. Returns (logits (B, 1, V) at each
     row's last valid lane, meaningful where the prompt completes with
-    this chunk, and the cache)."""
+    this chunk, and the cache). ``all_lanes=True`` (the speculative
+    verify) returns (B, C, V) logits of every lane instead; lanes at or
+    past a row's ``clens`` are garbage the caller masks."""
     lay = cfg.kv_cache_layout
     lanes = _chunk_lanes(off, clens, tokens.shape[1], tokens.device)
     pos, ok, off, kv_len = lanes
@@ -317,7 +331,8 @@ def prefill_chunk(params, cfg, tokens, cache, off, clens, *, policy):
         return attention(q, ck, cv, causal=True, kv_len=kv_len,
                          q_offset=off, policy=policy)
 
-    return _chunk_layers(params, cfg, tokens, lanes, layer_attn), cache
+    return _chunk_layers(params, cfg, tokens, lanes, layer_attn,
+                         all_lanes), cache
 
 
 def _write_token_kv(cache, kv, pos, ok, layout, offset=0):
@@ -535,7 +550,7 @@ def _write_chunk_kv_paged(pool, kv, gids, offs, ok, layout):
 
 @hot_path
 def prefill_chunk_paged(params, cfg, tokens, cache, tables, off, clens, *,
-                        policy):
+                        policy, all_lanes=False):
     """``prefill_chunk`` over a paged pool (port of the reference's
     ``prefill_chunk_paged``, ``transformer.py:949``): each row's chunk
     K/V scatter into its reserved pages through ``tables`` (B, nS) at its
@@ -543,7 +558,8 @@ def prefill_chunk_paged(params, cfg, tokens, cache, tables, off, clens, *,
     prefix pages, attached at admission, included) and its queries
     attend causally over them (``q_offset=off``, ``kv_len = off +
     clens``). Rows with ``clens == 0`` write nothing. The pool is
-    written in place and returned with the (B, 1, V) logits."""
+    written in place and returned with the (B, 1, V) logits (every
+    lane's (B, C, V) with ``all_lanes``)."""
     from repro_torch.kernels.decode_attention import paged_gather
     lay = cfg.kv_cache_layout
     page = cache["k"].shape[3 if lay == "bhsd" else 2]
@@ -565,7 +581,8 @@ def prefill_chunk_paged(params, cfg, tokens, cache, tables, off, clens, *,
         return attention(q, kk, vv, causal=True, kv_len=kv_len,
                          q_offset=off, policy=policy)
 
-    return _chunk_layers(params, cfg, tokens, lanes, layer_attn), cache
+    return _chunk_layers(params, cfg, tokens, lanes, layer_attn,
+                         all_lanes), cache
 
 
 @hot_path

@@ -43,8 +43,12 @@ _ENV_FIELDS = {
     "MERGE_STRATEGY": "merge_strategy",
     "PREFILL_CHUNK": "prefill_chunk",
     "DEGRADE_EXP_BACKEND": "degrade_exp_backend",
+    "SPEC_K": "spec_k",
+    "DRAFT_EXP_BACKEND": "draft_exp_backend",
+    "SPEC_VERIFY": "spec_verify",
 }
 _INT_FIELDS = ("block_k", "block_s", "block_page")   # positive ints
+SPEC_VERIFY_IMPLS = ("scan", "chunk")
 
 
 @dataclass(frozen=True)
@@ -78,6 +82,19 @@ class ExecPolicy:
                     ``degrade_groups`` drops to on the degradation
                     ladder's second rung (sustained pool pressure); the
                     group's own backend comes back when pressure clears.
+    spec_k          self-speculative decode: 0 is plain one-token decode;
+                    an int >= 2 is the draft burst length (``spec_k``
+                    draft steps, then one verify of ``spec_k + 1`` lanes
+                    under this policy).
+    draft_exp_backend
+                    the exp backend the draft steps run under (default
+                    ``vexp_hw``, the model of the proposed BF16 block);
+                    every emitted token is still this policy's argmax.
+    spec_verify     "scan": the verify is ``spec_k + 1`` decode steps of
+                    this policy, token-identical to plain decode by
+                    construction; "chunk": one all-lanes chunk program
+                    (the FlashAttention kernel at ``spec_k + 1`` queries),
+                    whose tokens may break near ties differently.
     """
 
     exp_backend: str = "vexp"
@@ -89,6 +106,9 @@ class ExecPolicy:
     merge_strategy: str = "packed"
     prefill_chunk: int = 0
     degrade_exp_backend: str = "vexp_hw"
+    spec_k: int = 0
+    draft_exp_backend: str = "vexp_hw"
+    spec_verify: str = "scan"
 
     def __post_init__(self):
         kb = BACKEND_ALIASES.get(self.kernel_backend, self.kernel_backend)
@@ -119,6 +139,21 @@ class ExecPolicy:
         if not (isinstance(pc, int) and pc >= 0):
             raise ValueError(f"prefill_chunk must be an int >= 0 "
                              f"(0 = monolithic prefill), got {pc!r}")
+        if self.draft_exp_backend not in EXP_BACKENDS:
+            raise ValueError(
+                f"draft_exp_backend {self.draft_exp_backend!r} not in "
+                f"{EXP_BACKENDS}")
+        sk = self.spec_k
+        if not (isinstance(sk, int) and sk >= 0) or sk == 1:
+            raise ValueError(
+                f"spec_k must be 0 (plain decode) or an int >= 2 "
+                f"(draft burst length), got {sk!r}")
+        if self.spec_verify not in SPEC_VERIFY_IMPLS:
+            raise ValueError(
+                f"spec_verify must be 'scan' (token-identical replay of "
+                f"the policy's decode steps) or 'chunk' (one batched "
+                f"all-lanes scoring pass; KV caches only), got "
+                f"{self.spec_verify!r}")
 
     def exp_fn(self):
         from repro_torch.core.vexp import get_exp_fn
@@ -133,11 +168,13 @@ class ExecPolicy:
                 f"p{self.block_page}) "
                 f"accum={self.accum_dtype} merge={self.merge_strategy} "
                 f"chunk={self.prefill_chunk} "
-                f"degrade={self.degrade_exp_backend}")
+                f"degrade={self.degrade_exp_backend} "
+                f"spec_k={self.spec_k} draft={self.draft_exp_backend} "
+                f"spec_verify={self.spec_verify}")
 
 
 def _parse(field: str, raw: str):
-    if field in _INT_FIELDS + ("prefill_chunk",):
+    if field in _INT_FIELDS + ("prefill_chunk", "spec_k"):
         try:
             return int(raw)
         except ValueError:

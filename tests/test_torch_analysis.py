@@ -160,6 +160,49 @@ def test_refcount_pairing_unguarded_slot_reserve(tmp_path):
     assert not run_rules([engine], rules=[RefcountRule()])[0]
 
 
+def test_refcount_pairing_unguarded_spec_snapshot(tmp_path):
+    """A ``spec_snapshot`` needs a rollback or recovery on its raise path,
+    in a loop or not (the reference's check): an unguarded burst and one
+    whose handler reaches no rollback are caught; a burst guarded by a
+    recovery, or by a finally that verifies, passes, and so does the
+    engine's own burst."""
+    path = _plant(tmp_path, "engine.py", """
+        class Group:
+            def burst_bad(self):
+                snap = self.state.spec_snapshot(self.last)
+                self.state.draft_step(self.last, self.live)
+                return self.state.verify_step(snap, self.live)
+            def burst_wrong_handler(self):
+                try:
+                    snap = self.state.spec_snapshot(self.last)
+                    return self.state.verify_step(snap, self.live)
+                except RuntimeError:
+                    self.log("failed")
+                    raise
+            def burst_recovered(self):
+                try:
+                    snap = self.state.spec_snapshot(self.last)
+                    return self.state.verify_step(snap, self.live)
+                except RuntimeError:
+                    self._recover_step_fault()
+            def burst_settled(self):
+                try:
+                    snap = self.state.spec_snapshot(self.last)
+                    self.state.draft_step(self.last, self.live)
+                finally:
+                    self.state.verify_step(snap, self.live)
+    """)
+    rule = RefcountRule(targets=("none.py",), slot_targets=("engine.py",))
+    fs, _ = run_rules([path], rules=[rule])
+    assert sorted((f.symbol, f.detail, f.severity) for f in fs) == [
+        ("Group.burst_bad", "unguarded-spec-snapshot", Severity.ERROR),
+        ("Group.burst_wrong_handler", "unguarded-spec-snapshot",
+         Severity.ERROR)]
+    engine = os.path.join(SRC, "repro_torch", "launch", "serve.py")
+    assert "spec_snapshot" in open(engine).read()
+    assert not run_rules([engine], rules=[RefcountRule()])[0]
+
+
 def test_capture_hazard(tmp_path):
     path = _plant(tmp_path, "hazard.py", """
         import functools
