@@ -23,8 +23,15 @@ one card (gloo, host-staged collectives), then self-speculatively on both
 pools (spec_k = 4, drafts under vexp_hw, verify "scan" and "chunk",
 each burst k draft-step replays and one verify replay; scan tokens held
 to the plain serves' request by request, chunk tokens up to a near
-tie, the hw group's own-backend drafts as a control), and checks what
-comes out.
+tie, the hw group's own-backend drafts as a control), then serves
+full-width mamba2-1.3b (the ssm family, attention-free, every gate exp
+one launch of the exp kernel) the same three ways: monolithic (graph and
+eager arms in turns, the capture audit, the decode step's graph ms per
+exp backend on the cuda and the reference tier, the gate exps held to
+their plain versions, cuda tier against reference tier and the SSD's two
+forms against each other over a teacher-forced replay), chunked (256)
+and self-speculative (k = 4, the recurrent scan verify; tokens held to
+the plain serve's), and checks what comes out.
 Every phase prints one JSON line; the first failure on any rank exits
 non-zero.
 The last two lines are the kernel table and the device line. Without a
@@ -34,6 +41,7 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -1755,7 +1763,7 @@ def near_tie_compare(cfg, params, groups, reqs, others, what, against):
     another way): equal, or diverging first at a step where the reference
     tier's top-2 logit gap is a near tie (<= 2 x REPLAY_LOGIT_TOL).
     Returns the counts; fails on a divergence that is not a near tie."""
-    from repro_torch.models import transformer
+    from repro_torch.models import api
     near_ties, same = [], 0
     for r, other in zip(reqs, others):
         diff = [i for i, (a, b) in enumerate(zip(r.out, other)) if a != b]
@@ -1764,9 +1772,10 @@ def near_tie_compare(cfg, params, groups, reqs, others, what, against):
             continue
         i = diff[0] if diff else min(len(r.out), len(other))
         seq = np.concatenate([r.prompt, np.asarray(other[:i], np.int32)])
-        lg, _ = transformer.prefill(
-            params, cfg, torch.as_tensor(seq[None], device="cuda"),
-            policy=groups[r.group].replace(kernel_backend="reference"))
+        lg, _ = api.prefill(
+            params, cfg, {"tokens": seq[None]},
+            policy=groups[r.group].replace(kernel_backend="reference"),
+            device="cuda")
         top = torch.topk(lg[0, 0], 2).values
         gap = float(top[0] - top[1])
         if gap > 2 * REPLAY_LOGIT_TOL:
@@ -2960,6 +2969,500 @@ def profile_serve(kernels, make_server, reqs, what):
             "top_kernels_s": {k[:80]: v / 1e6 for k, v in top}}
 
 
+# ----------------------------------------------------------- the ssm family
+
+SSM_ARCH = "mamba2-1.3b"
+# vexp kernel launches a layer: a decode step's gate exps (two SiLUs, the
+# softplus, exp(A_log), the decay: models/ssm.py ssm_layer_decode), and a
+# prefill wave's or chunk's (those five, the intra-chunk decays, the
+# chunk-state decays and the inter-chunk decays: ssm_layer_apply)
+SSM_DECODE_EXPS = 5
+SSM_PREFILL_EXPS = 8
+# The SSD's two forms (teacher-forced decode steps against one forward
+# over prompt + tokens), full width: max |decode - forward| <=
+# SSM_FORM_LIMIT[exp] x max |logit|. Twice (the ratio
+# tests/test_torch_ssm.py allows the port against the JAX package) the
+# JAX package's own gap under this check's conditions: mamba2-1.3b's
+# widths, SSD block 256, prompts of 300 and 487 tokens (both cross a
+# block) and 64 forced steps, read at 8, 16 and 24 layers (0.0143 /
+# 0.0230 / 0.0295 of max |logit| under exact) and carried to 48 by the
+# power law those readings fit (tools/ssm_form_gap.py --width full
+# --layers 8 16 24 --extrapolate 48: 0.0469 / 0.0544 / 0.0587 under
+# exact / vexp / vexp_hw). The gap grows with depth as bf16 rounding
+# (and under the approximate exps, exp(a) exp(b) != exp(a + b)) moves
+# the two forms apart in every layer.
+SSM_FORM_LIMIT = {"exact": 0.0938, "vexp": 0.1087, "vexp_hw": 0.1174}
+SSM_GATE_SHAPES = {"decode_conv": (8, 1, 4352), "decode_heads": (8, 64),
+                   "prefill_decay": (8, 2, 64, 256, 256)}
+
+
+def ssm_setup():
+    """Full-width mamba2-1.3b with random weights from
+    ``torch.Generator("cuda").manual_seed(0)``, its default policy (the
+    cuda tier) and the three policy groups."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.runtime import parse_policy_groups, resolve_policy
+    cfg = get_config(SSM_ARCH)
+    params = api.init_params(cfg, 0, device="cuda")
+    policy = resolve_policy(cfg, env={})
+    if policy.kernel_backend != "cuda":
+        fail(f"ssm: default tier is {policy.kernel_backend}, not cuda")
+    groups = parse_policy_groups("eval=exact,bulk=vexp,hw=vexp_hw", cfg,
+                                 base=policy)
+    return cfg, params, policy, groups
+
+
+def ssm_requests(cfg, groups, n=16, max_new=64, seed=0):
+    from repro_torch.launch.serve import make_requests
+    return make_requests(cfg, n, 512, max_new, mixed_lengths=True,
+                         min_len=32, groups=sorted(groups), seed=seed)
+
+
+def ssm_server(cfg, params, policy, groups, cuda_graphs=True):
+    from repro_torch.launch.serve import Server
+    return Server(cfg, params, max_batch=8, max_seq=1024, policy=policy,
+                  policy_groups=groups, device="cuda",
+                  cuda_graphs=cuda_graphs)
+
+
+def check_ssm_serve(cfg, st, before, counts, replayed, sdpa_calls, arm,
+                    spec_k, what):
+    """An ssm serve's launches and graphs. vexp launches = layers x (5 a
+    decode step, 5 (k + 2W) a burst of k drafts and a two-scan verify of
+    W = k + 1 steps each, 8 a prefill wave or chunk); no other kernel
+    (no attention), no SDPA call. Graph arm: every decode step, burst and
+    chunk a replay of a graph captured when the group was built (the
+    captures of ``before``), replayed vexp launches = all but the waves';
+    eager arm: no capture, no replay. Returns (waves, chunks, steps)."""
+    n = cfg.n_layers
+    waves = sum(s["admit_waves"] for s in st.values())
+    chunks = sum(s["prefill_chunks"] for s in st.values())
+    steps = sum(s["decode_steps"] for s in st.values())
+    per_step = SSM_DECODE_EXPS * ((3 * spec_k + 2) if spec_k else 1)
+    want = n * (per_step * steps + SSM_PREFILL_EXPS * (waves + chunks))
+    if counts["vexp"] != want:
+        fail(f"{what}: vexp launches {counts['vexp']} != {n} layers x "
+             f"({per_step} x {steps} steps + {SSM_PREFILL_EXPS} x "
+             f"({waves} waves + {chunks} chunks)) = {want}")
+    other = {k: v for k, v in counts.items()
+             if k not in ("vexp", "vexp_hw_table") and v}
+    if other or sdpa_calls:
+        fail(f"{what}: launched {other}, {sdpa_calls} SDPA calls")
+    want_rep = (n * (per_step * steps + SSM_PREFILL_EXPS * chunks)
+                if arm == "graph" else 0)
+    if replayed["vexp"] != want_rep:
+        fail(f"{what}: {replayed['vexp']} replayed vexp launches != "
+             f"{want_rep}")
+    for g, s in st.items():
+        caps = (s["graph_captures"], s["chunk_graph_captures"],
+                s.get("spec_graph_captures", 0))
+        reps = (s["graph_replays"], s["chunk_graph_replays"],
+                s.get("spec_graph_replays", 0))
+        if arm == "eager":
+            if any(caps) or any(reps):
+                fail(f"{what} group {g} (eager): captures {caps}, replays "
+                     f"{reps}")
+            continue
+        b = before[g]
+        built = (b["graph_captures"], b["chunk_graph_captures"],
+                 b.get("spec_graph_captures", 0))
+        k = spec_k if "spec_k" in s else 0
+        want_reps = ((k or 1) * s["decode_steps"], s["prefill_chunks"],
+                     s["decode_steps"] if k else 0)
+        if s["step_mode"] != "graph" or caps != built or caps[0] < 1 or \
+                caps[1] != (1 if s["prefill_chunk"] else 0) or \
+                caps[2] != (1 if k else 0) or reps != want_reps:
+            fail(f"{what} group {g}: {s['step_mode']}, captures {caps} "
+                 f"(built with {built}), replays {reps} (want {want_reps})")
+    return waves, chunks, steps
+
+
+def ssm_serve_once(kernels, cfg, make_server, make_reqs, arm, spec_k, what):
+    """One serve with the launch counts set to 0 just before it and read
+    just after, checked. Returns the turn: the server, requests, stats,
+    counts and readings."""
+    srv = make_server(arm == "graph")
+    before = srv.stats()
+    reqs = make_reqs()
+    secs, counts, sdpa_calls, peak, clocks = timed_serve(kernels, srv, reqs)
+    replayed = kernels.replay_counts()
+    st = srv.stats()
+    check_requests(cfg, reqs, reqs[0].max_new)
+    waves, chunks, steps = check_ssm_serve(cfg, st, before, counts, replayed,
+                                           sdpa_calls, arm, spec_k, what)
+    some = next(iter(st.values()))
+    readings = {**serve_metrics(reqs, secs),
+                "wall_per_decode_step_s": some["wall_per_decode_step_s"],
+                "admit_waves": waves, "prefill_chunks": chunks,
+                "decode_steps": steps,
+                "admit_s_total": sum(s["admit_s_total"] for s in st.values()),
+                "capture_s": sum(s["graph_capture_s"]
+                                 + s["chunk_graph_capture_s"]
+                                 + s.get("spec_graph_capture_s", 0.0)
+                                 for s in st.values()),
+                "vexp_launches": counts["vexp"],
+                "vexp_replayed": replayed["vexp"],
+                "peak_memory_bytes": peak, "clocks_power": clocks}
+    return {"srv": srv, "reqs": reqs, "stats": st, "counts": counts,
+            "readings": readings, "secs": secs, "peak": peak,
+            "clocks": clocks}
+
+
+def ssm_live_server(make_server, reqs):
+    """A server of ``make_server`` with ``reqs`` submitted and three ticks
+    run: the first wave admitted and decoding."""
+    srv = make_server()
+    for r in reqs:
+        srv.submit(r)
+    for _ in range(3):
+        srv.step()
+    return srv
+
+
+def ssm_step_readings(srv):
+    """Per busy group of ``srv``: the graph ms of one decode step
+    replayed back to back on its live pool (CUDA events; the state
+    advances, positions do not matter to a recurrence), the vexp
+    launches a replay holds, and the device kernels of one step from a
+    profile window of one replay (the reference tier's step is ~25,000
+    kernels, whose events the profiler takes seconds to gather)."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for name, g in srv._groups.items():
+        if not g.busy:
+            continue
+        graph = g.state.graph
+        ms = cuda_time_ms(graph.graph.replay, iters=10)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        kern = [e for e in dev if "memcpy" not in e.name.lower()
+                and "memset" not in e.name.lower()]
+        out[name] = {"policy": g.policy.describe(), "graph_ms": ms,
+                     "live_slots": int(g.live_dev.sum()),
+                     "vexp_launches_per_step": graph.launches.get("vexp", 0),
+                     "device_events_per_step": len(dev),
+                     "kernels_per_step": len(kern),
+                     "device_busy_ms_per_step": sum(
+                         e.time_range.elapsed_us() for e in dev) / 1e3}
+    torch.cuda.synchronize()
+    return out
+
+
+class GateCheck:
+    """While active, every vexp kernel launch (``kernels.vexp.vexp``, as
+    the gates reach it through ``exp_callable``) is held against the plain
+    version on the same input: bitwise under vexp and vexp_hw, within 2
+    ulp under exact (the vexp phase's rule); the worst distance and the
+    non-finite mismatches accumulate on the card over every time it is
+    active and are read on each exit. Launches made here to check do not
+    enter any serve's count."""
+
+    def __init__(self):
+        from repro_torch.kernels import vexp as mod
+        self.mod, self.calls, self.worst, self.odd = mod, {}, {}, {}
+        self.max_ulp = {}
+
+    def __enter__(self):
+        self.orig = self.mod.vexp
+        self.mod.vexp = self.checked
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.vexp = self.orig
+        if exc[0] is not None:
+            return False
+        self.max_ulp = {b: int(t) for b, t in self.worst.items()}
+        for b, ulp in self.max_ulp.items():
+            odd, limit = int(self.odd[b]), (2 if b == "exact" else 0)
+            if ulp > limit or odd:
+                fail(f"ssm gate exps ({b}): the kernel is {ulp} ulp from "
+                     f"the plain version ({odd} non-finite mismatches; "
+                     f"limit {limit})")
+        return False
+
+    def checked(self, x, *, policy):
+        y = self.orig(x, policy=policy)
+        ref = self.mod.vexp_plain(x, policy.exp_backend)
+        both = torch.isfinite(y) & torch.isfinite(ref)
+        ulp = torch.where(both, f32_ulp_distance(y, ref), 0).max()
+        odd = (~nan_aware_equal(y, ref) & ~both).sum()
+        b = policy.exp_backend
+        self.calls[b] = self.calls.get(b, 0) + 1
+        self.worst[b] = torch.maximum(self.worst[b], ulp) \
+            if b in self.worst else ulp
+        self.odd[b] = self.odd[b] + odd if b in self.odd else odd
+        return y
+
+
+def ssm_replay_logits(cfg, params, reqs, policy, steps, gates=None,
+                      checked=0):
+    """Teacher-forced logits of ``reqs`` under ``policy``: one ragged
+    prefill, then one decode step per emitted token (the recurrence).
+    Returns ``steps`` (B, V) f32 logits. With ``gates`` (a GateCheck), the
+    prefill and the decode steps that give the first ``checked`` logits
+    run under it."""
+    from repro_torch.models import ssm
+    plen = np.array([len(r.prompt) for r in reqs], np.int32)
+    toks = np.zeros((len(reqs), int(plen.max())), np.int32)
+    for i, r in enumerate(reqs):
+        toks[i, :plen[i]] = r.prompt
+
+    def advance(out, state, upto):
+        while len(out) < upto:
+            t = len(out) - 1
+            tok = torch.as_tensor([[r.out[t]] for r in reqs],
+                                  dtype=torch.int32, device="cuda")
+            logits, state = ssm.decode_step(params, cfg, tok, state, None,
+                                            policy=policy)
+            out.append(logits[:, 0])
+        return state
+
+    with gates if gates is not None else contextlib.nullcontext():
+        logits, state = ssm.prefill(
+            params, cfg, torch.as_tensor(toks, device="cuda"),
+            prompt_len=torch.as_tensor(plen, device="cuda"), policy=policy)
+        out = [logits[:, 0]]
+        state = advance(out, state, checked)
+    advance(out, state, steps)
+    return out
+
+
+def ssm_forward_logits(cfg, params, reqs, policy):
+    """The same logits from one ``forward`` (the chunked scan) over each
+    request's prompt + its tokens: (steps, B, V)."""
+    from repro_torch.models import ssm
+    rows = []
+    for r in reqs:
+        seq = np.concatenate([r.prompt, np.asarray(r.out[:-1], np.int32)])
+        h = ssm.forward(params, cfg, torch.as_tensor(seq[None],
+                                                     device="cuda"),
+                        policy=policy)
+        rows.append(ssm._logits(params, cfg, h)[0, len(r.prompt) - 1:])
+    return torch.stack(rows, dim=1)
+
+
+SSM_TIER_STEPS = 16            # tokens of the tier check
+SSM_GATE_SERVE_NEW = 4         # new tokens of the gate-checked serve
+
+
+def ssm_gate_serve(cfg, params, policy, groups, gates):
+    """The serve's own gate shapes held to their plain versions: one
+    eager serve at max_batch 8 of the serve_ssm requests, cut to
+    SSM_GATE_SERVE_NEW new tokens (admission waves bucketed as the
+    serve's, decode steps over the pool of 8), every vexp launch under
+    ``gates``. Returns the gate exps checked, per backend."""
+    reqs = ssm_requests(cfg, groups, max_new=SSM_GATE_SERVE_NEW)
+    srv = ssm_server(cfg, params, policy, groups, cuda_graphs=False)
+    with gates:
+        srv.run(reqs)
+    check_requests(cfg, reqs, SSM_GATE_SERVE_NEW)
+    return dict(gates.calls)
+
+
+def ssm_replays(cfg, params, groups, reqs, gates):
+    """For 2 served requests per group, one teacher-forced replay on the
+    cuda tier over all their tokens, whose prefill and first
+    SSM_TIER_STEPS steps run under ``gates`` (every gate exp held to its
+    plain version): its first SSM_TIER_STEPS logits against the reference
+    tier's (check_replay, limit REPLAY_LOGIT_TOL), and all of them
+    against one forward over the same tokens (the SSD's two forms, limit
+    SSM_FORM_LIMIT x max |logit|)."""
+    tiers, forms = {}, {}
+    for name, pol in groups.items():
+        two = [r for r in reqs if r.group == name][:2]
+        dec = ssm_replay_logits(cfg, params, two, pol, len(two[0].out),
+                                gates, SSM_TIER_STEPS)
+        ref = ssm_replay_logits(cfg, params, two,
+                                pol.replace(kernel_backend="reference"),
+                                SSM_TIER_STEPS)
+        tiers[name] = check_replay(f"ssm {name}", two,
+                                   dec[:SSM_TIER_STEPS], ref)
+        dec = torch.stack(dec)
+        full = ssm_forward_logits(cfg, params, two, pol)
+        gap = float((dec - full).abs().max())
+        top = float(full[..., :cfg.vocab].abs().max())
+        limit = SSM_FORM_LIMIT[pol.exp_backend]
+        if not bool(torch.isfinite(full).all()) or gap > limit * top:
+            fail(f"ssm {name}: decode vs forward logits differ by {gap} "
+                 f"(limit {limit} x max |logit| {top})")
+        forms[name] = {"max_abs_gap": gap, "max_abs_logit": top,
+                       "relative": gap / top}
+    return {"tier_max_abs_logit_diff": tiers, "forms": forms}
+
+
+def ssm_gate_timing(policy):
+    """The vexp kernel at the gate shapes of the SSM path, per backend
+    (f32): graph ms beside torch.exp's and the plain version's, and the
+    byte bound (8 bytes an element)."""
+    from repro_torch.kernels.vexp import vexp, vexp_plain
+    out = {}
+    for label, shape in SSM_GATE_SHAPES.items():
+        x = -torch.rand(shape, device="cuda") * 8
+        nbytes = 8 * x.numel()
+        b_ms, b_by = bound_ms(nbytes, 0, F32_FLOP_PER_S)
+        row = {"shape": list(shape), "bound_ms": b_ms, "bound_by": b_by,
+               "library_graph_ms": graph_ms(lambda: torch.exp(x),
+                                            f"torch.exp {label}")}
+        for exp in EXP_BACKENDS:
+            pol = policy.replace(exp_backend=exp)
+            row[exp] = {"graph_ms": graph_ms(lambda: vexp(x, policy=pol),
+                                             f"vexp {exp} {label}"),
+                        "plain_graph_ms": graph_ms(
+                            lambda: vexp_plain(x, exp), f"plain {label}")}
+        out[label] = row
+    return out
+
+
+def phase_serve_ssm(kernels, smi, cfg, params, policy, groups):
+    """Full-width mamba2-1.3b through the port's Server: max_batch 8,
+    max_seq 1,024, 16 requests with prompts in [32, 512] (seed 0), 64 new
+    tokens, groups eval=exact, bulk=vexp, hw=vexp_hw; the graph and eager
+    arms in turns (graph, eager, graph, eager), then the capture audit,
+    the decode step's graph ms per group on the cuda and the reference
+    tier with its kernels from a profile window, the gate exps against
+    their plain versions (over a short eager serve at the serve's shapes
+    and the replays), the replays (cuda tier against reference tier, the
+    two SSD forms) and the vexp kernel at the gate shapes. Returns
+    ({path: launch counts}, the first graph turn's requests)."""
+    from repro_torch.analysis import graph_audit
+
+    def server(cuda_graphs=True, grp=groups):
+        return ssm_server(cfg, params, policy, grp, cuda_graphs)
+
+    t0 = time.perf_counter()
+    for arm in ARMS:                     # warm-up, not measured
+        server(arm == "graph").run(ssm_requests(cfg, groups, 3, 4, seed=1))
+    torch.cuda.synchronize()
+    secs = {"warm_up": time.perf_counter() - t0}
+    runs = {arm: [] for arm in ARMS}
+    for _ in range(ARM_TURNS):
+        for arm in ARMS:
+            turn = ssm_serve_once(kernels, cfg, server,
+                                  lambda: ssm_requests(cfg, groups), arm, 0,
+                                  f"serve_ssm ({arm} arm)")
+            del turn["srv"]     # its pools would count in the next peak
+            runs[arm].append(turn)
+    compare = compare_arms(runs, "serve_ssm")
+    first = runs["graph"][0]
+    reqs = first["reqs"]
+    secs["turns"] = time.perf_counter() - t0 - sum(secs.values())
+
+    # the capture audit, then the decode step's graph ms on the cuda tier
+    # from the same server, and on the reference tier
+    live = ssm_requests(cfg, groups, max_new=8, seed=3)
+    srv = ssm_live_server(server, live)
+    audits = {}
+    for name, g in srv._groups.items():
+        if g.busy:
+            try:
+                audits[name] = graph_audit.capture_audit(g.state, g.last,
+                                                         g.live_dev)
+            except graph_audit.AuditError as e:
+                fail(f"serve_ssm capture audit, group {name}: {e}")
+    secs["capture_audit"] = time.perf_counter() - t0 - sum(secs.values())
+    steps = {"cuda": ssm_step_readings(srv)}
+    del srv
+    ref_groups = {n: p.replace(kernel_backend="reference")
+                  for n, p in groups.items()}
+    steps["reference"] = ssm_step_readings(ssm_live_server(
+        lambda: server(grp=ref_groups),
+        ssm_requests(cfg, groups, max_new=8, seed=3)))
+    secs["step_graph"] = time.perf_counter() - t0 - sum(secs.values())
+    for name, row in steps["cuda"].items():
+        want = cfg.n_layers * SSM_DECODE_EXPS
+        if row["vexp_launches_per_step"] != want:
+            fail(f"serve_ssm group {name}: {row['vexp_launches_per_step']} "
+                 f"vexp launches a step, want {want}")
+    gates = GateCheck()
+    checked = {"serve": ssm_gate_serve(cfg, params, policy, groups, gates)}
+    secs["gate_serve"] = time.perf_counter() - t0 - sum(secs.values())
+    replays = ssm_replays(cfg, params, groups, reqs, gates)
+    checked["serve_and_replays"] = dict(gates.calls)
+    secs["replays"] = time.perf_counter() - t0 - sum(secs.values())
+    timing = ssm_gate_timing(policy)
+    secs["gate_shapes"] = time.perf_counter() - t0 - sum(secs.values())
+    emit({"phase": "serve_ssm", "arch": cfg.arch_id,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "d_inner": cfg.d_inner, "ssm_heads": cfg.ssm_nheads,
+          "ssm_state": cfg.ssm_state, "ssm_chunk": cfg.ssm_chunk,
+          "vocab_padded": cfg.vocab_padded, "arm": "graph",
+          **first["readings"], "launches": first["counts"],
+          "prompt_lens": [len(r.prompt) for r in reqs],
+          "turns": {arm: [t["readings"] for t in runs[arm]] for arm in ARMS},
+          "graph_vs_eager_tokens": compare, "capture_audit": audits,
+          "step_graph": steps, **replays, "gate_exps_checked": checked,
+          "gate_exp_max_ulp": gates.max_ulp, "gate_shapes": timing,
+          "phase_seconds": secs, "nvidia_smi": smi})
+    return ({"serve_ssm": first["counts"],
+             "serve_ssm_eager": runs["eager"][0]["counts"]}, reqs)
+
+
+def phase_serve_ssm_chunked(kernels, smi, cfg, params, policy, groups,
+                            mono):
+    """The serve_ssm requests with chunked prefill (chunk 256, one SSD
+    block), graph arm: each group's chunk program a second graph built
+    with the group, every chunk a replay; tokens equal the monolithic
+    serve's (``mono``) up to a near tie."""
+    pol, grp = chunked_groups(policy, groups, 256)
+
+    def server(cuda_graphs=True):
+        return ssm_server(cfg, params, pol, grp, cuda_graphs)
+
+    turn = ssm_serve_once(kernels, cfg, server,
+                          lambda: ssm_requests(cfg, groups), "graph", 0,
+                          "serve_ssm_chunked")
+    vs = near_tie_compare(cfg, params, groups, turn["reqs"],
+                          [r.out for r in mono], "chunked ssm request",
+                          "the monolithic serve's tokens")
+    emit({"phase": "serve_ssm_chunked", "chunk": 256, **turn["readings"],
+          "launches": turn["counts"], "vs_monolithic": vs,
+          "nvidia_smi": smi})
+    return {"serve_ssm_chunked": turn["counts"]}
+
+
+def phase_serve_ssm_spec(kernels, smi, cfg, params, policy, groups, mono):
+    """The serve_ssm requests under self-speculative decode (spec_k 4,
+    drafts under vexp_hw, the "recurrent" scan verify), graph arm: every
+    burst k draft replays and one verify replay; tokens equal the plain
+    serve's (``mono``) request by request; the hw group's own-backend
+    drafts all accepted; graph ms of a draft step, a verify and a plain
+    step."""
+    grp = spec_policy_groups(groups, "scan")
+
+    def server(cuda_graphs=True):
+        return ssm_server(cfg, params, policy, grp, cuda_graphs)
+
+    server().run(ssm_requests(cfg, groups, 3, 8, seed=1))    # warm-up
+    torch.cuda.synchronize()
+    turn = ssm_serve_once(kernels, cfg, server,
+                          lambda: ssm_requests(cfg, groups), "graph",
+                          SPEC_K, "serve_ssm_spec")
+    for r, want in zip(turn["reqs"], mono):
+        if list(r.out) != list(want.out):
+            i = next((i for i, (a, b) in enumerate(zip(r.out, want.out))
+                      if a != b), min(len(r.out), len(want.out)))
+            fail(f"serve_ssm_spec: request {r.rid} ({r.group}) leaves the "
+                 f"plain serve's tokens at step {i}")
+    control = check_own_draft_control(cfg, turn["stats"], turn["reqs"], "hw",
+                                      "scan", "serve_ssm_spec")
+    emit({"phase": "serve_ssm_spec", "spec_k": SPEC_K, "draft": "vexp_hw",
+          "verify": "recurrent scan",
+          **spec_readings(turn["reqs"], turn["stats"], turn["secs"],
+                          turn["peak"], turn["clocks"]),
+          "serve": turn["readings"], "launches": turn["counts"],
+          "spec_equals_plain": {"requests": len(mono), "identical": True},
+          "own_draft_control": control,
+          "graph_ms_eval": spec_graph_ms(lambda: turn["srv"],
+                                         ssm_requests(cfg, groups)[:8],
+                                         "eval"),
+          "nvidia_smi": smi})
+    return {"serve_ssm_spec": turn["counts"]}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -2998,6 +3501,15 @@ def main():
                                           groups, paged_reqs))
     by_path.update(phase_serve_sharded(kernels, smi, cfg, params, policy,
                                        groups, paged_reqs))
+    del params
+    cfg, params, policy, groups = ssm_setup()
+    ssm_counts, ssm_mono = phase_serve_ssm(kernels, smi, cfg, params, policy,
+                                           groups)
+    by_path.update(ssm_counts)
+    by_path.update(phase_serve_ssm_chunked(kernels, smi, cfg, params, policy,
+                                           groups, ssm_mono))
+    by_path.update(phase_serve_ssm_spec(kernels, smi, cfg, params, policy,
+                                        groups, ssm_mono))
     for row, name in zip(rows, ("vexp", "softmax", "flash_attention",
                                 "decode_attention",
                                 "decode_attention_paged",

@@ -9,18 +9,20 @@ programs. Here the step is a CUDA graph over an in-place carry
   ``all_reduce`` MAX and two SUMs per layer ("split"): 12 or 36 a step
   at gpt2-small.
 * **in-place carry** (the donation counterpart): every carry tensor
-  (cache leaves, positions, block tables, input tokens, live mask, the
-  output buffer) has the same storage pointer after the step as before.
+  (the state leaves, KV ``k`` / ``v`` or recurrent ``h`` / ``conv``,
+  positions, block tables, input tokens, live mask, the output buffer)
+  has the same storage pointer after the step as before.
   A rebound carry tensor leaves a captured graph reading the old one.
 * **carry stability**: the carry keeps its names, shapes, dtypes and
   devices across the step.
 * **burst buffers** (speculative decode): the decode carry and the
-  burst buffers (``pos0``, ``toks``, ``rem``, ``block``, ``nlast``) keep
-  their storage across a burst, as the decode carry does across a step:
-  the draft steps and the verify are replays over them.
+  burst buffers (``pos0``, ``toks``, ``rem``, ``block``, ``nlast``, and a
+  recurrent state's snapshot ``snap_h`` / ``snap_conv``) keep their
+  storage across a burst, as the decode carry does across a step: the
+  draft steps and the verify are replays over them.
 * **capture audit** (on the card only): the group's step was captured,
-  and replaying it from a carry gives the same tokens and positions as
-  the eager step from the same carry.
+  and replaying it from a carry gives the same tokens and positions (and
+  recurrent state) as the eager step from the same carry.
 
 The reference's output-sharding audit checks its sharded chunk-prefill
 program, which the port does not have yet.
@@ -169,10 +171,13 @@ def audit_burst(state, last, live, burst) -> dict:
 def capture_audit(state, last, live) -> dict:
     """On the card: ``state``'s step is a captured graph, and its replay
     from a carry gives the eager step's tokens and positions from the
-    same carry. Positions and tokens are put back afterwards; the cache
-    rows the two runs wrote at each live slot's position are the rows
-    the group's next step writes again from the same inputs. Returns the
-    readings; raises CaptureError on a difference."""
+    same carry. Positions, tokens and the state leaves without a
+    sequence axis (a recurrent state's ``h`` / ``conv``, which a step
+    advances in place) are put back before the replay and after it, and
+    those leaves are compared too; the KV rows the two runs wrote at each
+    live slot's position are the rows the group's next step writes again
+    from the same inputs. Returns the readings; raises CaptureError on a
+    difference."""
     if state.device.type != "cuda":
         raise ValueError("the capture audit needs the card: on the CPU "
                          "the step always runs eagerly")
@@ -182,7 +187,9 @@ def capture_audit(state, last, live) -> dict:
                            "eagerly, or has not stepped since its cache "
                            "was allocated")
     c = state.carry(last, live)
-    saved = {k: c[k].clone() for k in ("pos", "out")}
+    kept = ("pos", "out", *(n for n, ax in state.axes.items()
+                            if ax.seq is None))
+    saved = {k: c[k].clone() for k in kept}
     state._step(c)                               # eager
     eager = {k: c[k].clone() for k in saved}
     for k, t in saved.items():
@@ -202,4 +209,5 @@ def capture_audit(state, last, live) -> dict:
                            f"(token rows {rows.reshape(-1).tolist()})")
     return {"captures": graph.captures, "live_slots": int(live.sum()),
             "tokens_equal": True, "positions_equal": True,
+            "state_leaves_equal": sorted(set(kept) - {"pos", "out"}),
             "launches_per_replay": dict(graph.launches)}

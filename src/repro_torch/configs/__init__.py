@@ -1,9 +1,9 @@
 """Config registry of the port: only the architectures ported so far."""
 
 from .base import ModelConfig
-from . import gpt2_small
+from . import gpt2_small, mamba2_1_3b
 
-REGISTRY = {gpt2_small.CONFIG.arch_id: gpt2_small.CONFIG}
+REGISTRY = {c.arch_id: c for c in (gpt2_small.CONFIG, mamba2_1_3b.CONFIG)}
 
 
 def get_config(arch_id: str) -> ModelConfig:

@@ -1,10 +1,10 @@
 """Model configuration schema (the port's own copy).
 
 Mirrors ``repro/configs/base.py``'s ``ModelConfig`` for the fields the
-dense decoder path reads. The port keeps its own copy rather than
-importing the reference package, so it stays importable where JAX is
-absent. Fields of families not ported yet (MoE, hybrid, ssm, modality
-stubs) are left out until their slice lands.
+ported families read: the dense decoder and the ssm (Mamba-2) family.
+The port keeps its own copy rather than importing the reference package,
+so it stays importable where JAX is absent. Fields of families not ported
+yet (MoE, hybrid, modality stubs) are left out until their slice lands.
 
 Execution fields resolve into a ``runtime.ExecPolicy``: ``REPRO_*``
 environment variables and per-call overrides take precedence over them.
@@ -22,7 +22,7 @@ from dataclasses import dataclass, replace
 @dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                     # dense (the only family ported)
+    family: str                     # dense | ssm (the families ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -38,6 +38,13 @@ class ModelConfig:
     act: str = "swiglu"             # swiglu | gelu
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
+    conv_width: int = 4             # ssm: causal depthwise conv taps
+    # ssm (mamba2)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_chunk: int = 256            # SSD block: the chunked scan's unit
+    ssm_ngroups: int = 1
     # numerics / execution (see runtime.policy.resolve_policy)
     exp_impl: str = "vexp"          # the paper's knob: vexp | exact | vexp_hw
     kernel_backend: str = ""        # cuda | reference | eager; "" -> cuda
@@ -56,6 +63,14 @@ class ModelConfig:
         range are masked at the serving boundary."""
         return -(-self.vocab // 256) * 256
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
     def reduced(self) -> "ModelConfig":
         """Tiny same-family config for CPU tests (the reference's
         ``reduced()`` restricted to the fields kept here)."""
@@ -69,4 +84,7 @@ class ModelConfig:
             head_dim=32,
             d_ff=256 if self.d_ff else 0,
             vocab=512,
+            ssm_headdim=32 if self.ssm_state else 64,
+            ssm_state=min(self.ssm_state, 32),
+            ssm_chunk=16,
         )

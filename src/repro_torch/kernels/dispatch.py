@@ -18,10 +18,17 @@ policy's kernel tier selects:
 Every callable takes the op's tensors and keywords plus ``policy=``. There
 is no autotune and no fallback: an unregistered (op, tier) raises, and a
 ``cuda``-tier wrapper given a CUDA tensor launches its kernel or raises.
+
+``exp_callable(policy)`` is the one resolution rule of the
+model-internal gate exponentials (the SSD's decays, softplus and SiLU
+gates): the vexp op's kernel under the ``cuda`` tier (one launch a gate
+exp on a CUDA tensor, its plain version on a CPU tensor), the plain exp
+function under ``reference`` and ``eager``.
 """
 
 from __future__ import annotations
 
+import functools
 import importlib
 from typing import Callable, Dict, Tuple
 
@@ -98,6 +105,27 @@ def dispatch(op: str, policy) -> Callable:
         raise ValueError(f"no implementation registered for op={op!r} "
                          f"backend={policy.kernel_backend!r}") from None
     return _load(target)
+
+
+def exp_callable(policy) -> Callable:
+    """Elementwise exp of the model-internal gates under ``policy``
+    (port of the reference's ``exp_callable``,
+    ``repro/kernels/dispatch.py:136-153``); ``policy.exp_backend`` picks
+    the function. The policy is required: with none, a gate on a CUDA
+    tensor would run the plain chain of torch ops and skip the kernel.
+    Under the ``cuda`` tier it is the vexp op's wrapper: one launch of
+    ``csrc/vexp.cu`` a call on a CUDA tensor (the counterpart of the one
+    fused XLA kernel a gate gets in the reference), the plain function on
+    a CPU tensor; a kernel that cannot build or launch raises. Under
+    ``reference`` / ``eager`` it is the plain function."""
+    if policy is None:
+        raise ValueError("exp_callable needs an ExecPolicy "
+                         "(runtime.resolve_policy)")
+    if policy.kernel_backend == "cuda":
+        from repro_torch.kernels.vexp import vexp
+        return functools.partial(vexp, policy=policy)
+    from repro_torch.core.vexp import get_exp_fn
+    return get_exp_fn(policy.exp_backend)
 
 
 # ------------------------------------------------ reference / eager tiers

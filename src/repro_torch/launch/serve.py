@@ -1,11 +1,17 @@
-"""Slot-level continuous-batching server (port of ``repro/launch/serve.py``,
-contiguous or paged KV cache, monolithic ragged admission).
+"""Slot-level continuous-batching server (port of ``repro/launch/serve.py``:
+the dense family on a contiguous or paged KV cache, the ssm family on its
+recurrent state).
 
-* A fixed pool of ``max_batch`` slots per policy group (a
-  ``KVDecodeState``, or with ``paged=True`` a ``PagedKVDecodeState``:
-  fixed-size KV pages behind per-slot block tables, a refcounted page
-  allocator and a shared-prefix page cache), allocated once at
-  ``max_seq``.
+* A fixed pool of ``max_batch`` slots per policy group, whose state class
+  ``models.decode_state.decode_state_for`` picks (a ``KVDecodeState``, or
+  with ``paged=True`` a ``PagedKVDecodeState``: fixed-size KV pages behind
+  per-slot block tables, a refcounted page allocator and a shared-prefix
+  page cache; for the ssm family a ``RecurrentDecodeState`` either way),
+  allocated once at ``max_seq``. The engine never asks for the family:
+  whether a group pages (``is_paged``), may shard its sequence axis
+  (``supports_seq_sharding``) and stops a slot at a length cap
+  (``max_len()``, None for recurrent state) are the state class's
+  answers.
 * Ragged admission: queued requests are right-padded to a pow2 length
   bucket, prefilled as one pool-width batch with per-request prompt
   lengths (on the ``cuda`` tier the FlashAttention kernel masks each row
@@ -158,16 +164,19 @@ class _Group:
     the device until a request finishes."""
 
     def __init__(self, cfg, params, policy, max_batch, cache_s, device, *,
-                 paged=False, block_budget=None, prefix_cache=True,
+                 state_cls, block_budget=None, prefix_cache=True,
                  comm=None, cuda_graphs=True, ladder=False,
                  degradable=False, spec_k=0):
         self.cfg, self.policy = cfg, policy
         self.max_batch, self.device = max_batch, device
-        self.paged = paged
+        # whether the state pages is the state class's (Server resolves
+        # it once): ``paged=True`` may resolve to a contiguous state
+        # (recurrent state is O(1) a slot, nothing to page)
+        self.paged = state_cls.is_paged
         self.comm = comm                # set: the cache is sequence-sharded
         kw = (dict(n_pages=block_budget, prefix_cache=prefix_cache)
-              if paged else {})
-        self.state = decode_state_for(cfg, paged=paged)(
+              if self.paged else {})
+        self.state = state_cls(
             cfg, params, policy, max_batch, cache_s, device=device,
             comm=comm, cuda_graphs=cuda_graphs, **kw)
         # chunk width: 0 keeps monolithic waves, because the policy asks
@@ -636,9 +645,12 @@ class _Group:
         tokens are copied once: into ``last`` (the next step's input) and
         into a per-step copy the finished request gathers."""
         cap = self.state.max_len()
-        for j in range(self.max_batch):
-            if self.reqs[j] is not None and self.lens[j] >= cap:
-                self._finish(j, "length_cap")
+        if cap is not None:
+            # a linear cache is exhausted when the next write would fall
+            # past its last row (recurrent state reports no cap)
+            for j in range(self.max_batch):
+                if self.reqs[j] is not None and self.lens[j] >= cap:
+                    self._finish(j, "length_cap")
         live = [j for j in range(self.max_batch) if self.reqs[j] is not None]
         if not live:
             return
@@ -721,8 +733,11 @@ class _Group:
             self._bursts[j] += 1
             self._toks[j].append(block)
             self.ntok[j] = min(self.ntok[j] + w, r.max_new)
-            self.lens[j] = min(self.lens[j] + w, cap)
-            if self.ntok[j] >= r.max_new or self.lens[j] >= cap:
+            self.lens[j] += w
+            if cap is not None:
+                self.lens[j] = min(self.lens[j], cap)
+            if self.ntok[j] >= r.max_new or \
+                    (cap is not None and self.lens[j] >= cap):
                 self._settle_slot(j)
 
     def _settle_slot(self, j):
@@ -738,9 +753,10 @@ class _Group:
         col = col[col != SPEC_PAD]
         n = len(col)
         pos = len(r.prompt) + n - 1          # cache rows the slot holds
+        cap = self.state.max_len()
         if (col < 0).any() or n >= r.max_new:
             self._finish(j, "max_new")
-        elif pos >= self.state.max_len():
+        elif cap is not None and pos >= cap:
             self._finish(j, "length_cap")
         else:
             self.ntok[j] = n
@@ -834,14 +850,19 @@ class Server:
             raise ValueError(f"unknown degrade group(s) {sorted(unknown)}; "
                              f"have {sorted(groups)}")
         spec = self._spec_plan(groups, spec_groups)
+        # sequence sharding is a capability of the state class (linear KV
+        # caches); any other state serves whole on every rank
+        state_cls = decode_state_for(cfg, paged=paged)
         self._groups = {}
         for name, pol in groups.items():
-            n = resolve_kv_shards(cfg, kv_mode, shards, self.cache_s,
-                                  page=pol.block_page if paged else None)
+            n = (resolve_kv_shards(cfg, kv_mode, shards, self.cache_s,
+                                   page=pol.block_page
+                                   if state_cls.is_paged else None)
+                 if state_cls.supports_seq_sharding(cfg) else 1)
             sharded = n > 1 and pol.kernel_backend == "cuda"
             self._groups[name] = _Group(
                 cfg, params, pol, max_batch, self.cache_s, self.device,
-                paged=paged, block_budget=block_budget,
+                state_cls=state_cls, block_budget=block_budget,
                 prefix_cache=prefix_cache,
                 comm=shards if sharded else None, cuda_graphs=cuda_graphs,
                 ladder=bool(degrade), degradable=name in degrade,

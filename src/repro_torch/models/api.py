@@ -3,6 +3,13 @@ far): init_params / forward / prefill (with an optional shared-prefix
 history) / prefill_chunk / init_cache / decode_step / init_paged_cache /
 prefill_chunk_paged / decode_step_paged.
 
+One family dispatch (``_mod``, the reference's ``api.py:24-30``) picks
+the module: ``models.ssm`` for the ssm family, ``models.transformer``
+for the dense one. The ssm family has no KV cache, so it refuses what
+needs one, with the reference's ``ValueError``s (``api.py:119-124,
+139-140, 175, 189-190``): no shared-prefix history, no paged cache or
+paged step, no all-lanes chunk scoring.
+
 Every entry runs on the card unless the caller passes ``device="cpu"``;
 with no card and no explicit device they raise. Inputs may be numpy
 arrays or tensors; they are placed on the resolved device. The params
@@ -14,7 +21,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.runtime import resolve_device, resolve_policy
-from . import transformer
+from . import ssm, transformer
+
+
+def _mod(cfg):
+    """The module implementing ``cfg``'s family."""
+    return ssm if cfg.family == "ssm" else transformer
 
 
 def _check_params(params, dev: torch.device):
@@ -31,16 +43,16 @@ def init_params(cfg, seed: int = 0, *, device=None):
     """Random weights from ``torch.Generator(device).manual_seed(seed)``."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
-    return transformer.init_params(cfg, g, dev)
+    return _mod(cfg).init_params(cfg, g, dev)
 
 
 def forward(params, cfg, batch, *, policy=None, device=None):
     """Final normed hidden states (B, S, D) of ``batch["tokens"]``."""
     dev = resolve_device(device)
     _check_params(params, dev)
-    return transformer.forward(params, cfg,
-                               torch.as_tensor(batch["tokens"], device=dev),
-                               policy=_policy(cfg, policy))
+    return _mod(cfg).forward(params, cfg,
+                             torch.as_tensor(batch["tokens"], device=dev),
+                             policy=_policy(cfg, policy))
 
 
 def prefill(params, cfg, batch, *, policy=None, device=None):
@@ -52,13 +64,17 @@ def prefill(params, cfg, batch, *, policy=None, device=None):
     _check_params(params, dev)
     plen = batch.get("prompt_len")
     hist = batch.get("hist")
-    return transformer.prefill(
+    kw = {}
+    if hist is not None:
+        if cfg.family == "ssm":
+            raise ValueError("ssm family has no KV history to continue")
+        kw["hist"] = {k: torch.as_tensor(v, device=dev)
+                      for k, v in hist.items()}
+    return _mod(cfg).prefill(
         params, cfg, torch.as_tensor(batch["tokens"], device=dev),
         prompt_len=None if plen is None else torch.as_tensor(plen,
                                                              device=dev),
-        policy=_policy(cfg, policy),
-        hist=None if hist is None else {k: torch.as_tensor(v, device=dev)
-                                        for k, v in hist.items()})
+        policy=_policy(cfg, policy), **kw)
 
 
 def prefill_chunk(params, cfg, tokens, cache, off, clens, *, policy=None,
@@ -68,13 +84,18 @@ def prefill_chunk(params, cfg, tokens, cache, off, clens, *, policy=None,
     its cursor ``off[b]`` (0 tokens: the row's cache stays bit for bit).
     The cache is written in place and returned with the (B, 1, V) logits
     of each row's last valid lane, or with ``all_lanes`` (the speculative
-    verify) the (B, C, V) logits of every lane."""
+    verify) the (B, C, V) logits of every lane. The ssm family carries
+    (h, conv) across chunks in place, ignores ``off`` and has no
+    all-lanes scoring."""
     dev = resolve_device(device)
     _check_params(params, dev)
-    return transformer.prefill_chunk(
+    if all_lanes and cfg.family == "ssm":
+        raise ValueError("ssm family has no all-lanes chunk scoring")
+    return _mod(cfg).prefill_chunk(
         params, cfg, torch.as_tensor(tokens, device=dev), cache,
         torch.as_tensor(off, device=dev), torch.as_tensor(clens, device=dev),
-        policy=_policy(cfg, policy), all_lanes=all_lanes)
+        policy=_policy(cfg, policy), **({"all_lanes": True} if all_lanes
+                                        else {}))
 
 
 def prefill_chunk_paged(params, cfg, tokens, cache, tables, off, clens, *,
@@ -82,6 +103,8 @@ def prefill_chunk_paged(params, cfg, tokens, cache, tables, off, clens, *,
     """``prefill_chunk`` over a paged pool through the (B, nS) block
     ``tables``; the pool is written in place and returned with the
     logits (every lane's with ``all_lanes``)."""
+    if cfg.family == "ssm":
+        raise ValueError("ssm family has no paged chunked prefill")
     dev = resolve_device(device)
     _check_params(params, dev)
     return transformer.prefill_chunk_paged(
@@ -92,8 +115,11 @@ def prefill_chunk_paged(params, cfg, tokens, cache, tables, off, clens, *,
 
 
 def init_cache(cfg, batch_size, seq_len, *, device=None):
-    return transformer.init_cache(cfg, batch_size, seq_len,
-                                  resolve_device(device))
+    """The decode state of ``batch_size`` rows: a KV cache of
+    ``seq_len`` positions, or the ssm family's (h, conv), whose size does
+    not depend on ``seq_len``."""
+    return _mod(cfg).init_cache(cfg, batch_size, seq_len,
+                                resolve_device(device))
 
 
 def decode_step(params, cfg, token, cache, pos, *, policy=None, live=None,
@@ -102,13 +128,16 @@ def decode_step(params, cfg, token, cache, pos, *, policy=None, live=None,
     place and returned with the logits."""
     dev = resolve_device(device)
     _check_params(params, dev)
-    return transformer.decode_step(
+    return _mod(cfg).decode_step(
         params, cfg, torch.as_tensor(token, device=dev), cache,
         torch.as_tensor(pos, device=dev), policy=_policy(cfg, policy),
         live=None if live is None else torch.as_tensor(live, device=dev))
 
 
 def init_paged_cache(cfg, n_pages, page, *, device=None):
+    if cfg.family == "ssm":
+        raise ValueError("recurrent state is O(1) per slot; nothing to "
+                         "page")
     return transformer.init_paged_cache(cfg, n_pages, page,
                                         resolve_device(device))
 
@@ -118,6 +147,8 @@ def decode_step_paged(params, cfg, token, cache, tables, pos, *,
     """One decode step over a paged pool through the (B, nS) block
     ``tables``; the pool is updated in place and returned with the
     logits."""
+    if cfg.family == "ssm":
+        raise ValueError("ssm family has no paged decode step")
     dev = resolve_device(device)
     _check_params(params, dev)
     return transformer.decode_step_paged(

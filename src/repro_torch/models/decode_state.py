@@ -1,10 +1,18 @@
-"""Per-slot serving state (port of ``repro/models/decode_state.py``,
-contiguous and paged KV caches).
+"""Per-slot serving state (port of ``repro/models/decode_state.py``:
+contiguous and paged KV caches, and the ssm family's recurrent state).
 
-A ``DecodeState`` owns one policy group's pool: the stacked KV cache
-(``data``), allocated once at pool width and capacity, and the per-slot
-device-side position vector (``pos_dev``). The engine talks to it only
-through ``prefill_into`` / ``step`` / ``reset_slots`` / ``max_len`` /
+A ``DecodeState`` owns one policy group's pool: the stacked decode state
+(``data``: a KV cache, or the ssm family's (h, conv)), allocated once at
+pool width, and the per-slot device-side position vector (``pos_dev``).
+The base class works on any state tree through its leaves' ``LeafAxes``
+(slot axis, optional sequence axis); a family subclass supplies the
+state (``_state_axes``, ``_new_cache``) and its programs (``_prefill``,
+``_logits``, ``_chunk_logits``): ``KVDecodeState`` and the paged
+``PagedKVDecodeState`` for the dense family, ``RecurrentDecodeState`` for
+the ssm family (no sequence axis, no length cap, the slot's rows zeroed
+when it is freed, since a recurrence reads them unconditionally). The
+engine talks to it only through ``prefill_into`` / ``step`` /
+``reset_slots`` / ``max_len`` /
 ``prefill_width`` / ``check_integrity``; paged states add the admission
 budget queries (``free_with_evictable`` / ``admission_need`` /
 ``admission_pin``) and ``pool_stats``. Positions advance on the device,
@@ -65,11 +73,15 @@ length m, the budget ``rem`` shrinks by m, and ``block`` / ``nlast``
 hold the emitted tokens (``SPEC_PAD`` past m) and the next input. The
 verify is "scan" (W decode steps of the policy at the plain step's
 shape, token-identical to plain decode by construction) or "chunk" (one
-all-lanes chunk program at width W on the FlashAttention kernel). The
-cursor rewind is the whole rollback: rejected rows past the new
-position are masked by length and overwritten by the next burst, and a
-paged pool touches its allocator zero times (every slot holds its full
-reservation from admission).
+all-lanes chunk program at width W on the FlashAttention kernel). On a
+KV pool the cursor rewind is the whole rollback: rejected rows past the
+new position are masked by length and overwritten by the next burst,
+and a paged pool touches its allocator zero times (every slot holds its
+full reservation from admission). A recurrent state has no positions to
+rewind: ``spec_snapshot`` also copies the state into a static snapshot
+buffer, and its "recurrent" verify runs two scans of W decode steps from
+it, the first to score every lane, the second to replay exactly the
+accepted tokens.
 """
 
 from __future__ import annotations
@@ -79,7 +91,7 @@ import torch
 
 from repro_torch.analysis.registry import hot_path
 from repro_torch.runtime.graphs import StepGraph
-from . import transformer
+from . import ssm, transformer
 from .block_pool import OutOfBlocks
 
 
@@ -149,10 +161,11 @@ def _spec_accept(toks, logits, clens, rem, live):
 @hot_path
 def _spec_clens(pos0, live, cap, w):
     """Lanes a burst may score per row: the room left below the linear
-    cache capacity ``cap``, at most ``w``, and 0 for a dead row (the
-    reference's ``_clens``, ``decode_state.py:284-287``), so m never runs
-    past the cap."""
-    room = torch.clamp(cap - pos0, 0, w)
+    cache capacity ``cap`` (None: no cap, as for recurrent state), at
+    most ``w``, and 0 for a dead row (the reference's ``_clens``,
+    ``decode_state.py:284-287``), so m never runs past the cap."""
+    room = (torch.full_like(pos0, w) if cap is None
+            else torch.clamp(cap - pos0, 0, w))
     return torch.where(live > 0, room, 0).to(torch.int32)
 
 
@@ -160,16 +173,17 @@ def _spec_clens(pos0, live, cap, w):
 def _spec_fold(c, logits, clens):
     """Fold one verify's acceptance into the burst carry ``c`` in place:
     the block and next input, positions at ``pos0 + m``, the budget
-    shrunk by m."""
+    shrunk by m. Returns m (B,)."""
     block, nlast, m = _spec_accept(c["toks"], logits, clens, c["rem"],
                                    c["live"])
     c["block"].copy_(block)
     c["nlast"].copy_(nlast)
     c["pos"].copy_(c["pos0"] + m)
     c["rem"].sub_(m)
+    return m
 
 
-SPEC_MODES = ("kv", "kv_paged")
+SPEC_MODES = ("kv", "kv_paged", "recurrent")
 
 
 def _spec_verify_fn(params, cfg, policy, w, mode, cap, impl):
@@ -193,17 +207,52 @@ def _spec_verify_fn(params, cfg, policy, w, mode, cap, impl):
     policy's argmaxes of the chunk program, which may break a near tie
     differently from the decode step.
 
+    ``mode="recurrent"`` (the ssm family's state; "scan" only): two
+    scans of W ``ssm.decode_step``s, each from the pre-burst snapshot
+    (``snap_h`` / ``snap_conv``, copied into the state first), since a
+    recurrence has no positions to rewind. The first scores every lane
+    and its state is thrown away; the second replays exactly the m
+    accepted tokens (step i with ``live * (i < m)``), which leaves the
+    state where plain decode stopping after m tokens leaves it, bit for
+    bit.
+
     Either way the acceptance is folded in on the device
     (``_spec_fold``), so a burst syncs on nothing. ``cap`` is the linear
-    cache capacity: lanes at or past it are not scored."""
+    cache capacity (lanes at or past it are not scored), None for a
+    recurrent state."""
     if impl not in ("scan", "chunk"):
         raise ValueError(f"unknown speculative verify impl {impl!r}")
     if mode not in SPEC_MODES:
         raise NotImplementedError(
             f"speculative verify of a {mode!r} pool is not ported: the "
-            f"recurrent modes (a replay from a state snapshot) wait for "
-            f"the recurrent families (ROADMAP A11)")
+            f"hybrid family's ring pools wait for ROADMAP A11b")
+    if mode == "recurrent" and impl != "scan":
+        raise ValueError(f"chunk verify needs a rewindable KV cache; mode "
+                         f"{mode!r} replays state step by step (use "
+                         f"impl='scan')")
     paged = mode == "kv_paged"
+
+    @hot_path
+    def recurrent(c):
+        toks, pos0, live = c["toks"], c["pos0"], c["live"]
+        clens = _spec_clens(pos0, live, cap, w)
+        state = {"h": c["h"], "conv": c["conv"]}
+
+        def replay(nlive, lanes):
+            for name, t in state.items():
+                t.copy_(c["snap_" + name])
+            for i in range(w):
+                lv = live * (nlive > i).to(live.dtype)
+                logits, _ = ssm.decode_step(params, cfg, toks[:, i:i + 1],
+                                            state, pos0, policy=policy,
+                                            live=lv)
+                if lanes is not None:
+                    lanes.append(logits[:, 0])
+
+        lanes = []
+        replay(clens, lanes)
+        m = _spec_fold(c, torch.stack(lanes, dim=1), clens)
+        replay(m, None)
 
     @hot_path
     def scan(c):
@@ -240,6 +289,8 @@ def _spec_verify_fn(params, cfg, policy, w, mode, cap, impl):
                 all_lanes=True)
         _spec_fold(c, logits, clens)
 
+    if mode == "recurrent":
+        return recurrent
     return scan if impl == "scan" else chunk
 
 
@@ -252,18 +303,37 @@ def _len_bucket(n: int, cap: int) -> int:
     return min(b, cap)
 
 
+def _at(t, ax, idx, seq=None):
+    """Index tuple selecting ``idx`` on leaf ``t``'s slot axis (and the
+    slice ``seq`` on its sequence axis)."""
+    out = [slice(None)] * t.dim()
+    out[ax.batch] = idx
+    if seq is not None:
+        out[ax.seq] = seq
+    return tuple(out)
+
+
 class DecodeState:
-    """Pool algebra shared by the serving states; ``KVDecodeState`` is
-    the one family this slice ports."""
+    """Pool algebra shared by the serving states, over any state tree
+    described by its leaves' ``LeafAxes`` (``self.axes``). Subclasses
+    provide ``kind``, ``_state_axes``, ``_new_cache``, ``_prefill``,
+    ``_logits``, ``_chunk_logits`` and the capability overrides."""
 
     kind = "state"
-    is_paged = False
+    is_paged = False       # True for the block-pool states
+
+    @classmethod
+    def supports_seq_sharding(cls, cfg) -> bool:
+        """Whether this state can decode over a sequence-sharded cache
+        (``kv_mode="seq"``). Only linear KV caches can."""
+        return False
 
     def __init__(self, cfg, params, policy, pool_width, cache_s, *, device,
                  comm=None, cuda_graphs=True):
         self.cfg, self.params, self.policy = cfg, params, policy
         self.pool_width, self.cache_s = pool_width, cache_s
         self.device = device
+        self.axes = self._state_axes(cfg)
         self.data = None       # allocated by capture or first admission
         self.pos_dev = torch.zeros(pool_width, dtype=torch.int32,
                                    device=device)
@@ -276,6 +346,7 @@ class DecodeState:
         # (policy, W, mode, impl) -> speculative verify program
         self.spec_progs: dict = {}
         self.spec_k = 0             # 0: plain decode (no burst buffers)
+        self.spec_snap: dict = {}   # recurrent: the pre-burst state copy
         self._sealed = False        # capture done: no graph made after
         self.graph = self._decode_graph(policy)
         self.injector = None        # ft.inject.FaultInjector (chaos)
@@ -294,8 +365,40 @@ class DecodeState:
     def shards(self) -> int:
         return 1 if self.shard is None else self.shard.world
 
+    # --------------------------------------------------------- family hooks
+
+    def _state_axes(self, cfg) -> dict:
+        """{leaf: LeafAxes} of the family's state."""
+        raise NotImplementedError
+
+    def _new_cache(self) -> dict:
+        """The pool's state leaves, zeroed, at pool width."""
+        raise NotImplementedError
+
+    def _prefill(self, toks, plens):
+        """(logits (pool_width, 1, V), state of the prompts) of one
+        ragged prefill over the (pool_width, sp) tokens."""
+        raise NotImplementedError
+
+    def _logits(self, c, policy=None):
+        """The decode step's logits over the carry ``c``, the state
+        written in place (dead rows untouched)."""
+        raise NotImplementedError
+
+    def _chunk_logits(self, c, toks, offs, clens):
+        """The chunk program's last-lane logits over the carry ``c``."""
+        raise NotImplementedError
+
+    def _reset_leaf(self, ax) -> bool:
+        """Whether ``reset_slots`` zeroes a leaf with these axes. Default:
+        every leaf (a recurrent state is read unconditionally). KV states
+        skip their sequence leaves: decode masks those rows by length and
+        admission overwrites them."""
+        return True
+
     def max_len(self):
-        """Length at which a slot must stop decoding (None: unbounded)."""
+        """Length at which a slot must stop decoding (None: unbounded,
+        as recurrent state is)."""
         return None
 
     def prefill_width(self, n: int) -> int:
@@ -304,34 +407,29 @@ class DecodeState:
 
     def prefill_into(self, slots, toks, plens):
         """One pool-width ragged prefill; the admitted rows land in freed
-        slots. ``toks`` (pool_width, sp) right-padded prompts, ``plens``
+        slots, leaf by leaf along each leaf's slot axis (and, for a leaf
+        with a sequence axis, its first ``sp`` positions of this rank's
+        slice). ``toks`` (pool_width, sp) right-padded prompts, ``plens``
         (pool_width,) real lengths (1 for rows without a request). Returns
         the (pool_width, 1) first greedy tokens on the device."""
         self._maybe_inject_admission_fault()
         toks_t = torch.as_tensor(toks, device=self.device)
         plens_t = torch.as_tensor(plens, device=self.device)
-        logits, pref = transformer.prefill(self.params, self.cfg, toks_t,
-                                           prompt_len=plens_t,
-                                           policy=self.policy)
+        logits, pref = self._prefill(toks_t, plens_t)
         off, local = ((0, self.cache_s) if self.shard is None
                       else (self.shard.offset, self.shard.local_s))
         self._ensure_cache()
         sl = torch.as_tensor(np.asarray(slots), device=self.device)
         end = min(off + local, toks.shape[1])    # this slice's prompt rows
-        if end > off:
-            for name in ("k", "v"):
-                pool, rows = self.data[name], pref[name][:, sl]
-                if self.cfg.kv_cache_layout == "bhsd":
-                    pool[:, sl, :, :end - off] = rows[:, :, :, off:end]
-                else:
-                    pool[:, sl, :end - off] = rows[:, :, off:end]
+        for name, ax in self.axes.items():
+            pool, rows = self.data[name], pref[name]
+            if ax.seq is None:
+                pool[_at(pool, ax, sl)] = rows[_at(rows, ax, sl)]
+            elif end > off:
+                pool[_at(pool, ax, sl, slice(0, end - off))] = \
+                    rows[_at(rows, ax, sl, slice(off, end))]
         self.pos_dev[sl] = plens_t[sl].to(torch.int32)
         return _guard_tokens(logits)
-
-    def _new_cache(self):
-        local = self.cache_s if self.shard is None else self.shard.local_s
-        return transformer.init_cache(self.cfg, self.pool_width, local,
-                                      self.device)
 
     def _new_graph(self, key, what):
         """A StepGraph for ``key``, unless every graph was captured
@@ -417,20 +515,6 @@ class DecodeState:
         logits = self._logits(c, policy)
         c["out"].copy_(_guard_tokens(logits, c["last"]))
         c["pos"].add_(c["live"])
-
-    @hot_path
-    def _logits(self, c, policy=None):
-        policy = self.policy if policy is None else policy
-        cache = {"k": c["k"], "v": c["v"]}
-        if self.shard is None:
-            logits, _ = transformer.decode_step(
-                self.params, self.cfg, c["last"], cache, c["pos"],
-                policy=policy, live=c["live"])
-        else:
-            logits, _ = transformer.decode_step_sharded(
-                self.params, self.cfg, c["last"], cache, c["pos"],
-                policy=policy, shard=self.shard, live=c["live"])
-        return logits
 
     def graph_stats(self) -> dict:
         """How the step runs ("graph", "eager", or eager because the
@@ -540,14 +624,6 @@ class DecodeState:
                                     c["in"][:, width + 1])
         c["out"].copy_(_guard_tokens(logits))
 
-    @hot_path
-    def _chunk_logits(self, c, toks, offs, clens):
-        cache = {"k": c["k"], "v": c["v"]}
-        logits, _ = transformer.prefill_chunk(self.params, self.cfg, toks,
-                                              cache, offs, clens,
-                                              policy=self.policy)
-        return logits
-
     # ------------------------------------------------------------ lifecycle
 
     def set_injector(self, inj):
@@ -566,8 +642,9 @@ class DecodeState:
         sentinel token. False when there is nothing to poison yet."""
         if self.data is None:
             return False
-        for t in self.data.values():
-            t[:, int(slot)] = float("nan")
+        for name, ax in self.axes.items():
+            t = self.data[name]
+            t[_at(t, ax, int(slot))] = float("nan")
         return True
 
     def corrupt_prefix(self, injector) -> int:
@@ -583,8 +660,9 @@ class DecodeState:
         and 0 x NaN is NaN: a NaN row past a later occupant's length
         would reach its output."""
         if self.data is not None:
-            for t in self.data.values():
-                t[:, int(slot)] = 0
+            for name, ax in self.axes.items():
+                t = self.data[name]
+                t[_at(t, ax, int(slot))] = 0
         self.reset_slots([int(slot)])
 
     def recover(self):
@@ -593,7 +671,7 @@ class DecodeState:
         captured graphs, which hold their storage, stay valid. The engine
         re-queues every in-flight request."""
         self.pos_dev.zero_()
-        for t in self._burst_buffers():
+        for t in (*self._burst_buffers(), *self.spec_snap.values()):
             t.zero_()
         if self.data is not None:
             for t in self.data.values():
@@ -612,12 +690,20 @@ class DecodeState:
 
     def reset_slots(self, slots):
         """Park freed slots at position 0, their burst buffers' rows
-        zeroed (no budget outlives its request). KV rows are not zeroed:
-        decode masks them by cache_len and admission overwrites them."""
+        zeroed (no budget outlives its request), and the state leaves
+        ``_reset_leaf`` names zeroed along their slot axis, so a stale
+        occupant never bleeds into the next request (recurrent (h, conv)
+        is read every step). KV rows are not zeroed: decode masks them by
+        cache_len and admission overwrites them."""
         idx = torch.as_tensor(np.asarray(slots), device=self.device)
         self.pos_dev[idx] = 0
         for t in self._burst_buffers():
             t[idx] = 0
+        if self.data is not None:
+            for name, ax in self.axes.items():
+                if self._reset_leaf(ax):
+                    t = self.data[name]
+                    t[_at(t, ax, idx)] = 0
 
     def check_integrity(self, live_slots=()):
         """Invariant sweep (it syncs; never on the decode path): freed
@@ -643,6 +729,12 @@ class DecodeState:
 
     def _spec_mode(self) -> str:
         raise NotImplementedError
+
+    def _spec_copy_state(self) -> bool:
+        """Whether a burst snapshot copies the state. False for KV pools,
+        whose cursor rewind is the whole rollback; True for recurrent
+        state, which has no positions to rewind."""
+        return False
 
     def enable_speculative(self, spec_k: int) -> None:
         """Switch the pool to self-speculative decode (reference
@@ -670,6 +762,11 @@ class DecodeState:
         self.spec_rem = buf(self.pool_width)        # emission budget
         self.spec_block = buf(self.pool_width, w)   # emitted, PAD past m
         self.spec_nlast = buf(self.pool_width, 1)   # the next input token
+        if self._spec_copy_state():
+            # the snapshot the verify reads: static, so its graph holds it
+            self._ensure_cache()
+            self.spec_snap = {name: torch.zeros_like(t)
+                              for name, t in self.data.items()}
         self._draft_lane = 0
         self._wire_spec()
 
@@ -710,16 +807,20 @@ class DecodeState:
              "rem": self.spec_rem, "block": self.spec_block,
              "nlast": self.spec_nlast, "live": live, "pos": self.pos_dev}
         c.update(self.data)
+        c.update({"snap_" + name: t for name, t in self.spec_snap.items()})
         return c
 
     @hot_path
     def spec_snapshot(self, last):
         """Pre-burst snapshot into the static buffers: the positions into
-        ``pos0`` and the engine's ``last`` tokens into lane 0 of ``toks``.
-        Returns ``pos0``, the burst's rollback token (positions only: on
-        a KV pool the cursor rewind is the whole rollback)."""
+        ``pos0``, the engine's ``last`` tokens into lane 0 of ``toks``,
+        and a recurrent state into ``spec_snap``. Returns ``pos0``, the
+        burst's rollback token (positions only on a KV pool, where the
+        cursor rewind is the whole rollback)."""
         self.spec_pos0.copy_(self.pos_dev)
         self.spec_toks[:, :1].copy_(last)
+        for name, t in self.spec_snap.items():
+            t.copy_(self.data[name])
         self._draft_lane = 0
         return self.spec_pos0
 
@@ -730,8 +831,11 @@ class DecodeState:
         abort path and the protocol's testable rollback: stale draft rows
         past the restored positions are masked by length and overwritten
         by the next burst, and a paged pool touches its allocator zero
-        times (reference ``decode_state.py:773-786``)."""
+        times (reference ``decode_state.py:773-786``). A recurrent state
+        is copied back from ``spec_snap``, bit for bit."""
         self.pos_dev.copy_(snap)
+        for name, t in self.spec_snap.items():
+            self.data[name].copy_(t)
 
     @hot_path
     def draft_step(self, last, live):
@@ -769,6 +873,47 @@ class KVDecodeState(DecodeState):
 
     kind = "kv"
 
+    @classmethod
+    def supports_seq_sharding(cls, cfg) -> bool:
+        return True              # a linear cache (the port has no windows)
+
+    def _state_axes(self, cfg):
+        return transformer.state_axes(cfg)
+
+    def _reset_leaf(self, ax) -> bool:
+        return ax.seq is None
+
+    def _new_cache(self):
+        local = self.cache_s if self.shard is None else self.shard.local_s
+        return transformer.init_cache(self.cfg, self.pool_width, local,
+                                      self.device)
+
+    def _prefill(self, toks, plens):
+        return transformer.prefill(self.params, self.cfg, toks,
+                                   prompt_len=plens, policy=self.policy)
+
+    @hot_path
+    def _logits(self, c, policy=None):
+        policy = self.policy if policy is None else policy
+        cache = {"k": c["k"], "v": c["v"]}
+        if self.shard is None:
+            logits, _ = transformer.decode_step(
+                self.params, self.cfg, c["last"], cache, c["pos"],
+                policy=policy, live=c["live"])
+        else:
+            logits, _ = transformer.decode_step_sharded(
+                self.params, self.cfg, c["last"], cache, c["pos"],
+                policy=policy, shard=self.shard, live=c["live"])
+        return logits
+
+    @hot_path
+    def _chunk_logits(self, c, toks, offs, clens):
+        cache = {"k": c["k"], "v": c["v"]}
+        logits, _ = transformer.prefill_chunk(self.params, self.cfg, toks,
+                                              cache, offs, clens,
+                                              policy=self.policy)
+        return logits
+
     def max_len(self):
         # a linear cache is exhausted when the next write would fall past
         # its last row
@@ -782,6 +927,64 @@ class KVDecodeState(DecodeState):
 
     def _spec_mode(self) -> str:
         return "kv"
+
+
+class RecurrentDecodeState(DecodeState):
+    """ssm (Mamba-2 / SSD): per-layer (h, conv) snapshots of every slot
+    (port of ``RecurrentDecodeState``, ``decode_state.py:917-943``). No
+    sequence axis anywhere: a slot's state is O(1) in its length, so there
+    is no length cap and admission scatters whole slot rows. A freed
+    slot's rows are zeroed (the recurrence reads them every step), dead
+    rows keep theirs bit for bit through a decode step (``live``
+    masking) and inert rows through a chunk (``clens == 0``)."""
+
+    kind = "recurrent"
+
+    def _state_axes(self, cfg):
+        return ssm.state_axes(cfg)
+
+    def _new_cache(self):
+        return ssm.init_cache(self.cfg, self.pool_width, None, self.device)
+
+    def _prefill(self, toks, plens):
+        return ssm.prefill(self.params, self.cfg, toks, prompt_len=plens,
+                           policy=self.policy)
+
+    @hot_path
+    def _logits(self, c, policy=None):
+        policy = self.policy if policy is None else policy
+        logits, _ = ssm.decode_step(
+            self.params, self.cfg, c["last"], {"h": c["h"], "conv": c["conv"]},
+            c["pos"], policy=policy, live=c["live"])
+        return logits
+
+    @hot_path
+    def _chunk_logits(self, c, toks, offs, clens):
+        logits, _ = ssm.prefill_chunk(
+            self.params, self.cfg, toks, {"h": c["h"], "conv": c["conv"]},
+            offs, clens, policy=self.policy)
+        return logits
+
+    def chunk_width(self, c: int) -> int:
+        # chunk boundaries on the SSD block size keep the block
+        # decomposition, and so the order of the f32 sums, of a one-shot
+        # pass: chunked prefill then equals monolithic prefill
+        q = self.cfg.ssm_chunk
+        return -(-max(1, int(c)) // q) * q
+
+    def supports_speculative(self) -> bool:
+        return True              # O(1) state: no cap, never sharded
+
+    def _spec_mode(self) -> str:
+        return "recurrent"
+
+    def _spec_impl(self) -> str:
+        # a replay must be step-exact: the recurrent verify is a scan
+        # whatever the policy's spec_verify (reference :747-752)
+        return "scan"
+
+    def _spec_copy_state(self) -> bool:
+        return True
 
 
 # --------------------------------------------------------------- paged pool
@@ -1298,8 +1501,13 @@ class PagedKVDecodeState(KVDecodeState):
 
 
 def decode_state_for(cfg, paged=False):
-    """The DecodeState class serving ``cfg``: paged or contiguous KV (the
-    dense family is the one ported)."""
+    """The DecodeState class serving ``cfg`` (the serving stack's one
+    family dispatch; reference ``decode_state.py:1942-1953``): paged or
+    contiguous KV for the dense family; recurrent state is O(1) per slot,
+    nothing to page, so the ssm family serves through
+    ``RecurrentDecodeState`` either way."""
+    if cfg.family == "ssm":
+        return RecurrentDecodeState
     if cfg.family != "dense":
         raise NotImplementedError(f"{cfg.arch_id}: family {cfg.family!r} "
                                   f"has no ported decode state")

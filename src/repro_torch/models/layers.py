@@ -2,7 +2,9 @@
 
 Plain functions on tensors. Dtype behaviour follows the reference: norms
 compute in f32 and return the input dtype; RoPE rotates in f32 and
-returns the input dtype; biases are added in the activation dtype.
+returns the input dtype; biases are added in the activation dtype; the
+gates (``vexp_sigmoid``, ``vexp_softplus``, ``vexp_silu``) compute in
+f32 through the exp callable they are given and return the input dtype.
 """
 
 from __future__ import annotations
@@ -59,6 +61,27 @@ def apply_rope(x, pos, theta=10000.0, rope_pct=1.0):
     y2 = x2 * cos + x1 * sin
     yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
     return torch.cat([yr.to(x.dtype), xp], dim=-1)
+
+
+def vexp_sigmoid(x, exp_fn):
+    """sigmoid(x) = 1 / (1 + exp(-x)) with the given exponential, stable
+    on both signs (reference ``layers.py:90-95``)."""
+    xf = x.float()
+    e = exp_fn(-xf.abs())
+    s = torch.where(xf >= 0, 1.0 / (1.0 + e), e / (1.0 + e))
+    return s.to(x.dtype)
+
+
+def vexp_softplus(x, exp_fn):
+    """softplus(x) = max(x, 0) + log1p(exp(-|x|)), exp through
+    ``exp_fn`` (reference ``layers.py:98-102``)."""
+    xf = x.float()
+    return (torch.clamp(xf, min=0.0)
+            + torch.log1p(exp_fn(-xf.abs()))).to(x.dtype)
+
+
+def vexp_silu(x, exp_fn):
+    return x * vexp_sigmoid(x, exp_fn)
 
 
 def gelu(x):

@@ -176,6 +176,14 @@ def cache_seq_axis(layout: str, stacked: bool = True) -> int:
     return (1 if layout == "bshd" else 2) + (1 if stacked else 0)
 
 
+def state_axes(cfg):
+    """Leaf metadata of the KV cache: slot axis 1, sequence axis after it
+    (``bshd``) or after the heads (``bhsd``)."""
+    from .state_spec import LeafAxes
+    seq = cache_seq_axis(cfg.kv_cache_layout)
+    return {"k": LeafAxes(1, seq), "v": LeafAxes(1, seq)}
+
+
 def prefill(params, cfg, tokens, *, prompt_len=None, policy, hist=None):
     """Forward over the prompt; returns (last_logits (B, 1, V), cache).
 
