@@ -685,16 +685,21 @@ def _qpos(sq, q_offset):
     return torch.arange(sq, device="cuda")[None, :] + off
 
 
-def _sdpa_mask_prefill(kv_len, sq, sk, q_offset=0):
+def _sdpa_mask_prefill(kv_len, sq, sk, q_offset=0, window=None):
     qpos = _qpos(sq, q_offset)[:, :, None]
     kpos = torch.arange(sk, device="cuda")[None, None, :]
-    return ((kpos <= qpos) & (kpos < kv_len[:, None, None]))[:, None]
+    keep = (kpos <= qpos) & (kpos < kv_len[:, None, None])
+    if window is not None:
+        keep = keep & (kpos > qpos - window)
+    return keep[:, None]
 
 
-def _scan_p_terms(q, k, v, kv_len, q_offset, block_k, exp, terms):
-    """The plain scan (causal, keys below kv_len, queries at q_offset + i)
-    with p rounded to its ``terms`` leading bf16 terms in p . v: what a
-    tensor-core kernel that splits p too few times computes."""
+def _scan_p_terms(q, k, v, kv_len, q_offset, block_k, exp, terms,
+                  window=None):
+    """The plain scan (causal, keys below kv_len and inside the window,
+    queries at q_offset + i) with p rounded to its ``terms`` leading bf16
+    terms in p . v: what a tensor-core kernel that splits p too few times
+    computes."""
     from repro_torch.core.vexp import get_exp_fn
     exp_fn = get_exp_fn(exp)
     b, sq, h, d = q.shape
@@ -709,6 +714,8 @@ def _scan_p_terms(q, k, v, kv_len, q_offset, block_k, exp, terms):
         vb = v[:, k0:k0 + block_k].float().transpose(1, 2)
         kpos = k0 + torch.arange(kb.shape[2], device=q.device)
         keep = (kpos <= qpos) & (kpos < kv_len[:, None, None, None])
+        if window is not None:
+            keep = keep & (kpos > qpos - window)
         sc = torch.where(keep, qs @ kb.transpose(-1, -2), -1e30)
         m_new = torch.maximum(m, sc.amax(-1))
         alpha = exp_fn(m - m_new)
@@ -724,7 +731,7 @@ def _scan_p_terms(q, k, v, kv_len, q_offset, block_k, exp, terms):
     return out.transpose(1, 2).to(q.dtype)
 
 
-def _truth64(q, k, v, kv_len, q_offset):
+def _truth64(q, k, v, kv_len, q_offset, window=None):
     """Causal attention under the exact exp in float64, one pass, rounded
     to bf16 once: what an exact evaluation of the function gives."""
     b, sq, h, d = q.shape
@@ -734,24 +741,32 @@ def _truth64(q, k, v, kv_len, q_offset):
     qpos = _qpos(sq, q_offset)[:, None, :, None]      # (1|B, 1, Sq, 1)
     kpos = torch.arange(sk, device=q.device)
     keep = (kpos <= qpos) & (kpos < kv_len[:, None, None, None])
+    if window is not None:
+        keep = keep & (kpos > qpos - window)
     sc = torch.where(keep, sc, -1e300)
     p = torch.where(keep, torch.exp(sc - sc.amax(-1, keepdim=True)), 0.0)
     out = (p @ vd) / p.sum(-1, keepdim=True).clamp_min(1e-300)
     return out.transpose(1, 2).to(q.dtype)
 
 
-def _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, q_offset, tag):
+def _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, q_offset, tag,
+             window=None):
     """One FA case. The kernel vs the plain version per backend, and the
     plain version at half the block and with p in two bf16 terms (both
     must fail the limits); under the exact exp, both the kernel and the
     plain version vs a float64 evaluation (reported). Times (eager and
     graph), the library call's and the bound. Query i of row b sits at
-    q_offset + i; its real rows are those below kv_len[b]. Returns
-    (fields, limit readings)."""
+    q_offset + i; its real rows are those below kv_len[b]; with a
+    ``window`` it keeps the keys above its position minus the window.
+    K and V may have fewer heads than q (GQA / MQA). Returns (fields,
+    limit readings)."""
     b, sq, h, d = q.shape
+    hkv = k.shape[2]
     qpos = _qpos(sq, q_offset)
     real = (qpos < kv_len[:, None])[:, :, None, None]
     kw = dict(causal=True, kv_len=kv_len, q_offset=q_offset)
+    if window is not None:
+        kw["window"] = window
     res, readings = {}, {}
     for exp in ("exact", "vexp", "vexp_hw"):
         pol = policy_cls(exp_backend=exp, block_k=block_k)
@@ -767,10 +782,10 @@ def _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, q_offset, tag):
             # against the same scan with p in three terms (p exactly), so
             # that the rounding of p is the only difference
             two, three = (_scan_p_terms(q, k, v, kv_len, q_offset, block_k,
-                                        exp, n) for n in (2, 3))
+                                        exp, n, window) for n in (2, 3))
             readings[exp, "p_two_terms"] = kernel_vs_plain(two, three, real)
         if exp == "exact":
-            truth = _truth64(q, k, v, kv_len, q_offset)
+            truth = _truth64(q, k, v, kv_len, q_offset, window)
             for who, o in (("plain", ref), ("kernel", out)):
                 res[f"{tag}exact_{who}_vs_f64_mismatch_share"] = \
                     kernel_vs_plain(o, truth, real)[1]
@@ -787,20 +802,24 @@ def _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, q_offset, tag):
     plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(
         q, k, v, block_k=block_k, exp_backend="vexp", **kw), iters=5)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    mask = _sdpa_mask_prefill(kv_len, sq, k.shape[1], q_offset)
+    mask = _sdpa_mask_prefill(kv_len, sq, k.shape[1], q_offset, window)
+    gqa = {"enable_gqa": True} if hkv != h else {}
 
     def sdpa():
         return torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask)
+            qt, kt, vt, attn_mask=mask, **gqa)
     lib_ms = cuda_time_ms(sdpa)
     lib_g_ms = graph_ms(sdpa, f"sdpa {tag}")
     # the function's work: every query row attends, causally, to the keys
-    # below its row's kv_len; q and o move whole, K and V up to kv_len
-    pairs = float(torch.minimum(qpos.double() + 1,
-                                kv_len.double()[:, None]).sum())
+    # below its row's kv_len (and inside the window); q and o move whole,
+    # K and V (Hkv heads) up to kv_len
+    lo = (torch.zeros_like(qpos) if window is None
+          else torch.clamp(qpos - window + 1, min=0))
+    pairs = float((torch.minimum(qpos.double() + 1, kv_len.double()[:, None])
+                   - lo.double()).clamp(min=0).sum())
     flops = 4.0 * h * d * pairs
     live = float(kv_len.double().sum())
-    nbytes = 2 * b * sq * h * d * 2 + 2 * live * h * d * 2
+    nbytes = 2 * b * sq * h * d * 2 + 2 * live * hkv * d * 2
     b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
     res.update({f"{tag}plain_ms_vexp": plain_ms, f"{tag}library_ms": lib_ms,
                 f"{tag}library_graph_ms": lib_g_ms,
@@ -3463,6 +3482,621 @@ def phase_serve_ssm_spec(kernels, smi, cfg, params, policy, groups, mono):
     return {"serve_ssm_spec": turn["counts"]}
 
 
+# --------------------------------------------------------------- hybrid
+
+HYBRID_ARCH = "recurrentgemma-9b"
+HYBRID_PAGE = 64                 # 32 ring pages a slot at window 2048
+HYBRID_CHUNK = 256
+# vexp launches a recurrent layer (models/hybrid.py): a decode step's
+# r, i, a and exp(2 log a) (gate_exps_per_step); a prefill wave's r, i,
+# exp(2 log a) and its scan's combines at the wave's width; a chunk's
+# those at the chunk's width and the carried state's decay
+# (gate_exps_per_pass)
+# The hybrid's two forms (teacher-forced decode steps, ring wrapped,
+# against one forward over prompt + tokens: the associative scan and the
+# windowed FlashAttention), full width: max |decode - forward| <=
+# HYBRID_FORM_LIMIT[exp] x max |logit|. Twice the JAX package's own gap
+# under this check's conditions: recurrentgemma's widths, window 2048,
+# prompts of 300 and 2000 tokens prefilled at the window's width (the
+# second's decode wraps the ring), 64 forced steps, read at 5 and 8
+# layers (one and two periods and the two tail layers: 0.00838 / 0.00979
+# / 0.01013 and 0.01016 / 0.01139 / 0.01227 of max |logit| under exact /
+# vexp / vexp_hw) and carried to 38 by the power law the two readings fit
+# (tools/ssm_form_gap.py --arch recurrentgemma-9b --width full --layers
+# 5 8 --extrapolate 38: powers 0.41 / 0.32 / 0.41, 0.01928 / 0.01880 /
+# 0.02315 at 38).
+HYBRID_FORM_LIMIT = {"exact": 0.0386, "vexp": 0.0376, "vexp_hw": 0.0463}
+HYBRID_GATE_SERVE_NEW = 4
+
+
+def hybrid_setup():
+    """Full-width recurrentgemma-9b with random weights from
+    ``torch.Generator("cuda").manual_seed(0)``, its default policy (the
+    cuda tier) and the three policy groups."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.runtime import parse_policy_groups, resolve_policy
+    cfg = get_config(HYBRID_ARCH)
+    params = api.init_params(cfg, 0, device="cuda")
+    policy = resolve_policy(cfg, env={})
+    if policy.kernel_backend != "cuda":
+        fail(f"hybrid: default tier is {policy.kernel_backend}, not cuda")
+    groups = parse_policy_groups("eval=exact,bulk=vexp,hw=vexp_hw", cfg,
+                                 base=policy)
+    return cfg, params, policy, groups
+
+
+def hybrid_requests(cfg, groups, n=16, max_new=64, seed=0):
+    """``n`` requests with prompts in [32, 2000] from ``seed``, the first
+    four (one or two a group) in [1990, 2040], whose decode wraps the
+    2048-slot ring; groups round-robin."""
+    from repro_torch.launch.serve import Request
+    rng = np.random.default_rng(seed)
+    names = sorted(groups)
+    lens = rng.integers(32, 2001, n)
+    lens[:min(4, n)] = rng.integers(1990, 2041, min(4, n))
+    return [Request(i, rng.integers(0, cfg.vocab, (int(m),),
+                                    dtype=np.int32), max_new,
+                    group=names[i % len(names)])
+            for i, m in enumerate(lens)]
+
+
+def hybrid_server(cfg, params, policy, groups, cuda_graphs=True,
+                  paged=False):
+    """max_batch 8, max_seq 4096: the cache is the 2048-token window, a
+    full-window ring that decodes without bound."""
+    from repro_torch.launch.serve import Server
+    return Server(cfg, params, max_batch=8, max_seq=4096, policy=policy,
+                  policy_groups=groups, device="cuda",
+                  cuda_graphs=cuda_graphs, paged=paged)
+
+
+def check_hybrid_serve(cfg, st, before, counts, replayed, sdpa_calls, arm,
+                       spec_k, decode, what):
+    """A hybrid serve's launches and graphs. Per decode step (a burst of
+    k drafts and a two-scan verify of W = k + 1 steps counts k + 2W
+    steps): vexp = 4 a recurrent layer, ``decode`` (the contiguous or
+    paged flash-decode) one an attention layer; per prefill wave at the
+    window's width and per chunk at its width: FA one an attention layer,
+    vexp the gates and the scan's combines (``hybrid.gate_exps_per_pass``);
+    no other kernel, no SDPA call. Graph arm: every decode step, burst and
+    chunk a replay of a graph captured when the group was built, the
+    replayed launches all but the waves'; eager arm: no capture, no
+    replay. Returns (waves, chunks, steps)."""
+    from repro_torch.models import hybrid
+    _, n_per, _ = hybrid.period_counts(cfg)
+    waves = sum(s["admit_waves"] for s in st.values())
+    chunks = sum(s["prefill_chunks"] for s in st.values())
+    steps = sum(s["decode_steps"] for s in st.values())
+    width = {s["prefill_chunk"] for s in st.values() if s["prefill_chunk"]}
+    per_step = (3 * spec_k + 2) if spec_k else 1
+    wave_exps = hybrid.gate_exps_per_pass(cfg, cfg.sliding_window)
+    chunk_exps = (hybrid.gate_exps_per_pass(cfg, width.pop(), chunk=True)
+                  if chunks else 0)
+    step_exps = hybrid.gate_exps_per_step(cfg) * per_step * steps
+    want = {"vexp": step_exps + wave_exps * waves + chunk_exps * chunks,
+            decode: n_per * per_step * steps,
+            "flash_attention": n_per * (waves + chunks)}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        fail(f"{what}: launches {got} != {want} ({waves} waves, {chunks} "
+             f"chunks, {steps} steps)")
+    other = {k: v for k, v in counts.items()
+             if k not in (*want, "vexp_hw_table") and v}
+    if other or sdpa_calls:
+        fail(f"{what}: launched {other}, {sdpa_calls} SDPA calls")
+    want_rep = ({"vexp": step_exps + chunk_exps * chunks,
+                 decode: want[decode], "flash_attention": n_per * chunks}
+                if arm == "graph" else dict.fromkeys(want, 0))
+    if {k: replayed[k] for k in want} != want_rep:
+        fail(f"{what}: replayed {({k: replayed[k] for k in want})} != "
+             f"{want_rep}")
+    for g, s in st.items():
+        caps = (s["graph_captures"], s["chunk_graph_captures"],
+                s.get("spec_graph_captures", 0))
+        reps = (s["graph_replays"], s["chunk_graph_replays"],
+                s.get("spec_graph_replays", 0))
+        if arm == "eager":
+            if any(caps) or any(reps):
+                fail(f"{what} group {g} (eager): captures {caps}, replays "
+                     f"{reps}")
+            continue
+        b = before[g]
+        built = (b["graph_captures"], b["chunk_graph_captures"],
+                 b.get("spec_graph_captures", 0))
+        k = spec_k if "spec_k" in s else 0
+        want_reps = ((k or 1) * s["decode_steps"], s["prefill_chunks"],
+                     s["decode_steps"] if k else 0)
+        if s["step_mode"] != "graph" or caps != built or caps[0] < 1 or \
+                caps[1] != (1 if s["prefill_chunk"] else 0) or \
+                caps[2] != (1 if k else 0) or reps != want_reps:
+            fail(f"{what} group {g}: {s['step_mode']}, captures {caps} "
+                 f"(built with {built}), replays {reps} (want {want_reps})")
+    return waves, chunks, steps
+
+
+def hybrid_serve_once(kernels, cfg, make_server, make_reqs, arm, spec_k,
+                      decode, what):
+    """One serve with the launch counts set to 0 just before it and read
+    just after, checked. Returns the turn."""
+    srv = make_server(arm == "graph")
+    before = srv.stats()
+    reqs = make_reqs()
+    secs, counts, sdpa_calls, peak, clocks = timed_serve(kernels, srv, reqs)
+    replayed = kernels.replay_counts()
+    st = srv.stats()
+    check_requests(cfg, reqs, reqs[0].max_new)
+    waves, chunks, steps = check_hybrid_serve(
+        cfg, st, before, counts, replayed, sdpa_calls, arm, spec_k, decode,
+        what)
+    some = next(iter(st.values()))
+    readings = {**serve_metrics(reqs, secs),
+                "wall_per_decode_step_s": some["wall_per_decode_step_s"],
+                "admit_waves": waves, "prefill_chunks": chunks,
+                "decode_steps": steps,
+                "admit_s_total": sum(s["admit_s_total"] for s in st.values()),
+                "capture_s": sum(s["graph_capture_s"]
+                                 + s["chunk_graph_capture_s"]
+                                 + s.get("spec_graph_capture_s", 0.0)
+                                 for s in st.values()),
+                "launches": {k: counts[k] for k in
+                             ("vexp", decode, "flash_attention")},
+                "replayed": {k: replayed[k] for k in
+                             ("vexp", decode, "flash_attention")},
+                "peak_memory_bytes": peak, "clocks_power": clocks}
+    return {"srv": srv, "reqs": reqs, "stats": st, "counts": counts,
+            "readings": readings, "secs": secs, "peak": peak,
+            "clocks": clocks}
+
+
+def hybrid_replay_logits(cfg, params, reqs, policy, steps, gates=None,
+                         checked=0):
+    """Teacher-forced logits of ``reqs`` under ``policy`` as the engine
+    serves them: one ragged prefill at the window's width (the fixed
+    admission width), then one decode step per emitted token at the
+    request's position (the ring wraps past 2048). Returns ``steps``
+    (B, V) f32 logits; with ``gates`` (a GateCheck) the prefill and the
+    first ``checked`` steps run under it."""
+    from repro_torch.models import hybrid
+    w = cfg.sliding_window
+    plen = np.array([len(r.prompt) for r in reqs], np.int32)
+    toks = np.zeros((len(reqs), w), np.int32)
+    for i, r in enumerate(reqs):
+        toks[i, :plen[i]] = r.prompt
+    pos = torch.as_tensor(plen, device="cuda")
+
+    def advance(out, state, upto):
+        while len(out) < upto:
+            t = len(out) - 1
+            tok = torch.as_tensor([[r.out[t]] for r in reqs],
+                                  dtype=torch.int32, device="cuda")
+            logits, state = hybrid.decode_step(params, cfg, tok, state,
+                                               pos + t, policy=policy)
+            out.append(logits[:, 0])
+        return state
+
+    with gates if gates is not None else contextlib.nullcontext():
+        logits, state = hybrid.prefill(
+            params, cfg, torch.as_tensor(toks, device="cuda"),
+            prompt_len=torch.as_tensor(plen, device="cuda"), policy=policy)
+        out = [logits[:, 0]]
+        state = advance(out, state, checked)
+    advance(out, state, steps)
+    return out
+
+
+def hybrid_forward_logits(cfg, params, reqs, policy):
+    """The same logits from one ``forward`` (the associative scan and the
+    windowed FlashAttention) over each request's prompt + its tokens:
+    (steps, B, V)."""
+    from repro_torch.models import hybrid
+    rows = []
+    for r in reqs:
+        seq = np.concatenate([r.prompt, np.asarray(r.out[:-1], np.int32)])
+        h = hybrid.forward(params, cfg, torch.as_tensor(seq[None],
+                                                        device="cuda"),
+                           policy=policy)
+        rows.append(hybrid._logits(params, cfg,
+                                   h[:, len(r.prompt) - 1:])[0])
+    return torch.stack(rows, dim=1)
+
+
+def hybrid_replays(cfg, params, groups, reqs, gates):
+    """For 2 served requests a group (the first of them wraps the ring),
+    one teacher-forced replay on the cuda tier over all their tokens,
+    whose prefill and first SSM_TIER_STEPS steps run under ``gates``: its
+    first SSM_TIER_STEPS logits against the reference tier's (limit
+    REPLAY_LOGIT_TOL), and all of them against one forward over the same
+    tokens (the two forms, limit HYBRID_FORM_LIMIT x max |logit|)."""
+    tiers, forms = {}, {}
+    for name, pol in groups.items():
+        two = [r for r in reqs if r.group == name][:2]
+        dec = hybrid_replay_logits(cfg, params, two, pol, len(two[0].out),
+                                   gates, SSM_TIER_STEPS)
+        ref = hybrid_replay_logits(cfg, params, two,
+                                   pol.replace(kernel_backend="reference"),
+                                   SSM_TIER_STEPS)
+        tiers[name] = check_replay(f"hybrid {name}", two,
+                                   dec[:SSM_TIER_STEPS], ref)
+        dec = torch.stack(dec)
+        full = hybrid_forward_logits(cfg, params, two, pol)
+        gap = float((dec - full).abs().max())
+        top = float(full[..., :cfg.vocab].abs().max())
+        limit = HYBRID_FORM_LIMIT[pol.exp_backend]
+        if not bool(torch.isfinite(full).all()) or gap > limit * top:
+            fail(f"hybrid {name}: decode vs forward logits differ by {gap} "
+                 f"(limit {limit} x max |logit| {top})")
+        forms[name] = {"max_abs_gap": gap, "max_abs_logit": top,
+                       "relative": gap / top,
+                       "prompt_lens": [len(r.prompt) for r in two]}
+        del dec, ref, full
+    return {"tier_max_abs_logit_diff": tiers, "forms": forms}
+
+
+def _hybrid_fa_rows(fa, policy_cls, block_k):
+    """B3 at the hybrid's shapes: the admission prefill (B 8, H 16 on one
+    KV head, D 256, S 2048, window 2048, ragged kv_len) and a chunk (256
+    query rows at per-row offsets given as a (B,) tensor over the
+    2048-row ring, kv_len = offset + tokens, window 2048); plus the
+    prefill under a window of 700 that cuts the keys. Returns (fields,
+    [(tag, readings)])."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    b, s, h, hkv, d, win = 8, 2048, 16, 1, 256, 2048
+    q = torch.randn(b, s, h, d, generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(b, s, hkv, d, generator=g, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    kv_len = torch.randint(32, s + 1, (b,), generator=g, device="cuda",
+                           dtype=torch.int32)
+    kv_len[0] = s
+    res, rd = _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, 0, "",
+                       window=win)
+    out = [("d256", rd)]
+    cut, rd_cut = _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, 0,
+                           "w700_", window=700)
+    res.update({k_: cut[k_] for k_ in cut if "max_abs_err" in k_
+                or "mismatch_share" in k_})
+    out.append(("d256 window 700", rd_cut))
+    sq = HYBRID_CHUNK
+    qc = torch.randn(b, sq, h, d, generator=g,
+                     device="cuda").to(torch.bfloat16)
+    offs = torch.tensor([0, 256, 1792, 0, 1000, 512, 1500, 1536],
+                        dtype=torch.int32, device="cuda")
+    clens = torch.tensor([256, 256, 256, 0, 200, 37, 256, 100],
+                         dtype=torch.int32, device="cuda")
+    chunk, rd_chunk = _fa_case(fa, policy_cls, block_k, qc, k, v,
+                               offs + clens, offs, "chunk_", window=win)
+    res.update(chunk)
+    out.append(("d256 chunk", rd_chunk))
+    res["shape"] = (f"B={b} S={s} H={h} Hkv={hkv} D={d} window={win}, "
+                    f"ragged kv_len")
+    res["chunk_shape"] = (f"B={b} Sq={sq} Sk={s} H={h} Hkv={hkv} D={d} "
+                          f"window={win}, (B,) q_offset tensor")
+    return res, out
+
+
+def _hybrid_decode_case(da, policy_cls, paged):
+    """B2 (or B7 through a page-64 ring table) at the hybrid's decode
+    shape: B 8, one KV head, G 16, d 256, over a 2048-slot ring whose
+    cache_len is below and at the window (two rows full, the rest drawn
+    in [33, 2048]), "bshd". The half-block (half-page) and textbook-merge
+    controls; graph ms, SDPA's graph ms (over the gathered ring for B7),
+    the plain version's ms and the bound. Returns (fields, readings)."""
+    g = torch.Generator(device="cuda").manual_seed(12 + int(paged))
+    b, s, h, hkv, d, page = 8, 2048, 16, 1, 256, HYBRID_PAGE
+    ns = s // page
+    q = torch.randn(b, 1, h, d, generator=g, device="cuda").to(torch.bfloat16)
+    cl = torch.randint(33, s + 1, (b,), generator=g, device="cuda",
+                       dtype=torch.int32)
+    cl[0], cl[1] = s, s
+    if paged:
+        kp, vp = (torch.randn(1 + b * ns, page, hkv, d, generator=g,
+                              device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        tab = ((torch.randperm(b * ns, generator=g, device="cuda") + 1)
+               .reshape(b, ns).to(torch.int32))
+        kc, vc = da.paged_gather(kp, tab), da.paged_gather(vp, tab)
+    else:
+        kc, vc = (torch.randn(b, s, hkv, d, generator=g, device="cuda")
+                  .to(torch.bfloat16) for _ in range(2))
+    readings = {}
+
+    def run(pol):
+        if paged:
+            return da.decode_attention_paged(q, kp, vp, tab, cl,
+                                             layout="bshd", policy=pol)
+        return da.decode_attention(q, kc, vc, cl, layout="bshd", policy=pol)
+
+    block = page if paged else policy_cls().block_s
+    for exp in EXP_BACKENDS:
+        pol = policy_cls(exp_backend=exp, block_page=page)
+        ref = da.decode_attention_plain(q, kc, vc, cl, layout="bshd",
+                                        block_s=block, exp_backend=exp)
+        readings[exp, "kernel"] = kernel_vs_plain(run(pol), ref)
+        if exp != "exact":
+            half = da.decode_attention_plain(q, kc, vc, cl, layout="bshd",
+                                             block_s=block // 2,
+                                             exp_backend=exp)
+            readings[exp, "half_page" if paged else "half_block"] = \
+                kernel_vs_plain(half, ref)
+            tb = textbook_partial(q, kc, vc, cl, 0, layout="bshd", exp=exp)
+            readings[exp, "textbook_merge"] = kernel_vs_plain(
+                _norm_stats(*tb).reshape(ref.shape), ref)
+    res = {f"{exp}_{who}_{m}": val[i]
+           for (exp, who), val in readings.items()
+           for i, m in enumerate(("max_abs_err", "mismatch_share"))}
+    pol = policy_cls(exp_backend="vexp", block_page=page)
+    res["ms_vexp"] = cuda_time_ms(lambda: run(pol), iters=50)
+    res["graph_ms_vexp"] = graph_ms(lambda: run(pol),
+                                    f"decode d256 paged={paged}", iters=50)
+    res["plain_ms_vexp"] = cuda_time_ms(lambda: da.decode_attention_plain(
+        q, kc, vc, cl, layout="bshd", block_s=block, exp_backend="vexp"),
+        iters=5)
+    qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+    mask = (torch.arange(s, device="cuda")[None, :]
+            < cl[:, None])[:, None, None]
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    res["library_ms"] = cuda_time_ms(sdpa, iters=50)
+    res["library_graph_ms"] = graph_ms(sdpa, "sdpa (decode d256)", iters=50)
+    live = float(cl.double().sum())
+    if paged:            # whole live pages of K and V
+        live_keys = float(((cl + page - 1) // page).double().sum()) * page
+    else:
+        live_keys = live
+    nbytes = live_keys * hkv * d * 2 * 2 + 2 * b * h * d * 2
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 4.0 * live * h * d,
+                                                BF16_FLOP_PER_S)
+    res["cache_len"] = cl.tolist()
+    res["shape"] = (f"B={b} Hkv={hkv} G={h // hkv} d={d} ring={s}"
+                    + (f" page={page}" if paged else "") + ", bshd")
+    return res, readings
+
+
+def phase_hybrid_kernels(policy_cls):
+    """B3, B2 and B7 at recurrentgemma-9b's shapes (head dim 256, 16 query
+    heads on one KV head, a 2048-token window; FA at the config's
+    ``attn_block_k`` of 512, the update block its serve runs), each held
+    to its plain version under the unchanged ATT_LIMITS with its
+    negative controls. Returns {kernel row name: fields} for the kernel
+    table."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.runtime import resolve_policy
+    block_k = resolve_policy(get_config(HYBRID_ARCH), env={}).block_k
+    fa_res, fa_checks = _hybrid_fa_rows(fa, policy_cls, block_k)
+    dec, dec_rd = _hybrid_decode_case(da, policy_cls, False)
+    pdec, pdec_rd = _hybrid_decode_case(da, policy_cls, True)
+    emit({"phase": "hybrid_attention_kernels", "block_k": block_k,
+          "flash_attention": fa_res, "decode_attention": dec,
+          "decode_attention_paged": pdec})
+    for tag, rd in fa_checks:
+        check_attention("flash_attention", rd, f" {tag}")
+    check_attention("decode_attention", dec_rd, " d256 g16")
+    check_attention("decode_attention_paged", pdec_rd, " d256 g16")
+    keys = ("ms_vexp", "graph_ms_vexp", "plain_ms_vexp", "bound_ms",
+            "bound_by", "library_ms", "library_graph_ms", "shape")
+
+    def worst(rd):
+        return max(e for (_, who), (e, _) in rd.items() if who == "kernel")
+    fa_row = {k: fa_res[k] for k in keys}
+    fa_row.update({f"chunk_{k}": fa_res[f"chunk_{k}"] for k in keys
+                   if f"chunk_{k}" in fa_res})
+    fa_row["chunk_shape"] = fa_res["chunk_shape"]
+    fa_row["max_abs_err"] = max(worst(rd) for _, rd in fa_checks)
+    out = {"flash_attention_bhsd": fa_row}
+    for name, res, rd in (("decode_attention_kernel", dec, dec_rd),
+                          ("decode_attention_kernel_paged", pdec, pdec_rd)):
+        row = {k: res[k] for k in keys}
+        row["max_abs_err"] = worst(rd)
+        out[name] = row
+    return out
+
+
+def hybrid_step_readings(srv):
+    """Per busy group: the graph ms of one decode step replayed back to
+    back on its live pool (positions advance by at most 11 rows), the
+    launches a replay holds, and the device kernels of one step from a
+    profile window of one replay."""
+    out = ssm_step_readings(srv)
+    for name, g in srv._groups.items():
+        if name in out:
+            out[name]["launches_per_step"] = dict(g.state.graph.launches)
+    return out
+
+
+def phase_serve_hybrid(kernels, smi, cfg, params, policy, groups):
+    """Full-width recurrentgemma-9b through the port's Server: max_batch
+    8, max_seq 4,096 (the cache is the 2,048-token window), 16 requests
+    with prompts in [32, 2000], four of them in [1990, 2040] so that their
+    decode wraps the ring (seed 0), 64 new tokens, groups eval=exact,
+    bulk=vexp, hw=vexp_hw; the graph and eager arms in turns (graph,
+    eager, graph, eager), then the capture audit (the whole mixed carry),
+    the decode step's graph ms per group with its kernels, the gate exps
+    against their plain versions (a short eager serve at the serve's
+    shapes and the replays), the replays (cuda tier against reference
+    tier, decode against forward). Returns ({path: launch counts}, the
+    first graph turn's requests)."""
+    from repro_torch.analysis import graph_audit
+
+    def server(cuda_graphs=True, grp=groups):
+        return hybrid_server(cfg, params, policy, grp, cuda_graphs)
+
+    t0 = time.perf_counter()
+    for arm in ARMS:                     # warm-up, not measured
+        server(arm == "graph").run(hybrid_requests(cfg, groups, 3, 4,
+                                                   seed=1))
+    torch.cuda.synchronize()
+    secs = {"warm_up": time.perf_counter() - t0}
+    runs = {arm: [] for arm in ARMS}
+    for _ in range(ARM_TURNS):
+        for arm in ARMS:
+            turn = hybrid_serve_once(kernels, cfg, server,
+                                     lambda: hybrid_requests(cfg, groups),
+                                     arm, 0, "decode_attention",
+                                     f"serve_hybrid ({arm} arm)")
+            del turn["srv"]
+            runs[arm].append(turn)
+    compare = compare_arms(runs, "serve_hybrid")
+    first = runs["graph"][0]
+    reqs = first["reqs"]
+    secs["turns"] = time.perf_counter() - t0 - sum(secs.values())
+    live = hybrid_requests(cfg, groups, max_new=8, seed=3)
+    srv = ssm_live_server(server, live)
+    audits = {}
+    for name, g in srv._groups.items():
+        if g.busy:
+            try:
+                audits[name] = graph_audit.capture_audit(g.state, g.last,
+                                                         g.live_dev)
+            except graph_audit.AuditError as e:
+                fail(f"serve_hybrid capture audit, group {name}: {e}")
+    steps = hybrid_step_readings(srv)
+    del srv
+    secs["audit_and_step"] = time.perf_counter() - t0 - sum(secs.values())
+    gates = GateCheck()
+    reqs_g = hybrid_requests(cfg, groups, max_new=HYBRID_GATE_SERVE_NEW)
+    with gates:
+        server(False).run(reqs_g)
+    check_requests(cfg, reqs_g, HYBRID_GATE_SERVE_NEW)
+    checked = {"serve": dict(gates.calls)}
+    secs["gate_serve"] = time.perf_counter() - t0 - sum(secs.values())
+    replays = hybrid_replays(cfg, params, groups, reqs, gates)
+    checked["serve_and_replays"] = dict(gates.calls)
+    secs["replays"] = time.perf_counter() - t0 - sum(secs.values())
+    wrapped = [r.rid for r in reqs if len(r.prompt) + len(r.out) - 1
+               > cfg.sliding_window]
+    if len(wrapped) < 4:
+        fail(f"serve_hybrid: {len(wrapped)} requests wrapped the ring")
+    emit({"phase": "serve_hybrid", "arch": cfg.arch_id,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+          "head_dim": cfg.hd, "lru_width": cfg.lru_width,
+          "window": cfg.sliding_window, "vocab_padded": cfg.vocab_padded,
+          "arm": "graph", **first["readings"],
+          "prompt_lens": [len(r.prompt) for r in reqs],
+          "ring_wrapped_requests": wrapped,
+          "turns": {arm: [t["readings"] for t in runs[arm]] for arm in ARMS},
+          "graph_vs_eager_tokens": compare, "capture_audit": audits,
+          "step_graph": steps, **replays, "gate_exps_checked": checked,
+          "gate_exp_max_ulp": gates.max_ulp, "form_limit": HYBRID_FORM_LIMIT,
+          "phase_seconds": secs, "nvidia_smi": smi})
+    return ({"serve_hybrid": first["counts"],
+             "serve_hybrid_eager": runs["eager"][0]["counts"]}, reqs)
+
+
+def phase_serve_hybrid_paged(kernels, smi, cfg, params, policy, groups,
+                             mono):
+    """The serve_hybrid requests on the paged ring pools (page 64, 32 ring
+    pages a slot, allocated whole at admission), graph arm: B7 on every
+    decode step; tokens equal the contiguous serve's (``mono``), up to a
+    near tie (the contiguous sweep updates once per 512 keys, the paged
+    one once per page); no page held after the serve. Returns (counts,
+    the served requests)."""
+    grp = {n: p.replace(block_page=HYBRID_PAGE) for n, p in groups.items()}
+    pol = policy.replace(block_page=HYBRID_PAGE)
+
+    def server(cuda_graphs=True):
+        return hybrid_server(cfg, params, pol, grp, cuda_graphs, paged=True)
+
+    turn = hybrid_serve_once(kernels, cfg, server,
+                             lambda: hybrid_requests(cfg, groups), "graph",
+                             0, "decode_attention_paged",
+                             "serve_hybrid_paged")
+    pools = {}
+    for name, g in turn["srv"]._groups.items():
+        pools[name] = g.state.pool_stats()
+        if g.state.alloc.n_used():
+            fail(f"serve_hybrid_paged group {name}: "
+                 f"{g.state.alloc.n_used()} pages held after the serve")
+    turn["srv"].assert_idle_clean()
+    vs = near_tie_compare(cfg, params, groups, turn["reqs"],
+                          [r.out for r in mono], "paged hybrid request",
+                          "the contiguous serve's tokens")
+    emit({"phase": "serve_hybrid_paged", "page": HYBRID_PAGE,
+          **turn["readings"], "vs_contiguous": vs, "pools": pools,
+          "nvidia_smi": smi})
+    return {"serve_hybrid_paged": turn["counts"]}, turn["reqs"]
+
+
+def phase_serve_hybrid_chunked(kernels, smi, cfg, params, policy, groups,
+                               mono):
+    """The serve_hybrid requests with chunked prefill (256), contiguous and
+    paged, graph arm: each group's chunk program a second graph built
+    with the group, every chunk a replay; tokens equal the monolithic
+    serve's (``mono``) up to a near tie (the RG-LRU's combine tree spans
+    the chunk, not the window)."""
+    out = {}
+    for paged in (False, True):
+        page = HYBRID_PAGE if paged else None
+        pol, grp = chunked_groups(policy, groups, HYBRID_CHUNK, page)
+
+        def server(cuda_graphs=True):
+            return hybrid_server(cfg, params, pol, grp, cuda_graphs,
+                                 paged=paged)
+
+        what = "serve_hybrid_paged_chunked" if paged else \
+            "serve_hybrid_chunked"
+        turn = hybrid_serve_once(
+            kernels, cfg, server, lambda: hybrid_requests(cfg, groups),
+            "graph", 0, "decode_attention_paged" if paged
+            else "decode_attention", what)
+        vs = near_tie_compare(cfg, params, groups, turn["reqs"],
+                              [r.out for r in mono], f"{what} request",
+                              "the monolithic serve's tokens")
+        emit({"phase": what, "chunk": HYBRID_CHUNK, **turn["readings"],
+              "vs_monolithic": vs, "nvidia_smi": smi})
+        out[what] = turn["counts"]
+        del turn
+    return out
+
+
+def phase_serve_hybrid_spec(kernels, smi, cfg, params, policy, groups,
+                            mono, mono_paged):
+    """The serve_hybrid requests under self-speculative decode (spec_k 4,
+    drafts under vexp_hw, the "recurrent" scan verify; paged:
+    "recurrent_paged"), graph arm: every burst k draft replays and one
+    verify replay; tokens equal the plain serve's request by request,
+    on each pool the plain serve of that pool (``mono``, ``mono_paged``);
+    the hw group's own-backend drafts all accepted."""
+    out = {}
+    for paged, plain in ((False, mono), (True, mono_paged)):
+        grp = spec_policy_groups(groups, "scan",
+                                 HYBRID_PAGE if paged else None)
+
+        def server(cuda_graphs=True):
+            return hybrid_server(cfg, params, policy, grp, cuda_graphs,
+                                 paged=paged)
+
+        what = "serve_hybrid_paged_spec" if paged else "serve_hybrid_spec"
+        turn = hybrid_serve_once(
+            kernels, cfg, server, lambda: hybrid_requests(cfg, groups),
+            "graph", SPEC_K, "decode_attention_paged" if paged
+            else "decode_attention", what)
+        for r, want in zip(turn["reqs"], plain):
+            if list(r.out) != list(want.out):
+                i = next((i for i, (a, b) in enumerate(
+                    zip(r.out, want.out)) if a != b),
+                    min(len(r.out), len(want.out)))
+                fail(f"{what}: request {r.rid} ({r.group}) leaves the "
+                     f"plain serve's tokens at step {i}")
+        vs = {"identical": len(plain)}
+        control = check_own_draft_control(cfg, turn["stats"], turn["reqs"],
+                                          "hw", "scan", what)
+        emit({"phase": what, "spec_k": SPEC_K, "draft": "vexp_hw",
+              "verify": "recurrent_paged scan" if paged
+              else "recurrent scan",
+              **spec_readings(turn["reqs"], turn["stats"], turn["secs"],
+                              turn["peak"], turn["clocks"]),
+              "serve": turn["readings"], "vs_plain": vs,
+              "own_draft_control": control, "nvidia_smi": smi})
+        out[what] = turn["counts"]
+        del turn
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -3510,6 +4144,23 @@ def main():
                                            groups, ssm_mono))
     by_path.update(phase_serve_ssm_spec(kernels, smi, cfg, params, policy,
                                         groups, ssm_mono))
+    del params
+    torch.cuda.empty_cache()
+    hyb_rows = phase_hybrid_kernels(ExecPolicy)
+    for row in rows[2:5]:
+        row["d256"] = hyb_rows[row["name"]]
+    cfg, params, policy, groups = hybrid_setup()
+    hyb_counts, hyb_mono = phase_serve_hybrid(kernels, smi, cfg, params,
+                                              policy, groups)
+    by_path.update(hyb_counts)
+    paged_counts, hyb_paged = phase_serve_hybrid_paged(
+        kernels, smi, cfg, params, policy, groups, hyb_mono)
+    by_path.update(paged_counts)
+    by_path.update(phase_serve_hybrid_chunked(kernels, smi, cfg, params,
+                                              policy, groups, hyb_mono))
+    by_path.update(phase_serve_hybrid_spec(kernels, smi, cfg, params,
+                                           policy, groups, hyb_mono,
+                                           hyb_paged))
     for row, name in zip(rows, ("vexp", "softmax", "flash_attention",
                                 "decode_attention",
                                 "decode_attention_paged",

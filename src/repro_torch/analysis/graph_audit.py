@@ -21,8 +21,9 @@ programs. Here the step is a CUDA graph over an in-place carry
   storage across a burst, as the decode carry does across a step: the
   draft steps and the verify are replays over them.
 * **capture audit** (on the card only): the group's step was captured,
-  and replaying it from a carry gives the same tokens and positions (and
-  recurrent state) as the eager step from the same carry.
+  and replaying it from a carry gives the same tokens, positions and
+  state leaves (KV, recurrent rows, the hybrid's ring) as the eager step
+  from the same carry.
 
 The reference's output-sharding audit checks its sharded chunk-prefill
 program, which the port does not have yet.
@@ -171,13 +172,12 @@ def audit_burst(state, last, live, burst) -> dict:
 def capture_audit(state, last, live) -> dict:
     """On the card: ``state``'s step is a captured graph, and its replay
     from a carry gives the eager step's tokens and positions from the
-    same carry. Positions, tokens and the state leaves without a
-    sequence axis (a recurrent state's ``h`` / ``conv``, which a step
-    advances in place) are put back before the replay and after it, and
-    those leaves are compared too; the KV rows the two runs wrote at each
-    live slot's position are the rows the group's next step writes again
-    from the same inputs. Returns the readings; raises CaptureError on a
-    difference."""
+    same carry. Positions, tokens and every state leaf (KV caches and
+    pools, a recurrent state's ``h`` / ``conv``, the hybrid's RG-LRU rows
+    and ring K/V, which a step writes in place, a ring row over an older
+    position once it wraps) are put back before the replay and after it,
+    and all of them are compared. Returns the readings; raises
+    CaptureError on a difference."""
     if state.device.type != "cuda":
         raise ValueError("the capture audit needs the card: on the CPU "
                          "the step always runs eagerly")
@@ -187,8 +187,7 @@ def capture_audit(state, last, live) -> dict:
                            "eagerly, or has not stepped since its cache "
                            "was allocated")
     c = state.carry(last, live)
-    kept = ("pos", "out", *(n for n, ax in state.axes.items()
-                            if ax.seq is None))
+    kept = ("pos", "out", *state.axes)
     saved = {k: c[k].clone() for k in kept}
     state._step(c)                               # eager
     eager = {k: c[k].clone() for k in saved}

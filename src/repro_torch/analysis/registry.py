@@ -64,6 +64,11 @@ HOT_PATH_FUNCTIONS = {
         "_write_chunk_kv", "_write_chunk_kv_paged",
     ),
     "repro_torch/models/decode_state.py": ("_guard_tokens",),
+    "repro_torch/models/hybrid.py": (
+        "_combine", "_assoc_scan", "_log_a_base", "_gates", "_attn_out",
+        "_ring_len", "_ring_pos", "_embed", "_logits", "_last_logits",
+        "_rec_rows", "_prefill_chunk_impl", "_decode_layers",
+    ),
 }
 
 # Per-decode-step symbols that must stay finding-free: a baseline entry
@@ -78,6 +83,8 @@ STEP_STRICT = (
     ("repro_torch/models/decode_state.py", "_guard_tokens"),
     ("repro_torch/models/transformer.py", "decode_step*"),
     ("repro_torch/models/transformer.py", "prefill_chunk*"),
+    ("repro_torch/models/hybrid.py", "decode_step*"),
+    ("repro_torch/models/hybrid.py", "prefill_chunk*"),
     ("repro_torch/models/decode_state.py", "*._chunk_*"),
     ("repro_torch/models/decode_state.py", "_spec_*"),
     ("repro_torch/models/decode_state.py", "*.spec_*"),

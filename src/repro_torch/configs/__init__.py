@@ -1,9 +1,10 @@
 """Config registry of the port: only the architectures ported so far."""
 
 from .base import ModelConfig
-from . import gpt2_small, mamba2_1_3b
+from . import gpt2_small, mamba2_1_3b, recurrentgemma_9b
 
-REGISTRY = {c.arch_id: c for c in (gpt2_small.CONFIG, mamba2_1_3b.CONFIG)}
+REGISTRY = {c.arch_id: c for c in (gpt2_small.CONFIG, mamba2_1_3b.CONFIG,
+                                   recurrentgemma_9b.CONFIG)}
 
 
 def get_config(arch_id: str) -> ModelConfig:

@@ -1,28 +1,31 @@
 """Model configuration schema (the port's own copy).
 
 Mirrors ``repro/configs/base.py``'s ``ModelConfig`` for the fields the
-ported families read: the dense decoder and the ssm (Mamba-2) family.
-The port keeps its own copy rather than importing the reference package,
-so it stays importable where JAX is absent. Fields of families not ported
-yet (MoE, hybrid, modality stubs) are left out until their slice lands.
+ported families read: the dense decoder, the ssm (Mamba-2) family and
+the hybrid (RG-LRU + local attention) family. The port keeps its own
+copy rather than importing the reference package, so it stays
+importable where JAX is absent. Fields of families not ported yet (MoE,
+modality stubs) and the training-only ``logit_softcap`` are left out
+until their slice lands.
 
 Execution fields resolve into a ``runtime.ExecPolicy``: ``REPRO_*``
 environment variables and per-call overrides take precedence over them.
 The port supports f32 attention and logits matmul inputs only (the
-reference's ``attn_mm_dtype`` / ``logits_mm_dtype`` defaults), and
-neither sliding windows nor parallel blocks, so those knobs are not
-carried.
+reference's ``attn_mm_dtype`` / ``logits_mm_dtype`` defaults), and no
+parallel blocks, so those knobs are not carried. ``sliding_window`` is
+read by the hybrid family's local attention only.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import Optional
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                     # dense | ssm (the families ported)
+    family: str                     # dense | ssm | hybrid (ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -33,12 +36,16 @@ class ModelConfig:
     causal: bool = True
     rope_theta: float = 10000.0
     rope_pct: float = 1.0           # fraction of head_dim rotated
+    sliding_window: Optional[int] = None   # hybrid: local attention window
     use_bias: bool = False
     norm: str = "rmsnorm"           # rmsnorm | layernorm
     act: str = "swiglu"             # swiglu | gelu
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
-    conv_width: int = 4             # ssm: causal depthwise conv taps
+    # hybrid (recurrentgemma / griffin)
+    attn_period: int = 0            # 1 attention layer per `attn_period`
+    lru_width: int = 0
+    conv_width: int = 4             # ssm / hybrid: causal depthwise conv
     # ssm (mamba2)
     ssm_state: int = 0
     ssm_expand: int = 2
@@ -76,7 +83,8 @@ class ModelConfig:
         ``reduced()`` restricted to the fields kept here)."""
         return replace(
             self,
-            n_layers=2,
+            n_layers=2 if self.attn_period == 0
+            else self.attn_period + 1,       # +1: the tail is covered
             d_model=128,
             n_heads=4,
             n_kv_heads=min(self.n_kv_heads, 4) if self.n_kv_heads < self.n_heads
@@ -84,6 +92,8 @@ class ModelConfig:
             head_dim=32,
             d_ff=256 if self.d_ff else 0,
             vocab=512,
+            lru_width=128 if self.lru_width else 0,
+            sliding_window=16 if self.sliding_window else None,
             ssm_headdim=32 if self.ssm_state else 64,
             ssm_state=min(self.ssm_state, 32),
             ssm_chunk=16,

@@ -86,7 +86,8 @@ int run(const void* q, const void* kc, const void* vc, void* o, void* om,
 // scratch: scratch_len f32 elements, at least
 // B*Hkv*(G*nT*(64 + 3 + D) + 1) with nT = max(ceil(S / bs) * ceil(bs / 64),
 // 1) tiles per row, bs = max(min(block_s, S), 1); cache_len: (B,) int32
-// global lengths. window <= 0 means no window. G <= 8. Each launches the
+// global lengths. window <= 0 means no window. G <= 8 (16 at D = 256,
+// normalized mode only). Each launches the
 // two kernels and returns cudaGetLastError() after the last launch (or
 // the first failed one).
 //

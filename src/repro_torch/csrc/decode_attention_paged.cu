@@ -91,7 +91,8 @@ int run(const void* q, const void* kp, const void* vp, void* o, void* om,
 // B*Hkv*(G*nT*(64 + 3 + D) + 1) with nT = max(nS * ceil(page / 64), 1)
 // tiles per row; block_tab: (B,nS) int32 packed, pool page ids, logical
 // page 0 at global position seq_offset; cache_len: (B,) int32 global
-// lengths. window <= 0 means no window. G <= 8. Each launches the two
+// lengths. window <= 0 means no window. G <= 8 (16 at D = 256,
+// normalized mode only). Each launches the two
 // kernels and returns cudaGetLastError() after the last launch (or the
 // first failed one).
 //

@@ -36,6 +36,16 @@
 // their V rows while split_scores drains, and wait for it
 // (griddepcontrol.wait) before reading its output.
 //
+// Head dim 256 with G = 16 (recurrentgemma's MQA; normalized mode only):
+// stage 1 takes dynamic shared memory (50 KB, above the 48 KB static
+// limit) and reads each key's row from shared memory for every query row
+// instead of holding it in registers; stage 2 is its own kernel,
+// split_pv_chain, which chains each update block's p @ v and l over the
+// block's keys in order in one CTA, the order in which the plain sweep's
+// products sum on the card, so the kernel matches its plain version bit
+// for bit there. The dense heads (D 32, 64; G <= 8) keep their static
+// arrays and split_pv as they were.
+//
 // Why the running max per update block, and not one max per tile merged
 // at the end (the usual split-KV merge): under vexp and vexp_hw,
 // exp(a) * exp(b) != exp(a + b), so folding per-tile statistics with
@@ -48,6 +58,8 @@
 // r = (b * Hkv + h) * G + g, R = B * Hkv * G, nT tiles per row:
 // scores R * nT * kTile, tile maxes R * nT, tile l R * nT, the tile's
 // block alpha R * nT, tile p @ v R * nT * D, then B * Hkv ticket counters.
+// (At D = 256 a block's l and p @ v sit in its first live tile's slots and
+// the block's other tiles hold zeros.)
 
 #pragma once
 
@@ -60,7 +72,6 @@
 namespace split {
 
 constexpr int kTile = 64;             // keys per tile, one thread each
-constexpr int kMaxG = 8;              // query rows per KV head
 constexpr int kPvThreads = 128;
 constexpr float kNegInf = -1e30f;     // core/softmax.py KERNEL_NEG_INF
 
@@ -91,6 +102,38 @@ struct Args {
   float sm_scale;
   int window, seq_offset, backend;
 };
+
+// Query rows per KV head an instantiation takes: 8 at the dense heads
+// (D 32, 64), 16 at D 256 (recurrentgemma's 16 query heads on one KV
+// head). Shared memory is sized by it, so the small heads keep theirs.
+template <int D>
+__host__ __device__ constexpr int max_g() {
+  return D >= 256 ? 16 : 8;
+}
+
+// Whether stage 1's shared memory is dynamic: only where it passes the
+// 48 KB static limit (D = 256); the dense heads keep their static
+// arrays.
+template <int D>
+__host__ __device__ constexpr bool dyn_smem() {
+  return D >= 256;
+}
+
+// Stage 1's shared memory, in bytes.
+template <int D>
+__host__ __device__ constexpr size_t scores_smem() {
+  return (size_t)max_g<D>() * D * sizeof(float) +             // sQ
+         (size_t)kTile * (D + 8) * sizeof(__nv_bfloat16) +    // sK
+         (size_t)(kTile / 32) * max_g<D>() * sizeof(float);   // sMax
+}
+
+// Whether stage 2 chains each update block's p @ v and l over the
+// block's keys in order (split_pv_chain, D = 256) instead of summing
+// per-tile partials (split_pv).
+template <int D>
+__host__ __device__ constexpr bool block_chain() {
+  return D >= 256;
+}
 
 // Floats of scratch a call needs; the wrappers compute the same.
 inline long long scratch_floats(int B, int Hkv, int G, int D, int nT) {
@@ -182,9 +225,23 @@ __device__ __forceinline__ void load_rows(const Args& a,
 template <int D, bool PAGED>
 __global__ void __launch_bounds__(kTile) split_scores(Args a) {
   constexpr int PITCH = D + 8;            // 16 bytes of padding per row
-  __shared__ float sQ[kMaxG * D];
-  __shared__ __align__(16) __nv_bfloat16 sK[kTile * PITCH];
-  __shared__ float sMax[kTile / 32][kMaxG];
+  constexpr int kMaxG = max_g<D>();
+  float* sQ;                     // [kMaxG][D]
+  __nv_bfloat16* sK;             // [kTile][PITCH]
+  float* sMax;                   // [kTile / 32][kMaxG]
+  if constexpr (dyn_smem<D>()) {
+    extern __shared__ __align__(16) unsigned char dsmem[];
+    sQ = reinterpret_cast<float*>(dsmem);
+    sK = reinterpret_cast<__nv_bfloat16*>(sQ + kMaxG * D);
+    sMax = reinterpret_cast<float*>(sK + kTile * PITCH);
+  } else {
+    __shared__ float q_s[kMaxG * D];
+    __shared__ __align__(16) __nv_bfloat16 k_s[kTile * PITCH];
+    __shared__ float max_s[kTile / 32 * kMaxG];
+    sQ = q_s;
+    sK = k_s;
+    sMax = max_s;
+  }
   const int t = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int G = a.G;
@@ -208,15 +265,18 @@ __global__ void __launch_bounds__(kTile) split_scores(Args a) {
   cp_async_wait_all();
   __syncthreads();
 
-  // the key's K row stays in registers while the G query rows take their
-  // turns (a loop over the runtime G, so G = 1 issues no idle work)
+  // the G query rows take their turns on the key's K row (a loop over the
+  // runtime G, so G = 1 issues no idle work). Up to D = 64 the row stays
+  // in registers; a D = 256 row (128 registers) is read from shared
+  // memory each turn, the padded pitch keeping the reads conflict-free.
+  constexpr bool kRegK = D <= 64;
   const int kp = x.k0 + tid;
   const bool keep = kp >= x.c0 && kp < x.c1;
-  uint4 krow[D / 8];
-  if (keep) {
-    const uint4* row = reinterpret_cast<const uint4*>(sK + tid * PITCH);
+  const uint4* row = reinterpret_cast<const uint4*>(sK + tid * PITCH);
+  uint4 krow[kRegK ? D / 8 : 1];
+  if (kRegK && keep) {
 #pragma unroll
-    for (int v8 = 0; v8 < D / 8; ++v8) krow[v8] = row[v8];
+    for (int v8 = 0; v8 < (kRegK ? D / 8 : 1); ++v8) krow[v8] = row[v8];
   }
   float* sc = a.scores + (row0 * a.nT + t) * kTile + tid;
   for (int g = 0; g < G; ++g) {
@@ -225,8 +285,12 @@ __global__ void __launch_bounds__(kTile) split_scores(Args a) {
       const float* qg = sQ + g * D;
 #pragma unroll
       for (int v8 = 0; v8 < D / 8; ++v8) {
-        const __nv_bfloat16* e =
-            reinterpret_cast<const __nv_bfloat16*>(&krow[v8]);
+        uint4 kv;
+        if constexpr (kRegK)
+          kv = krow[v8];
+        else
+          kv = row[v8];
+        const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&kv);
 #pragma unroll
         for (int j = 0; j < 8; ++j)
           s = fmaf(qg[v8 * 8 + j], __bfloat162float(e[j]), s);
@@ -235,13 +299,14 @@ __global__ void __launch_bounds__(kTile) split_scores(Args a) {
     const float val = keep ? s : kNegInf;
     if (kp < x.kend) sc[(long long)g * a.nT * kTile] = val;
     const float mx = warp_max(val);
-    if (lane == 0) sMax[warp][g] = mx;
+    if (lane == 0) sMax[warp * kMaxG + g] = mx;
   }
   __syncthreads();
   if (tid < G) {
-    float mx = sMax[0][tid];
+    float mx = sMax[tid];
 #pragma unroll
-    for (int w = 1; w < kTile / 32; ++w) mx = fmaxf(mx, sMax[w][tid]);
+    for (int w = 1; w < kTile / 32; ++w)
+      mx = fmaxf(mx, sMax[w * kMaxG + tid]);
     a.tmax[(row0 + tid) * a.nT + t] = mx;
   }
 }
@@ -319,12 +384,93 @@ __device__ void combine_row(const Args& a, int b, int h, int lo, int len) {
   }
 }
 
+// The lead CTA's walk over its update block (block_chain): for each live
+// tile from the lead's on, p against the block's running max sM (the V
+// rows of the lead's own tile are already in flight), then every
+// thread's outputs (rows g, columns tid + 128 u) and warp 0's row sums
+// chain over the tile's kept keys in order. Writes the block's l and
+// p @ v into the lead tile's slots.
+template <int D, bool PAGED>
+__device__ __forceinline__ void chain_block(const Args& a, int b, int h,
+                                            int t, int lo, int len,
+                                            long long row0, const float* sM,
+                                            __nv_bfloat16* sV, float* sP,
+                                            float* sPr) {
+  constexpr int kMaxG = max_g<D>();
+  constexpr int CPT = D / kPvThreads;
+  constexpr int PER = kMaxG * kTile / kPvThreads;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int G = a.G;
+  float acc[kMaxG][CPT];
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g)
+#pragma unroll
+    for (int u = 0; u < CPT; ++u) acc[g][u] = 0.0f;
+  float lsum = 0.0f;                     // warp 0, lane g: row g's l
+  const int t_end = (t / a.tpb + 1) * a.tpb;
+  for (int tt = t; tt < t_end; ++tt) {
+    const Tile y = tile_of(a, tt, lo, len);
+    if (y.c0 >= y.c1) break;             // live tiles are contiguous
+    if (tt != t) {
+      __syncthreads();                   // the last tile's V and p read
+      load_rows<D, PAGED, kPvThreads>(a, a.v, b, h, page_of<PAGED>(a, b, tt),
+                                      y, sV, D);
+    }
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int i = tid + u * kPvThreads, g = i / kTile, c = i % kTile;
+      const int kp = y.k0 + c;
+      if (g < G) {
+        const float p =
+            (kp >= y.c0 && kp < y.c1)
+                ? vexp::apply_exp(
+                      a.backend,
+                      __fsub_rn(a.scores[((row0 + g) * a.nT + tt) * kTile + c],
+                                sM[g]))
+                : 0.0f;
+        sP[i] = p;
+        sPr[i] = bf16_round(p);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    const int c0 = y.c0 - y.k0, c1 = y.c1 - y.k0;
+    if (warp == 0 && lane < G)
+      for (int c = c0; c < c1; ++c)
+        lsum = __fadd_rn(lsum, sP[lane * kTile + c]);
+    for (int c = c0; c < c1; ++c) {
+      float vr[CPT];
+#pragma unroll
+      for (int u = 0; u < CPT; ++u)
+        vr[u] = __bfloat162float(sV[c * D + tid + u * kPvThreads]);
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) {
+        if (g < G) {
+          const float pr = sPr[g * kTile + c];
+#pragma unroll
+          for (int u = 0; u < CPT; ++u) acc[g][u] = fmaf(pr, vr[u], acc[g][u]);
+        }
+      }
+    }
+  }
+  if (warp == 0 && lane < G) a.tl[(row0 + lane) * a.nT + t] = lsum;
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g)
+    if (g < G)
+#pragma unroll
+      for (int u = 0; u < CPT; ++u)
+        a.tpv[((row0 + g) * a.nT + t) * D + tid + u * kPvThreads] = acc[g][u];
+}
+
+
 // ---- stage 2: p against the block's running max, the tile's l and
 // p @ v; then a ticket per row, and the row's last CTA runs stage 3
 // (at most 64 registers a thread, 8 CTAs per SM: the combine's prefetch
 // would otherwise take the registers of half of them)
 template <int D, int MODE, bool PAGED>
 __global__ void __launch_bounds__(kPvThreads, 8) split_pv(Args a) {
+  static_assert(!block_chain<D>(), "D = 256 takes split_pv_chain");
+  constexpr int kMaxG = max_g<D>();
   constexpr int KG = kPvThreads / D;      // key groups in p @ v
   constexpr int WARPS = kPvThreads / 32;
   // V rows, p, p rounded to bf16, p @ v partials
@@ -437,6 +583,83 @@ __global__ void __launch_bounds__(kPvThreads, 8) split_pv(Args a) {
   combine_row<D, MODE>(a, b, h, lo, len);
 }
 
+// ---- stage 2 at D = 256 (block_chain): the same alphas as split_pv,
+// then the first live tile's CTA of each update block (the lead) walks
+// the block's live tiles in order, each thread chaining its 16 x 2
+// outputs of p @ v, and warp 0 each row's l, over the block's keys in
+// order: the order of the plain sweep's products (one (d, keys) @
+// (keys, G) product a block, which the card sums in key order). The
+// block's other tiles write l = 0 and p @ v = 0, so stage 3's sum over a
+// block's tiles is the lead's chain exactly. Then the ticket and stage 3
+// as in split_pv.
+template <int D, int MODE, bool PAGED>
+__global__ void __launch_bounds__(kPvThreads, 4) split_pv_chain(Args a) {
+  constexpr int kMaxG = max_g<D>();
+  constexpr int WARPS = kPvThreads / 32;
+  // V rows, p, p rounded to bf16: 40 KB at D = 256
+  __shared__ __align__(16) float smem[kTile * D / 2 + 2 * kMaxG * kTile];
+  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem);
+  float* sP = smem + kTile * D / 2;
+  float* sPr = sP + kMaxG * kTile;
+  __shared__ float sM[kMaxG];
+  __shared__ bool sLast;
+  const int t = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int G = a.G;
+  const long long row0 = ((long long)b * a.Hkv + h) * G;
+  int lo, len;
+  kept_range(a, b, lo, len);
+  const Tile x = tile_of(a, t, lo, len);
+  const bool live = x.c0 < x.c1;
+  const int b0 = x.blk * a.block;
+  const bool lead =
+      live && t == x.blk * a.tpb + (max(b0, lo) - b0) / kTile;
+  // the lead's first V tile is not stage 1's output: it starts now
+  if (lead)
+    load_rows<D, PAGED, kPvThreads>(a, a.v, b, h, page_of<PAGED>(a, b, t),
+                                    x, sV, D);
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  if (live) {
+    const int t_mid = x.blk * a.tpb, t_end = t_mid + a.tpb;
+    for (int g = warp; g < G; g += WARPS) {
+      const float* tm = a.tmax + (row0 + g) * a.nT;
+      float before = kNegInf, mx = kNegInf;
+      for (int i = lane; i < t_end; i += 32) {
+        const float v = tm[i];
+        if (i < t_mid) before = fmaxf(before, v);
+        mx = fmaxf(mx, v);
+      }
+      before = warp_max(before);
+      mx = warp_max(mx);
+      if (lane == 0) {
+        sM[g] = mx;
+        a.ta[(row0 + g) * a.nT + t] =
+            vexp::apply_exp(a.backend, __fsub_rn(before, mx));
+      }
+    }
+    __syncthreads();
+    if (lead) {
+      chain_block<D, PAGED>(a, b, h, t, lo, len, row0, sM, sV, sP, sPr);
+    } else {
+      for (int i = tid; i < G * D; i += kPvThreads) {
+        const int g = i / D;
+        if (i % D == 0) a.tl[(row0 + g) * a.nT + t] = 0.0f;
+        a.tpv[((row0 + g) * a.nT + t) * D + i % D] = 0.0f;
+      }
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    sLast = atomicAdd(a.tickets + (long long)b * a.Hkv + h, 1u) ==
+            gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!sLast) return;
+  __threadfence();
+  combine_row<D, MODE>(a, b, h, lo, len);
+}
+
 // Fills the tile geometry and scratch pointers of `a` (whose B, Hkv, G,
 // S and block are set) and launches the two kernels. Returns a CUDA
 // error code: invalid arguments, too little scratch, or the first launch
@@ -444,6 +667,7 @@ __global__ void __launch_bounds__(kPvThreads, 8) split_pv(Args a) {
 template <int D, int MODE, bool PAGED>
 int launch(Args a, float* scratch, long long scratch_len,
            cudaStream_t stream) {
+  if (a.G > max_g<D>()) return (int)cudaErrorInvalidValue;
   a.block = max(min(a.block, a.S), 1);
   a.tpb = (a.block + kTile - 1) / kTile;
   a.nT = max((a.S + a.block - 1) / a.block * a.tpb, 1);
@@ -456,20 +680,33 @@ int launch(Args a, float* scratch, long long scratch_len,
   a.ta = a.tl + tiles;
   a.tpv = a.ta + tiles;
   a.tickets = reinterpret_cast<unsigned*>(a.tpv + tiles * D);
-  // as many CTAs per SM as shared memory allows (set once per process)
-  static const cudaError_t carveout = [] {
+  // stage 2's kernel: per-tile partials, or at D = 256 the block chain
+  void (*pv)(Args);
+  if constexpr (block_chain<D>())
+    pv = split_pv_chain<D, MODE, PAGED>;
+  else
+    pv = split_pv<D, MODE, PAGED>;
+  // as many CTAs per SM as shared memory allows, and stage 1's dynamic
+  // shared memory at D = 256 (above the 48 KB default) allowed (set once
+  // per process)
+  static const cudaError_t carveout = [pv] {
     cudaError_t e = cudaFuncSetAttribute(
         split_scores<D, PAGED>, cudaFuncAttributePreferredSharedMemoryCarveout,
         (int)cudaSharedmemCarveoutMaxShared);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(split_pv<D, MODE, PAGED>,
+      e = cudaFuncSetAttribute(pv,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
+    if (dyn_smem<D>() && e == cudaSuccess)
+      e = cudaFuncSetAttribute(split_scores<D, PAGED>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)scores_smem<D>());
     return e;
   }();
   if (carveout != cudaSuccess) return (int)carveout;
   const dim3 grid(a.nT, a.Hkv, a.B);
-  split_scores<D, PAGED><<<grid, kTile, 0, stream>>>(a);
+  split_scores<D, PAGED>
+      <<<grid, kTile, dyn_smem<D>() ? scores_smem<D>() : 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // stage 2 as a programmatic dependent launch: its CTAs start while
@@ -484,24 +721,29 @@ int launch(Args a, float* scratch, long long scratch_len,
   cfg.stream = stream;
   cfg.attrs = pdl;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, split_pv<D, MODE, PAGED>, a);
+  err = cudaLaunchKernelEx(&cfg, pv, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 // `launch` for the head dims the port instantiates (gpt2-small's 64 and
-// its --reduced form's 32).
+// its --reduced form's 32, in every mode; recurrentgemma's 256 in the
+// normalized mode only: the hybrid never shards its sequence).
 template <int MODE, bool PAGED>
 int run(const Args& a, int D, float* scratch, long long scratch_len,
         cudaStream_t stream) {
   if (a.B == 0) return 0;
-  if (a.G < 1 || a.G > kMaxG || a.block < 1 || a.S < 0)
-    return (int)cudaErrorInvalidValue;
+  if (a.G < 1 || a.block < 1 || a.S < 0) return (int)cudaErrorInvalidValue;
   switch (D) {
     case 32:
       return launch<32, MODE, PAGED>(a, scratch, scratch_len, stream);
     case 64:
       return launch<64, MODE, PAGED>(a, scratch, scratch_len, stream);
+    case 256:
+      if constexpr (MODE == kNormalized)
+        return launch<256, MODE, PAGED>(a, scratch, scratch_len, stream);
+      else
+        return (int)cudaErrorInvalidValue;
     default:
       return (int)cudaErrorInvalidValue;
   }

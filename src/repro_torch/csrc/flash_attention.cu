@@ -55,6 +55,23 @@
 // at block_k = 128), so block_k is bounded by it: 640 keys at D = 64 on
 // an H100. The shared-memory limit is raised once per instantiation and
 // device.
+//
+// Head dim 256 (recurrentgemma: 16 query heads on one KV head) would need
+// 203 KB of fixed tiles in that layout and leave room for 96 keys of
+// scores, below the policy's 512-key update block, which is part of the
+// vexp result. So D = 256 takes its own tiling (Tile<256>): 32-row query
+// tiles by 32-key sub-tiles, the same 256 threads as 8 row groups of 4
+// rows by 32 tx, one key and 8 output columns a thread. Its shared
+// memory is the f32 q^T tile (36 KB), the two-stage bf16 ring (33 KB),
+// the widened tile (36 KB) and 128 bytes a key of score tile: 170 KB at
+// block_k = 512 (960 keys fit), one CTA per SM. What holds the function
+// is unchanged: the online update once per block_k keys from key 0, each
+// score one FMA chain over d = 0 .. 255, each p . v one chain over the
+// block's keys in order. At D = 256 a block's l is also one chain over
+// its keys in order (kChainL), the order of the plain version's l (a
+// product of p with ones, summed as p . v is), where the thread sums and
+// tree of D = 32 and 64 flip outputs of |o| >= 0.5 by a bf16 ulp, past
+// the exact limit. D = 32 and 64 keep their tiling and their sums.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,24 +81,38 @@
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per CTA
-constexpr int kTK = 64;        // keys per sub-tile
 constexpr int kThreads = 256;  // eight warps
-constexpr int kTY = kBQ / 4;           // row groups of 4 rows
-constexpr int kTX = kThreads / kTY;    // threads per row group: tx
-constexpr int kKW = kTK / kTX;         // keys per thread: tx + kTX j
-constexpr int kLanesX = kTX / 2;       // tx in one warp; two warps share
-                                       // a row group
 constexpr float kNegInf = -1e30f;
-constexpr int kLdQ = kBQ + 4;  // f32 row of q^T (per d)
-constexpr int kLdS = kBQ;      // f32 row of the score tile (per key)
-constexpr int kLdK = kTK + 4;  // f32 row of K^T (per d)
+
+// The tiling of head dim D. D = 32 and 64: 64 query rows by 64-key
+// sub-tiles. D = 256: 32 query rows by 32-key sub-tiles, so that the q^T
+// tile, the K/V ring, the widened tile and a 512-key score tile fit the
+// card's 227 KB of shared memory a block (see Smem); one CTA per SM.
+template <int D>
+struct Tile {
+  static constexpr int kBQ = D >= 256 ? 32 : 64;   // query rows per CTA
+  static constexpr int kTK = D >= 256 ? 32 : 64;   // keys per sub-tile
+  static constexpr int kMinBlocks = D >= 256 ? 1 : 2;
+  // a block's l as one chain over its keys in order, by the row's own
+  // thread (tx < 4), instead of the threads' partial sums and a tree
+  static constexpr bool kChainL = D >= 256;
+  static constexpr int kTY = kBQ / 4;           // row groups of 4 rows
+  static constexpr int kTX = kThreads / kTY;    // threads per row group
+  static constexpr int kKW = kTK / kTX;         // keys per thread: tx +
+                                                // kTX j
+  static constexpr int kLanesX = kTX / 2;       // tx in one warp; two
+                                                // warps share a row group
+  static constexpr int kLdQ = kBQ + 4;  // f32 row of q^T (per d)
+  static constexpr int kLdS = kBQ;      // f32 row of the score tile
+  static constexpr int kLdK = kTK + 4;  // f32 row of K^T (per d)
+};
 
 // A key's row of the score tile holds its kTY 16-byte chunks (4 rows
 // each) in an order XORed with the key, so that eight neighbouring keys
 // at one row group fall in eight different bank groups.
+template <int D>
 __device__ __forceinline__ int sidx(int key, int ty) {
-  return key * kLdS + 4 * (ty ^ (key & 7));
+  return key * Tile<D>::kLdS + 4 * (ty ^ (key & 7));
 }
 
 struct Strides {               // element strides; the last dim is packed
@@ -92,26 +123,29 @@ struct Strides {               // element strides; the last dim is packed
 // score tile, last, holds `nk` keys.
 template <int D>
 struct Smem {
+  using T = Tile<D>;
   static constexpr int kRowB = D + 8;            // bf16 ring row: eight
                                                  // rows at one column
                                                  // hit eight bank groups
-  static constexpr int kStage = kTK * kRowB;     // one ring stage, elements
+  static constexpr int kStage = T::kTK * kRowB;  // one ring stage, elements
   static constexpr int kLdV = D + 4;             // f32 V row
-  static constexpr int kTile = D * kLdK > kTK * kLdV ? D * kLdK
-                                                     : kTK * kLdV;
+  static constexpr int kTile = D * T::kLdK > T::kTK * kLdV
+                                   ? D * T::kLdK : T::kTK * kLdV;
   static constexpr size_t ring = 0;              // [2][kTK][kRowB]
   static constexpr size_t q_t = ring + 2 * kStage * sizeof(__nv_bfloat16);
-  static constexpr size_t tile = q_t + (size_t)D * kLdQ * sizeof(float);
+  static constexpr size_t tile = q_t + (size_t)D * T::kLdQ * sizeof(float);
   static constexpr size_t red = tile + (size_t)kTile * sizeof(float);
-  static constexpr size_t s = red + 2 * 2 * kBQ * sizeof(float);
+  static constexpr size_t s = red + 2 * 2 * T::kBQ * sizeof(float);
   static size_t bytes(int nk) {
-    return s + (size_t)nk * kLdS * sizeof(float);
+    return s + (size_t)nk * T::kLdS * sizeof(float);
   }
 };
 
 // keys the score tile holds for a block of `block_k`: whole sub-tiles
+template <int D>
 inline int score_keys(int block_k) {
-  return (block_k + kTK - 1) / kTK * kTK;
+  constexpr int TK = Tile<D>::kTK;
+  return (block_k + TK - 1) / TK * TK;
 }
 
 __device__ __forceinline__ bool keep_key(int kp, int qp, int kmax,
@@ -147,7 +181,9 @@ struct Item {
 // are skipped, and so are the sub-tiles of a block that lie wholly
 // outside [kstart, kend). Each live block is walked twice, pass 0 then
 // pass 1, over the same sub-tiles.
+template <int D>
 struct Sweep {
+  static constexpr int kBQ = Tile<D>::kBQ, kTK = Tile<D>::kTK;
   int block_k, kstart, kend, blk_end;
 
   __device__ Sweep(int klen, int qa0, int causal, int window, int bk)
@@ -203,11 +239,12 @@ struct Sweep {
 // rows at or past the block's kmax are zero-filled.
 template <int D>
 __device__ __forceinline__ void issue(__nv_bfloat16* ring, int stage,
-                                      const Sweep& sw, const Item& it,
+                                      const Sweep<D>& sw, const Item& it,
                                       const __nv_bfloat16* kb, long long kss,
                                       const __nv_bfloat16* vb,
                                       long long vss) {
   constexpr int CH = D / 8;                    // 16-byte chunks per row
+  constexpr int kTK = Tile<D>::kTK;
   __nv_bfloat16* dst = ring + stage * Smem<D>::kStage;
   const __nv_bfloat16* src = it.pass == 0 ? kb : vb;
   const long long stride = it.pass == 0 ? kss : vss;
@@ -238,6 +275,8 @@ template <int D>
 __device__ __forceinline__ void widen_k(const __nv_bfloat16* ring,
                                         float* kt) {
   constexpr int CH = D / 8;
+  constexpr int kTK = Tile<D>::kTK, kTX = Tile<D>::kTX, kKW = Tile<D>::kKW,
+                kLdK = Tile<D>::kLdK;
 #pragma unroll
   for (int n = 0; n < kTK * CH / kThreads; ++n) {
     const int i = threadIdx.x + n * kThreads;
@@ -256,6 +295,7 @@ template <int D>
 __device__ __forceinline__ void widen_v(const __nv_bfloat16* ring,
                                         float* vf) {
   constexpr int CH = D / 8;
+  constexpr int kTK = Tile<D>::kTK;
 #pragma unroll
   for (int n = 0; n < kTK * CH / kThreads; ++n) {
     const int i = threadIdx.x + n * kThreads;
@@ -269,15 +309,21 @@ __device__ __forceinline__ void widen_v(const __nv_bfloat16* ring,
   }
 }
 
-// N consecutive f32 of shared memory (N = 4 or 2), in one load
+// N consecutive f32 of shared memory (N = 1, 2 or a multiple of 4), in
+// as few loads as their alignment allows
 template <int N>
 __device__ __forceinline__ void load_f32(const float* p, float* v) {
-  if constexpr (N == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int u = 0; u < N; u += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + u);
+      v[u] = t.x; v[u + 1] = t.y; v[u + 2] = t.z; v[u + 3] = t.w;
+    }
+  } else if constexpr (N == 2) {
     const float2 t = *reinterpret_cast<const float2*>(p);
     v[0] = t.x; v[1] = t.y;
+  } else {
+    v[0] = *p;
   }
 }
 
@@ -290,6 +336,8 @@ __device__ __forceinline__ void score_tile(const float* sQt, const float* sKt,
                                            int key0, int kmax, int qa,
                                            bool inner, int causal,
                                            int window, float (&mx)[4]) {
+  constexpr int kKW = Tile<D>::kKW, kTX = Tile<D>::kTX,
+                kLdQ = Tile<D>::kLdQ, kLdK = Tile<D>::kLdK;
   float s[4][kKW];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -312,22 +360,23 @@ __device__ __forceinline__ void score_tile(const float* sQt, const float* sKt,
     for (int i = 0; i < 4; ++i)
       if (inner || keep_key(key0 + kk, qa + i, kmax, causal, window))
         mx[i] = fmaxf(mx[i], s[i][j]);
-    *reinterpret_cast<float4*>(slot + sidx(kk, ty)) =
+    *reinterpret_cast<float4*>(slot + sidx<D>(kk, ty)) =
         make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
   }
 }
 
 // p = exp(s - m_new), masked, from the thread's own scores at `sl` (the
 // sub-tile from key key0), written over them, and their sum into rsum
-template <int BACKEND>
+template <int D, int BACKEND>
 __device__ __forceinline__ void make_p(float* sl, int key0, bool inner,
                                        int kmax, int qa, int causal,
                                        int window, int tx, int ty,
                                        const float (&m_new)[4],
                                        float (&rsum)[4]) {
+  constexpr int kKW = Tile<D>::kKW, kTX = Tile<D>::kTX;
 #pragma unroll
   for (int j = 0; j < kKW; ++j) {
-    float4* at = reinterpret_cast<float4*>(sl + sidx(tx + kTX * j, ty));
+    float4* at = reinterpret_cast<float4*>(sl + sidx<D>(tx + kTX * j, ty));
     const float4 sv = *at;
     const float sr[4] = {sv.x, sv.y, sv.z, sv.w};
     float p[4];
@@ -343,7 +392,7 @@ __device__ __forceinline__ void make_p(float* sl, int key0, bool inner,
 }
 
 template <int D, int BACKEND>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, Tile<D>::kMinBlocks)
 fa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
@@ -352,6 +401,9 @@ fa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
               int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os,
               float sm_scale, int causal, int window, int block_k) {
   using L = Smem<D>;
+  using T = Tile<D>;
+  constexpr int kBQ = T::kBQ, kTK = T::kTK, kTX = T::kTX,
+                kLanesX = T::kLanesX, kLdQ = T::kLdQ, kLdS = T::kLdS;
   constexpr int CW = D / kTX;              // p . v columns per thread
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem + L::ring);
@@ -381,7 +433,7 @@ fa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const int qoff = q_offset != nullptr ? q_offset[b] : q_off;
   const int qa0 = qoff + q0;                      // absolute pos of row 0
   const int qa = qa0 + 4 * ty;                    // ... of the thread's
-  const Sweep sw(klen, qa0, causal, window, block_k);
+  const Sweep<D> sw(klen, qa0, causal, window, block_k);
 
   Item cur;
   bool live = sw.first(cur);
@@ -417,6 +469,7 @@ fa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   // thread's part of the row max and of the p sum, (m_new, alpha), p . v
   float m_run[4], l_run[4], acc[4][CW], pv[4][CW];
   float mx[4], m_new[4], alpha[4], rsum[4];
+  float lch = 0.0f;       // kChainL: row 4 ty + tx's l over the block (tx < 4)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m_run[i] = m_new[i] = mx[i] = kNegInf;
@@ -473,7 +526,7 @@ fa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
         }
         // ---- p = exp(s - m_new), masked, over the thread's own scores
         for (int jj = cur.j0; jj < cur.j1; ++jj)
-          make_p<BACKEND>(sS + (jj - cur.j0) * kTK * kLdS,
+          make_p<D, BACKEND>(sS + (jj - cur.j0) * kTK * kLdS,
                           cur.blk * block_k + jj * kTK,
                           sw.interior(cur.blk, jj, qa0, causal, window), kmax,
                           qa, causal, window, tx, ty, m_new, rsum);
@@ -481,11 +534,18 @@ fa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     } else {
       widen_v<D>(rt, sT);
       __syncthreads();               // V and every thread's p
+      if constexpr (T::kChainL) {
+        // ---- the block's l, one chain a row over its keys in order
+        if (cur.j == cur.j0) lch = 0.0f;
+        if (tx < 4)
+          for (int c = 0; c < kTK; ++c)
+            lch = __fadd_rn(lch, slot[sidx<D>(c, ty) + tx]);
+      }
       // ---- pv += p . v, one FMA chain per output over the keys in order
 #pragma unroll 16
       for (int c = 0; c < kTK; ++c) {
         float pr[4], vr[CW];
-        load_f32<4>(slot + sidx(c, ty), pr);
+        load_f32<4>(slot + sidx<D>(c, ty), pr);
         load_f32<CW>(sT + c * L::kLdV + CW * tx, vr);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -494,13 +554,20 @@ fa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       }
       if (cur.j + 1 == cur.j1) {
         // ---- the block's one online update
+        if constexpr (T::kChainL) {
+          if (tx < 4) {
+            sSum[4 * ty + tx] = lch;
+            sSum[kBQ + 4 * ty + tx] = 0.0f;
+          }
+        } else {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float sum = rsum[i];
+          for (int i = 0; i < 4; ++i) {
+            float sum = rsum[i];
 #pragma unroll
-          for (int x = 1; x < kLanesX; x *= 2)
-            sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, x));
-          if (lane % kLanesX == 0) sSum[half * kBQ + 4 * ty + i] = sum;
+            for (int x = 1; x < kLanesX; x *= 2)
+              sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, x));
+            if (lane % kLanesX == 0) sSum[half * kBQ + 4 * ty + i] = sum;
+          }
         }
         __syncthreads();
 #pragma unroll
@@ -535,8 +602,16 @@ fa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 size_t smem_bytes(int D, int block_k) {
-  const int nk = score_keys(block_k);
-  return D == 32 ? Smem<32>::bytes(nk) : Smem<64>::bytes(nk);
+  switch (D) {
+    case 32:
+      return Smem<32>::bytes(score_keys<32>(block_k));
+    case 64:
+      return Smem<64>::bytes(score_keys<64>(block_k));
+    case 256:
+      return Smem<256>::bytes(score_keys<256>(block_k));
+    default:
+      return 0;
+  }
 }
 
 template <int D, int BACKEND>
@@ -565,7 +640,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
     if (err != cudaSuccess) return (int)err;
     raised[dev] = true;
   }
-  const size_t smem = Smem<D>::bytes(score_keys(block_k));
+  const size_t smem = Smem<D>::bytes(score_keys<D>(block_k));
+  constexpr int kBQ = Tile<D>::kBQ;
   dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
   fa_fwd_kernel<D, BACKEND><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
@@ -641,6 +717,10 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
       return launch_exp<64>(backend, q, k, v, o, kv_len, q_offset, q_off, B,
                             H, Hkv, Sq, Sk, qs, ks, vs, os, sm_scale, causal,
                             window, block_k, s);
+    case 256:
+      return launch_exp<256>(backend, q, k, v, o, kv_len, q_offset, q_off,
+                             B, H, Hkv, Sq, Sk, qs, ks, vs, os, sm_scale,
+                             causal, window, block_k, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -34,7 +34,11 @@ On the card every mode of both sweeps is the sequence-split sweep of
 each update block's running max (the plain sweep's exp arguments, bit for
 bit), the blocks chained in order. One C entry call launches its two
 kernels and counts as one launch; the wrapper hands it one uninitialized
-scratch buffer (``_split_scratch``).
+scratch buffer (``_split_scratch``). At head dim 256 (recurrentgemma: 16
+query heads on one KV head, normalized mode only) one CTA chains each
+update block's p @ v and l in key order, the order of the plain sweep's
+key-major products on the card, so the kernels match their plain
+versions bit for bit there.
 """
 
 from __future__ import annotations
@@ -56,8 +60,15 @@ PACKED_LIB = KernelLib("decode_attention.cu")          # decode_packed_fwd
 PAGED_LIB = KernelLib("decode_attention_paged.cu")     # paged_decode_fwd
 PAGED_PARTIAL_LIB = KernelLib("decode_attention_paged.cu")
 PAGED_PACKED_LIB = KernelLib("decode_attention_paged.cu")
-HEAD_DIMS = (32, 64)      # gpt2-small, and its --reduced config
-MAX_GROUP = 8
+# head dims of the normalized sweeps (B2, B7): gpt2-small's 64, its
+# --reduced config's 32, recurrentgemma's 256; the partial and packed
+# modes (B5, B6, B8, B9) serve the sequence-sharded dense path only
+HEAD_DIMS = (32, 64, 256)
+STAT_HEAD_DIMS = (32, 64)
+# query heads per KV head an instantiation takes (its shared memory is
+# sized by it): 16 only where a ported config needs it (recurrentgemma's
+# MQA), so the dense heads keep their occupancy
+MAX_GROUP = {32: 8, 64: 8, 256: 16}
 TILE = 64                 # keys per tile of the split sweep (decode_split.cuh)
 
 
@@ -94,22 +105,30 @@ def _sweep_plain(q, k_cache, v_cache, cache_len, seq_offset, *, window,
     acc = torch.zeros((b, hkv, g, d), dtype=torch.float32, device=q.device)
     bs = min(block_s, smax)
     for k0 in range(0, smax, bs):
-        kb = kk[:, :, k0:k0 + bs].float()
-        vb = vv[:, :, k0:k0 + bs].float()
+        kb = kk[:, :, k0:k0 + bs].float().contiguous()
+        vb = vv[:, :, k0:k0 + bs].float().contiguous()
         kpos = (seq_offset + k0
                 + torch.arange(kb.shape[2], device=q.device)[None, :])
         keep = kpos < cl
         if window is not None:
             keep = keep & (kpos >= cl - window)
         keep = keep[:, None, None, :]
-        s = torch.where(keep, torch.einsum("bkgd,bktd->bkgt", qg, kb),
+        # key-major products, (keys, d) @ (d, G) and (d, keys) @ (keys,
+        # G): the orientation in which the card's f32 product sums each
+        # score over d and each p @ v and l over the block's keys in
+        # order, as the kernels chain them
+        s = torch.where(keep, (kb @ qg.transpose(-1, -2)).transpose(-1, -2),
                         NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         alpha = exp_fn(m - m_new)
         p = torch.where(keep, exp_fn(s - m_new[..., None]), 0.0)
-        l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bkgt,bktd->bkgd", p.to(cdt).float(), vb)
+        pr = p.to(cdt).float().contiguous()
+        pf = p.contiguous()
+        l_blk = (torch.ones_like(vb).transpose(-1, -2)
+                 @ pf.transpose(-1, -2))[..., 0, :]
+        pv = (vb.transpose(-1, -2) @ pr.transpose(-1, -2)).transpose(-1, -2)
+        l = l * alpha + l_blk
+        acc = acc * alpha[..., None] + pv
         m = m_new
     return m, l, acc
 
@@ -155,6 +174,17 @@ def decode_attention_packed_plain(q, k_cache, v_cache, cache_len, seq_offset,
 def _cuda_only(q, what):
     if q.device.type != "cuda":
         raise ValueError(f"{what} kernel: unsupported device {q.device}")
+
+
+def _check_shape(what, mode, d, h, hkv):
+    """Raise unless the sweep in ``mode`` takes head dim ``d`` with
+    ``h`` query heads on ``hkv`` KV heads."""
+    dims = HEAD_DIMS if mode == "normalized" else STAT_HEAD_DIMS
+    if d not in dims or h % hkv or h // hkv > MAX_GROUP[d]:
+        raise ValueError(
+            f"{what} kernel: needs head dim in {dims} and H % Hkv == 0 "
+            f"with H/Hkv <= {MAX_GROUP.get(d, MAX_GROUP[64])} at that head "
+            f"dim; got head dim {d}, H {h}, Hkv {hkv}")
 
 
 def _check_bf16(what, device, **tensors):
@@ -223,14 +253,13 @@ def _launch_contig(mode, q, k_cache, v_cache, cache_len, seq_offset, *,
     hkv, smax = kk.shape[1], kk.shape[2]
     g = h // hkv
     _check_bf16(what, q.device, q=q, k_cache=kk, v_cache=vv)
-    if (d not in HEAD_DIMS or h % hkv or g > MAX_GROUP
-            or kk.stride() != vv.stride() or kk.stride(3) != 1
+    _check_shape(what, mode, d, h, hkv)
+    if (kk.stride() != vv.stride() or kk.stride(3) != 1
             or any(s % 8 for s in kk.stride()[:3])
             or kk.data_ptr() % 16 or vv.data_ptr() % 16):
         raise ValueError(
-            f"{what} kernel: needs head dim in {HEAD_DIMS}, H % Hkv == 0 "
-            f"with H/Hkv <= {MAX_GROUP}, K and V with equal strides, a "
-            f"packed last dim and 16-byte aligned rows")
+            f"{what} kernel: needs K and V with equal strides, a packed "
+            f"last dim and 16-byte aligned rows")
     cl = _lens(cache_len, b, q.device)
     qg = q.reshape(b, hkv, g, d).contiguous()
     outs = _stat_outputs(qg, mode)
@@ -436,14 +465,13 @@ def _launch_paged(mode, q, k_pool, v_pool, block_tab, cache_len, seq_offset,
     st = (k_pool.stride(0),) + ((k_pool.stride(1), k_pool.stride(2))
                                 if layout == "bhsd"
                                 else (k_pool.stride(2), k_pool.stride(1)))
-    if (d not in HEAD_DIMS or h % hkv or g > MAX_GROUP
-            or k_pool.shape != v_pool.shape
+    _check_shape(what, mode, d, h, hkv)
+    if (k_pool.shape != v_pool.shape
             or k_pool.stride() != v_pool.stride() or k_pool.stride(3) != 1
             or any(s % 8 for s in st)
             or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16):
         raise ValueError(
-            f"{what} kernel: needs head dim in {HEAD_DIMS}, H % Hkv == 0 "
-            f"with H/Hkv <= {MAX_GROUP}, K and V pools of equal shape and "
+            f"{what} kernel: needs K and V pools of equal shape and "
             f"strides, a packed last dim and 16-byte aligned rows")
     tab = torch.as_tensor(block_tab, device=q.device).to(torch.int32)
     if tab.dim() != 2 or tab.shape[0] != b:

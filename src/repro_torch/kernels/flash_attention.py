@@ -19,7 +19,9 @@ from repro_torch.core.attention import attention_flash, kv_valid_from_len
 from .build import BACKEND_CODE, F, I, KernelLib, LL, P
 
 LIB = KernelLib("flash_attention.cu")
-HEAD_DIMS = (32, 64)      # gpt2-small, and its --reduced config
+HEAD_DIMS = (32, 64, 256)  # gpt2-small, its --reduced config,
+                           # recurrentgemma
+L_CHAIN_DIMS = (256,)      # head dims whose kernel chains each block's l
 _SMEM_OK = set()          # (device, head dim, block_k) that fit
 
 
@@ -29,13 +31,19 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, kv_len=None,
     """The function the kernel computes: the reference's blockwise scan
     with the online update once per ``block_k`` keys counted from key 0,
     f32 dots, keys at or past ``kv_len[b]`` masked, queries at
-    ``q_offset`` + i."""
+    ``q_offset`` + i. Each block's l is summed in the order of the
+    kernel's instantiation at this head dim: at D = 32 and 64 the
+    threads' partial sums and a tree, nearest to ``sum``'s; at D = 256
+    one chain over the block's keys in order (``L_CHAIN_DIMS``), since
+    over its ~30x more outputs a tree's one-ulp flips reach outputs of
+    |o| >= 0.5, past the exact limit."""
     kv_valid = (None if kv_len is None
                 else kv_valid_from_len(kv_len, k.shape[1]))
     return attention_flash(q, k, v, causal=causal, window=window,
                            exp_impl=exp_backend, q_offset=q_offset,
                            sm_scale=sm_scale, block_k=block_k,
-                           kv_valid=kv_valid)
+                           kv_valid=kv_valid,
+                           l_chain=q.shape[-1] in L_CHAIN_DIMS)
 
 
 def _rows16(t):
@@ -52,7 +60,9 @@ def flash_attention(q, k, v, *, causal=True, window=None, kv_len=None,
     int or (B,) int: query i of row b sits at position q_offset[b] + i.
     The policy gives the exp backend and ``block_k``, the online-update
     block; the kernel holds a block's scores in shared memory, so on the
-    card ``block_k`` is bounded by it (640 keys at D = 64 on an H100)."""
+    card ``block_k`` is bounded by it (on an H100: 640 keys at D = 64 with
+    64-row query tiles; 960 keys at D = 256, whose query tiles are 32
+    rows)."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     block_k = min(policy.block_k, sk)

@@ -839,7 +839,9 @@ class Server:
                              f"server runs on {self.device}")
         self.cfg, self.params = cfg, params
         self.max_batch, self.max_seq = max_batch, max_seq
-        self.cache_s = max_seq
+        # a windowed family keeps a ring of the window at most (reference
+        # serve.py:947): a full-window ring decodes without bound
+        self.cache_s = min(max_seq, cfg.sliding_window or max_seq)
         self.policy = policy if policy is not None else resolve_policy(cfg)
         groups = dict(policy_groups) if policy_groups else {}
         groups.setdefault("default", self.policy)

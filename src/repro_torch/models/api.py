@@ -4,11 +4,14 @@ history) / prefill_chunk / init_cache / decode_step / init_paged_cache /
 prefill_chunk_paged / decode_step_paged.
 
 One family dispatch (``_mod``, the reference's ``api.py:24-30``) picks
-the module: ``models.ssm`` for the ssm family, ``models.transformer``
-for the dense one. The ssm family has no KV cache, so it refuses what
-needs one, with the reference's ``ValueError``s (``api.py:119-124,
-139-140, 175, 189-190``): no shared-prefix history, no paged cache or
-paged step, no all-lanes chunk scoring.
+the module: ``models.ssm`` for the ssm family, ``models.hybrid`` for the
+hybrid one, ``models.transformer`` for the dense one. The ssm family has
+no KV cache, so it refuses what needs one, with the reference's
+``ValueError``s (``api.py:119-124, 139-140, 175, 189-190``): no
+shared-prefix history, no paged cache or paged step, no all-lanes chunk
+scoring. The hybrid family takes the paged cache (its ring pools; the
+paged cache then needs ``batch_size`` for the recurrent rows), the paged
+step and the paged chunk, but no history and no all-lanes scoring.
 
 Every entry runs on the card unless the caller passes ``device="cpu"``;
 with no card and no explicit device they raise. Inputs may be numpy
@@ -21,12 +24,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.runtime import resolve_device, resolve_policy
-from . import ssm, transformer
+from . import hybrid, ssm, transformer
 
 
 def _mod(cfg):
     """The module implementing ``cfg``'s family."""
-    return ssm if cfg.family == "ssm" else transformer
+    if cfg.family == "ssm":
+        return ssm
+    if cfg.family == "hybrid":
+        return hybrid
+    return transformer
 
 
 def _check_params(params, dev: torch.device):
@@ -66,8 +73,9 @@ def prefill(params, cfg, batch, *, policy=None, device=None):
     hist = batch.get("hist")
     kw = {}
     if hist is not None:
-        if cfg.family == "ssm":
-            raise ValueError("ssm family has no KV history to continue")
+        if cfg.family in ("ssm", "hybrid"):
+            raise ValueError(f"{cfg.family} family has no KV history to "
+                             f"continue")
         kw["hist"] = {k: torch.as_tensor(v, device=dev)
                       for k, v in hist.items()}
     return _mod(cfg).prefill(
@@ -89,8 +97,9 @@ def prefill_chunk(params, cfg, tokens, cache, off, clens, *, policy=None,
     all-lanes scoring."""
     dev = resolve_device(device)
     _check_params(params, dev)
-    if all_lanes and cfg.family == "ssm":
-        raise ValueError("ssm family has no all-lanes chunk scoring")
+    if all_lanes and cfg.family in ("ssm", "hybrid"):
+        raise ValueError(f"{cfg.family} family has no all-lanes chunk "
+                         f"scoring")
     return _mod(cfg).prefill_chunk(
         params, cfg, torch.as_tensor(tokens, device=dev), cache,
         torch.as_tensor(off, device=dev), torch.as_tensor(clens, device=dev),
@@ -105,13 +114,15 @@ def prefill_chunk_paged(params, cfg, tokens, cache, tables, off, clens, *,
     logits (every lane's with ``all_lanes``)."""
     if cfg.family == "ssm":
         raise ValueError("ssm family has no paged chunked prefill")
+    if all_lanes and cfg.family == "hybrid":
+        raise ValueError("hybrid family has no all-lanes chunk scoring")
     dev = resolve_device(device)
     _check_params(params, dev)
-    return transformer.prefill_chunk_paged(
+    return _mod(cfg).prefill_chunk_paged(
         params, cfg, torch.as_tensor(tokens, device=dev), cache,
         torch.as_tensor(tables, device=dev), torch.as_tensor(off, device=dev),
         torch.as_tensor(clens, device=dev), policy=_policy(cfg, policy),
-        all_lanes=all_lanes)
+        **({"all_lanes": True} if all_lanes else {}))
 
 
 def init_cache(cfg, batch_size, seq_len, *, device=None):
@@ -134,10 +145,19 @@ def decode_step(params, cfg, token, cache, pos, *, policy=None, live=None,
         live=None if live is None else torch.as_tensor(live, device=dev))
 
 
-def init_paged_cache(cfg, n_pages, page, *, device=None):
+def init_paged_cache(cfg, n_pages, page, *, batch_size=None, device=None):
+    """A paged pool of ``n_pages`` pages of ``page`` positions: the dense
+    family's KV pools, or the hybrid's ring pools beside the recurrent
+    rows of ``batch_size`` slots."""
     if cfg.family == "ssm":
         raise ValueError("recurrent state is O(1) per slot; nothing to "
                          "page")
+    if cfg.family == "hybrid":
+        if batch_size is None:
+            raise ValueError("the hybrid's paged state needs batch_size "
+                             "for its recurrent rows")
+        return hybrid.init_paged_cache(cfg, batch_size, n_pages, page,
+                                       resolve_device(device))
     return transformer.init_paged_cache(cfg, n_pages, page,
                                         resolve_device(device))
 
@@ -151,7 +171,7 @@ def decode_step_paged(params, cfg, token, cache, tables, pos, *,
         raise ValueError("ssm family has no paged decode step")
     dev = resolve_device(device)
     _check_params(params, dev)
-    return transformer.decode_step_paged(
+    return _mod(cfg).decode_step_paged(
         params, cfg, torch.as_tensor(token, device=dev), cache,
         torch.as_tensor(tables, device=dev), torch.as_tensor(pos, device=dev),
         policy=_policy(cfg, policy),

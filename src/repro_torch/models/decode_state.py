@@ -1,5 +1,6 @@
 """Per-slot serving state (port of ``repro/models/decode_state.py``:
-contiguous and paged KV caches, and the ssm family's recurrent state).
+contiguous and paged KV caches, the ssm family's recurrent state, and the
+hybrid family's RG-LRU rows beside ring-buffer KV, contiguous or paged).
 
 A ``DecodeState`` owns one policy group's pool: the stacked decode state
 (``data``: a KV cache, or the ssm family's (h, conv)), allocated once at
@@ -10,7 +11,10 @@ state (``_state_axes``, ``_new_cache``) and its programs (``_prefill``,
 ``_logits``, ``_chunk_logits``): ``KVDecodeState`` and the paged
 ``PagedKVDecodeState`` for the dense family, ``RecurrentDecodeState`` for
 the ssm family (no sequence axis, no length cap, the slot's rows zeroed
-when it is freed, since a recurrence reads them unconditionally). The
+when it is freed, since a recurrence reads them unconditionally), and
+``HybridDecodeState`` / ``PagedHybridDecodeState`` for the hybrid (its
+recurrent rows zeroed at free, its ring KV masked by length; no cap on a
+full-window ring). The
 engine talks to it only through ``prefill_into`` / ``step`` /
 ``reset_slots`` / ``max_len`` /
 ``prefill_width`` / ``check_integrity``; paged states add the admission
@@ -91,7 +95,7 @@ import torch
 
 from repro_torch.analysis.registry import hot_path
 from repro_torch.runtime.graphs import StepGraph
-from . import ssm, transformer
+from . import hybrid, ssm, transformer
 from .block_pool import OutOfBlocks
 
 
@@ -183,14 +187,19 @@ def _spec_fold(c, logits, clens):
     return m
 
 
-SPEC_MODES = ("kv", "kv_paged", "recurrent")
+SPEC_MODES = ("kv", "kv_paged", "recurrent", "recurrent_paged")
+
+
+def _family(cfg):
+    """The model module of a recurrent state's family."""
+    return hybrid if cfg.family == "hybrid" else ssm
 
 
 def _spec_verify_fn(params, cfg, policy, w, mode, cap, impl):
     """The verify program of a W-lane burst under ``policy`` (port of
-    the reference's ``_spec_programs``, ``decode_state.py:226-378``, for
-    the KV modes): a function of the burst carry (``spec_carry``), run
-    eagerly or captured once as a CUDA graph.
+    the reference's ``_spec_programs``, ``decode_state.py:226-378``): a
+    function of the burst carry (``spec_carry``), run eagerly or
+    captured once as a CUDA graph.
 
     ``impl="scan"``: W decode steps of ``policy`` through the very
     ``transformer.decode_step[_paged]`` of the plain step, at its
@@ -207,47 +216,58 @@ def _spec_verify_fn(params, cfg, policy, w, mode, cap, impl):
     policy's argmaxes of the chunk program, which may break a near tie
     differently from the decode step.
 
-    ``mode="recurrent"`` (the ssm family's state; "scan" only): two
-    scans of W ``ssm.decode_step``s, each from the pre-burst snapshot
-    (``snap_h`` / ``snap_conv``, copied into the state first), since a
-    recurrence has no positions to rewind. The first scores every lane
-    and its state is thrown away; the second replays exactly the m
-    accepted tokens (step i with ``live * (i < m)``), which leaves the
-    state where plain decode stopping after m tokens leaves it, bit for
-    bit.
+    ``mode="recurrent"`` (a state with no rewindable addressing: the ssm
+    family's (h, conv), the hybrid's RG-LRU rows beside its ring KV;
+    "scan" only) and ``"recurrent_paged"`` (the hybrid's ring pools):
+    two scans of W decode steps of the state's family (``decode_step``,
+    ``decode_step_paged`` through the read-only tables), each from the
+    pre-burst snapshot (every ``snap_<leaf>`` of the carry, copied into
+    the state first, ring KV included). The first scores every lane and
+    its state is thrown away; the second replays exactly the m accepted
+    tokens (step i with ``live * (i < m)``, positions advancing with the
+    live lanes), which leaves the state where plain decode stopping
+    after m tokens leaves it, bit for bit; a ring row a rejected draft
+    overwrote is rebuilt from the snapshot.
 
     Either way the acceptance is folded in on the device
     (``_spec_fold``), so a burst syncs on nothing. ``cap`` is the linear
     cache capacity (lanes at or past it are not scored), None for a
-    recurrent state."""
+    state that never runs out (recurrent, or a full-window ring)."""
     if impl not in ("scan", "chunk"):
         raise ValueError(f"unknown speculative verify impl {impl!r}")
     if mode not in SPEC_MODES:
-        raise NotImplementedError(
-            f"speculative verify of a {mode!r} pool is not ported: the "
-            f"hybrid family's ring pools wait for ROADMAP A11b")
-    if mode == "recurrent" and impl != "scan":
+        raise ValueError(f"unknown speculative mode {mode!r}")
+    recurrent_mode = mode.startswith("recurrent")
+    if recurrent_mode and impl != "scan":
         raise ValueError(f"chunk verify needs a rewindable KV cache; mode "
                          f"{mode!r} replays state step by step (use "
                          f"impl='scan')")
-    paged = mode == "kv_paged"
+    paged = mode.endswith("_paged")
+    fam = _family(cfg) if recurrent_mode else transformer
 
     @hot_path
     def recurrent(c):
         toks, pos0, live = c["toks"], c["pos0"], c["live"]
         clens = _spec_clens(pos0, live, cap, w)
-        state = {"h": c["h"], "conv": c["conv"]}
+        state = {k[5:]: c[k[5:]] for k in c if k.startswith("snap_")}
 
         def replay(nlive, lanes):
             for name, t in state.items():
                 t.copy_(c["snap_" + name])
+            pos = pos0
             for i in range(w):
                 lv = live * (nlive > i).to(live.dtype)
-                logits, _ = ssm.decode_step(params, cfg, toks[:, i:i + 1],
-                                            state, pos0, policy=policy,
-                                            live=lv)
+                if paged:
+                    logits, _ = fam.decode_step_paged(
+                        params, cfg, toks[:, i:i + 1], state, c["tables"],
+                        pos, policy=policy, live=lv)
+                else:
+                    logits, _ = fam.decode_step(params, cfg,
+                                                toks[:, i:i + 1], state,
+                                                pos, policy=policy, live=lv)
                 if lanes is not None:
                     lanes.append(logits[:, 0])
+                pos = pos + lv
 
         lanes = []
         replay(clens, lanes)
@@ -263,11 +283,11 @@ def _spec_verify_fn(params, cfg, policy, w, mode, cap, impl):
         for i in range(w):
             lv = live * (clens > i).to(live.dtype)
             if paged:
-                logits, _ = transformer.decode_step_paged(
+                logits, _ = fam.decode_step_paged(
                     params, cfg, toks[:, i:i + 1], cache, c["tables"], pos,
                     policy=policy, live=lv)
             else:
-                logits, _ = transformer.decode_step(
+                logits, _ = fam.decode_step(
                     params, cfg, toks[:, i:i + 1], cache, pos,
                     policy=policy, live=lv)
             lanes.append(logits[:, 0])
@@ -289,7 +309,7 @@ def _spec_verify_fn(params, cfg, policy, w, mode, cap, impl):
                 all_lanes=True)
         _spec_fold(c, logits, clens)
 
-    if mode == "recurrent":
+    if recurrent_mode:
         return recurrent
     return scan if impl == "scan" else chunk
 
@@ -987,6 +1007,81 @@ class RecurrentDecodeState(DecodeState):
         return True
 
 
+class HybridDecodeState(DecodeState):
+    """hybrid (recurrentgemma / griffin): the mixed per-period state, the
+    RG-LRU (h, conv) rows beside the local attention's ring-buffer KV
+    (port of ``HybridDecodeState``, ``decode_state.py:946-992``).
+
+    * ``max_len``: None for a full-window pool (the ring wraps, so a slot
+      decodes without bound); a pool narrower than the window cannot wrap
+      its ring (the cursor pos % window runs past it) and stops slots at
+      its capacity, as a linear cache does (``_linear_cap``,
+      ``decode_state.py:597-606``).
+    * ``reset_slots`` zeroes only the recurrent rows: the ring rows are
+      masked by length and overwritten by the next fixed-width admission.
+    * ``prefill_width`` is fixed at ``cache_s``: the RG-LRU scan's
+      combine tree, and so its rounding, depends on the scan's length, so
+      a pow2 bucket would make a row's state depend on its wave; a fixed
+      width keeps batched equal to solo.
+    * Speculative decode (unsharded; the hybrid never shards) runs the
+      "recurrent" verify, whose snapshot copies the whole mixed state,
+      ring KV included: the replay rebuilds a ring row a rejected draft
+      overwrote."""
+
+    kind = "hybrid"
+
+    def _state_axes(self, cfg):
+        return hybrid.state_axes(cfg)
+
+    def _new_cache(self):
+        return hybrid.init_cache(self.cfg, self.pool_width, self.cache_s,
+                                 self.device)
+
+    def _prefill(self, toks, plens):
+        return hybrid.prefill(self.params, self.cfg, toks, prompt_len=plens,
+                              policy=self.policy)
+
+    def _state(self, c):
+        return {name: c[name] for name in self.axes}
+
+    @hot_path
+    def _logits(self, c, policy=None):
+        policy = self.policy if policy is None else policy
+        logits, _ = hybrid.decode_step(self.params, self.cfg, c["last"],
+                                       self._state(c), c["pos"],
+                                       policy=policy, live=c["live"])
+        return logits
+
+    @hot_path
+    def _chunk_logits(self, c, toks, offs, clens):
+        logits, _ = hybrid.prefill_chunk(self.params, self.cfg, toks,
+                                         self._state(c), offs, clens,
+                                         policy=self.policy)
+        return logits
+
+    def max_len(self):
+        w = self.cfg.sliding_window
+        return self.cache_s if w is None or self.cache_s < w else None
+
+    def _reset_leaf(self, ax) -> bool:
+        return ax.seq is None
+
+    def prefill_width(self, n: int) -> int:
+        return self.cache_s
+
+    def supports_speculative(self) -> bool:
+        return self.shard is None
+
+    def _spec_mode(self) -> str:
+        return "recurrent"
+
+    def _spec_impl(self) -> str:
+        return "scan"            # a replay must be step-exact
+
+    def _spec_copy_state(self) -> bool:
+        return True
+
+
 # --------------------------------------------------------------- paged pool
 
 def _paged_scatter(pool, rows, gids, page, lay):
@@ -1500,14 +1595,231 @@ class PagedKVDecodeState(KVDecodeState):
         _paged_integrity(self, {int(j) for j in live_slots})
 
 
+class PagedHybridDecodeState(HybridDecodeState):
+    """The hybrid over a paged pool (port of ``PagedHybridDecodeState``,
+    ``decode_state.py:1688-1940``): the recurrent rows keep their slot
+    axis, the ring KV lives in slotless page pools behind a fixed per-slot
+    ring table of ceil(window / page) pages, allocated whole at admission
+    (all or nothing for a wave) and freed whole at finish. No prefix
+    cache: a ring page's content depends on the slot's wrap phase, so
+    pages are never content-addressable. Chunked admission runs
+    ``prefill_chunk_paged``; the speculative verify is
+    "recurrent_paged" (the snapshot copies the ring pools too; the tables
+    are read only and a rollback touches the allocator zero times)."""
+
+    kind = "paged-hybrid"
+    is_paged = True
+
+    def __init__(self, cfg, params, policy, pool_width, cache_s, *, device,
+                 comm=None, cuda_graphs=True, n_pages=None,
+                 prefix_cache=True):
+        from .block_pool import BlockAllocator
+        del prefix_cache                     # ring pages are never shared
+        if comm is not None:
+            raise ValueError("the paged hybrid state is single-partition")
+        self.page = policy.block_page
+        self.ns = -(-cache_s // self.page)          # ring pages per slot
+        super().__init__(cfg, params, policy, pool_width, cache_s,
+                         device=device, comm=None, cuda_graphs=cuda_graphs)
+        self.n_pages = int(n_pages if n_pages is not None
+                           else 1 + pool_width * self.ns)
+        self.alloc = BlockAllocator(self.n_pages)
+        self.pcache = None
+        self.slot_pages = [[] for _ in range(pool_width)]
+        self.tables = torch.zeros((pool_width, self.ns), dtype=torch.int32,
+                                  device=device)
+        self.wave_hist = 0
+
+    def _new_cache(self):
+        return hybrid.init_paged_cache(self.cfg, self.pool_width,
+                                       self.n_pages, self.page, self.device)
+
+    # ------------------------------------------------------------- budget
+
+    def free_with_evictable(self):
+        return self.alloc.free_counts()
+
+    def admission_need(self, prompt, *, cap_h=None):
+        return np.array([self.ns], np.int64), 0
+
+    def admission_pin(self, prompt, h, reserved):
+        return np.zeros(1, np.int64), []     # no prefix cache: nothing pins
+
+    def pool_stats(self) -> dict:
+        s = {"page": self.page, "pages_total": self.n_pages,
+             "pages_allocatable": self.n_pages - 1,
+             "pages_used": self.alloc.n_used(),
+             "pages_free": self.alloc.n_free()}
+        s["utilization"] = s["pages_used"] / max(s["pages_allocatable"], 1)
+        return s
+
+    def _release(self, j):
+        for gid in self.slot_pages[j]:
+            self.alloc.decref(int(gid))
+        self.slot_pages[j] = []
+
+    # -------------------------------------------------------- engine ops
+
+    def prefill_into(self, slots, toks, plens):
+        """Admit one wave: reserve every row's whole ring (all or nothing:
+        an OutOfBlocks releases the rows reserved before it and
+        propagates), prefill at the fixed width, scatter the recurrent
+        rows into their slots and the ring KV into the pages, write the
+        table rows and positions."""
+        self._ensure_cache()
+        self._maybe_inject_admission_fault()
+        slots = [int(j) for j in np.asarray(slots).reshape(-1)]
+        plens = np.asarray(plens).reshape(-1)
+        try:
+            for j in slots:
+                self.slot_pages[j] = self.alloc.alloc_cols(range(self.ns))
+        except BaseException:
+            for j in slots:
+                for gid in self.slot_pages[j]:
+                    self.alloc.decref(int(gid))
+                self.slot_pages[j] = []
+            raise
+        dev = self.device
+        logits, pref = self._prefill(torch.as_tensor(toks, device=dev),
+                                     torch.as_tensor(plens, device=dev))
+        sl = torch.as_tensor(np.asarray(slots), device=dev)
+        sp = toks.shape[1]
+        nc = -(-sp // self.page)
+        gids = np.asarray([self.slot_pages[j][:nc] for j in slots])
+        for name, ax in self.axes.items():
+            if ax.seq is None:
+                pool, rows = self.data[name], pref[name]
+                pool[_at(pool, ax, sl)] = rows[_at(rows, ax, sl)]
+            else:
+                _paged_scatter(self.data[name], pref[name][:, sl], gids,
+                               self.page, hybrid.LAYOUT)
+        self.tables[sl] = torch.as_tensor(
+            np.asarray([self.slot_pages[j] for j in slots], np.int32),
+            device=dev)
+        self.pos_dev[sl] = torch.as_tensor(plens[slots].astype(np.int32),
+                                           device=dev)
+        return _guard_tokens(logits)
+
+    @hot_path
+    def carry(self, last, live) -> dict:
+        c = super().carry(last, live)
+        c["tables"] = self.tables
+        return c
+
+    @hot_path
+    def _logits(self, c, policy=None):
+        policy = self.policy if policy is None else policy
+        logits, _ = hybrid.decode_step_paged(
+            self.params, self.cfg, c["last"], self._state(c), c["tables"],
+            c["pos"], policy=policy, live=c["live"])
+        return logits
+
+    # ---------------------------------------------------- chunked prefill
+
+    def begin_chunk(self, slot, prompt, plen) -> int:
+        """Reserve the slot's whole ring now, as monolithic admission
+        does; prompts fit the window, so prefill positions never wrap the
+        ring table. On OutOfBlocks nothing is held."""
+        del prompt
+        self._ensure_cache()
+        self._maybe_inject_admission_fault()
+        j = int(slot)
+        self.slot_pages[j] = self.alloc.alloc_cols(range(self.ns))
+        self.tables[j].copy_(host_to_device(
+            np.asarray(self.slot_pages[j], np.int32), self.device))
+        self.pos_dev[j] = int(plen)
+        return 0
+
+    @hot_path
+    def _chunk_carry(self, prog) -> dict:
+        c = super()._chunk_carry(prog)
+        c["tables"] = self.tables
+        return c
+
+    @hot_path
+    def _chunk_logits(self, c, toks, offs, clens):
+        logits, _ = hybrid.prefill_chunk_paged(
+            self.params, self.cfg, toks, self._state(c), c["tables"], offs,
+            clens, policy=self.policy)
+        return logits
+
+    # ------------------------------------------------- speculative decoding
+
+    def supports_speculative(self) -> bool:
+        return True
+
+    def _spec_mode(self) -> str:
+        return "recurrent_paged"
+
+    @hot_path
+    def spec_carry(self, live) -> dict:
+        c = super().spec_carry(live)
+        c["tables"] = self.tables
+        return c
+
+    # ------------------------------------------------------------ lifecycle
+
+    def reset_slots(self, slots):
+        """Park freed slots (recurrent rows zeroed), release their rings
+        and zero their table rows."""
+        super().reset_slots(slots)
+        for j in np.asarray(slots).reshape(-1):
+            self._release(int(j))
+        self.tables[torch.as_tensor(np.asarray(slots),
+                                    device=self.device)] = 0
+
+    def set_injector(self, inj):
+        super().set_injector(inj)
+        self.alloc.injector = inj
+
+    def poison_slot(self, slot) -> bool:
+        """NaN the slot's recurrent rows only: the ring pools are
+        slotless, and the recurrent rows are read every step, so their
+        NaN reaches the logits."""
+        if self.data is None:
+            return False
+        for name, ax in self.axes.items():
+            if ax.seq is None:
+                t = self.data[name]
+                t[_at(t, ax, int(slot))] = float("nan")
+        return True
+
+    def scrub_slot(self, slot):
+        """Zero the slot's recurrent rows and its ring pages before
+        ``reset_slots`` returns them to the free list."""
+        j = int(slot)
+        if self.data is not None:
+            ids = torch.as_tensor(self.slot_pages[j], dtype=torch.long,
+                                  device=self.device)
+            for name, ax in self.axes.items():
+                t = self.data[name]
+                if ax.seq is None:
+                    t[_at(t, ax, j)] = 0
+                elif len(ids):
+                    t[:, ids] = 0
+        self.reset_slots([j])
+
+    def recover(self):
+        for j in range(self.pool_width):
+            self._release(j)
+        self.tables.zero_()
+        super().recover()
+
+    def check_integrity(self, live_slots=()):
+        super().check_integrity(live_slots)
+        _paged_integrity(self, {int(j) for j in live_slots})
+
+
 def decode_state_for(cfg, paged=False):
     """The DecodeState class serving ``cfg`` (the serving stack's one
     family dispatch; reference ``decode_state.py:1942-1953``): paged or
-    contiguous KV for the dense family; recurrent state is O(1) per slot,
-    nothing to page, so the ssm family serves through
-    ``RecurrentDecodeState`` either way."""
+    contiguous KV for the dense family, paged or contiguous ring pools
+    for the hybrid; recurrent state is O(1) per slot, nothing to page, so
+    the ssm family serves through ``RecurrentDecodeState`` either way."""
     if cfg.family == "ssm":
         return RecurrentDecodeState
+    if cfg.family == "hybrid":
+        return PagedHybridDecodeState if paged else HybridDecodeState
     if cfg.family != "dense":
         raise NotImplementedError(f"{cfg.arch_id}: family {cfg.family!r} "
                                   f"has no ported decode state")

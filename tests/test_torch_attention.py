@@ -153,6 +153,58 @@ def test_decode_reference_tier_matches_jax(exp, layout):
     np.testing.assert_allclose(_np(got), _np(want), **TOL)
 
 
+# recurrentgemma's attention shape: head dim 256, 16 query heads on one KV
+# head (MQA), a window that cuts the keys
+H256, D256, WIN = 16, 256, 20
+
+
+@pytest.mark.parametrize("exp", EXPS)
+def test_flash_plain_d256_mqa_window_matches_reference_scan(exp):
+    q, k, v = _inputs([(2, 48, H256, D256), (2, 48, 1, D256),
+                       (2, 48, 1, D256)], seed=7)
+    kv_len = np.array([48, 31], np.int32)
+    kv_valid = jnp.arange(48)[None, :] < jnp.asarray(kv_len)[:, None]
+    want = jatt.attention_flash(_j(q), _j(k), _j(v), causal=True,
+                                window=WIN, exp_impl=exp, block_k=32,
+                                kv_valid=kv_valid)
+    got = kfa.flash_attention_plain(_t(q), _t(k), _t(v), causal=True,
+                                    window=WIN,
+                                    kv_len=torch.from_numpy(kv_len),
+                                    block_k=32, exp_backend=exp)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+@pytest.mark.parametrize("exp", EXPS)
+@pytest.mark.parametrize("paged", [False, True], ids=["contig", "paged"])
+def test_decode_plain_d256_g16_matches_jax(exp, paged):
+    """The decode sweeps' plain versions at D 256, G 16 (one KV head),
+    updating once per 32 keys (a page), a window cutting the keys,
+    against the JAX package's one-pass decode reference."""
+    b, smax, page = 3, 96, 32
+    q, kc, vc = _inputs([(b, 1, H256, D256), (b, smax, 1, D256),
+                         (b, smax, 1, D256)], seed=8)
+    cl = np.array([96, 5, 70], np.int32)
+    want = jatt.decode_attention(_j(q), _j(kc), _j(vc), jnp.asarray(cl),
+                                 window=WIN, exp_impl=exp)
+    if paged:
+        ns = smax // page
+        tab = np.random.default_rng(9).permutation(b * ns).reshape(
+            b, ns).astype(np.int32) + 1
+        pools = []
+        for x in (kc, vc):
+            pool = np.zeros((1 + b * ns, page, 1, D256), np.float32)
+            pool[tab.reshape(-1)] = x.reshape(b * ns, page, 1, D256)
+            pools.append(_t(pool))
+        got = kdec.decode_attention_paged_plain(
+            _t(q), *pools, torch.from_numpy(tab), torch.from_numpy(cl),
+            window=WIN, exp_backend=exp)
+    else:
+        got = kdec.decode_attention_plain(_t(q), _t(kc), _t(vc),
+                                          torch.from_numpy(cl), window=WIN,
+                                          block_s=page, exp_backend=exp)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
 def test_cuda_tier_on_cpu_runs_the_plain_versions(qkv):
     q, k, v = (_t(x) for x in qkv)
     kvl = torch.from_numpy(KV_LEN)

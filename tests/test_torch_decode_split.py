@@ -39,6 +39,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.core import attention as jatt  # noqa: E402
 from repro.kernels.decode_attention.ops import \
     decode_attention as pallas_decode  # noqa: E402
 from repro.runtime import ExecPolicy as JaxPolicy  # noqa: E402
@@ -285,3 +286,42 @@ def test_textbook_merge_outside_limits(exp, paged):
     split = normalized(q, split_sweep(q, k, v, cache_len, window=window,
                                       block=block, exp_backend=exp))
     assert inside(kernel, exp, reading(split, ref))
+
+
+@pytest.mark.parametrize("exp", EXPS)
+@pytest.mark.parametrize("paged", [False, True], ids=["contig", "paged"])
+def test_d256_g16_plain_matches_jax(exp, paged):
+    """recurrentgemma's decode shape (D 256, 16 query heads on one KV head)
+    over a 256-row cache, a window of 150 cutting the keys: the plain
+    sweeps (contiguous in 128-key blocks, paged per 64-key page), which
+    the D 256 kernels are held to bit for bit on the card, against the
+    JAX package's one-pass decode reference within the cross-framework
+    tolerance."""
+    d, g = 256, 16
+    rng = np.random.default_rng(40)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(torch.bfloat16) for s in
+               [(B, 1, g, d), (B, S, 1, d), (B, S, 1, d)])
+    cache_len = torch.tensor([256, 40, 199], dtype=torch.int32)
+    window = 150
+    want = jatt.decode_attention(
+        *(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v)),
+        jnp.asarray(cache_len.numpy()), window=window, exp_impl=exp)
+    if paged:
+        ns = S // PAGE
+        tab = torch.from_numpy(np.random.default_rng(41).permutation(
+            B * ns).reshape(B, ns).astype(np.int32) + 1)
+        pools = []
+        for x in (k, v):
+            pool = torch.zeros((1 + B * ns, PAGE, 1, d), dtype=x.dtype)
+            pool[tab.reshape(-1).long()] = x.reshape(B * ns, PAGE, 1, d)
+            pools.append(pool)
+        ref = kdec.decode_attention_paged_plain(q, *pools, tab, cache_len,
+                                                window=window,
+                                                exp_backend=exp)
+    else:
+        ref = kdec.decode_attention_plain(q, k, v, cache_len, window=window,
+                                          block_s=128, exp_backend=exp)
+    np.testing.assert_allclose(ref.float().numpy(),
+                               np.asarray(jnp.asarray(want, jnp.float32)),
+                               **TOL)

@@ -144,11 +144,13 @@ KV_LEN = torch.tensor([256, 150], dtype=torch.int32)
 
 @pytest.mark.parametrize("exp", ("exact", "vexp"))
 @pytest.mark.parametrize("operand,d,terms", [
-    ("p", 64, 1), ("p", 64, 2), ("q", 32, 1), ("q", 32, 2)])
+    ("p", 64, 1), ("p", 64, 2), ("q", 32, 1), ("q", 32, 2), ("p", 256, 2)])
 def test_under_split_fails_the_limits(operand, d, terms, exp):
-    """Rounding p (D = 64) or q * sm_scale (D = 32) to fewer than three
-    bf16 terms moves outputs past ATT_LIMITS["flash_attention"]; three
-    terms move none (the split is exact, the sums keep their order)."""
+    """Rounding p (D = 64, and recurrentgemma's D = 256, whose scale 1/16
+    keeps q * sm_scale a bf16 value as D = 64's 1/8 does) or q * sm_scale
+    (D = 32) to fewer than three bf16 terms moves outputs past
+    ATT_LIMITS["flash_attention"]; three terms move none (the split is
+    exact, the sums keep their order)."""
     q, k, v = _qkv(d, seed=d)
     real = (torch.arange(256)[None, :] < KV_LEN[:, None])[:, :, None, None]
     ref = _scan(q, k, v, KV_LEN, 128, exp)

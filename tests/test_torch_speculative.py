@@ -325,17 +325,17 @@ class TestSpecValidation:
                    device="cpu", spec_groups=("default",))
 
     def test_recurrent_verify_waits_for_a11(self, cfg, params):
-        # the ssm family's "recurrent" mode is ported (scan only, as in
-        # the reference); the hybrid's ring-pool mode waits for A11b
-        for impl in ("scan", "chunk"):
-            with pytest.raises(NotImplementedError, match="A11"):
-                _spec_verify_fn(params, cfg, _pol(cfg), 3,
-                                "recurrent_paged", 64, impl)
-        assert callable(_spec_verify_fn(params, cfg, _pol(cfg), 3,
-                                        "recurrent", None, "scan"))
-        with pytest.raises(ValueError, match="scan"):
-            _spec_verify_fn(params, cfg, _pol(cfg), 3, "recurrent", None,
-                            "chunk")
+        # both recurrent modes are ported (A11b brought the hybrid's
+        # ring-pool mode), scan only, as in the reference
+        for mode in ("recurrent", "recurrent_paged"):
+            assert callable(_spec_verify_fn(params, cfg, _pol(cfg), 3,
+                                            mode, None, "scan"))
+            with pytest.raises(ValueError, match="scan"):
+                _spec_verify_fn(params, cfg, _pol(cfg), 3, mode, None,
+                                "chunk")
+        with pytest.raises(ValueError, match="mode"):
+            _spec_verify_fn(params, cfg, _pol(cfg), 3, "ring", None,
+                            "scan")
         with pytest.raises(ValueError, match="impl"):
             _spec_verify_fn(params, cfg, _pol(cfg), 3, "kv", 64, "fused")
 
