@@ -1777,11 +1777,13 @@ def serve_metrics(reqs, secs):
             "req_p95_s": _pct(lat, 95)}
 
 
-def near_tie_compare(cfg, params, groups, reqs, others, what, against):
+def near_tie_compare(cfg, params, groups, reqs, others, what, against,
+                     check=True):
     """Each request's tokens against ``others`` (the same request served
     another way): equal, or diverging first at a step where the reference
     tier's top-2 logit gap is a near tie (<= 2 x REPLAY_LOGIT_TOL).
-    Returns the counts; fails on a divergence that is not a near tie."""
+    Returns the counts; fails on a divergence that is not a near tie
+    (with ``check`` False only records it)."""
     from repro_torch.models import api
     near_ties, same = [], 0
     for r, other in zip(reqs, others):
@@ -1797,7 +1799,7 @@ def near_tie_compare(cfg, params, groups, reqs, others, what, against):
             device="cuda")
         top = torch.topk(lg[0, 0], 2).values
         gap = float(top[0] - top[1])
-        if gap > 2 * REPLAY_LOGIT_TOL:
+        if check and gap > 2 * REPLAY_LOGIT_TOL:
             fail(f"{what} {r.rid} ({r.group}) leaves {against} at step {i} "
                  f"where the reference's top-2 gap is {gap}, not a near "
                  f"tie")
@@ -3498,14 +3500,15 @@ HYBRID_CHUNK = 256
 # HYBRID_FORM_LIMIT[exp] x max |logit|. Twice the JAX package's own gap
 # under this check's conditions: recurrentgemma's widths, window 2048,
 # prompts of 300 and 2000 tokens prefilled at the window's width (the
-# second's decode wraps the ring), 64 forced steps, read at 5 and 8
-# layers (one and two periods and the two tail layers: 0.00838 / 0.00979
-# / 0.01013 and 0.01016 / 0.01139 / 0.01227 of max |logit| under exact /
-# vexp / vexp_hw) and carried to 38 by the power law the two readings fit
-# (tools/ssm_form_gap.py --arch recurrentgemma-9b --width full --layers
-# 5 8 --extrapolate 38: powers 0.41 / 0.32 / 0.41, 0.01928 / 0.01880 /
-# 0.02315 at 38).
-HYBRID_FORM_LIMIT = {"exact": 0.0386, "vexp": 0.0376, "vexp_hw": 0.0463}
+# second's decode wraps the ring), 64 forced steps, read at 5, 8, 14 and
+# 20 layers (one, two, four and six periods and the two tail layers:
+# 0.00837 / 0.00979 / 0.01013, 0.01016 / 0.01138 / 0.01227, 0.01204 /
+# 0.01254 / 0.01320 and 0.01218 / 0.01292 / 0.01317 of max |logit| under
+# exact / vexp / vexp_hw) and carried to 38 by the power law the four
+# readings fit (tools/ssm_form_gap.py --arch recurrentgemma-9b --width
+# full --layers 20 --prior <the 5 / 8 / 14 lines> --extrapolate 38:
+# powers 0.28 / 0.20 / 0.19, 0.01521 / 0.01503 / 0.01545 at 38).
+HYBRID_FORM_LIMIT = {"exact": 0.0304, "vexp": 0.0301, "vexp_hw": 0.0309}
 HYBRID_GATE_SERVE_NEW = 4
 
 
@@ -3991,20 +3994,30 @@ def phase_serve_hybrid_paged(kernels, smi, cfg, params, policy, groups,
                              mono):
     """The serve_hybrid requests on the paged ring pools (page 64, 32 ring
     pages a slot, allocated whole at admission), graph arm: B7 on every
-    decode step; tokens equal the contiguous serve's (``mono``), up to a
-    near tie (the contiguous sweep updates once per 512 keys, the paged
-    one once per page); no page held after the serve. Returns (counts,
-    the served requests)."""
-    grp = {n: p.replace(block_page=HYBRID_PAGE) for n, p in groups.items()}
-    pol = policy.replace(block_page=HYBRID_PAGE)
+    decode step; no page held after the serve. Its tokens equal, request
+    by request, those of a contiguous ring serve of the same requests
+    whose groups update once per 64 keys (``block_s`` = the page, B2 on
+    every step), the same function; against the serve_hybrid tokens
+    (``mono``, one update per 512 keys, another function under vexp) the
+    first divergences and their reference top-2 gaps are a note. Returns
+    ({path: counts}, the paged serve's requests)."""
+    grp = {n: p.replace(block_page=HYBRID_PAGE, block_s=HYBRID_PAGE)
+           for n, p in groups.items()}
+    pol = policy.replace(block_page=HYBRID_PAGE, block_s=HYBRID_PAGE)
+    turns = {}
+    for paged in (False, True):
+        what = "serve_hybrid_paged" if paged else "serve_hybrid_block64"
 
-    def server(cuda_graphs=True):
-        return hybrid_server(cfg, params, pol, grp, cuda_graphs, paged=True)
+        def server(cuda_graphs=True):
+            return hybrid_server(cfg, params, pol, grp, cuda_graphs,
+                                 paged=paged)
 
-    turn = hybrid_serve_once(kernels, cfg, server,
-                             lambda: hybrid_requests(cfg, groups), "graph",
-                             0, "decode_attention_paged",
-                             "serve_hybrid_paged")
+        turns[what] = hybrid_serve_once(
+            kernels, cfg, server, lambda: hybrid_requests(cfg, groups),
+            "graph", 0, "decode_attention_paged" if paged
+            else "decode_attention", what)
+    turn, ring = turns["serve_hybrid_paged"], turns["serve_hybrid_block64"]
+    del ring["srv"]
     pools = {}
     for name, g in turn["srv"]._groups.items():
         pools[name] = g.state.pool_stats()
@@ -4012,13 +4025,22 @@ def phase_serve_hybrid_paged(kernels, smi, cfg, params, policy, groups,
             fail(f"serve_hybrid_paged group {name}: "
                  f"{g.state.alloc.n_used()} pages held after the serve")
     turn["srv"].assert_idle_clean()
-    vs = near_tie_compare(cfg, params, groups, turn["reqs"],
-                          [r.out for r in mono], "paged hybrid request",
-                          "the contiguous serve's tokens")
+    for r, want in zip(turn["reqs"], ring["reqs"]):
+        if list(r.out) != list(want.out):
+            i = next((i for i, (a, b) in enumerate(zip(r.out, want.out))
+                      if a != b), min(len(r.out), len(want.out)))
+            fail(f"serve_hybrid_paged: request {r.rid} ({r.group}) leaves "
+                 f"the block-64 ring serve's tokens at step {i}")
+    note = near_tie_compare(cfg, params, groups, turn["reqs"],
+                            [r.out for r in mono], "paged hybrid request",
+                            "the 512-block ring serve's tokens", check=False)
     emit({"phase": "serve_hybrid_paged", "page": HYBRID_PAGE,
-          **turn["readings"], "vs_contiguous": vs, "pools": pools,
+          **turn["readings"], "block64_ring": ring["readings"],
+          "vs_block64_ring": {"identical": len(ring["reqs"])},
+          "note_vs_block512_ring": note, "pools": pools,
           "nvidia_smi": smi})
-    return {"serve_hybrid_paged": turn["counts"]}, turn["reqs"]
+    return ({"serve_hybrid_block64": ring["counts"],
+             "serve_hybrid_paged": turn["counts"]}, turn["reqs"])
 
 
 def phase_serve_hybrid_chunked(kernels, smi, cfg, params, policy, groups,

@@ -91,17 +91,13 @@ def attention_xla(q, k, v, *, causal=True, window=None, exp_impl="vexp",
 
 
 def attention_flash(q, k, v, *, causal=True, window=None, exp_impl="vexp",
-                    q_offset=0, sm_scale=None, block_k=512, kv_valid=None,
-                    l_chain=False):
+                    q_offset=0, sm_scale=None, block_k=512, kv_valid=None):
     """FlashAttention-2 scan: per-row running (m, l, acc) updated once per
     KV block of ``block_k`` keys counted from key 0, f32 throughout. Under
     vexp the block partition is part of the result (vexp(a)·vexp(b) !=
     vexp(a+b)), so the kernel that is held to this function updates on
     the same blocks. ``q_offset`` (int or (B,)) is the absolute position
-    of q[0] minus that of k[0]. ``l_chain`` sums each block's l as one
-    chain over its keys in order (a product of p with ones) instead of
-    ``sum``: the same function in another f32 order, the one the FA
-    kernel keeps at head dim 256."""
+    of q[0] minus that of k[0]."""
     exp_fn = _resolve(exp_impl)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -133,14 +129,7 @@ def attention_flash(q, k, v, *, causal=True, window=None, exp_impl="vexp",
         m_new = torch.maximum(m, s.amax(dim=-1))
         alpha = exp_fn(m - m_new)
         p = torch.where(keep, exp_fn(s - m_new[..., None]), 0.0)
-        if l_chain:
-            # the block's l as the product of p with ones, the product
-            # p . v is: on the card each is a chain over the keys in order
-            l_blk = torch.einsum("bkgst,btkd->bkgsd", p,
-                                 torch.ones_like(vblk))[..., 0]
-        else:
-            l_blk = p.sum(dim=-1)
-        l = l * alpha + l_blk
+        l = l * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum("bkgst,btkd->bkgsd",
                                                     p, vblk)
         m = m_new

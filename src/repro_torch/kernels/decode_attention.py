@@ -70,6 +70,12 @@ STAT_HEAD_DIMS = (32, 64)
 # MQA), so the dense heads keep their occupancy
 MAX_GROUP = {32: 8, 64: 8, 256: 16}
 TILE = 64                 # keys per tile of the split sweep (decode_split.cuh)
+# head dims whose plain sweep writes its products key-major, (keys, d) @
+# (d, G) and (d, keys) @ (keys, G): the orientation in which cuBLAS's
+# f32 product on the H100 sums each score over d and each p @ v and l over
+# the block's keys in order (tools/matmul_order.py reads it), the order
+# the D 256 kernels chain them in; the other head dims keep einsum / sum
+KEY_MAJOR_DIMS = (256,)
 
 
 def _as_bhsd(cache, layout):
@@ -104,29 +110,35 @@ def _sweep_plain(q, k_cache, v_cache, cache_len, seq_offset, *, window,
     l = torch.zeros_like(m)
     acc = torch.zeros((b, hkv, g, d), dtype=torch.float32, device=q.device)
     bs = min(block_s, smax)
+    key_major = d in KEY_MAJOR_DIMS
     for k0 in range(0, smax, bs):
-        kb = kk[:, :, k0:k0 + bs].float().contiguous()
-        vb = vv[:, :, k0:k0 + bs].float().contiguous()
+        kb = kk[:, :, k0:k0 + bs].float()
+        vb = vv[:, :, k0:k0 + bs].float()
         kpos = (seq_offset + k0
                 + torch.arange(kb.shape[2], device=q.device)[None, :])
         keep = kpos < cl
         if window is not None:
             keep = keep & (kpos >= cl - window)
         keep = keep[:, None, None, :]
-        # key-major products, (keys, d) @ (d, G) and (d, keys) @ (keys,
-        # G): the orientation in which the card's f32 product sums each
-        # score over d and each p @ v and l over the block's keys in
-        # order, as the kernels chain them
-        s = torch.where(keep, (kb @ qg.transpose(-1, -2)).transpose(-1, -2),
-                        NEG_INF)
+        if key_major:
+            s = (kb.contiguous() @ qg.transpose(-1, -2)).transpose(-1, -2)
+        else:
+            s = torch.einsum("bkgd,bktd->bkgt", qg, kb)
+        s = torch.where(keep, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         alpha = exp_fn(m - m_new)
         p = torch.where(keep, exp_fn(s - m_new[..., None]), 0.0)
-        pr = p.to(cdt).float().contiguous()
-        pf = p.contiguous()
-        l_blk = (torch.ones_like(vb).transpose(-1, -2)
-                 @ pf.transpose(-1, -2))[..., 0, :]
-        pv = (vb.transpose(-1, -2) @ pr.transpose(-1, -2)).transpose(-1, -2)
+        pr = p.to(cdt).float()
+        if key_major:
+            pt = p.contiguous().transpose(-1, -2)            # (keys, G)
+            vt = vb.contiguous().transpose(-1, -2)           # (d, keys)
+            # l as the product of p with d rows of ones, one kept: the
+            # same product as p @ v; with one row cuBLAS leaves key order
+            l_blk = (torch.ones_like(vt) @ pt)[..., 0, :]
+            pv = (vt @ pr.contiguous().transpose(-1, -2)).transpose(-1, -2)
+        else:
+            l_blk = p.sum(dim=-1)
+            pv = torch.einsum("bkgt,bktd->bkgd", pr, vb)
         l = l * alpha + l_blk
         acc = acc * alpha[..., None] + pv
         m = m_new

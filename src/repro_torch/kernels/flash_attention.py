@@ -15,7 +15,9 @@ import math
 
 import torch
 
-from repro_torch.core.attention import attention_flash, kv_valid_from_len
+from repro_torch.core.attention import (NEG_INF, _qpos, attention_flash,
+                                       kv_valid_from_len)
+from repro_torch.core.vexp import get_exp_fn
 from .build import BACKEND_CODE, F, I, KernelLib, LL, P
 
 LIB = KernelLib("flash_attention.cu")
@@ -34,16 +36,64 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, kv_len=None,
     ``q_offset`` + i. Each block's l is summed in the order of the
     kernel's instantiation at this head dim: at D = 32 and 64 the
     threads' partial sums and a tree, nearest to ``sum``'s; at D = 256
-    one chain over the block's keys in order (``L_CHAIN_DIMS``), since
-    over its ~30x more outputs a tree's one-ulp flips reach outputs of
-    |o| >= 0.5, past the exact limit."""
+    one chain over the block's keys in order (``L_CHAIN_DIMS``,
+    ``_attention_flash_l_chain``), since over its ~30x more outputs a
+    tree's one-ulp flips reach outputs of |o| >= 0.5, past the exact
+    limit."""
     kv_valid = (None if kv_len is None
                 else kv_valid_from_len(kv_len, k.shape[1]))
-    return attention_flash(q, k, v, causal=causal, window=window,
-                           exp_impl=exp_backend, q_offset=q_offset,
-                           sm_scale=sm_scale, block_k=block_k,
-                           kv_valid=kv_valid,
-                           l_chain=q.shape[-1] in L_CHAIN_DIMS)
+    scan = (_attention_flash_l_chain if q.shape[-1] in L_CHAIN_DIMS
+            else attention_flash)
+    return scan(q, k, v, causal=causal, window=window, exp_impl=exp_backend,
+                q_offset=q_offset, sm_scale=sm_scale, block_k=block_k,
+                kv_valid=kv_valid)
+
+
+def _attention_flash_l_chain(q, k, v, *, causal, window, exp_impl, q_offset,
+                             sm_scale, block_k, kv_valid):
+    """``core.attention.attention_flash`` with each block's l taken from
+    the product of p with ones shaped as v, the product p @ v is: cuBLAS's
+    f32 product on the H100 sums it over the block's keys in order, as
+    the D 256 kernel chains both; with one column of ones it leaves key
+    order (``tools/matmul_order.py`` reads both)."""
+    exp_fn = get_exp_fn(exp_impl)
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    block_k = min(block_k, sk)
+    qg = (q.float() * scale).reshape(b, sq, hkv, g, d)
+    qpos = _qpos(sq, q_offset, q.device)[:, :, None]     # (1|B, Sq, 1)
+    m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, g, sq, d), dtype=torch.float32,
+                      device=q.device)
+    for k0 in range(0, sk, block_k):
+        kblk = k[:, k0:k0 + block_k].float()
+        vblk = v[:, k0:k0 + block_k].float()
+        bk = kblk.shape[1]
+        s = torch.einsum("bskgd,btkd->bkgst", qg, kblk)
+        kpos = k0 + torch.arange(bk, device=q.device)[None, :]
+        keep = torch.ones((1, sq, bk), dtype=torch.bool, device=q.device)
+        if causal:
+            keep = keep & (kpos[None] <= qpos)
+        if window is not None:
+            keep = keep & (kpos[None] > qpos - window)
+        if kv_valid is not None:
+            keep = keep & kv_valid[:, None, k0:k0 + bk]
+        keep = keep[:, None, None]                    # (B|1, 1, 1, Sq, bk)
+        s = torch.where(keep, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = exp_fn(m - m_new)
+        p = torch.where(keep, exp_fn(s - m_new[..., None]), 0.0)
+        l = l * alpha + torch.einsum("bkgst,btkd->bkgsd", p,
+                                     torch.ones_like(vblk))[..., 0]
+        acc = acc * alpha[..., None] + torch.einsum("bkgst,btkd->bkgsd",
+                                                    p, vblk)
+        m = m_new
+    out = acc * (1.0 / torch.clamp(l, min=1e-30))[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
 
 
 def _rows16(t):

@@ -12,7 +12,10 @@ At recurrentgemma's decode shape (16 query rows on one KV head, d 256)
 the key-major products ``(keys, d) @ (d, G)`` and ``(d, keys) @ (keys,
 G)`` match the chain at 64 and 512 keys, while ``einsum`` sums p @ v in
 another order; this is why ``kernels/decode_attention.py``'s plain sweep
-is written key-major.
+is written key-major at D 256. The last lines read a block's l (the row
+sums of p) taken as a product of p with a column of ones, or with D
+columns, in the decode sweep's key-major orientation and in FA's einsum,
+against one f32 chain over the keys in order.
 """
 
 import json
@@ -37,6 +40,14 @@ def tiles(a, b, t=64):
         c = chain(a[..., k0:k0 + t], b[..., k0:k0 + t, :])
         out = c if out is None else out + c
     return out
+
+
+def key_sum(p):
+    """p (..., K) summed over K as one f32 chain in order."""
+    acc = torch.zeros(p.shape[:-1], dtype=torch.float32, device=p.device)
+    for k in range(p.shape[-1]):
+        acc = acc + p[..., k]
+    return acc
 
 
 def differ(x, y):
@@ -75,6 +86,38 @@ def main():
                 "pv_keymajor_vs_chain": differ(pv_k, pc),
                 "pv_keymajor_vs_tiles64": differ(pv_k, pt),
                 "device": torch.cuda.get_device_name(0)}), flush=True)
+    # a block's l, the row sums of p, as the plain versions take it at
+    # D 256: a product of p with ones in the orientation of their p @ v,
+    # with one column of ones or D columns (of which one is kept)
+    for G, D in ((16, 256),):
+        for K in (512, 64):
+            s = bf16_randn(8, 1, G, K)
+            p = torch.softmax(s, -1)
+            lc = key_sum(p)
+            pt = p.contiguous().transpose(-1, -2)
+            vt = bf16_randn(8, 1, K, D).transpose(-1, -2)
+            print(json.dumps({
+                "l": "decode", "G": G, "d": D, "keys": K,
+                "outputs": lc.numel(),
+                "l_ones1_keymajor_vs_chain": differ(
+                    (torch.ones_like(vt[..., :1, :]) @ pt)[..., 0, :], lc),
+                "l_onesD_keymajor_vs_chain": differ(
+                    (torch.ones_like(vt) @ pt)[..., 0, :], lc),
+                "device": torch.cuda.get_device_name(0)}), flush=True)
+    for G, D, S in ((16, 256, 2048), (16, 256, 256), (16, 256, 5)):
+        K = 512
+        p = torch.softmax(bf16_randn(8, 1, G, S, K), -1)
+        lc = key_sum(p)
+        v = bf16_randn(8, K, 1, D)
+        print(json.dumps({
+            "l": "flash", "G": G, "d": D, "queries": S, "keys": K,
+            "outputs": lc.numel(),
+            "l_ones1_einsum_vs_chain": differ(torch.einsum(
+                "bkgst,btkd->bkgsd", p, torch.ones_like(v[..., :1]))[..., 0],
+                lc),
+            "l_onesD_einsum_vs_chain": differ(torch.einsum(
+                "bkgst,btkd->bkgsd", p, torch.ones_like(v))[..., 0], lc),
+            "device": torch.cuda.get_device_name(0)}), flush=True)
 
 
 if __name__ == "__main__":

@@ -37,7 +37,8 @@ gap grows with depth). Prints one JSON line per depth: per backend the max
 |decode - forward| over the forced steps, the max |logit|, and their
 ratio. With ``--extrapolate L`` and two or more depths it also prints a
 least-squares fit of log(ratio) against log(depth) per backend and the
-ratio it gives at depth L (~35 min on 8 CPU cores):
+ratio it gives at depth L; ``--prior FILE`` adds to the fit the depth
+lines an earlier run printed into FILE (~35 min on 8 CPU cores):
 
     ... tools/ssm_form_gap.py --width full --layers 8 16 24 --extrapolate 48
 """
@@ -45,6 +46,7 @@ ratio it gives at depth L (~35 min on 8 CPU cores):
 import argparse
 import dataclasses
 import json
+import time
 
 import jax
 import jax.numpy as jnp
@@ -63,6 +65,7 @@ SHAPES = {"mamba2-1.3b": {"reduced": ((40, 17, 33, 8), 24),
 
 
 def gap(width, n_layers=None, arch="mamba2-1.3b"):
+    t0 = time.perf_counter()
     cfg = get_config(arch)
     if width == "reduced":
         cfg = cfg.reduced()
@@ -123,7 +126,7 @@ def gap(width, n_layers=None, arch="mamba2-1.3b"):
                       "sliding_window": getattr(cfg, "sliding_window", None),
                       "n_layers": cfg.n_layers, "prompts": list(PROMPT),
                       "forms": "decode_step vs forward", "steps": STEPS,
-                      "gap": out}
+                      "gap": out, "seconds": time.perf_counter() - t0}
     print(json.dumps(line), flush=True)
     return line
 
@@ -153,8 +156,16 @@ def main():
                     default="reduced")
     ap.add_argument("--layers", type=int, nargs="*", default=[None])
     ap.add_argument("--extrapolate", type=int, default=None)
+    ap.add_argument("--prior", default=None,
+                    help="a file of lines this tool printed earlier for the "
+                         "same arch and width, fitted with this run's")
     args = ap.parse_args()
     lines = [gap(args.width, n, args.arch) for n in args.layers]
+    if args.prior:
+        with open(args.prior) as f:
+            prior = [json.loads(ln) for ln in f if '"n_layers"' in ln]
+        lines = [ln for ln in prior if ln["arch"] == lines[0]["arch"]
+                 and ln["width"] == lines[0]["width"]] + lines
     if args.extrapolate:
         fit(lines, args.extrapolate)
 
