@@ -200,12 +200,13 @@ def check_attention(kernel, readings, where=""):
 
 
 def textbook_partial(q, k_cache, v_cache, cache_len, seq_offset, *, layout,
-                     exp):
+                     exp, window=None):
     """Negative control for the split decode kernels: the usual split-KV
     merge over the same 64-key tiles (each update block's keys from its
     start in steps of 64; the slice and the block are whole tiles here),
     each tile's p taken against the tile's own max and the tiles folded
-    with one exp(m_t - m) each. Under vexp and vexp_hw
+    with one exp(m_t - m) each, keys outside the window masked as the
+    kernels mask them. Under vexp and vexp_hw
     exp(a) * exp(b) != exp(a + b), so this is another function than the
     plain sweep's running max per update block. Returns the raw
     (m, l) (B,Hkv,G,1) and acc (B,Hkv,G,d), f32."""
@@ -222,8 +223,11 @@ def textbook_partial(q, k_cache, v_cache, cache_len, seq_offset, *, layout,
         raise ValueError("textbook_partial takes whole 64-key tiles")
     qg = ((q.float() * (1.0 / math.sqrt(d))).to(kk.dtype).float()
           .reshape(b, hkv, g, d))
-    keep = ((seq_offset + torch.arange(smax, device=q.device))[None, :]
-            < cache_len.reshape(-1, 1))[:, None, None]
+    kpos = (seq_offset + torch.arange(smax, device=q.device))[None, :]
+    keep = kpos < cache_len.reshape(-1, 1)
+    if window is not None:
+        keep = keep & (kpos >= cache_len.reshape(-1, 1) - window)
+    keep = keep[:, None, None]
     s = torch.where(keep, torch.einsum("bkgd,bktd->bkgt", qg, kk.float()),
                     NEG_INF).reshape(b, hkv, g, nt, 64)
     m_t = s.amax(-1)
@@ -3777,13 +3781,14 @@ def _hybrid_fa_rows(fa, policy_cls, block_k):
     return res, out
 
 
-def _hybrid_decode_case(da, policy_cls, paged):
-    """B2 (or B7 through a page-64 ring table) at the hybrid's decode
-    shape: B 8, one KV head, G 16, d 256, over a 2048-slot ring whose
-    cache_len is below and at the window (two rows full, the rest drawn
-    in [33, 2048]), "bshd". The half-block (half-page) and textbook-merge
-    controls; graph ms, SDPA's graph ms (over the gathered ring for B7),
-    the plain version's ms and the bound. Returns (fields, readings)."""
+def hybrid_decode_inputs(da, paged):
+    """The inputs of B2 (or B7 through a page-64 ring table in random
+    order) at the hybrid's decode shape: B 8, one KV head, G 16, d 256,
+    a 2048-slot ring whose cache_len is below and at the window (two rows
+    full, the rest drawn in [33, 2048]), "bshd", from seed 12 (13 paged).
+    Returns (q, cache_len, k, v, run): k and v the contiguous cache (paged:
+    the pool gathered through the table) and run(policy) the kernel's
+    call."""
     g = torch.Generator(device="cuda").manual_seed(12 + int(paged))
     b, s, h, hkv, d, page = 8, 2048, 16, 1, 256, HYBRID_PAGE
     ns = s // page
@@ -3801,14 +3806,25 @@ def _hybrid_decode_case(da, policy_cls, paged):
     else:
         kc, vc = (torch.randn(b, s, hkv, d, generator=g, device="cuda")
                   .to(torch.bfloat16) for _ in range(2))
-    readings = {}
 
     def run(pol):
         if paged:
             return da.decode_attention_paged(q, kp, vp, tab, cl,
                                              layout="bshd", policy=pol)
         return da.decode_attention(q, kc, vc, cl, layout="bshd", policy=pol)
+    return q, cl, kc, vc, run
 
+
+def _hybrid_decode_case(da, policy_cls, paged):
+    """B2 (or B7) on ``hybrid_decode_inputs``: held to its plain version
+    under every exp backend, with the half-block (half-page) and
+    textbook-merge controls; graph ms, device µs per CUDA kernel, SDPA's
+    graph ms (over the gathered ring for B7), the plain version's ms and
+    the bound. Returns (fields, readings)."""
+    q, cl, kc, vc, run = hybrid_decode_inputs(da, paged)
+    b, _, h, d = q.shape
+    s, hkv, page = kc.shape[1], kc.shape[2], HYBRID_PAGE
+    readings = {}
     block = page if paged else policy_cls().block_s
     for exp in EXP_BACKENDS:
         pol = policy_cls(exp_backend=exp, block_page=page)
@@ -3831,6 +3847,7 @@ def _hybrid_decode_case(da, policy_cls, paged):
     res["ms_vexp"] = cuda_time_ms(lambda: run(pol), iters=50)
     res["graph_ms_vexp"] = graph_ms(lambda: run(pol),
                                     f"decode d256 paged={paged}", iters=50)
+    res["stage_us_vexp"] = stage_device_us(lambda: run(pol))
     res["plain_ms_vexp"] = cuda_time_ms(lambda: da.decode_attention_plain(
         q, kc, vc, cl, layout="bshd", block_s=block, exp_backend="vexp"),
         iters=5)
@@ -3857,6 +3874,76 @@ def _hybrid_decode_case(da, policy_cls, paged):
     return res, readings
 
 
+HYBRID_EDGE_LENS = (1, 64, 65, 511, 512, 513, 2048)
+HYBRID_EDGE_GROUPS = (1, 5, 16)          # MAX_GROUP[256] is 16
+HYBRID_EDGE_WINDOW = 700
+
+
+def _hybrid_decode_edges(da, policy_cls):
+    """B2 and B7 at head dim 256 where the column-sliced sweep has its
+    edges: G 1, 5 and 16 query rows on one KV head; one row per cache_len
+    in HYBRID_EDGE_LENS (one key, a tile, a tile and a key, around the
+    512-key update block, the full ring); with no window and with a
+    window of 700 (the first kept key mid-block); B7 through a page table
+    in random order. Each held to its plain version under every exp
+    backend, with the half-block (half-page) and textbook-merge controls.
+    Returns (fields, [(tag, kernel, readings)])."""
+    g = torch.Generator(device="cuda").manual_seed(14)
+    s, d, page = 2048, 256, HYBRID_PAGE
+    b, ns = len(HYBRID_EDGE_LENS), s // page
+    cl = torch.tensor(HYBRID_EDGE_LENS, dtype=torch.int32, device="cuda")
+    kp, vp = (torch.randn(1 + b * ns, page, 1, d, generator=g,
+                          device="cuda").to(torch.bfloat16)
+              for _ in range(2))
+    tab = ((torch.randperm(b * ns, generator=g, device="cuda") + 1)
+           .reshape(b, ns).to(torch.int32))
+    kc, vc = da.paged_gather(kp, tab), da.paged_gather(vp, tab)
+    res, out = {}, []
+    for grp in HYBRID_EDGE_GROUPS:
+        q = torch.randn(b, 1, grp, d, generator=g,
+                        device="cuda").to(torch.bfloat16)
+        for window in (None, HYBRID_EDGE_WINDOW):
+            for paged in (False, True):
+                kernel = ("decode_attention_paged" if paged
+                          else "decode_attention")
+                block = page if paged else policy_cls().block_s
+                readings = {}
+                for exp in EXP_BACKENDS:
+                    pol = policy_cls(exp_backend=exp, block_page=page)
+                    if paged:
+                        got = da.decode_attention_paged(
+                            q, kp, vp, tab, cl, window=window,
+                            layout="bshd", policy=pol)
+                    else:
+                        got = da.decode_attention(q, kc, vc, cl,
+                                                  window=window,
+                                                  layout="bshd", policy=pol)
+                    ref = da.decode_attention_plain(
+                        q, kc, vc, cl, window=window, layout="bshd",
+                        block_s=block, exp_backend=exp)
+                    readings[exp, "kernel"] = kernel_vs_plain(got, ref)
+                    if exp != "exact":
+                        half = da.decode_attention_plain(
+                            q, kc, vc, cl, window=window, layout="bshd",
+                            block_s=block // 2, exp_backend=exp)
+                        readings[exp, "half_page" if paged
+                                 else "half_block"] = \
+                            kernel_vs_plain(half, ref)
+                        tb = textbook_partial(q, kc, vc, cl, 0,
+                                              layout="bshd", exp=exp,
+                                              window=window)
+                        readings[exp, "textbook_merge"] = kernel_vs_plain(
+                            _norm_stats(*tb).reshape(ref.shape), ref)
+                tag = (f"g{grp}_w{window or 0}_"
+                       + ("paged" if paged else "contig"))
+                for (exp, who), val in readings.items():
+                    res[f"{tag}_{exp}_{who}_max_abs_err"] = val[0]
+                    res[f"{tag}_{exp}_{who}_mismatch_share"] = val[1]
+                out.append((tag, kernel, readings))
+    res["cache_len"] = list(HYBRID_EDGE_LENS)
+    return res, out
+
+
 def phase_hybrid_kernels(policy_cls):
     """B3, B2 and B7 at recurrentgemma-9b's shapes (head dim 256, 16 query
     heads on one KV head, a 2048-token window; FA at the config's
@@ -3872,15 +3959,20 @@ def phase_hybrid_kernels(policy_cls):
     fa_res, fa_checks = _hybrid_fa_rows(fa, policy_cls, block_k)
     dec, dec_rd = _hybrid_decode_case(da, policy_cls, False)
     pdec, pdec_rd = _hybrid_decode_case(da, policy_cls, True)
+    edges, edge_rds = _hybrid_decode_edges(da, policy_cls)
     emit({"phase": "hybrid_attention_kernels", "block_k": block_k,
           "flash_attention": fa_res, "decode_attention": dec,
-          "decode_attention_paged": pdec})
+          "decode_attention_paged": pdec, "decode_edges": edges})
     for tag, rd in fa_checks:
         check_attention("flash_attention", rd, f" {tag}")
     check_attention("decode_attention", dec_rd, " d256 g16")
     check_attention("decode_attention_paged", pdec_rd, " d256 g16")
+    for tag, kernel, rd in edge_rds:
+        check_attention(kernel, rd, f" d256 {tag}")
     keys = ("ms_vexp", "graph_ms_vexp", "plain_ms_vexp", "bound_ms",
             "bound_by", "library_ms", "library_graph_ms", "shape")
+    # the decode rows also carry their per-kernel device µs
+    dec_keys = keys + ("stage_us_vexp",)
 
     def worst(rd):
         return max(e for (_, who), (e, _) in rd.items() if who == "kernel")
@@ -3890,10 +3982,13 @@ def phase_hybrid_kernels(policy_cls):
     fa_row["chunk_shape"] = fa_res["chunk_shape"]
     fa_row["max_abs_err"] = max(worst(rd) for _, rd in fa_checks)
     out = {"flash_attention_bhsd": fa_row}
-    for name, res, rd in (("decode_attention_kernel", dec, dec_rd),
-                          ("decode_attention_kernel_paged", pdec, pdec_rd)):
-        row = {k: res[k] for k in keys}
-        row["max_abs_err"] = worst(rd)
+    for name, res, rd, kernel in (
+            ("decode_attention_kernel", dec, dec_rd, "decode_attention"),
+            ("decode_attention_kernel_paged", pdec, pdec_rd,
+             "decode_attention_paged")):
+        row = {k: res[k] for k in dec_keys}
+        row["max_abs_err"] = max([worst(rd)] + [
+            worst(e) for _, k, e in edge_rds if k == kernel])
         out[name] = row
     return out
 

@@ -36,15 +36,40 @@
 // their V rows while split_scores drains, and wait for it
 // (griddepcontrol.wait) before reading its output.
 //
-// Head dim 256 with G = 16 (recurrentgemma's MQA; normalized mode only):
-// stage 1 takes dynamic shared memory (50 KB, above the 48 KB static
-// limit) and reads each key's row from shared memory for every query row
-// instead of holding it in registers; stage 2 is its own kernel,
-// split_pv_chain, which chains each update block's p @ v and l over the
-// block's keys in order in one CTA, the order in which the plain sweep's
-// products sum on the card, so the kernel matches its plain version bit
-// for bit there. The dense heads (D 32, 64; G <= 8) keep their static
-// arrays and split_pv as they were.
+// Head dim 256 with G = 16 (recurrentgemma's MQA; normalized mode only)
+// runs three kernels of its own, spread over the card by query rows in
+// stage 1, by column slices in stage 2 and by outputs in stage 3; every
+// f32 operation of every output, and its order, is the one described
+// above for the block's keys:
+//   1. split_scores_rows, one CTA per (tile, h, b) of 128 threads: a
+//      warp per four query rows, a lane per two keys, eight f32 FMA
+//      chains over d from 0 a thread in flight together, K rows and q
+//      read from shared memory (dynamic, 49 KB);
+//   2. split_pv_slice, one CTA per (update block, column slice of 64, h,
+//      b), kSlices = 4 slices a row: the block's m_j and alpha_j as
+//      above, p against m_j for the block's kept keys (each slice takes
+//      the same exps; p goes to shared memory rounded to bf16, which it
+//      is exactly), then each thread chains 4 query rows x 2 columns
+//      of p @ v over the block's kept keys in key order from +0.0, the
+//      next 64-key tile's V columns copied (cp.async, two buffers) while
+//      the current one chains; warp 0 of slice 0 also chains each row's
+//      l in key order. That is the order in which the plain sweep's
+//      key-major products sum on the card (one (d, keys) @ (keys, G)
+//      product a block), so the kernels match their plain versions bit
+//      for bit. One (alpha, l, p @ v) slot per block. Four slices, not
+//      more: a CTA's shared-memory reads per key grow with its rows, not
+//      its columns (every lane of a warp takes the same p), and at
+//      recurrentgemma's ring (4 blocks a row) 4 slices give at most one
+//      block CTA an SM. A programmatic dependent launch only where its
+//      grid has more CTAs than the card has SMs;
+//   3. combine_blocks, a programmatic dependent launch after stage 2, one
+//      thread per (query row, four columns): the blocks chained in order,
+//      every block's (alpha, l, p @ v) loaded before its chain starts
+//      (kBatch blocks a load). Not the last CTA of each slice, as at the
+//      dense heads: there the combine ran on a few CTAs at the kernel's
+//      tail (7.6 µs of stage 2 on a page-64 ring, on an H100).
+// (Each choice read on the card by tools/decode_split_ablation.py.)
+// The dense heads (D 32, 64; G <= 8) keep split_scores and split_pv.
 //
 // Why the running max per update block, and not one max per tile merged
 // at the end (the usual split-KV merge): under vexp and vexp_hw,
@@ -55,11 +80,12 @@
 //
 // Scratch, one flat f32 buffer per call from the caller (uninitialised;
 // every element read is written first in the same call), rows
-// r = (b * Hkv + h) * G + g, R = B * Hkv * G, nT tiles per row:
-// scores R * nT * kTile, tile maxes R * nT, tile l R * nT, the tile's
-// block alpha R * nT, tile p @ v R * nT * D, then B * Hkv ticket counters.
-// (At D = 256 a block's l and p @ v sit in its first live tile's slots and
-// the block's other tiles hold zeros.)
+// r = (b * Hkv + h) * G + g, R = B * Hkv * G, nT tiles and nB update
+// blocks per row. D 32, 64: scores R * nT * kTile, tile maxes R * nT,
+// tile l R * nT, the tile's block alpha R * nT, tile p @ v R * nT * D,
+// then B * Hkv ticket counters. D 256: scores B * Hkv * nT * kTile * 16
+// (each tile's keys by query row, [key][16]), block p @ v R * nB * D,
+// tile maxes R * nT, block alpha R * nB, block l R * nB.
 
 #pragma once
 
@@ -73,6 +99,14 @@ namespace split {
 
 constexpr int kTile = 64;             // keys per tile, one thread each
 constexpr int kPvThreads = 128;
+// D = 256: stage 1's row groups, stage 2's column slices a row, the
+// blocks whose statistics the combine loads at once, and the keys whose
+// operands the chain loads at once
+constexpr int kRowSplit = 4;          // stage 1: warps a tile, 4 rows each
+constexpr int kScoreThreads = 32 * kRowSplit;
+constexpr int kSlices = 4;
+constexpr int kBatch = 8;
+constexpr int kUnroll = 8;            // keys a step of stage 2's chain
 constexpr float kNegInf = -1e30f;     // core/softmax.py KERNEL_NEG_INF
 
 // what the sweep writes (the reference's partial / packed flags)
@@ -88,16 +122,17 @@ struct Args {
   const int* cache_len;     // (B,) global lengths
   const int* tab;           // paged: (B, nS) pool page ids
   float* scores;            // scratch, carved by scratch_floats' layout
-  float* tmax;
-  float* tl;
-  float* ta;                // each tile's block alpha_j
-  float* tpv;
-  unsigned* tickets;        // (B, Hkv) stage-2 CTAs done per row
+  float* tmax;              // each tile's max
+  float* tl;                // l: each tile's (D 256: each block's)
+  float* ta;                // alpha_j: each tile's block's (D 256: a block's)
+  float* tpv;               // p @ v: each tile's (D 256: each block's)
+  unsigned* tickets;        // stage-2 CTAs done per row (D 32, 64)
   int B, Hkv, G, S;         // S: keys in the slice (paged: nS * page)
   int nS;                   // paged: table columns
   int block;                // update block, >= 1 (the page when paged)
   int tpb;                  // tiles per update block
   int nT;                   // tiles per row
+  int nB;                   // update blocks per row (nT = nB * tpb)
   long long sb, sh, ss;     // strides of a batch row (pool page), head, key
   float sm_scale;
   int window, seq_offset, backend;
@@ -111,32 +146,31 @@ __host__ __device__ constexpr int max_g() {
   return D >= 256 ? 16 : 8;
 }
 
-// Whether stage 1's shared memory is dynamic: only where it passes the
-// 48 KB static limit (D = 256); the dense heads keep their static
-// arrays.
-template <int D>
-__host__ __device__ constexpr bool dyn_smem() {
-  return D >= 256;
-}
-
-// Stage 1's shared memory, in bytes.
-template <int D>
-__host__ __device__ constexpr size_t scores_smem() {
-  return (size_t)max_g<D>() * D * sizeof(float) +             // sQ
-         (size_t)kTile * (D + 8) * sizeof(__nv_bfloat16) +    // sK
-         (size_t)(kTile / 32) * max_g<D>() * sizeof(float);   // sMax
-}
-
-// Whether stage 2 chains each update block's p @ v and l over the
-// block's keys in order (split_pv_chain, D = 256) instead of summing
-// per-tile partials (split_pv).
+// Whether the sweep chains each update block's p @ v and l over the
+// block's keys in order, by column slices (split_scores_rows,
+// split_pv_slice; D = 256), instead of summing per-tile partials
+// (split_scores, split_pv).
 template <int D>
 __host__ __device__ constexpr bool block_chain() {
   return D >= 256;
 }
 
-// Floats of scratch a call needs; the wrappers compute the same.
-inline long long scratch_floats(int B, int Hkv, int G, int D, int nT) {
+// split_scores_rows' dynamic shared memory, in bytes (above the 48 KB
+// static limit at D = 256).
+template <int D>
+__host__ __device__ constexpr size_t rows_smem() {
+  return (size_t)max_g<D>() * D * sizeof(float) +             // sQ
+         (size_t)kTile * (D + 8) * sizeof(__nv_bfloat16);     // sK
+}
+
+// Floats of scratch a call needs (nT tiles, nB update blocks a row); the
+// wrappers compute the same.
+inline long long scratch_floats(int B, int Hkv, int G, int D, int nT,
+                                int nB) {
+  if (D >= 256)
+    return (long long)B * Hkv *
+           ((long long)nT * kTile * max_g<256>() +
+            G * ((long long)nT + (long long)nB * (D + 2)));
   return (long long)B * Hkv * (G * nT * (kTile + 3 + D) + 1);
 }
 
@@ -153,6 +187,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
                    : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed copy groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -224,24 +268,12 @@ __device__ __forceinline__ void load_rows(const Args& a,
 // ---- stage 1: scores and the tile's max
 template <int D, bool PAGED>
 __global__ void __launch_bounds__(kTile) split_scores(Args a) {
+  static_assert(!block_chain<D>(), "D = 256 takes split_scores_rows");
   constexpr int PITCH = D + 8;            // 16 bytes of padding per row
   constexpr int kMaxG = max_g<D>();
-  float* sQ;                     // [kMaxG][D]
-  __nv_bfloat16* sK;             // [kTile][PITCH]
-  float* sMax;                   // [kTile / 32][kMaxG]
-  if constexpr (dyn_smem<D>()) {
-    extern __shared__ __align__(16) unsigned char dsmem[];
-    sQ = reinterpret_cast<float*>(dsmem);
-    sK = reinterpret_cast<__nv_bfloat16*>(sQ + kMaxG * D);
-    sMax = reinterpret_cast<float*>(sK + kTile * PITCH);
-  } else {
-    __shared__ float q_s[kMaxG * D];
-    __shared__ __align__(16) __nv_bfloat16 k_s[kTile * PITCH];
-    __shared__ float max_s[kTile / 32 * kMaxG];
-    sQ = q_s;
-    sK = k_s;
-    sMax = max_s;
-  }
+  __shared__ float sQ[kMaxG * D];
+  __shared__ __align__(16) __nv_bfloat16 sK[kTile * PITCH];
+  __shared__ float sMax[kTile / 32 * kMaxG];
   const int t = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int G = a.G;
@@ -265,18 +297,15 @@ __global__ void __launch_bounds__(kTile) split_scores(Args a) {
   cp_async_wait_all();
   __syncthreads();
 
-  // the G query rows take their turns on the key's K row (a loop over the
-  // runtime G, so G = 1 issues no idle work). Up to D = 64 the row stays
-  // in registers; a D = 256 row (128 registers) is read from shared
-  // memory each turn, the padded pitch keeping the reads conflict-free.
-  constexpr bool kRegK = D <= 64;
+  // the G query rows take their turns on the key's K row, held in
+  // registers (a loop over the runtime G, so G = 1 issues no idle work)
   const int kp = x.k0 + tid;
   const bool keep = kp >= x.c0 && kp < x.c1;
   const uint4* row = reinterpret_cast<const uint4*>(sK + tid * PITCH);
-  uint4 krow[kRegK ? D / 8 : 1];
-  if (kRegK && keep) {
+  uint4 krow[D / 8];
+  if (keep) {
 #pragma unroll
-    for (int v8 = 0; v8 < (kRegK ? D / 8 : 1); ++v8) krow[v8] = row[v8];
+    for (int v8 = 0; v8 < D / 8; ++v8) krow[v8] = row[v8];
   }
   float* sc = a.scores + (row0 * a.nT + t) * kTile + tid;
   for (int g = 0; g < G; ++g) {
@@ -285,11 +314,7 @@ __global__ void __launch_bounds__(kTile) split_scores(Args a) {
       const float* qg = sQ + g * D;
 #pragma unroll
       for (int v8 = 0; v8 < D / 8; ++v8) {
-        uint4 kv;
-        if constexpr (kRegK)
-          kv = krow[v8];
-        else
-          kv = row[v8];
+        const uint4 kv = krow[v8];
         const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&kv);
 #pragma unroll
         for (int j = 0; j < 8; ++j)
@@ -384,92 +409,13 @@ __device__ void combine_row(const Args& a, int b, int h, int lo, int len) {
   }
 }
 
-// The lead CTA's walk over its update block (block_chain): for each live
-// tile from the lead's on, p against the block's running max sM (the V
-// rows of the lead's own tile are already in flight), then every
-// thread's outputs (rows g, columns tid + 128 u) and warp 0's row sums
-// chain over the tile's kept keys in order. Writes the block's l and
-// p @ v into the lead tile's slots.
-template <int D, bool PAGED>
-__device__ __forceinline__ void chain_block(const Args& a, int b, int h,
-                                            int t, int lo, int len,
-                                            long long row0, const float* sM,
-                                            __nv_bfloat16* sV, float* sP,
-                                            float* sPr) {
-  constexpr int kMaxG = max_g<D>();
-  constexpr int CPT = D / kPvThreads;
-  constexpr int PER = kMaxG * kTile / kPvThreads;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int G = a.G;
-  float acc[kMaxG][CPT];
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g)
-#pragma unroll
-    for (int u = 0; u < CPT; ++u) acc[g][u] = 0.0f;
-  float lsum = 0.0f;                     // warp 0, lane g: row g's l
-  const int t_end = (t / a.tpb + 1) * a.tpb;
-  for (int tt = t; tt < t_end; ++tt) {
-    const Tile y = tile_of(a, tt, lo, len);
-    if (y.c0 >= y.c1) break;             // live tiles are contiguous
-    if (tt != t) {
-      __syncthreads();                   // the last tile's V and p read
-      load_rows<D, PAGED, kPvThreads>(a, a.v, b, h, page_of<PAGED>(a, b, tt),
-                                      y, sV, D);
-    }
-#pragma unroll
-    for (int u = 0; u < PER; ++u) {
-      const int i = tid + u * kPvThreads, g = i / kTile, c = i % kTile;
-      const int kp = y.k0 + c;
-      if (g < G) {
-        const float p =
-            (kp >= y.c0 && kp < y.c1)
-                ? vexp::apply_exp(
-                      a.backend,
-                      __fsub_rn(a.scores[((row0 + g) * a.nT + tt) * kTile + c],
-                                sM[g]))
-                : 0.0f;
-        sP[i] = p;
-        sPr[i] = bf16_round(p);
-      }
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    const int c0 = y.c0 - y.k0, c1 = y.c1 - y.k0;
-    if (warp == 0 && lane < G)
-      for (int c = c0; c < c1; ++c)
-        lsum = __fadd_rn(lsum, sP[lane * kTile + c]);
-    for (int c = c0; c < c1; ++c) {
-      float vr[CPT];
-#pragma unroll
-      for (int u = 0; u < CPT; ++u)
-        vr[u] = __bfloat162float(sV[c * D + tid + u * kPvThreads]);
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g < G) {
-          const float pr = sPr[g * kTile + c];
-#pragma unroll
-          for (int u = 0; u < CPT; ++u) acc[g][u] = fmaf(pr, vr[u], acc[g][u]);
-        }
-      }
-    }
-  }
-  if (warp == 0 && lane < G) a.tl[(row0 + lane) * a.nT + t] = lsum;
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g)
-    if (g < G)
-#pragma unroll
-      for (int u = 0; u < CPT; ++u)
-        a.tpv[((row0 + g) * a.nT + t) * D + tid + u * kPvThreads] = acc[g][u];
-}
-
-
 // ---- stage 2: p against the block's running max, the tile's l and
 // p @ v; then a ticket per row, and the row's last CTA runs stage 3
 // (at most 64 registers a thread, 8 CTAs per SM: the combine's prefetch
 // would otherwise take the registers of half of them)
 template <int D, int MODE, bool PAGED>
 __global__ void __launch_bounds__(kPvThreads, 8) split_pv(Args a) {
-  static_assert(!block_chain<D>(), "D = 256 takes split_pv_chain");
+  static_assert(!block_chain<D>(), "D = 256 takes split_pv_slice");
   constexpr int kMaxG = max_g<D>();
   constexpr int KG = kPvThreads / D;      // key groups in p @ v
   constexpr int WARPS = kPvThreads / 32;
@@ -583,44 +529,307 @@ __global__ void __launch_bounds__(kPvThreads, 8) split_pv(Args a) {
   combine_row<D, MODE>(a, b, h, lo, len);
 }
 
-// ---- stage 2 at D = 256 (block_chain): the same alphas as split_pv,
-// then the first live tile's CTA of each update block (the lead) walks
-// the block's live tiles in order, each thread chaining its 16 x 2
-// outputs of p @ v, and warp 0 each row's l, over the block's keys in
-// order: the order of the plain sweep's products (one (d, keys) @
-// (keys, G) product a block, which the card sums in key order). The
-// block's other tiles write l = 0 and p @ v = 0, so stage 3's sum over a
-// block's tiles is the lead's chain exactly. Then the ticket and stage 3
-// as in split_pv.
-template <int D, int MODE, bool PAGED>
-__global__ void __launch_bounds__(kPvThreads, 4) split_pv_chain(Args a) {
+// ---- D = 256 (block_chain), stage 1: a warp per four query rows
+// (quarter, quarter + 4, ...), a lane per two keys (lane, lane + 32):
+// eight f32 FMA chains over d from 0 a thread, in flight together, so
+// each q value read from shared memory feeds two keys and each K value
+// four rows. Scores go to scratch as [key][kMaxG] per tile, the rows of a
+// key side by side for stage 2's loads; each warp's maxes are its rows'
+// tile maxes.
+template <int D, bool PAGED>
+__global__ void __launch_bounds__(kScoreThreads) split_scores_rows(Args a) {
+  static_assert(block_chain<D>(), "the dense heads take split_scores");
+  constexpr int PITCH = D + 8;            // 16 bytes of padding per row
   constexpr int kMaxG = max_g<D>();
-  constexpr int WARPS = kPvThreads / 32;
-  // V rows, p, p rounded to bf16: 40 KB at D = 256
-  __shared__ __align__(16) float smem[kTile * D / 2 + 2 * kMaxG * kTile];
-  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* sP = smem + kTile * D / 2;
-  float* sPr = sP + kMaxG * kTile;
-  __shared__ float sM[kMaxG];
-  __shared__ bool sLast;
+  constexpr int RPT = kMaxG / kRowSplit;  // query rows a thread
+  constexpr int KPT = kTile / 32;         // keys a thread
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  float* sQ = reinterpret_cast<float*>(dsmem);                 // [kMaxG][D]
+  __nv_bfloat16* sK =
+      reinterpret_cast<__nv_bfloat16*>(sQ + kMaxG * D);        // [kTile][PITCH]
   const int t = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int tid = threadIdx.x, lane = tid % 32, quarter = tid / 32;
   const int G = a.G;
-  const long long row0 = ((long long)b * a.Hkv + h) * G;
+  const long long bh = (long long)b * a.Hkv + h, row0 = bh * G;
+  // stage 2 may launch now: it waits for this grid before reading its
+  // output (griddepcontrol.wait)
+  asm volatile("griddepcontrol.launch_dependents;");
+  const long long phys = page_of<PAGED>(a, b, t);
   int lo, len;
   kept_range(a, b, lo, len);
   const Tile x = tile_of(a, t, lo, len);
-  const bool live = x.c0 < x.c1;
-  const int b0 = x.blk * a.block;
-  const bool lead =
-      live && t == x.blk * a.tpb + (max(b0, lo) - b0) / kTile;
-  // the lead's first V tile is not stage 1's output: it starts now
-  if (lead)
-    load_rows<D, PAGED, kPvThreads>(a, a.v, b, h, page_of<PAGED>(a, b, t),
-                                    x, sV, D);
+  if (x.c0 >= x.c1) {
+    if (tid < G) a.tmax[(row0 + tid) * a.nT + t] = kNegInf;
+    return;
+  }
+  load_rows<D, PAGED, kScoreThreads>(a, a.k, b, h, phys, x, sK, PITCH);
+  for (int i = tid; i < G * D; i += kScoreThreads)
+    sQ[i] = bf16_round(
+        __fmul_rn(__bfloat162float(a.q[row0 * D + i]), a.sm_scale));
+  cp_async_wait_all();
+  __syncthreads();
+
+  // every key and row each step, unkept keys and rows past G included
+  // (their scores are replaced or never written): one basic block, the
+  // rows' q and the keys' K columns first, then column by column one FMA
+  // of each chain, so the chains interleave in program order
+  int kp[KPT];
+  bool keep[KPT];
+  const uint4* krow[KPT];
+#pragma unroll
+  for (int k = 0; k < KPT; ++k) {
+    kp[k] = x.k0 + lane + 32 * k;
+    keep[k] = kp[k] >= x.c0 && kp[k] < x.c1;
+    krow[k] = reinterpret_cast<const uint4*>(sK + (lane + 32 * k) * PITCH);
+  }
+  float s[KPT][RPT];
+#pragma unroll
+  for (int k = 0; k < KPT; ++k)
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) s[k][i] = 0.0f;
+#pragma unroll 2
+  for (int v8 = 0; v8 < D / 8; ++v8) {
+    float kf[KPT][8];
+#pragma unroll
+    for (int k = 0; k < KPT; ++k) {
+      const uint4 kv = krow[k][v8];
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&kv);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) kf[k][j] = __bfloat162float(e[j]);
+    }
+    float q[RPT][8];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const float4* qv = reinterpret_cast<const float4*>(
+          sQ + (quarter + kRowSplit * i) * D + v8 * 8);
+      const float4 q0 = qv[0], q1 = qv[1];
+      q[i][0] = q0.x; q[i][1] = q0.y; q[i][2] = q0.z; q[i][3] = q0.w;
+      q[i][4] = q1.x; q[i][5] = q1.y; q[i][6] = q1.z; q[i][7] = q1.w;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int k = 0; k < KPT; ++k)
+          s[k][i] = fmaf(q[i][j], kf[k][j], s[k][i]);
+  }
+  float* sc = a.scores + (bh * a.nT + t) * kTile * kMaxG;
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int g = quarter + kRowSplit * i;
+    if (g < G) {                          // the same for the whole warp
+      float mx = kNegInf;
+#pragma unroll
+      for (int k = 0; k < KPT; ++k) {
+        const float val = keep[k] ? s[k][i] : kNegInf;
+        if (kp[k] < x.kend) sc[(lane + 32 * k) * kMaxG + g] = val;
+        mx = fmaxf(mx, val);
+      }
+      mx = warp_max(mx);
+      if (lane == 0) a.tmax[(row0 + g) * a.nT + t] = mx;
+    }
+  }
+}
+
+// whether update block j holds a kept key
+__device__ __forceinline__ bool block_live(const Args& a, int j, int lo,
+                                           int len) {
+  const int b0 = j * a.block;
+  return max(b0, lo) < min(min(b0 + a.block, a.S), len);
+}
+
+template <int BK>
+__device__ __forceinline__ float exp_as(float x) {
+  if constexpr (BK == vexp::kExact)
+    return vexp::exact_exp(x);
+  else if constexpr (BK == vexp::kVexp)
+    return vexp::vexp_f32(x);
+  else
+    return vexp::vexp_hw(x);
+}
+
+// p = exp(s - m) of a thread's PER (key, row) pairs of a tile, keys k0 <=
+// u * CSTEP < k1 counted from the thread's first key, 0 elsewhere; p
+// rounded to bf16 (exact in bf16) and p go to shared memory kPvThreads
+// elements apart
+template <int BK, int PER, int CSTEP>
+__device__ __forceinline__ void tile_p(const float (&sv)[PER], float m,
+                                       int k0, int k1, bool grow,
+                                       __nv_bfloat16* pr, float* pu) {
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int c = u * CSTEP;
+    // taken for every pair, then masked: no branch keeps the PER exps
+    // apart
+    const float e = exp_as<BK>(__fsub_rn(sv[u], m));
+    const float p = (grow && c >= k0 && c < k1) ? e : 0.0f;
+    pr[u * kPvThreads] = __float2bfloat16_rn(p);
+    pu[u * kPvThreads] = p;
+  }
+}
+
+// one key of a thread's chains: 4 rows of p (bf16-rounded) times the
+// key's 2 V columns, and (WITH_L) its row's unrounded p into l
+template <bool WITH_L>
+__device__ __forceinline__ void chain_key(float (&acc)[4][2], float& lsum,
+                                          float4 p4, float2 v, float pu) {
+  acc[0][0] = fmaf(p4.x, v.x, acc[0][0]);
+  acc[0][1] = fmaf(p4.x, v.y, acc[0][1]);
+  acc[1][0] = fmaf(p4.y, v.x, acc[1][0]);
+  acc[1][1] = fmaf(p4.y, v.y, acc[1][1]);
+  acc[2][0] = fmaf(p4.z, v.x, acc[2][0]);
+  acc[2][1] = fmaf(p4.z, v.y, acc[2][1]);
+  acc[3][0] = fmaf(p4.w, v.x, acc[3][0]);
+  acc[3][1] = fmaf(p4.w, v.y, acc[3][1]);
+  if constexpr (WITH_L) lsum = __fadd_rn(lsum, pu);
+}
+
+// a thread's chains over a tile's kept keys [c0, c1), in key order:
+// kUnroll keys' operands loaded, then their FMAs. Rounded p (4 rows in
+// bf16, one 8-byte load) rows are PS apart, unrounded p rows PS floats,
+// V rows VS bf16 (two columns a thread, one 4-byte load); bf16 widens to
+// f32 exactly.
+template <bool WITH_L, int PS, int VS>
+__device__ __forceinline__ void chain_tile(float (&acc)[4][2], float& lsum,
+                                           const __nv_bfloat16* pr,
+                                           const __nv_bfloat16* vc,
+                                           const float* pl, int c0, int c1) {
+  // a bf16 is the top half of its f32: the low element of a word shifts
+  // up, the high one is masked
+  auto v_at = [&](int c) {
+    const unsigned w = *reinterpret_cast<const unsigned*>(vc + c * VS);
+    return make_float2(__uint_as_float(w << 16),
+                       __uint_as_float(w & 0xffff0000u));
+  };
+  auto p_at = [&](int c) {
+    const uint2 u = *reinterpret_cast<const uint2*>(pr + c * PS);
+    return make_float4(__uint_as_float(u.x << 16),
+                       __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16),
+                       __uint_as_float(u.y & 0xffff0000u));
+  };
+  int c = c0;
+  for (; c + kUnroll <= c1; c += kUnroll) {
+    float4 p4[kUnroll];
+    float2 v[kUnroll];
+    float pu[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      p4[k] = p_at(c + k);
+      v[k] = v_at(c + k);
+      pu[k] = WITH_L ? pl[(c + k) * PS] : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k)
+      chain_key<WITH_L>(acc, lsum, p4[k], v[k], pu[k]);
+  }
+  for (; c < c1; ++c)
+    chain_key<WITH_L>(acc, lsum, p_at(c), v_at(c),
+                      WITH_L ? pl[c * PS] : 0.0f);
+}
+
+// ---- D = 256, stage 3: a kernel of its own after stage 2, one thread
+// per (query row, four columns), spread over the card: the outputs
+// chained over the row's live update blocks in order, l = l * alpha_j +
+// l_j and acc = acc * alpha_j + pv_j, rounded step by step, kBatch
+// blocks' statistics loaded at once before their chain.
+template <int D>
+__global__ void __launch_bounds__(kPvThreads) combine_blocks(Args a) {
+  constexpr int QPR = D / 4;              // four-column groups a row
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const long long i = (long long)blockIdx.x * kPvThreads + threadIdx.x;
+  const long long r = i / QPR;            // (b * Hkv + h) * G + g
+  if (r >= (long long)a.B * a.Hkv * a.G) return;
+  const int col = (int)(i % QPR) * 4;
+  int lo, len;
+  kept_range(a, (int)(r / a.G / a.Hkv), lo, len);
+  const int j_first = lo / a.block, j_last = (len + a.block - 1) / a.block;
+  float l = 0.0f, acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int j0 = j_first; j0 < j_last; j0 += kBatch) {
+    float al[kBatch], lb[kBatch];
+    float4 pb[kBatch];
+    bool live[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int j = j0 + u;
+      live[u] = j < j_last && block_live(a, j, lo, len);
+      const long long s = r * a.nB + j;  // read from L2: stage 2 wrote it
+      al[u] = live[u] ? __ldcg(a.ta + s) : 1.0f;
+      lb[u] = live[u] ? __ldcg(a.tl + s) : 0.0f;
+      pb[u] = live[u] ? __ldcg(reinterpret_cast<const float4*>(
+                            a.tpv + s * D + col))
+                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (!live[u]) continue;
+      l = __fadd_rn(__fmul_rn(l, al[u]), lb[u]);
+      acc[0] = __fadd_rn(__fmul_rn(acc[0], al[u]), pb[u].x);
+      acc[1] = __fadd_rn(__fmul_rn(acc[1], al[u]), pb[u].y);
+      acc[2] = __fadd_rn(__fmul_rn(acc[2], al[u]), pb[u].z);
+      acc[3] = __fadd_rn(__fmul_rn(acc[3], al[u]), pb[u].w);
+    }
+  }
+  const float inv = 1.0f / fmaxf(l, 1e-30f);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.o) + r * D + col;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    o[k] = __float2bfloat16_rn(__fmul_rn(acc[k], inv));
+}
+
+// ---- D = 256, stage 2: one CTA per (update block j, column slice sl,
+// h, b). m_{j-1} and m_j from the tile maxes of blocks 0..j-1 and 0..j
+// (slice 0 writes the block's alpha_j); then, tile by tile over the
+// block's live tiles, p = exp(s - m_j) for the tile's kept keys into
+// shared memory, and each thread's 4 rows x 2 columns of p @ v (and, in
+// slice 0, lanes g < G of warp 0: row g's l) chained over the tile's
+// kept keys in order from +0.0. The V columns of the next tile are in
+// flight during a tile's chain (two buffers), the next tile's scores in
+// registers. Writes the block's p @ v columns (and l).
+template <int D, bool PAGED>
+__global__ void __launch_bounds__(kPvThreads, 6) split_pv_slice(Args a) {
+  constexpr int kMaxG = max_g<D>();
+  constexpr int SC = D / kSlices;                  // columns a slice
+  constexpr int WARPS = kPvThreads / 32;
+  constexpr int RPW = kMaxG / WARPS;               // query rows a warp
+  constexpr int PER = kMaxG * kTile / kPvThreads;  // (key, row) pairs a thread
+  constexpr int CSTEP = kPvThreads / kMaxG;        // keys between a thread's
+  static_assert(SC == 64 && RPW == 4,
+                "a warp chains 4 rows x 64 columns, 2 a lane");
+  __shared__ __align__(16) __nv_bfloat16 sV[2][kTile * SC];  // [key][col]
+  __shared__ __align__(16) __nv_bfloat16 sPr[2][kTile * kMaxG];  // [key][g]
+  __shared__ __align__(16) float sP[2][kTile * kMaxG];       // unrounded
+  __shared__ float sM[kMaxG];
+  const int j = blockIdx.x / kSlices, sl = blockIdx.x % kSlices;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int G = a.G;
+  const long long bh = (long long)b * a.Hkv + h, row0 = bh * G;
+  const __nv_bfloat16* vbase = a.v + sl * SC;
+  // stage 3 may launch now: it waits for this grid before reading its
+  // output
+  asm volatile("griddepcontrol.launch_dependents;");
+  int lo, len;
+  kept_range(a, b, lo, len);
+  const bool live = block_live(a, j, lo, len);
+  // the block's live tiles [t_lo, t_hi) (its kept keys are contiguous)
+  int t_lo = 0, t_hi = 0;
+  if (live) {
+    const int b0 = j * a.block;
+    t_lo = j * a.tpb + (max(b0, lo) - b0) / kTile;
+    t_hi = j * a.tpb + (min(min(b0 + a.block, a.S), len) - 1 - b0) / kTile + 1;
+    // V is not stage 1's output: the first two tiles' copies start now
+    for (int u = 0; u < 2 && t_lo + u < t_hi; ++u) {
+      load_rows<SC, PAGED, kPvThreads>(
+          a, vbase, b, h, page_of<PAGED>(a, b, t_lo + u),
+          tile_of(a, t_lo + u, lo, len), sV[u], SC);
+      cp_async_commit();
+    }
+  }
   asm volatile("griddepcontrol.wait;" ::: "memory");
   if (live) {
-    const int t_mid = x.blk * a.tpb, t_end = t_mid + a.tpb;
+    const int t_mid = j * a.tpb, t_end = t_mid + a.tpb;
     for (int g = warp; g < G; g += WARPS) {
       const float* tm = a.tmax + (row0 + g) * a.nT;
       float before = kNegInf, mx = kNegInf;
@@ -633,97 +842,209 @@ __global__ void __launch_bounds__(kPvThreads, 4) split_pv_chain(Args a) {
       mx = warp_max(mx);
       if (lane == 0) {
         sM[g] = mx;
-        a.ta[(row0 + g) * a.nT + t] =
-            vexp::apply_exp(a.backend, __fsub_rn(before, mx));
+        if (sl == 0)
+          a.ta[(row0 + g) * a.nB + j] =
+              vexp::apply_exp(a.backend, __fsub_rn(before, mx));
       }
     }
-    __syncthreads();
-    if (lead) {
-      chain_block<D, PAGED>(a, b, h, t, lo, len, row0, sM, sV, sP, sPr);
-    } else {
-      for (int i = tid; i < G * D; i += kPvThreads) {
-        const int g = i / D;
-        if (i % D == 0) a.tl[(row0 + g) * a.nT + t] = 0.0f;
-        a.tpv[((row0 + g) * a.nT + t) * D + i % D] = 0.0f;
+    // this thread's (key, row) pairs of a tile: row pg, keys c_first +
+    // u * CSTEP (scratch index [key][kMaxG] = tid + u * kPvThreads); the
+    // first tile's scores
+    const int pg = tid % kMaxG, c_first = tid / kMaxG;
+    const bool grow = pg < G;
+    float sv[PER];
+    auto load_scores = [&](int tt) {
+      const Tile y = tile_of(a, tt, lo, len);
+      const float* src = a.scores + (bh * a.nT + tt) * kTile * kMaxG + tid;
+#pragma unroll
+      for (int u = 0; u < PER; ++u) {
+        const int kp = y.k0 + c_first + u * CSTEP;
+        sv[u] = (grow && kp >= y.c0 && kp < y.c1) ? src[u * kPvThreads]
+                                                  : 0.0f;
+      }
+    };
+    load_scores(t_lo);
+    __syncthreads();                      // sM
+    const float m_g = grow ? sM[pg] : 0.0f;
+    const bool lwarp = sl == 0 && warp == 0;     // chains l
+    const bool lchain = lwarp && lane < G;
+    float acc[RPW][2];
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) acc[i][0] = acc[i][1] = 0.0f;
+    float lsum = 0.0f;
+    for (int tt = t_lo; tt < t_hi; ++tt) {
+      const int buf = (tt - t_lo) & 1;
+      const Tile y = tile_of(a, tt, lo, len);
+      // the exp chosen once a tile, so the thread's PER exps interleave
+      const int k0 = y.c0 - y.k0 - c_first, k1 = y.c1 - y.k0 - c_first;
+      __nv_bfloat16* pr_out = sPr[buf] + tid;
+      float* p_out = sP[buf] + tid;
+      if (a.backend == vexp::kExact)
+        tile_p<vexp::kExact, PER, CSTEP>(sv, m_g, k0, k1, grow, pr_out, p_out);
+      else if (a.backend == vexp::kVexp)
+        tile_p<vexp::kVexp, PER, CSTEP>(sv, m_g, k0, k1, grow, pr_out, p_out);
+      else
+        tile_p<vexp::kVexpHw, PER, CSTEP>(sv, m_g, k0, k1, grow, pr_out,
+                                          p_out);
+      if (tt + 1 < t_hi) {
+        load_scores(tt + 1);
+        cp_async_wait<1>();               // this tile's V; the next's flies
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      // warp 0 of slice 0 also chains l, lane g row g (lanes past G read
+      // a row that is there and write nothing): a branch the same for
+      // the whole warp
+      const int c0 = y.c0 - y.k0, c1 = y.c1 - y.k0;
+      const __nv_bfloat16* pr = sPr[buf] + warp * RPW;
+      const __nv_bfloat16* vc = sV[buf] + 2 * lane;
+      if (lwarp)
+        chain_tile<true, kMaxG, SC>(acc, lsum, pr, vc,
+                                    sP[buf] + lane % kMaxG, c0, c1);
+      else
+        chain_tile<false, kMaxG, SC>(acc, lsum, pr, vc, nullptr, c0, c1);
+      __syncthreads();                    // this buffer's V and p read
+      if (tt + 2 < t_hi) {
+        load_rows<SC, PAGED, kPvThreads>(
+            a, vbase, b, h, page_of<PAGED>(a, b, tt + 2),
+            tile_of(a, tt + 2, lo, len), sV[buf], SC);
+        cp_async_commit();
       }
     }
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const int g = warp * RPW + i;
+      if (g < G)
+        *reinterpret_cast<float2*>(a.tpv + ((row0 + g) * a.nB + j) * D +
+                                   sl * SC + 2 * lane) =
+            make_float2(acc[i][0], acc[i][1]);
+    }
+    if (lchain) a.tl[(row0 + lane) * a.nB + j] = lsum;
   }
-  __syncthreads();
-  if (tid == 0) {
-    __threadfence();
-    sLast = atomicAdd(a.tickets + (long long)b * a.Hkv + h, 1u) ==
-            gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!sLast) return;
-  __threadfence();
-  combine_row<D, MODE>(a, b, h, lo, len);
+}
+
+// The next kernel of the sweep on `stream`, as a programmatic dependent
+// launch where `pdl`: its CTAs start while the kernel before drains (stage
+// 2's copy their V rows) and wait for it (griddepcontrol.wait) before
+// reading its output; without `pdl`, griddepcontrol.wait returns at once.
+inline cudaError_t launch_dependent(void (*kernel)(Args), dim3 grid,
+                                    int threads, const Args& a,
+                                    cudaStream_t stream, bool pdl = true) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // Fills the tile geometry and scratch pointers of `a` (whose B, Hkv, G,
-// S and block are set) and launches the two kernels. Returns a CUDA
-// error code: invalid arguments, too little scratch, or the first launch
-// that failed.
+// S and block are set) and launches the kernels (two; three at D = 256).
+// Returns a CUDA error code: invalid arguments, too little scratch, or
+// the first launch that failed.
 template <int D, int MODE, bool PAGED>
 int launch(Args a, float* scratch, long long scratch_len,
            cudaStream_t stream) {
   if (a.G > max_g<D>()) return (int)cudaErrorInvalidValue;
   a.block = max(min(a.block, a.S), 1);
   a.tpb = (a.block + kTile - 1) / kTile;
-  a.nT = max((a.S + a.block - 1) / a.block * a.tpb, 1);
-  if (scratch_floats(a.B, a.Hkv, a.G, D, a.nT) > scratch_len)
+  a.nB = max((a.S + a.block - 1) / a.block, 1);
+  a.nT = a.nB * a.tpb;
+  if (scratch_floats(a.B, a.Hkv, a.G, D, a.nT, a.nB) > scratch_len)
     return (int)cudaErrorInvalidValue;
   const long long tiles = (long long)a.B * a.Hkv * a.G * a.nT;
-  a.scores = scratch;
-  a.tmax = a.scores + tiles * kTile;
-  a.tl = a.tmax + tiles;
-  a.ta = a.tl + tiles;
-  a.tpv = a.ta + tiles;
-  a.tickets = reinterpret_cast<unsigned*>(a.tpv + tiles * D);
-  // stage 2's kernel: per-tile partials, or at D = 256 the block chain
-  void (*pv)(Args);
-  if constexpr (block_chain<D>())
-    pv = split_pv_chain<D, MODE, PAGED>;
-  else
-    pv = split_pv<D, MODE, PAGED>;
-  // as many CTAs per SM as shared memory allows, and stage 1's dynamic
-  // shared memory at D = 256 (above the 48 KB default) allowed (set once
-  // per process)
-  static const cudaError_t carveout = [pv] {
-    cudaError_t e = cudaFuncSetAttribute(
-        split_scores<D, PAGED>, cudaFuncAttributePreferredSharedMemoryCarveout,
-        (int)cudaSharedmemCarveoutMaxShared);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(pv,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               (int)cudaSharedmemCarveoutMaxShared);
-    if (dyn_smem<D>() && e == cudaSuccess)
-      e = cudaFuncSetAttribute(split_scores<D, PAGED>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)scores_smem<D>());
-    return e;
-  }();
-  if (carveout != cudaSuccess) return (int)carveout;
-  const dim3 grid(a.nT, a.Hkv, a.B);
-  split_scores<D, PAGED>
-      <<<grid, kTile, dyn_smem<D>() ? scores_smem<D>() : 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  // stage 2 as a programmatic dependent launch: its CTAs start while
-  // stage 1 drains and copy their V rows before waiting on stage 1
-  cudaLaunchAttribute pdl[1];
-  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(kPvThreads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
-  cfg.attrs = pdl;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, pv, a);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const long long blocks = (long long)a.B * a.Hkv * a.G * a.nB;
+  if constexpr (block_chain<D>()) {
+    static_assert(MODE == kNormalized, "D = 256 is normalized only");
+    a.scores = scratch;                   // kMaxG rows a key
+    a.tpv = a.scores +                    // 16-byte aligned: float4 reads
+            (long long)a.B * a.Hkv * a.nT * kTile * max_g<D>();
+    a.tmax = a.tpv + blocks * D;
+    a.ta = a.tmax + tiles;
+    a.tl = a.ta + blocks;
+    // stage 1's dynamic shared memory (above the 48 KB default) allowed,
+    // and as many CTAs per SM as shared memory allows (set once per
+    // process)
+    static const cudaError_t attrs = [] {
+      cudaError_t e = cudaFuncSetAttribute(
+          split_scores_rows<D, PAGED>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rows_smem<D>());
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(
+            split_scores_rows<D, PAGED>,
+            cudaFuncAttributePreferredSharedMemoryCarveout,
+            (int)cudaSharedmemCarveoutMaxShared);
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(
+            split_pv_slice<D, PAGED>,
+            cudaFuncAttributePreferredSharedMemoryCarveout,
+            (int)cudaSharedmemCarveoutMaxShared);
+      return e;
+    }();
+    if (attrs != cudaSuccess) return (int)attrs;
+    // the dependent launch only where stage 2 has more CTAs than the card
+    // has SMs: a smaller grid started early lands its CTAs beside stage
+    // 1's, two long block chains to some SMs and none to others, where
+    // started after stage 1 it takes one SM a CTA
+    // (tools/decode_split_ablation.py)
+    static const int sms = [] {
+      int dev = 0, n = 0;
+      if (cudaGetDevice(&dev) != cudaSuccess ||
+          cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+              cudaSuccess)
+        return 0;
+      return n;
+    }();
+    const dim3 grid2(a.nB * kSlices, a.Hkv, a.B);
+    split_scores_rows<D, PAGED>
+        <<<dim3(a.nT, a.Hkv, a.B), kScoreThreads, rows_smem<D>(), stream>>>(
+            a);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    err = launch_dependent(split_pv_slice<D, PAGED>, grid2, kPvThreads, a,
+                           stream,
+                           (long long)grid2.x * grid2.y * grid2.z > sms);
+    if (err != cudaSuccess) return (int)err;
+    const long long groups = (long long)a.B * a.Hkv * a.G * (D / 4);
+    return (int)launch_dependent(
+        combine_blocks<D>,
+        dim3((unsigned)((groups + kPvThreads - 1) / kPvThreads)), kPvThreads,
+        a, stream);
+  } else {
+    a.scores = scratch;
+    a.tmax = a.scores + tiles * kTile;
+    a.tl = a.tmax + tiles;
+    a.ta = a.tl + tiles;
+    a.tpv = a.ta + tiles;
+    a.tickets = reinterpret_cast<unsigned*>(a.tpv + tiles * D);
+    // as many CTAs per SM as shared memory allows (set once per process)
+    static const cudaError_t carveout = [] {
+      cudaError_t e = cudaFuncSetAttribute(
+          split_scores<D, PAGED>,
+          cudaFuncAttributePreferredSharedMemoryCarveout,
+          (int)cudaSharedmemCarveoutMaxShared);
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(
+            split_pv<D, MODE, PAGED>,
+            cudaFuncAttributePreferredSharedMemoryCarveout,
+            (int)cudaSharedmemCarveoutMaxShared);
+      return e;
+    }();
+    if (carveout != cudaSuccess) return (int)carveout;
+    const dim3 grid(a.nT, a.Hkv, a.B);
+    split_scores<D, PAGED><<<grid, kTile, 0, stream>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_dependent(split_pv<D, MODE, PAGED>, grid, kPvThreads,
+                                 a, stream);
+  }
 }
 
 // `launch` for the head dims the port instantiates (gpt2-small's 64 and

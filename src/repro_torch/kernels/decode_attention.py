@@ -32,13 +32,15 @@ Each kernel has its own C entry, launch counter and plain version.
 On the card every mode of both sweeps is the sequence-split sweep of
 ``csrc/decode_split.cuh``: 64-key tiles spread over CTAs, p taken against
 each update block's running max (the plain sweep's exp arguments, bit for
-bit), the blocks chained in order. One C entry call launches its two
-kernels and counts as one launch; the wrapper hands it one uninitialized
-scratch buffer (``_split_scratch``). At head dim 256 (recurrentgemma: 16
-query heads on one KV head, normalized mode only) one CTA chains each
-update block's p @ v and l in key order, the order of the plain sweep's
-key-major products on the card, so the kernels match their plain
-versions bit for bit there.
+bit), the blocks chained in order. One C entry call launches its kernels
+(two; three at head dim 256) and counts as one launch; the wrapper hands
+it one uninitialized scratch buffer (``_split_scratch``). At head dim
+256 (recurrentgemma: 16 query heads on one KV head, normalized mode only)
+a CTA per (update block, 64-column slice) chains the block's p @ v for
+its columns, and slice 0 each row's l, in key order, the order of the
+plain sweep's key-major products on the card, so the kernels match their
+plain versions bit for bit there; a third kernel chains the blocks, one
+thread per four outputs.
 """
 
 from __future__ import annotations
@@ -238,14 +240,22 @@ def _ptrs(outs):
 
 def _split_scratch(qg, keys, block):
     """The split sweep's scratch for ``keys`` slice rows updated once per
-    ``block`` keys: scores, tile maxes, tile l, the tile's block alpha,
-    tile p @ v and one ticket counter per (b, KV head), one flat f32
-    buffer (uninitialized: the kernels write what they read). Returns
-    (buffer, its length)."""
+    ``block`` keys, one flat f32 buffer (uninitialized: the kernels write
+    what they read): scores and tile maxes, then at the dense heads each
+    tile's l, block alpha and p @ v and one ticket counter per (b, KV
+    head); at ``KEY_MAJOR_DIMS``, where the kernels chain each update
+    block by column slices (``block_chain``), the scores of
+    ``MAX_GROUP[d]`` query rows a key, and each update block's p @ v,
+    alpha and l. Returns (buffer, its length)."""
     b, hkv, g, d = qg.shape
     bs = max(min(block, keys), 1)
-    tiles = max(-(-keys // bs) * -(-bs // TILE), 1)
-    n = b * hkv * (g * tiles * (TILE + 3 + d) + 1)
+    blocks = max(-(-keys // bs), 1)
+    tiles = blocks * -(-bs // TILE)
+    if d in KEY_MAJOR_DIMS:
+        n = b * hkv * (tiles * TILE * MAX_GROUP[d]
+                       + g * (tiles + blocks * (d + 2)))
+    else:
+        n = b * hkv * (g * tiles * (TILE + 3 + d) + 1)
     return torch.empty(n, dtype=torch.float32, device=qg.device), n
 
 

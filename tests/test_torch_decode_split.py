@@ -25,7 +25,16 @@ What is shown:
 * a negative control: the textbook split-KV merge (each tile's own max,
   one exp(m_t - m) per tile) falls outside the vexp_hw limits and outside
   the vexp share limit, since exp(a) * exp(b) != exp(a + b) under the
-  approximate exps. The limits see a kernel that merges that way.
+  approximate exps. The limits see a kernel that merges that way;
+* the head-dim-256 decomposition (``sliced_sweep``, recurrentgemma's 16
+  query heads on one KV head): each update block chained over its kept
+  keys in key order by column slices, one (alpha, l, p @ v) slot per
+  block, and a combine per four output columns that reads only those
+  columns of each slot. Its m is bitwise the plain sweep's and its
+  output sits inside the limits, contiguous (``block_s`` 128) and paged
+  (page 64), G 16 and 5, with and without a window;
+* the scratch the wrappers size for the kernels (``_split_scratch``), at
+  the dense heads' layout and at D 256's.
 
 Inputs are made with numpy from a seed.
 """
@@ -50,6 +59,7 @@ from repro_torch.kernels.limits import ATT_LIMITS  # noqa: E402
 
 EXPS = ("exact", "vexp", "vexp_hw")
 TILE = 64
+SLICES = 4            # decode_split.cuh's column slices a row at D 256
 B, HKV, D, S, PAGE = 3, 2, 32, 256, 64
 TOL = dict(atol=2.0 ** -7, rtol=2.0 ** -7)   # test_torch_attention.py's
 
@@ -325,3 +335,145 @@ def test_d256_g16_plain_matches_jax(exp, paged):
     np.testing.assert_allclose(ref.float().numpy(),
                                np.asarray(jnp.asarray(want, jnp.float32)),
                                **TOL)
+
+
+def sliced_sweep(q, k, v, cache_len, *, window=None, block, exp_backend):
+    """The head-dim-256 sweep of ``csrc/decode_split.cuh``: stage 1's
+    scores and tile maxes (64-key tiles inside each update block); per
+    update block
+    j, m_j from the tile maxes of blocks 0..j, alpha_j = exp(m_{j-1} -
+    m_j), p = exp(s - m_j) on the kept keys, and the block's l and p @ v
+    chained over its kept keys in key order from 0, into one slot a block
+    (a block without a kept key in a row leaves that row's slot unused),
+    each column slice's p @ v on its own; then per four output columns
+    the blocks chained in order over those columns of each slot. Returns
+    (m, l, acc) and the normalized output (B,1,H,d)."""
+    exp_fn = get_exp_fn(exp_backend)
+    b, _, h, d = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    kk, vv = k.transpose(1, 2).float(), v.transpose(1, 2).float()
+    smax = kk.shape[2]
+    qg = (q.float() * (1.0 / math.sqrt(d))).to(k.dtype).float()
+    qg = qg.reshape(b, hkv, g, d)
+    cl = torch.as_tensor(cache_len).reshape(-1, 1)
+    kpos = torch.arange(smax)[None, :]
+    keep = kpos < cl
+    if window is not None:
+        keep = keep & (kpos >= cl - window)
+    bs = min(block, smax)
+    m_prev = torch.full((b, hkv, g), NEG_INF)
+    slots = []                                # (live, alpha, l_j, pv_j)
+    for k0 in range(0, smax, bs):
+        kb = keep[:, k0:k0 + bs]
+        # the block's scores as the plain sweep takes them (key-major; on
+        # the card the kernel's chain over d is that product's order)
+        s = (kk[:, :, k0:k0 + bs].contiguous()
+             @ qg.transpose(-1, -2)).transpose(-1, -2)
+        s = torch.where(kb[:, None, None], s, NEG_INF)
+        tile_max = torch.stack([s[..., t:t + TILE].amax(-1)
+                                for t in range(0, s.shape[-1], TILE)])
+        m_j = torch.maximum(m_prev, tile_max.amax(0))
+        alpha = exp_fn(m_prev - m_j)
+        p = torch.where(kb[:, None, None], exp_fn(s - m_j[..., None]), 0.0)
+        pr = p.to(k.dtype).float()
+        l_j = torch.zeros_like(m_j)
+        pv_j = torch.zeros((b, hkv, g, d))
+        sc = d // SLICES
+        for c in range(s.shape[-1]):
+            kc = kb[:, c][:, None, None]
+            l_j = torch.where(kc, l_j + p[..., c], l_j)
+            for sl in range(SLICES):
+                cols = slice(sl * sc, (sl + 1) * sc)
+                pv_j[..., cols] = torch.where(
+                    kc[..., None], pv_j[..., cols] + pr[..., c, None]
+                    * vv[:, :, None, k0 + c, cols], pv_j[..., cols])
+        slots.append((kb.any(-1)[:, None, None], alpha, l_j, pv_j))
+        m_prev = m_j
+    out = torch.empty((b, hkv, g, d))
+    for c4 in range(0, d, 4):
+        cols = slice(c4, c4 + 4)
+        l = torch.zeros((b, hkv, g))
+        acc = torch.zeros((b, hkv, g, 4))
+        for live, alpha, l_j, pv_j in slots:
+            l = torch.where(live, l * alpha + l_j, l)
+            acc = torch.where(live[..., None],
+                              acc * alpha[..., None] + pv_j[..., cols], acc)
+        out[..., cols] = acc * (1.0 / torch.clamp(l, min=1e-30))[..., None]
+    full = torch.zeros((b, hkv, g, d))
+    for live, alpha, _, pv_j in slots:
+        full = torch.where(live[..., None], full * alpha[..., None] + pv_j,
+                           full)
+    return (m_prev, l, full), out.reshape(q.shape).to(q.dtype)
+
+
+D256_CASES = [  # (window, cache_len): block starts, block ends and one key
+    (None, [256, 65, 129]),
+    (100, [200, 1, 181]),     # first kept keys mid-block (100, 81)
+]
+
+
+@pytest.mark.parametrize("exp", EXPS)
+@pytest.mark.parametrize("g", [16, 5])
+@pytest.mark.parametrize("window,lens", D256_CASES)
+@pytest.mark.parametrize("paged", [False, True], ids=["contig", "paged"])
+def test_d256_sliced_sweep_inside_limits(exp, g, window, lens, paged):
+    """The D 256 decomposition over a 256-row ring of one KV head: m
+    bitwise the plain sweep's, l and acc within f32 rounding of it, the
+    normalized output inside the kernel's ATT_LIMITS."""
+    d = 256
+    rng = np.random.default_rng(50 + g)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(torch.bfloat16) for s in
+               [(B, 1, g, d), (B, S, 1, d), (B, S, 1, d)])
+    cache_len = torch.tensor(lens, dtype=torch.int32)
+    if paged:
+        ns = S // PAGE
+        tab = torch.from_numpy(np.random.default_rng(51).permutation(
+            B * ns).reshape(B, ns).astype(np.int32) + 1)
+        pools = []
+        for x in (k, v):
+            pool = torch.zeros((1 + B * ns, PAGE, 1, d), dtype=x.dtype)
+            pool[tab.reshape(-1).long()] = x.reshape(B * ns, PAGE, 1, d)
+            pools.append(pool)
+        ref = kdec.decode_attention_paged_plain(q, *pools, tab, cache_len,
+                                                window=window,
+                                                exp_backend=exp)
+        kk = kdec.paged_gather(pools[0], tab)
+        vv = kdec.paged_gather(pools[1], tab)
+        kernel, block = "decode_attention_paged", PAGE
+    else:
+        ref = kdec.decode_attention_plain(q, k, v, cache_len, window=window,
+                                          block_s=128, exp_backend=exp)
+        kk, vv = k, v
+        kernel, block = "decode_attention", 128
+    assert torch.equal(kk, k) and torch.equal(vv, v)
+    (m, l, acc), out = sliced_sweep(q, k, v, cache_len, window=window,
+                                    block=block, exp_backend=exp)
+    want = kdec._sweep_plain(q, kk, vv, cache_len, 0, window=window,
+                             sm_scale=None, layout="bshd", block_s=block,
+                             exp_backend=exp)
+    assert torch.equal(m, want[0])
+    torch.testing.assert_close(l, want[1], rtol=1e-5, atol=0)
+    torch.testing.assert_close(acc, want[2], rtol=1e-5, atol=1e-5)
+    got = reading(out, ref)
+    assert inside(kernel, exp, got), (kernel, exp, got,
+                                      ATT_LIMITS[kernel][exp])
+
+
+@pytest.mark.parametrize("shape,keys,block,n", [
+    # gpt2-small's decode: 2 blocks of 512 keys, 16 tiles a row, the dense
+    # heads' layout B*Hkv*(G*nT*(64 + 3 + D) + 1)
+    ((8, 12, 1, 64), 1024, 512, 96 * (16 * 131 + 1)),
+    # recurrentgemma's ring at block_s 512: nT 32, nB 4, scores for 16
+    # query rows a key, then per block p @ v, alpha and l:
+    # B*Hkv*(nT*64*16 + G*(nT + nB*(D + 2)))
+    ((8, 1, 16, 256), 2048, 512, 8 * (32 * 64 * 16 + 16 * (32 + 4 * 258))),
+    # and paged, one update block a 64-key page: nT = nB = 32
+    ((8, 1, 16, 256), 2048, 64, 8 * (32 * 64 * 16 + 16 * (32 + 32 * 258))),
+    # G 5 over a 256-key ring at block_s 128: nT 4, nB 2
+    ((1, 1, 5, 256), 256, 128, 4 * 64 * 16 + 5 * (4 + 2 * 258)),
+])
+def test_split_scratch_length(shape, keys, block, n):
+    buf, got = kdec._split_scratch(torch.empty(shape), keys, block)
+    assert got == n and buf.numel() == n and buf.dtype == torch.float32
