@@ -753,25 +753,21 @@ def _truth64(q, k, v, kv_len, q_offset, window=None):
     return out.transpose(1, 2).to(q.dtype)
 
 
-def _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, q_offset, tag,
-             window=None):
-    """One FA case. The kernel vs the plain version per backend, and the
-    plain version at half the block and with p in two bf16 terms (both
-    must fail the limits); under the exact exp, both the kernel and the
-    plain version vs a float64 evaluation (reported). Times (eager and
-    graph), the library call's and the bound. Query i of row b sits at
-    q_offset + i; its real rows are those below kv_len[b]; with a
-    ``window`` it keeps the keys above its position minus the window.
-    K and V may have fewer heads than q (GQA / MQA). Returns (fields,
-    limit readings)."""
-    b, sq, h, d = q.shape
-    hkv = k.shape[2]
-    qpos = _qpos(sq, q_offset)
-    real = (qpos < kv_len[:, None])[:, :, None, None]
+def _fa_readings(fa, policy_cls, block_k, q, k, v, kv_len, q_offset,
+                 window=None, truth=False):
+    """The kernel against its plain version per backend over the real
+    query rows (those below kv_len), with the controls: the plain version
+    at half the block (vexp, vexp_hw) and the scan with p in two bf16
+    terms against the same scan with p exact (exact, vexp); both must
+    fail the limits. With ``truth``, also the kernel and the plain
+    version against a float64 evaluation under the exact exp (share of
+    outputs changed). Returns (readings, {who: share})."""
+    sq = q.shape[1]
+    real = (_qpos(sq, q_offset) < kv_len[:, None])[:, :, None, None]
     kw = dict(causal=True, kv_len=kv_len, q_offset=q_offset)
     if window is not None:
         kw["window"] = window
-    res, readings = {}, {}
+    readings, shares = {}, {}
     for exp in ("exact", "vexp", "vexp_hw"):
         pol = policy_cls(exp_backend=exp, block_k=block_k)
         out = fa.flash_attention(q, k, v, policy=pol, **kw)
@@ -788,21 +784,45 @@ def _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, q_offset, tag,
             two, three = (_scan_p_terms(q, k, v, kv_len, q_offset, block_k,
                                         exp, n, window) for n in (2, 3))
             readings[exp, "p_two_terms"] = kernel_vs_plain(two, three, real)
-        if exp == "exact":
-            truth = _truth64(q, k, v, kv_len, q_offset, window)
+        if exp == "exact" and truth:
+            t64 = _truth64(q, k, v, kv_len, q_offset, window)
             for who, o in (("plain", ref), ("kernel", out)):
-                res[f"{tag}exact_{who}_vs_f64_mismatch_share"] = \
-                    kernel_vs_plain(o, truth, real)[1]
+                shares[who] = kernel_vs_plain(o, t64, real)[1]
+    return readings, shares
+
+
+def _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, q_offset, tag,
+             window=None):
+    """One FA case. The kernel vs the plain version per backend, and the
+    plain version at half the block and with p in two bf16 terms (both
+    must fail the limits); under the exact exp, both the kernel and the
+    plain version vs a float64 evaluation (reported). Times (eager and
+    graph), the library call's and the bound. Query i of row b sits at
+    q_offset + i; its real rows are those below kv_len[b]; with a
+    ``window`` it keeps the keys above its position minus the window.
+    K and V may have fewer heads than q (GQA / MQA). Returns (fields,
+    limit readings)."""
+    b, sq, h, d = q.shape
+    hkv = k.shape[2]
+    qpos = _qpos(sq, q_offset)
+    kw = dict(causal=True, kv_len=kv_len, q_offset=q_offset)
+    if window is not None:
+        kw["window"] = window
+    readings, truth = _fa_readings(fa, policy_cls, block_k, q, k, v,
+                                   kv_len, q_offset, window, truth=True)
+    res = {f"{tag}exact_{who}_vs_f64_mismatch_share": share
+           for who, share in truth.items()}
     for (exp, who), (err, share) in readings.items():
         res[f"{tag}{exp}_{who}_max_abs_err"] = err
         res[f"{tag}{exp}_{who}_mismatch_share"] = share
-    for exp in ("exact", "vexp_hw", "vexp"):      # vexp last: the row's ms
-        pol = policy_cls(exp_backend=exp, block_k=block_k)
-        res[f"{tag}ms_{exp}"] = cuda_time_ms(
-            lambda: fa.flash_attention(q, k, v, policy=pol, **kw))
-    res[f"{tag}graph_ms_vexp"] = graph_ms(
-        lambda: fa.flash_attention(q, k, v, policy=pol, **kw),
-        f"flash_attention {tag}")
+    with SmiSampler() as smi:
+        for exp in ("exact", "vexp_hw", "vexp"):  # vexp last: the row's ms
+            pol = policy_cls(exp_backend=exp, block_k=block_k)
+            res[f"{tag}ms_{exp}"] = cuda_time_ms(
+                lambda: fa.flash_attention(q, k, v, policy=pol, **kw))
+        res[f"{tag}graph_ms_vexp"] = graph_ms(
+            lambda: fa.flash_attention(q, k, v, policy=pol, **kw),
+            f"flash_attention {tag}")
     plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(
         q, k, v, block_k=block_k, exp_backend="vexp", **kw), iters=5)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -825,9 +845,18 @@ def _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, q_offset, tag,
     live = float(kv_len.double().sum())
     nbytes = 2 * b * sq * h * d * 2 + 2 * live * hkv * d * 2
     b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+    # a reading, not a bound: the same multiply-adds (one a pair and a
+    # head per d for the score, one for p . v) at one FMA a clock on each
+    # of an SM's 128 f32 lanes, at the SM clock sampled while timing
+    clk = smi.summary()
+    clk = clk["clocks_sm_mhz"]["median"] if isinstance(clk, dict) else None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     res.update({f"{tag}plain_ms_vexp": plain_ms, f"{tag}library_ms": lib_ms,
                 f"{tag}library_graph_ms": lib_g_ms,
                 f"{tag}bound_ms": b_ms, f"{tag}bound_by": b_by,
+                f"{tag}sm_clock_mhz": clk if clk else "not measured",
+                f"{tag}fma_floor_ms": (flops / 2 / (sms * 128 * clk * 1e6)
+                                       * 1e3 if clk else "not measured"),
                 f"{tag}kv_len": kv_len.tolist()})
     if not isinstance(q_offset, int):
         res[f"{tag}q_offset"] = q_offset.tolist()
@@ -3740,6 +3769,32 @@ def hybrid_replays(cfg, params, groups, reqs, gates):
     return {"tier_max_abs_logit_diff": tiers, "forms": forms}
 
 
+HYBRID_FA_WINDOW = 2048
+
+
+def hybrid_fa_inputs():
+    """B3's inputs at the hybrid's shapes, from seed 11: the admission
+    prefill's q (B 8, S 2048, H 16, D 256), the ring's K and V (one KV
+    head) and ragged kv_len in [32, 2048] (row 0 full); a chunk's q
+    (HYBRID_CHUNK rows) with its (B,) offsets and token counts (row 3
+    none). Returns (q, k, v, kv_len, q_chunk, offsets, tokens)."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    b, s, h, hkv, d = 8, 2048, 16, 1, 256
+    q = torch.randn(b, s, h, d, generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(b, s, hkv, d, generator=g, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    kv_len = torch.randint(32, s + 1, (b,), generator=g, device="cuda",
+                           dtype=torch.int32)
+    kv_len[0] = s
+    qc = torch.randn(b, HYBRID_CHUNK, h, d, generator=g,
+                     device="cuda").to(torch.bfloat16)
+    offs = torch.tensor([0, 256, 1792, 0, 1000, 512, 1500, 1536],
+                        dtype=torch.int32, device="cuda")
+    clens = torch.tensor([256, 256, 256, 0, 200, 37, 256, 100],
+                         dtype=torch.int32, device="cuda")
+    return q, k, v, kv_len, qc, offs, clens
+
+
 def _hybrid_fa_rows(fa, policy_cls, block_k):
     """B3 at the hybrid's shapes: the admission prefill (B 8, H 16 on one
     KV head, D 256, S 2048, window 2048, ragged kv_len) and a chunk (256
@@ -3747,14 +3802,9 @@ def _hybrid_fa_rows(fa, policy_cls, block_k):
     2048-row ring, kv_len = offset + tokens, window 2048); plus the
     prefill under a window of 700 that cuts the keys. Returns (fields,
     [(tag, readings)])."""
-    g = torch.Generator(device="cuda").manual_seed(11)
-    b, s, h, hkv, d, win = 8, 2048, 16, 1, 256, 2048
-    q = torch.randn(b, s, h, d, generator=g, device="cuda").to(torch.bfloat16)
-    k, v = (torch.randn(b, s, hkv, d, generator=g, device="cuda")
-            .to(torch.bfloat16) for _ in range(2))
-    kv_len = torch.randint(32, s + 1, (b,), generator=g, device="cuda",
-                           dtype=torch.int32)
-    kv_len[0] = s
+    q, k, v, kv_len, qc, offs, clens = hybrid_fa_inputs()
+    b, s, h, d = q.shape
+    hkv, win, sq = k.shape[2], HYBRID_FA_WINDOW, qc.shape[1]
     res, rd = _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, 0, "",
                        window=win)
     out = [("d256", rd)]
@@ -3763,13 +3813,6 @@ def _hybrid_fa_rows(fa, policy_cls, block_k):
     res.update({k_: cut[k_] for k_ in cut if "max_abs_err" in k_
                 or "mismatch_share" in k_})
     out.append(("d256 window 700", rd_cut))
-    sq = HYBRID_CHUNK
-    qc = torch.randn(b, sq, h, d, generator=g,
-                     device="cuda").to(torch.bfloat16)
-    offs = torch.tensor([0, 256, 1792, 0, 1000, 512, 1500, 1536],
-                        dtype=torch.int32, device="cuda")
-    clens = torch.tensor([256, 256, 256, 0, 200, 37, 256, 100],
-                         dtype=torch.int32, device="cuda")
     chunk, rd_chunk = _fa_case(fa, policy_cls, block_k, qc, k, v,
                                offs + clens, offs, "chunk_", window=win)
     res.update(chunk)
@@ -3778,6 +3821,51 @@ def _hybrid_fa_rows(fa, policy_cls, block_k):
                     f"ragged kv_len")
     res["chunk_shape"] = (f"B={b} Sq={sq} Sk={s} H={h} Hkv={hkv} D={d} "
                           f"window={win}, (B,) q_offset tensor")
+    edges, edge_rds = _hybrid_fa_edges(fa, policy_cls, q, k, v, qc)
+    res["edges"] = edges
+    return res, out + edge_rds
+
+
+def _largest_block_k(fa, d):
+    """The largest block_k (in steps of 32 keys, up to 4,096) whose score
+    tile the card's shared memory holds at head dim d."""
+    import ctypes
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    smem = fa.LIB.fn("fa_smem_bytes", [ctypes.c_int, ctypes.c_int],
+                     ctypes.c_longlong)
+    return max(bk for bk in range(32, 4097, 32) if smem(d, bk) <= limit)
+
+
+def _hybrid_fa_edges(fa, policy_cls, q, k, v, qc):
+    """B3 at head dim 256 where the 64-row (position, head) tiles and the
+    32-key groups have their edges, each at block_k 128 and at the
+    largest the card admits: a prefill of 1,021 queries (not a whole
+    number of 4-position tiles) over rows with kv_len 1, 1,021, 640 and
+    333; and a chunk of 61 queries at (B,) offsets, one row whose last
+    query sits at key 2,047 (the ring's last), one with a single token at
+    offset 0 (kv_len 1), one mid-ring, one of three tokens. Window 2048.
+    Each held to its plain version under every backend with the
+    controls. Returns (fields, [(tag, readings)])."""
+    dev = q.device
+    sk = k.shape[1]
+    tail_len = torch.tensor([1, 1021, 640, 333], dtype=torch.int32,
+                            device=dev)
+    offs = torch.tensor([sk - 61, 0, 1000, 1984], dtype=torch.int32,
+                        device=dev)
+    toks = torch.tensor([61, 1, 61, 3], dtype=torch.int32, device=dev)
+    cases = {"tail": (q[:4, :1021], k[:4], v[:4], tail_len, 0),
+             "ring_end": (qc[:4, :61], k[:4], v[:4], offs + toks, offs)}
+    top = _largest_block_k(fa, q.shape[-1])
+    res, out = {"largest_block_k": top}, []
+    for name, (qe, ke, ve, kv, off) in cases.items():
+        for bk in (128, top):
+            rd, _ = _fa_readings(fa, policy_cls, bk, qe, ke, ve, kv, off,
+                                 HYBRID_FA_WINDOW)
+            tag = f"{name}_bk{bk}"
+            for (exp, who), (err, share) in rd.items():
+                res[f"{tag}_{exp}_{who}_max_abs_err"] = err
+                res[f"{tag}_{exp}_{who}_mismatch_share"] = share
+            out.append((f"d256 {tag}", rd))
     return res, out
 
 
@@ -3947,9 +4035,11 @@ def _hybrid_decode_edges(da, policy_cls):
 def phase_hybrid_kernels(policy_cls):
     """B3, B2 and B7 at recurrentgemma-9b's shapes (head dim 256, 16 query
     heads on one KV head, a 2048-token window; FA at the config's
-    ``attn_block_k`` of 512, the update block its serve runs), each held
+    ``attn_block_k`` of 512, the update block its serve runs, and its
+    edge cases at block_k 128 and the largest the card admits), each held
     to its plain version under the unchanged ATT_LIMITS with its
-    negative controls. Returns {kernel row name: fields} for the kernel
+    negative controls; FA's rows also carry their CUDA-core FMA floor
+    (a reading). Returns {kernel row name: fields} for the kernel
     table."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as da
@@ -3976,8 +4066,9 @@ def phase_hybrid_kernels(policy_cls):
 
     def worst(rd):
         return max(e for (_, who), (e, _) in rd.items() if who == "kernel")
-    fa_row = {k: fa_res[k] for k in keys}
-    fa_row.update({f"chunk_{k}": fa_res[f"chunk_{k}"] for k in keys
+    fa_keys = keys + ("fma_floor_ms", "sm_clock_mhz")
+    fa_row = {k: fa_res[k] for k in fa_keys}
+    fa_row.update({f"chunk_{k}": fa_res[f"chunk_{k}"] for k in fa_keys
                    if f"chunk_{k}" in fa_res})
     fa_row["chunk_shape"] = fa_res["chunk_shape"]
     fa_row["max_abs_err"] = max(worst(rd) for _, rd in fa_checks)

@@ -56,22 +56,43 @@
 // an H100. The shared-memory limit is raised once per instantiation and
 // device.
 //
-// Head dim 256 (recurrentgemma: 16 query heads on one KV head) would need
-// 203 KB of fixed tiles in that layout and leave room for 96 keys of
-// scores, below the policy's 512-key update block, which is part of the
-// vexp result. So D = 256 takes its own tiling (Tile<256>): 32-row query
-// tiles by 32-key sub-tiles, the same 256 threads as 8 row groups of 4
-// rows by 32 tx, one key and 8 output columns a thread. Its shared
-// memory is the f32 q^T tile (36 KB), the two-stage bf16 ring (33 KB),
-// the widened tile (36 KB) and 128 bytes a key of score tile: 170 KB at
-// block_k = 512 (960 keys fit), one CTA per SM. What holds the function
-// is unchanged: the online update once per block_k keys from key 0, each
-// score one FMA chain over d = 0 .. 255, each p . v one chain over the
-// block's keys in order. At D = 256 a block's l is also one chain over
-// its keys in order (kChainL), the order of the plain version's l (a
-// product of p with ones, summed as p . v is), where the thread sums and
-// tree of D = 32 and 64 flip outputs of |o| >= 0.5 by a bf16 ulp, past
-// the exact limit. D = 32 and 64 keep their tiling and their sums.
+// Head dim 256 (recurrentgemma: 16 query heads on one KV head) has a
+// kernel of its own, fa256 below, built for this card's CUDA cores: the
+// function's f32 FMA chains run at most at one FMA a clock on each of an
+// SM's 128 lanes, so the design spends itself on how many FMAs each
+// shared-memory load and each issued instruction feeds.
+// - A CTA of 256 threads takes 64 query rows of one KV head, rows being
+//   (position, query head) pairs, position-major: at G 16 four positions
+//   of all 16 heads, which share every key and so the causal bound.
+// - Each thread holds an 8 x 8 register tile in both phases: 8 rows by 8
+//   keys for the scores, 8 rows by 8 output columns for p . v; rows 4 tr
+//   + i and 32 + 4 tr + i (tr = lane % 8), the same in both phases.
+// - K arrives in 16-d slabs of 256 keys and V in 16-key slabs of all 256
+//   columns, each 16 KB, through the thread's registers: loaded as bf16
+//   while the slab before computes, widened once to f32 and stored into
+//   a two-stage ring, so the inner loops issue FMAs and shared loads only
+//   (90-94 % FMAs). A block's live keys go in 32-key groups, one group a
+//   warp; where four or fewer (or two or fewer) are left, two (or four)
+//   warps share a group at 4 (or 2) rows a thread, and 5 or 6 left run as
+//   4 and the rest, so that few warps idle.
+// - The block's scores go to a shared f32 score tile, key-major, 64 rows
+//   a key; the block max, then p = exp(s - m_new) written over them, one
+//   key a thread a group, a group ahead of the p . v that reads it.
+// - A block's l is one chain over its keys in order, folded into the
+//   p . v loop: row warp of each thread's eight, whose running m and l
+//   that thread keeps; the lanes tc = 0 publish m_new and alpha.
+// - The tiles of a batch row launch from the last position down, so
+//   that under a causal mask heavy CTAs start first.
+// Shared memory: the f32 q^T tile (64 KB), the f32 ring (32 KB), 2.8 KB
+// of row state, and the score tile, 256 bytes a key: 227 KB at block_k =
+// 512, the largest block_k the card admits; one CTA per SM. What holds
+// the function is unchanged from the reference's scan: q * sm_scale
+// rounded first, each score one FMA chain over d = 0 .. 255, the online
+// update once per block_k keys from key 0, p masked after the exp, each
+// p . v and each l one chain over the block's keys in order (l as the
+// plain version's product of p with ones sums it), l = l alpha + sum and
+// acc = acc alpha + pv rounded, the output acc / max(l, 1e-30). D = 32
+// and 64 keep their tiling and their sums.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,18 +105,13 @@ namespace {
 constexpr int kThreads = 256;  // eight warps
 constexpr float kNegInf = -1e30f;
 
-// The tiling of head dim D. D = 32 and 64: 64 query rows by 64-key
-// sub-tiles. D = 256: 32 query rows by 32-key sub-tiles, so that the q^T
-// tile, the K/V ring, the widened tile and a 512-key score tile fit the
-// card's 227 KB of shared memory a block (see Smem); one CTA per SM.
+// The tiling of head dim D = 32 and 64: 64 query rows by 64-key
+// sub-tiles, two CTAs per SM. D = 256 has a kernel of its own (fa256).
 template <int D>
 struct Tile {
-  static constexpr int kBQ = D >= 256 ? 32 : 64;   // query rows per CTA
-  static constexpr int kTK = D >= 256 ? 32 : 64;   // keys per sub-tile
-  static constexpr int kMinBlocks = D >= 256 ? 1 : 2;
-  // a block's l as one chain over its keys in order, by the row's own
-  // thread (tx < 4), instead of the threads' partial sums and a tree
-  static constexpr bool kChainL = D >= 256;
+  static constexpr int kBQ = 64;                // query rows per CTA
+  static constexpr int kTK = 64;                // keys per sub-tile
+  static constexpr int kMinBlocks = 2;
   static constexpr int kTY = kBQ / 4;           // row groups of 4 rows
   static constexpr int kTX = kThreads / kTY;    // threads per row group
   static constexpr int kKW = kTK / kTX;         // keys per thread: tx +
@@ -469,7 +485,6 @@ fa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   // thread's part of the row max and of the p sum, (m_new, alpha), p . v
   float m_run[4], l_run[4], acc[4][CW], pv[4][CW];
   float mx[4], m_new[4], alpha[4], rsum[4];
-  float lch = 0.0f;       // kChainL: row 4 ty + tx's l over the block (tx < 4)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m_run[i] = m_new[i] = mx[i] = kNegInf;
@@ -534,13 +549,6 @@ fa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     } else {
       widen_v<D>(rt, sT);
       __syncthreads();               // V and every thread's p
-      if constexpr (T::kChainL) {
-        // ---- the block's l, one chain a row over its keys in order
-        if (cur.j == cur.j0) lch = 0.0f;
-        if (tx < 4)
-          for (int c = 0; c < kTK; ++c)
-            lch = __fadd_rn(lch, slot[sidx<D>(c, ty) + tx]);
-      }
       // ---- pv += p . v, one FMA chain per output over the keys in order
 #pragma unroll 16
       for (int c = 0; c < kTK; ++c) {
@@ -554,20 +562,13 @@ fa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       }
       if (cur.j + 1 == cur.j1) {
         // ---- the block's one online update
-        if constexpr (T::kChainL) {
-          if (tx < 4) {
-            sSum[4 * ty + tx] = lch;
-            sSum[kBQ + 4 * ty + tx] = 0.0f;
-          }
-        } else {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float sum = rsum[i];
+        for (int i = 0; i < 4; ++i) {
+          float sum = rsum[i];
 #pragma unroll
-            for (int x = 1; x < kLanesX; x *= 2)
-              sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, x));
-            if (lane % kLanesX == 0) sSum[half * kBQ + 4 * ty + i] = sum;
-          }
+          for (int x = 1; x < kLanesX; x *= 2)
+            sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, x));
+          if (lane % kLanesX == 0) sSum[half * kBQ + 4 * ty + i] = sum;
         }
         __syncthreads();
 #pragma unroll
@@ -601,27 +602,539 @@ fa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-size_t smem_bytes(int D, int block_k) {
-  switch (D) {
-    case 32:
-      return Smem<32>::bytes(score_keys<32>(block_k));
-    case 64:
-      return Smem<64>::bytes(score_keys<64>(block_k));
-    case 256:
-      return Smem<256>::bytes(score_keys<256>(block_k));
-    default:
-      return 0;
+// ---------------------------------------------------------------- D = 256
+//
+// fa256_kernel: see the head of this file.
+namespace fa256 {
+
+constexpr int kD = 256;
+constexpr int kRows = 64;              // query rows of a CTA
+constexpr int kGroup = 32;             // keys of a group: a warp's keys in
+                                       // the score phase
+constexpr int kSubGroups = 8;          // groups of a K piece (256 keys)
+constexpr int kSlabD = 16;             // d of one K slab
+constexpr int kVKeys = 16;             // keys of one V slab
+constexpr int kStage = kSubGroups * kGroup * kSlabD;   // f32 of a stage:
+                                       // a K slab [256][16] or V [16][256]
+static_assert(kStage == kVKeys * kD, "K and V slabs share the stages");
+
+// Shared memory, in bytes from the start; the score tile, last, holds the
+// block's keys rounded up to whole groups.
+constexpr size_t kQt = 0;                                    // f32 [256][64]
+constexpr size_t kRing = kQt + (size_t)kD * kRows * 4;       // f32 [2][kStage]
+constexpr size_t kMax = kRing + 2 * (size_t)kStage * 4;      // f32 [8][64]
+constexpr size_t kMn = kMax + 8 * kRows * 4;                 // f32 [64]
+constexpr size_t kA = kMn + kRows * 4;                       // f32 [64]
+constexpr size_t kQp = kA + kRows * 4;                       // int [64]
+constexpr size_t kS = kQp + kRows * 4;                       // f32 [nk][64]
+
+inline size_t smem_bytes(int block_k) {
+  return kS + (size_t)(block_k + kGroup - 1) / kGroup * kGroup * kRows * 4;
+}
+
+// The KV blocks of one CTA, counted from key 0 in units of block_k: a
+// block is live where it holds a key in [kstart, kend), and its live
+// groups are the 32-key groups, counted from the block's start, that
+// hold one.
+struct Walk {
+  int bk, kstart, kend, blk_end;
+  __device__ bool live(int blk, int& g_lo, int& g_hi) const {
+    const int k0 = blk * bk;
+    const int lo = max(kstart, k0), hi = min(k0 + bk, kend);
+    g_lo = (lo - k0) / kGroup;
+    g_hi = (hi - k0 + kGroup - 1) / kGroup;
+    return lo < hi;
+  }
+  // the first live block at or after blk, or blk_end
+  __device__ int next_live(int blk) const {
+    int g_lo, g_hi;
+    while (blk < blk_end && !live(blk, g_lo, g_hi)) ++blk;
+    return blk;
+  }
+  __device__ int kmax(int blk) const { return min(blk * bk + bk, kend); }
+};
+
+// The groups of the next score piece when `rem` are left: 8 (a warp a
+// group, 8 rows a thread); 4 for 5 or 6, so that the rest takes a piece
+// of two warps or four warps a group (4 or 2 rows a thread) instead of
+// idle warps; else all.
+__device__ __forceinline__ int piece(int rem) {
+  return rem >= kSubGroups ? kSubGroups : rem == 5 || rem == 6 ? 4 : rem;
+}
+
+// One stage's bf16 through the thread's registers: loaded from global
+// memory while the stage before it computes, widened to f32 and stored
+// after. Keys at or past km load as zeros; K rows past the piece's keys
+// are neither loaded nor stored.
+struct Staged {
+  uint4 w[2];
+};
+
+// K slab sl (d 16 sl .. 16 sl + 15) of the nkeys keys from key0:
+// [key][16 d]; thread tid takes key tid / 2 (+ 128), half tid % 2
+__device__ __forceinline__ void load_k(Staged& st, const __nv_bfloat16* kb,
+                                       long long kss, int key0, int nkeys,
+                                       int km, int sl) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    const int r = threadIdx.x / 2 + n * (kThreads / 2), h = threadIdx.x % 2;
+    const int key = key0 + r;
+    st.w[n] = r < nkeys && key < km
+                  ? *reinterpret_cast<const uint4*>(kb + key * kss +
+                                                    kSlabD * sl + 8 * h)
+                  : make_uint4(0, 0, 0, 0);
   }
 }
 
-template <int D, int BACKEND>
+__device__ __forceinline__ void store_k(float* stage, const Staged& st,
+                                        int nkeys) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    const int r = threadIdx.x / 2 + n * (kThreads / 2), h = threadIdx.x % 2;
+    if (r >= nkeys) break;
+    float f[8];
+    widen8(st.w[n], f);
+    float4* at = reinterpret_cast<float4*>(stage + r * kSlabD + 8 * h);
+    at[0] = make_float4(f[0], f[1], f[2], f[3]);
+    at[1] = make_float4(f[4], f[5], f[6], f[7]);
+  }
+}
+
+// V slab: 16 keys from key0, all 256 d, [key][256]
+__device__ __forceinline__ void load_v(Staged& st, const __nv_bfloat16* vb,
+                                       long long vss, int key0, int km) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    const int i = threadIdx.x + n * kThreads;
+    const int r = i / (kD / 8), c = i % (kD / 8);
+    const int key = key0 + r;
+    st.w[n] = key < km ? *reinterpret_cast<const uint4*>(vb + key * vss +
+                                                         8 * c)
+                       : make_uint4(0, 0, 0, 0);
+  }
+}
+
+__device__ __forceinline__ void store_v(float* stage, const Staged& st) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    const int i = threadIdx.x + n * kThreads;
+    const int r = i / (kD / 8), c = i % (kD / 8);
+    float f[8];
+    widen8(st.w[n], f);
+    float4* at = reinterpret_cast<float4*>(stage + r * kD + 8 * c);
+    at[0] = make_float4(f[0], f[1], f[2], f[3]);
+    at[1] = make_float4(f[4], f[5], f[6], f[7]);
+  }
+}
+
+// The positions of the thread's eight rows (4 tr + i, 32 + 4 tr + i)
+__device__ __forceinline__ void row_positions(const int* sQp, int tr,
+                                              int (&qp)[8]) {
+  const int4 a = *reinterpret_cast<const int4*>(sQp + 4 * tr);
+  const int4 c = *reinterpret_cast<const int4*>(sQp + 32 + 4 * tr);
+  qp[0] = a.x; qp[1] = a.y; qp[2] = a.z; qp[3] = a.w;
+  qp[4] = c.x; qp[5] = c.y; qp[6] = c.z; qp[7] = c.w;
+}
+
+// One K slab of the scores: s[i][j] = fma(q[row i][d], k[key j][d],
+// s[i][j]) for d = 16 sl .. 16 sl + 15 in order. qt: q^T at this slab's
+// first d and the thread's first row; ks: the slab's row of the thread's
+// first key (keys tc + 4 j of the warp's group). R = 8: rows 4 tr + i and
+// 32 + 4 tr + i; R = 4 or 2: R consecutive rows from qt's.
+template <int R>
+__device__ __forceinline__ void score_slab(const float* qt, const float* ks,
+                                           float (&s)[8][8]) {
+#pragma unroll 2
+  for (int d4 = 0; d4 < kSlabD / 4; ++d4) {
+    float kr[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      load_f32<4>(ks + 4 * j * kSlabD + 4 * d4, kr[j]);
+#pragma unroll
+    for (int dd = 0; dd < 4; ++dd) {
+      const float* qd = qt + (4 * d4 + dd) * kRows;
+      float q[8];
+      load_f32<R < 4 ? R : 4>(qd, q);
+      if constexpr (R == 8) load_f32<4>(qd + 32, q + 4);
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(q[i], kr[j][dd], s[i][j]);
+    }
+  }
+}
+
+// A piece's scores of group g (keys tc + 4 j) into the score tile
+// (key-major, 64 rows a key), and the kept ones into the row maxima. R =
+// 8: the thread's eight rows; R = 4 or 2: its rows H R .. H R + R - 1
+// (rows 32 (H R / 4) + 4 tr + H R % 4 + i).
+template <int R, int H>
+__device__ __forceinline__ void keep_scores(float* sS, const float (&s)[8][8],
+                                            int g, int tr, int tc, bool in,
+                                            int k0, int km,
+                                            const int (&qp)[8], int causal,
+                                            int window, float (&mx)[8]) {
+  constexpr int base = R == 8 ? 0 : R * H;
+  constexpr int off = base / 4 * 32 + base % 4;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int kk = g * kGroup + tc + 4 * j;     // key in the block
+    float* at = sS + kk * kRows + off + 4 * tr;
+    if constexpr (R == 2) {
+      *reinterpret_cast<float2*>(at) = make_float2(s[0][j], s[1][j]);
+    } else {
+      *reinterpret_cast<float4*>(at) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+      if constexpr (R == 8)
+        *reinterpret_cast<float4*>(at + 32) =
+            make_float4(s[4][j], s[5][j], s[6][j], s[7][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      if (in || keep_key(k0 + kk, qp[base + i], km, causal, window))
+        mx[base + i] = fmaxf(mx[base + i], s[i][j]);
+  }
+}
+
+// keep_scores for the warp's part of the rows (R = 4: two parts, R = 2:
+// four)
+template <int R>
+__device__ __forceinline__ void keep_part(int part, float* sS,
+                                          const float (&s)[8][8], int g,
+                                          int tr, int tc, bool in, int k0,
+                                          int km, const int (&qp)[8],
+                                          int causal, int window,
+                                          float (&mx)[8]) {
+  if (part == 0)
+    keep_scores<R, 0>(sS, s, g, tr, tc, in, k0, km, qp, causal, window, mx);
+  else if (part == 1)
+    keep_scores<R, 1>(sS, s, g, tr, tc, in, k0, km, qp, causal, window, mx);
+  if constexpr (R == 2) {
+    if (part == 2)
+      keep_scores<2, 2>(sS, s, g, tr, tc, in, k0, km, qp, causal, window, mx);
+    else if (part == 3)
+      keep_scores<2, 3>(sS, s, g, tr, tc, in, k0, km, qp, causal, window, mx);
+  }
+}
+
+// p = exp(s - m_new), masked, over the thread's eight rows at key
+// 4 warp + tc of group g, written over their scores; m_new from sMn
+template <int BACKEND>
+__device__ __forceinline__ void p_group(float* sS, int g, int tr, int tc,
+                                        int warp, bool in, int k0, int km,
+                                        const int* sQp, const float* sMn,
+                                        int causal, int window) {
+  const int kk = g * kGroup + 4 * warp + tc;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {                  // rows 32 h + 4 tr + i
+    float4* at = reinterpret_cast<float4*>(sS + kk * kRows + 32 * h + 4 * tr);
+    const float4 x = *at;
+    const float4 mn = *reinterpret_cast<const float4*>(sMn + 32 * h + 4 * tr);
+    const float sv[4] = {x.x, x.y, x.z, x.w}, m[4] = {mn.x, mn.y, mn.z, mn.w};
+    int qp[4] = {0, 0, 0, 0};
+    if (!in) {
+      const int4 a = *reinterpret_cast<const int4*>(sQp + 32 * h + 4 * tr);
+      qp[0] = a.x; qp[1] = a.y; qp[2] = a.z; qp[3] = a.w;
+    }
+    float p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float ex = vexp::apply_exp(BACKEND, __fsub_rn(sv[i], m[i]));
+      p[i] = in || keep_key(k0 + kk, qp[i], km, causal, window) ? ex : 0.0f;
+    }
+    *at = make_float4(p[0], p[1], p[2], p[3]);
+  }
+}
+
+// One V slab of p . v: pv[i][j] = fma(p[row i][c], v[c][col j], pv[i][j])
+// for the slab's 16 keys c in order, and the l chain of row lrow:
+// lch = lch + p[lrow][c]. sp: the score tile at the slab's first key;
+// vs: the V slab at the thread's first column.
+__device__ __forceinline__ void pv_slab(const float* sp, const float* vs,
+                                        int tr, int lrow, float (&pv)[8][8],
+                                        float& lch) {
+#pragma unroll
+  for (int c = 0; c < kVKeys; ++c) {
+    float p[8], v[8];
+    load_f32<4>(sp + c * kRows + 4 * tr, p);
+    load_f32<4>(sp + c * kRows + 32 + 4 * tr, p + 4);
+    load_f32<8>(vs + c * kD, v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) pv[i][j] = fmaf(p[i], v[j], pv[i][j]);
+    lch = __fadd_rn(lch, sp[c * kRows + lrow]);
+  }
+}
+
+template <int BACKEND>
+__global__ void __launch_bounds__(kThreads, 1)
+fa256_kernel(const __nv_bfloat16* __restrict__ q,
+             const __nv_bfloat16* __restrict__ k,
+             const __nv_bfloat16* __restrict__ v,
+             __nv_bfloat16* __restrict__ o, const int* __restrict__ kv_len,
+             const int* __restrict__ q_offset, int q_off, int H, int Hkv,
+             int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os,
+             float sm_scale, int causal, int window, int block_k) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sQt = reinterpret_cast<float*>(smem + kQt);
+  float* ring = reinterpret_cast<float*>(smem + kRing);  // [2][kStage]
+  float* sMax = reinterpret_cast<float*>(smem + kMax);   // [warp][row]
+  float* sMn = reinterpret_cast<float*>(smem + kMn);     // the block's m_new
+  float* sA = reinterpret_cast<float*>(smem + kA);       // and alpha a row
+  int* sQp = reinterpret_cast<int*>(smem + kQp);         // row positions
+  float* sS = reinterpret_cast<float*>(smem + kS);
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int tr = lane % 8, tc = lane / 8;
+  const int G = H / Hkv, nrows = Sq * G;
+  const int ntiles = (nrows + kRows - 1) / kRows;
+  const int per_b = Hkv * ntiles;
+  const int b = blockIdx.x / per_b, rem = blockIdx.x % per_b;
+  const int hk = rem / ntiles;
+  const int r0 = (ntiles - 1 - rem % ntiles) * kRows;   // heavy tiles first
+  const int klen = kv_len != nullptr ? min(kv_len[b], Sk) : Sk;
+  const int qoff = q_offset != nullptr ? q_offset[b] : q_off;
+  const int p_lo = qoff + r0 / G;                         // row positions
+  const int p_hi = qoff + (min(r0 + kRows, nrows) - 1) / G;
+  Walk wk;
+  wk.bk = block_k;
+  wk.kend = causal ? min(klen, p_hi + 1) : klen;
+  wk.kstart = window > 0 ? max(0, p_lo - window + 1) : 0;
+  wk.blk_end = (wk.kend + block_k - 1) / block_k;
+  const __nv_bfloat16* kb = k + b * ks.b + hk * ks.h;
+  const __nv_bfloat16* vb = v + b * vs.b + hk * vs.h;
+
+  // the first K slab in flight while q arrives; stored after q
+  int blk = wk.next_live(wk.kstart / block_k);
+  int stage = 0;
+  int g_lo = 0, g_hi = 0;
+  Staged st;
+  if (blk < wk.blk_end) {
+    wk.live(blk, g_lo, g_hi);
+    load_k(st, kb, ks.s, blk * block_k + g_lo * kGroup,
+           piece(g_hi - g_lo) * kGroup, wk.kmax(blk), 0);
+  }
+
+  // q * sm_scale, transposed: sQt[d][row]; rows past Sq * G are zeros
+  {
+    constexpr int CH = kD / 8, N = kRows * CH / kThreads;
+    uint4 w[N];
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const int i = tid + n * kThreads, r = i % kRows, c = i / kRows;
+      const int row = r0 + r;
+      w[n] = row < nrows
+                 ? *reinterpret_cast<const uint4*>(
+                       q + b * qs.b + (hk * G + row % G) * qs.h +
+                       (long long)(row / G) * qs.s + c * 8)
+                 : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const int i = tid + n * kThreads, r = i % kRows, c = i / kRows;
+      float f[8];
+      widen8(w[n], f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        sQt[(c * 8 + e) * kRows + r] = __fmul_rn(f[e], sm_scale);
+    }
+    if (tid < kRows) sQp[tid] = qoff + (r0 + tid) / G;
+  }
+  if (blk < wk.blk_end) store_k(ring, st, piece(g_hi - g_lo) * kGroup);
+
+  // per row i of the thread's eight (rows 4 tr + i, 32 + 4 tr + i - 4):
+  // acc, and per block p . v. Row lrow (row `warp` of the eight), whose
+  // l the thread chains: its running m and l, the same in the four lanes
+  // tc = 0 .. 3, of which tc = 0 writes the block's m_new and alpha to
+  // sMn and sA for every thread.
+  float m_run = kNegInf, l_run = 0.0f;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  const int lrow = (warp / 4) * 32 + 4 * tr + warp % 4;
+
+  while (blk < wk.blk_end) {
+    const int km = wk.kmax(blk), k0 = blk * block_k;
+    // whether every key of group g is kept for every row of the tile
+    auto inner = [&](int g) {
+      const int a = k0 + g * kGroup;
+      return a + kGroup <= km && (!causal || a + kGroup - 1 <= p_lo) &&
+             (window <= 0 || a > p_hi - window);
+    };
+    // ---- scores, piece by piece, into the score tile; row maxima
+    float mx[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) mx[i] = kNegInf;
+    for (int gs = g_lo, n = piece(g_hi - g_lo); gs < g_hi;
+         gs += n, n = piece(g_hi - gs)) {
+      // R rows a thread: 8 / R warps a group, the warp's part of the rows
+      const int R = n <= 2 ? 2 : n <= 4 ? 4 : 8;
+      const int gw = warp / (8 / R), part = warp % (8 / R);
+      const bool on = gw < n;
+      const int rows = R == 8 ? 0 : R == 4 ? 32 * part
+                                           : 32 * (part / 2) + 2 * (part % 2);
+      float s[8][8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
+      for (int sl = 0; sl < kD / kSlabD; ++sl) {
+        __syncthreads();            // the slab is stored; the other stage
+                                    // is free
+        // the next slab: the piece's next, the next piece's first, or the
+        // block's first V slab
+        float* nst = ring + (stage ^ 1) * kStage;
+        const int nn = sl + 1 < kD / kSlabD ? n : piece(g_hi - gs - n);
+        const bool nk = sl + 1 < kD / kSlabD || gs + n < g_hi;
+        if (nk)
+          load_k(st, kb, ks.s, k0 + (sl + 1 < kD / kSlabD ? gs : gs + n) *
+                                        kGroup,
+                 nn * kGroup, km, (sl + 1) % (kD / kSlabD));
+        else
+          load_v(st, vb, vs.s, k0 + g_lo * kGroup, km);
+        if (on) {
+          const float* kst = ring + stage * kStage +
+                             (gw * kGroup + tc) * kSlabD;
+          const float* qt = sQt + sl * kSlabD * kRows + rows + 4 * tr;
+          if (R == 8)
+            score_slab<8>(qt, kst, s);
+          else if (R == 4)
+            score_slab<4>(qt, kst, s);
+          else
+            score_slab<2>(qt, kst, s);
+        }
+        if (nk)
+          store_k(nst, st, nn * kGroup);
+        else
+          store_v(nst, st);
+        stage ^= 1;
+      }
+      if (on) {
+        const int g = gs + gw;
+        const bool in = inner(g);
+        int qp[8];
+        row_positions(sQp, tr, qp);
+        if (R == 8)
+          keep_scores<8, 0>(sS, s, g, tr, tc, in, k0, km, qp, causal, window,
+                            mx);
+        else if (R == 4)
+          keep_part<4>(part, sS, s, g, tr, tc, in, k0, km, qp, causal,
+                       window, mx);
+        else
+          keep_part<2>(part, sS, s, g, tr, tc, in, k0, km, qp, causal,
+                       window, mx);
+      }
+    }
+    // the warp's row maxima: its four lanes of a row set, then sMax[warp]
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 8));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 16));
+    }
+    if (tc == 0) {
+      float* at = sMax + warp * kRows + 4 * tr;
+      *reinterpret_cast<float4*>(at) = make_float4(mx[0], mx[1], mx[2], mx[3]);
+      *reinterpret_cast<float4*>(at + 32) =
+          make_float4(mx[4], mx[5], mx[6], mx[7]);
+    }
+
+    // ---- p . v, group by group; the block's l chained per row
+    float pv[8][8], lch = 0.0f, a_own = 1.0f;   // a_own: row lrow's
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) pv[i][j] = 0.0f;
+    const int nxt = wk.next_live(blk + 1);
+    int n_lo = 0, n_hi = 0;
+    if (nxt < wk.blk_end) wk.live(nxt, n_lo, n_hi);
+    for (int hg = 2 * g_lo; hg < 2 * g_hi; ++hg) {   // 16-key slabs
+      const int g = hg / 2;
+      __syncthreads();
+      float* nst = ring + (stage ^ 1) * kStage;
+      const bool nv = hg + 1 < 2 * g_hi;
+      if (nv)
+        load_v(st, vb, vs.s, k0 + (hg + 1) * kVKeys, km);
+      else if (nxt < wk.blk_end)
+        load_k(st, kb, ks.s, nxt * block_k + n_lo * kGroup,
+               piece(n_hi - n_lo) * kGroup, wk.kmax(nxt), 0);
+      if (hg == 2 * g_lo) {
+        // row lrow's block max, m_new and alpha, for every thread; then p
+        // of the block's first two groups
+        float m = sMax[lrow];
+#pragma unroll
+        for (int w = 1; w < 8; ++w) m = fmaxf(m, sMax[w * kRows + lrow]);
+        m = fmaxf(m_run, m);
+        a_own = vexp::apply_exp(BACKEND, __fsub_rn(m_run, m));
+        m_run = m;
+        if (tc == 0) {
+          sMn[lrow] = m;
+          sA[lrow] = a_own;
+        }
+        __syncthreads();
+        for (int gp = g; gp < min(g + 2, g_hi); ++gp)
+          p_group<BACKEND>(sS, gp, tr, tc, warp, inner(gp), k0, km, sQp,
+                           sMn, causal, window);
+        __syncthreads();            // p of the first group
+      } else if (hg % 2 == 1 && g + 2 < g_hi) {
+        // p of the group after next, beside this one's p . v
+        p_group<BACKEND>(sS, g + 2, tr, tc, warp, inner(g + 2), k0, km, sQp,
+                         sMn, causal, window);
+      }
+      pv_slab(sS + hg * kVKeys * kRows, ring + stage * kStage + 32 * warp +
+                                            8 * tc,
+              tr, lrow, pv, lch);
+      if (nv)
+        store_v(nst, st);
+      else if (nxt < wk.blk_end)
+        store_k(nst, st, piece(n_hi - n_lo) * kGroup);
+      stage ^= 1;
+    }
+    // ---- the block's one online update
+    l_run = __fadd_rn(__fmul_rn(l_run, a_own), lch);
+    {
+      float alpha[8];
+      load_f32<4>(sA + 4 * tr, alpha);
+      load_f32<4>(sA + 32 + 4 * tr, alpha + 4);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          acc[i][j] = __fadd_rn(__fmul_rn(acc[i][j], alpha[i]), pv[i][j]);
+    }
+    blk = nxt;
+    g_lo = n_lo;
+    g_hi = n_hi;
+  }
+  if (tc == 0) sMn[lrow] = l_run;   // past the last read of sMn
+  __syncthreads();                  // every row's l
+  float l_all[8];
+  load_f32<4>(sMn + 4 * tr, l_all);
+  load_f32<4>(sMn + 32 + 4 * tr, l_all + 4);
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = r0 + (i / 4) * 32 + 4 * tr + i % 4;
+    if (row >= nrows) continue;
+    __nv_bfloat16* ob = o + b * os.b + (hk * G + row % G) * os.h +
+                        (long long)(row / G) * os.s + 32 * warp + 8 * tc;
+    const float inv = 1.0f / fmaxf(l_all[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < 8; j += 2)
+      *reinterpret_cast<__nv_bfloat162*>(ob + j) =
+          __floats2bfloat162_rn(__fmul_rn(acc[i][j], inv),
+                                __fmul_rn(acc[i][j + 1], inv));
+  }
+}
+
+template <int BACKEND>
 int launch(const void* q, const void* k, const void* v, void* o,
-           const void* kv_len, const void* q_offset, int q_off, int B,
-           int H, int Hkv, int Sq, int Sk, Strides qs, Strides ks,
-           Strides vs, Strides os, float sm_scale, int causal, int window,
-           int block_k, cudaStream_t stream) {
-  // the shared-memory limit, raised to the card's once per instantiation
-  // and device
+           const void* kv_len, const void* q_offset, int q_off, int B, int H,
+           int Hkv, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
+           Strides os, float sm_scale, int causal, int window, int block_k,
+           cudaStream_t stream) {
   constexpr int kMaxDevices = 64;
   static bool raised[kMaxDevices] = {};
   int dev = 0;
@@ -634,23 +1147,84 @@ int launch(const void* q, const void* k, const void* v, void* o,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                  dev);
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(fa_fwd_kernel<D, BACKEND>,
+    err = cudaFuncSetAttribute(fa256_kernel<BACKEND>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                optin);
     if (err != cudaSuccess) return (int)err;
     raised[dev] = true;
   }
-  const size_t smem = Smem<D>::bytes(score_keys<D>(block_k));
-  constexpr int kBQ = Tile<D>::kBQ;
-  dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
-  fa_fwd_kernel<D, BACKEND><<<grid, kThreads, smem, stream>>>(
+  const long long ctas = (long long)B * Hkv *
+                         (((long long)Sq * (H / Hkv) + kRows - 1) / kRows);
+  if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  fa256_kernel<BACKEND><<<(unsigned)ctas, kThreads, smem_bytes(block_k),
+                          stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<__nv_bfloat16*>(o), static_cast<const int*>(kv_len),
-      static_cast<const int*>(q_offset), q_off, H, Hkv, Sq, Sk, qs, ks, vs,
-      os, sm_scale, causal, window, block_k);
+      static_cast<const int*>(q_offset), q_off, H, Hkv, Sq, Sk, qs, ks, vs, os,
+      sm_scale, causal, window, block_k);
   return (int)cudaGetLastError();
+}
+
+}  // namespace fa256
+
+size_t smem_bytes(int D, int block_k) {
+  switch (D) {
+    case 32:
+      return Smem<32>::bytes(score_keys<32>(block_k));
+    case 64:
+      return Smem<64>::bytes(score_keys<64>(block_k));
+    case 256:
+      return fa256::smem_bytes(block_k);
+    default:
+      return 0;
+  }
+}
+
+template <int D, int BACKEND>
+int launch(const void* q, const void* k, const void* v, void* o,
+           const void* kv_len, const void* q_offset, int q_off, int B,
+           int H, int Hkv, int Sq, int Sk, Strides qs, Strides ks,
+           Strides vs, Strides os, float sm_scale, int causal, int window,
+           int block_k, cudaStream_t stream) {
+  if constexpr (D == 256) {
+    return fa256::launch<BACKEND>(q, k, v, o, kv_len, q_offset, q_off, B, H,
+                                  Hkv, Sq, Sk, qs, ks, vs, os, sm_scale,
+                                  causal, window, block_k, stream);
+  } else {
+    // the shared-memory limit, raised to the card's once per instantiation
+    // and device
+    constexpr int kMaxDevices = 64;
+    static bool raised[kMaxDevices] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+    if (!raised[dev]) {
+      int optin = 0;
+      err = cudaDeviceGetAttribute(&optin,
+                                   cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                   dev);
+      if (err != cudaSuccess) return (int)err;
+      err = cudaFuncSetAttribute(fa_fwd_kernel<D, BACKEND>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 optin);
+      if (err != cudaSuccess) return (int)err;
+      raised[dev] = true;
+    }
+    const size_t smem = Smem<D>::bytes(score_keys<D>(block_k));
+    constexpr int kBQ = Tile<D>::kBQ;
+    dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
+    fa_fwd_kernel<D, BACKEND><<<grid, kThreads, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<__nv_bfloat16*>(o), static_cast<const int*>(kv_len),
+        static_cast<const int*>(q_offset), q_off, H, Hkv, Sq, Sk, qs, ks, vs,
+        os, sm_scale, causal, window, block_k);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <int D>
@@ -728,7 +1302,8 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
 
 // Dynamic shared memory bytes a launch needs (the wrapper checks it
 // against the card's per-block limit before launching): the score tile
-// holds a block of block_k keys, rounded up to whole sub-tiles.
+// holds a block of block_k keys, rounded up to whole sub-tiles (at D =
+// 256, whole 32-key groups).
 extern "C" long long fa_smem_bytes(int D, int block_k) {
   return (long long)smem_bytes(D, block_k);
 }

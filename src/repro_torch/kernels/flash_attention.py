@@ -111,8 +111,9 @@ def flash_attention(q, k, v, *, causal=True, window=None, kv_len=None,
     The policy gives the exp backend and ``block_k``, the online-update
     block; the kernel holds a block's scores in shared memory, so on the
     card ``block_k`` is bounded by it (on an H100: 640 keys at D = 64 with
-    64-row query tiles; 960 keys at D = 256, whose query tiles are 32
-    rows)."""
+    64-row query tiles; 512 at D = 256, whose 64-row tiles of (position,
+    head) pairs keep q^T and the K / V slabs as f32 beside a 256-byte
+    row of scores a key)."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     block_k = min(policy.block_k, sk)
