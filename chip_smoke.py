@@ -31,7 +31,13 @@ exp backend on the cuda and the reference tier, the gate exps held to
 their plain versions, cuda tier against reference tier and the SSD's two
 forms against each other over a teacher-forced replay), chunked (256)
 and self-speculative (k = 4, the recurrent scan verify; tokens held to
-the plain serve's), and checks what comes out.
+the plain serve's), then the RG-LRU hybrid recurrentgemma-9b at full
+width (B3 / B2 / B7 at head dim 256), then the SwiGLU dense decoder
+phi3-medium-14b at full width: B3 / B2 / B7 at its head dim 128 (40
+query heads on 10 KV heads) held to their plain versions with their
+controls, and its serves (graph and eager arms in turns, paged, chunked
+256; every SwiGLU gate exp one launch of the exp kernel, held to its
+plain version over a teacher-forced replay), and checks what comes out.
 Every phase prints one JSON line; the first failure on any rank exits
 non-zero.
 The last two lines are the kernel table and the device line. Without a
@@ -42,6 +48,7 @@ prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import re
@@ -698,6 +705,14 @@ def _sdpa_mask_prefill(kv_len, sq, sk, q_offset=0, window=None):
     return keep[:, None]
 
 
+def _kv_heads(t, h):
+    """(B, Hkv, S, D) K or V for h query heads: as it is where it
+    broadcasts (Hkv 1 or h), else each KV head repeated for its h / Hkv
+    consecutive query heads (GQA)."""
+    hkv = t.shape[1]
+    return t if hkv in (1, h) else t.repeat_interleave(h // hkv, dim=1)
+
+
 def _scan_p_terms(q, k, v, kv_len, q_offset, block_k, exp, terms,
                   window=None):
     """The plain scan (causal, keys below kv_len and inside the window,
@@ -714,8 +729,8 @@ def _scan_p_terms(q, k, v, kv_len, q_offset, block_k, exp, terms,
     l = torch.zeros_like(m)
     acc = torch.zeros((b, h, sq, d), device=q.device)
     for k0 in range(0, sk, block_k):
-        kb = k[:, k0:k0 + block_k].float().transpose(1, 2)
-        vb = v[:, k0:k0 + block_k].float().transpose(1, 2)
+        kb = _kv_heads(k[:, k0:k0 + block_k].float().transpose(1, 2), h)
+        vb = _kv_heads(v[:, k0:k0 + block_k].float().transpose(1, 2), h)
         kpos = k0 + torch.arange(kb.shape[2], device=q.device)
         keep = (kpos <= qpos) & (kpos < kv_len[:, None, None, None])
         if window is not None:
@@ -741,6 +756,7 @@ def _truth64(q, k, v, kv_len, q_offset, window=None):
     b, sq, h, d = q.shape
     sk = k.shape[1]
     qd, kd, vd = (t.double().transpose(1, 2) for t in (q, k, v))
+    kd, vd = _kv_heads(kd, h), _kv_heads(vd, h)
     sc = qd @ kd.transpose(-1, -2) * (1.0 / d ** 0.5)
     qpos = _qpos(sq, q_offset)[:, None, :, None]      # (1|B, 1, Sq, 1)
     kpos = torch.arange(sk, device=q.device)
@@ -1615,17 +1631,18 @@ def _pct(xs, q):
     return xs[min(len(xs) * q // 100, len(xs) - 1)]
 
 
-def replay_logits(cfg, params, reqs, policy):
+def replay_logits(cfg, params, reqs, policy, steps=None):
     """Teacher-forced logits of ``reqs`` (prompts + their emitted tokens)
     under ``policy``: one ragged prefill, then one decode step per
-    emitted token. Returns a list of (B, V) f32 logits per step."""
+    emitted token (the first ``steps`` logits only, where given). Returns
+    a list of (B, V) f32 logits per step."""
     from repro_torch.models import transformer
     b = len(reqs)
     plen = np.array([len(r.prompt) for r in reqs], np.int32)
     toks = np.zeros((b, int(plen.max())), np.int32)
     for i, r in enumerate(reqs):
         toks[i, :plen[i]] = r.prompt
-    n = len(reqs[0].out)
+    n = steps or len(reqs[0].out)
     logits, pref = transformer.prefill(
         params, cfg, torch.as_tensor(toks, device="cuda"),
         prompt_len=torch.as_tensor(plen, device="cuda"), policy=policy)
@@ -1701,20 +1718,22 @@ def replay_logits_paged(cfg, params, reqs, policy, hist_len, page):
 REPLAY_LOGIT_TOL = 0.1
 
 
-def check_replay(name, reqs, fast, ref):
-    """cuda-tier logits within REPLAY_LOGIT_TOL of the reference tier's,
-    finite, and every served token the reference argmax wherever the
-    reference's top two logits are more than 2 x the limit apart."""
+def check_replay(name, reqs, fast, ref, limit=None):
+    """cuda-tier logits within ``limit`` (default REPLAY_LOGIT_TOL) of the
+    reference tier's, finite, and every served token the reference argmax
+    wherever the reference's top two logits are more than 2 x the limit
+    apart."""
+    limit = REPLAY_LOGIT_TOL if limit is None else limit
     d = max(float((a - b).abs().max()) for a, b in zip(fast, ref))
     if not all(bool(torch.isfinite(a).all()) for a in fast):
         fail(f"replay {name}: non-finite logits")
-    if d > REPLAY_LOGIT_TOL:
+    if d > limit:
         fail(f"replay {name}: cuda vs reference tier logits differ by {d} "
-             f"(limit {REPLAY_LOGIT_TOL})")
+             f"(limit {limit})")
     for i, r in enumerate(reqs):
         for t, lg in enumerate(ref):
             top = torch.topk(lg[i], 2).values
-            if float(top[0] - top[1]) > 2 * REPLAY_LOGIT_TOL and \
+            if float(top[0] - top[1]) > 2 * limit and \
                     int(lg[i].argmax()) != r.out[t]:
                 fail(f"replay {name}: request {r.rid} step {t} token "
                      f"{r.out[t]} != reference argmax {int(lg[i].argmax())}")
@@ -3821,7 +3840,7 @@ def _hybrid_fa_rows(fa, policy_cls, block_k):
                     f"ragged kv_len")
     res["chunk_shape"] = (f"B={b} Sq={sq} Sk={s} H={h} Hkv={hkv} D={d} "
                           f"window={win}, (B,) q_offset tensor")
-    edges, edge_rds = _hybrid_fa_edges(fa, policy_cls, q, k, v, qc)
+    edges, edge_rds = _fa_edges(fa, policy_cls, q, k, v, qc, win, "d256")
     res["edges"] = edges
     return res, out + edge_rds
 
@@ -3836,16 +3855,16 @@ def _largest_block_k(fa, d):
     return max(bk for bk in range(32, 4097, 32) if smem(d, bk) <= limit)
 
 
-def _hybrid_fa_edges(fa, policy_cls, q, k, v, qc):
-    """B3 at head dim 256 where the 64-row (position, head) tiles and the
-    32-key groups have their edges, each at block_k 128 and at the
-    largest the card admits: a prefill of 1,021 queries (not a whole
-    number of 4-position tiles) over rows with kv_len 1, 1,021, 640 and
-    333; and a chunk of 61 queries at (B,) offsets, one row whose last
-    query sits at key 2,047 (the ring's last), one with a single token at
-    offset 0 (kv_len 1), one mid-ring, one of three tokens. Window 2048.
-    Each held to its plain version under every backend with the
-    controls. Returns (fields, [(tag, readings)])."""
+def _fa_edges(fa, policy_cls, q, k, v, qc, window, label):
+    """B3 at fa_rows' head dims where the 64-row (position, head) tiles
+    and the 32-key groups have their edges, each at block_k 128 and at
+    the largest the card admits: a prefill of 1,021 queries (not a whole
+    number of tiles: 4 positions a tile at G 16, 16 at G 4) over rows
+    with kv_len 1, 1,021, 640 and 333; and a chunk of 61 queries at (B,)
+    offsets, one row whose last query sits at key 2,047 (the cache's
+    last), one with a single token at offset 0 (kv_len 1), one mid-cache,
+    one of three tokens. Each held to its plain version under every
+    backend with the controls. Returns (fields, [(tag, readings)])."""
     dev = q.device
     sk = k.shape[1]
     tail_len = torch.tensor([1, 1021, 640, 333], dtype=torch.int32,
@@ -3860,12 +3879,12 @@ def _hybrid_fa_edges(fa, policy_cls, q, k, v, qc):
     for name, (qe, ke, ve, kv, off) in cases.items():
         for bk in (128, top):
             rd, _ = _fa_readings(fa, policy_cls, bk, qe, ke, ve, kv, off,
-                                 HYBRID_FA_WINDOW)
+                                 window)
             tag = f"{name}_bk{bk}"
             for (exp, who), (err, share) in rd.items():
                 res[f"{tag}_{exp}_{who}_max_abs_err"] = err
                 res[f"{tag}_{exp}_{who}_mismatch_share"] = share
-            out.append((f"d256 {tag}", rd))
+            out.append((f"{label} {tag}", rd))
     return res, out
 
 
@@ -3877,13 +3896,24 @@ def hybrid_decode_inputs(da, paged):
     Returns (q, cache_len, k, v, run): k and v the contiguous cache (paged:
     the pool gathered through the table) and run(policy) the kernel's
     call."""
-    g = torch.Generator(device="cuda").manual_seed(12 + int(paged))
-    b, s, h, hkv, d, page = 8, 2048, 16, 1, 256, HYBRID_PAGE
+    return decode_inputs(da, paged, b=8, s=2048, h=16, hkv=1, d=256,
+                         page=HYBRID_PAGE, seed=12 + int(paged), full=2)
+
+
+def decode_inputs(da, paged, *, b, s, h, hkv, d, page, seed, full,
+                  layout="bshd"):
+    """B2's inputs (or B7's through a page table in random order): q (B,
+    1, H, d), cache_len drawn in [33, s] from ``seed`` with the first
+    ``full`` rows at s, and K / V of ``hkv`` heads over s positions
+    ("bshd", or "bhsd" for B2). Returns (q, cache_len, k, v, run): k and
+    v the contiguous cache in ``layout`` (paged: the pool gathered
+    through the table, "bshd") and run(policy) the kernel's call."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
     ns = s // page
     q = torch.randn(b, 1, h, d, generator=g, device="cuda").to(torch.bfloat16)
     cl = torch.randint(33, s + 1, (b,), generator=g, device="cuda",
                        dtype=torch.int32)
-    cl[0], cl[1] = s, s
+    cl[:full] = s
     if paged:
         kp, vp = (torch.randn(1 + b * ns, page, hkv, d, generator=g,
                               device="cuda").to(torch.bfloat16)
@@ -3894,38 +3924,49 @@ def hybrid_decode_inputs(da, paged):
     else:
         kc, vc = (torch.randn(b, s, hkv, d, generator=g, device="cuda")
                   .to(torch.bfloat16) for _ in range(2))
+        if layout == "bhsd":
+            kc, vc = (t.transpose(1, 2).contiguous() for t in (kc, vc))
 
     def run(pol):
         if paged:
             return da.decode_attention_paged(q, kp, vp, tab, cl,
                                              layout="bshd", policy=pol)
-        return da.decode_attention(q, kc, vc, cl, layout="bshd", policy=pol)
+        return da.decode_attention(q, kc, vc, cl, layout=layout, policy=pol)
     return q, cl, kc, vc, run
 
 
 def _hybrid_decode_case(da, policy_cls, paged):
-    """B2 (or B7) on ``hybrid_decode_inputs``: held to its plain version
-    under every exp backend, with the half-block (half-page) and
-    textbook-merge controls; graph ms, device µs per CUDA kernel, SDPA's
-    graph ms (over the gathered ring for B7), the plain version's ms and
-    the bound. Returns (fields, readings)."""
-    q, cl, kc, vc, run = hybrid_decode_inputs(da, paged)
+    """B2 (or B7) on ``hybrid_decode_inputs`` (``_decode_case``)."""
+    return _decode_case(da, policy_cls, paged,
+                        hybrid_decode_inputs(da, paged), HYBRID_PAGE, "d256")
+
+
+def _decode_case(da, policy_cls, paged, inputs, page, label,
+                 layout="bshd"):
+    """B2 (or B7) on ``inputs`` (``decode_inputs``' tuple, the cache in
+    ``layout``): held to its plain version under every exp backend, with
+    the half-block (half-page) and textbook-merge controls; graph ms,
+    device µs per CUDA kernel, SDPA's graph ms (over the gathered pages
+    for B7; GQA through ``enable_gqa``), the plain version's ms and the
+    bound. Returns (fields, readings)."""
+    q, cl, kc, vc, run = inputs
     b, _, h, d = q.shape
-    s, hkv, page = kc.shape[1], kc.shape[2], HYBRID_PAGE
+    s, hkv = (kc.shape[2], kc.shape[1]) if layout == "bhsd" else \
+        (kc.shape[1], kc.shape[2])
     readings = {}
     block = page if paged else policy_cls().block_s
     for exp in EXP_BACKENDS:
         pol = policy_cls(exp_backend=exp, block_page=page)
-        ref = da.decode_attention_plain(q, kc, vc, cl, layout="bshd",
+        ref = da.decode_attention_plain(q, kc, vc, cl, layout=layout,
                                         block_s=block, exp_backend=exp)
         readings[exp, "kernel"] = kernel_vs_plain(run(pol), ref)
         if exp != "exact":
-            half = da.decode_attention_plain(q, kc, vc, cl, layout="bshd",
+            half = da.decode_attention_plain(q, kc, vc, cl, layout=layout,
                                              block_s=block // 2,
                                              exp_backend=exp)
             readings[exp, "half_page" if paged else "half_block"] = \
                 kernel_vs_plain(half, ref)
-            tb = textbook_partial(q, kc, vc, cl, 0, layout="bshd", exp=exp)
+            tb = textbook_partial(q, kc, vc, cl, 0, layout=layout, exp=exp)
             readings[exp, "textbook_merge"] = kernel_vs_plain(
                 _norm_stats(*tb).reshape(ref.shape), ref)
     res = {f"{exp}_{who}_{m}": val[i]
@@ -3934,12 +3975,14 @@ def _hybrid_decode_case(da, policy_cls, paged):
     pol = policy_cls(exp_backend="vexp", block_page=page)
     res["ms_vexp"] = cuda_time_ms(lambda: run(pol), iters=50)
     res["graph_ms_vexp"] = graph_ms(lambda: run(pol),
-                                    f"decode d256 paged={paged}", iters=50)
+                                    f"decode {label} paged={paged}", iters=50)
     res["stage_us_vexp"] = stage_device_us(lambda: run(pol))
     res["plain_ms_vexp"] = cuda_time_ms(lambda: da.decode_attention_plain(
-        q, kc, vc, cl, layout="bshd", block_s=block, exp_backend="vexp"),
+        q, kc, vc, cl, layout=layout, block_s=block, exp_backend="vexp"),
         iters=5)
-    qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+    qt = q.transpose(1, 2)
+    kt, vt = (kc, vc) if layout == "bhsd" else \
+        (kc.transpose(1, 2), vc.transpose(1, 2))
     mask = (torch.arange(s, device="cuda")[None, :]
             < cl[:, None])[:, None, None]
 
@@ -3947,7 +3990,8 @@ def _hybrid_decode_case(da, policy_cls, paged):
         return torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True)
     res["library_ms"] = cuda_time_ms(sdpa, iters=50)
-    res["library_graph_ms"] = graph_ms(sdpa, "sdpa (decode d256)", iters=50)
+    res["library_graph_ms"] = graph_ms(sdpa, f"sdpa (decode {label})",
+                                       iters=50)
     live = float(cl.double().sum())
     if paged:            # whole live pages of K and V
         live_keys = float(((cl + page - 1) // page).double().sum()) * page
@@ -3957,27 +4001,28 @@ def _hybrid_decode_case(da, policy_cls, paged):
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 4.0 * live * h * d,
                                                 BF16_FLOP_PER_S)
     res["cache_len"] = cl.tolist()
-    res["shape"] = (f"B={b} Hkv={hkv} G={h // hkv} d={d} ring={s}"
-                    + (f" page={page}" if paged else "") + ", bshd")
+    res["shape"] = (f"B={b} Hkv={hkv} G={h // hkv} d={d} cache={s}"
+                    + (f" page={page}" if paged else "") + f", {layout}")
     return res, readings
 
 
 HYBRID_EDGE_LENS = (1, 64, 65, 511, 512, 513, 2048)
-HYBRID_EDGE_GROUPS = (1, 5, 16)          # MAX_GROUP[256] is 16
+HYBRID_EDGE_GROUPS = (1, 5, 16)          # MAX_GROUP[128, 256] is 16
 HYBRID_EDGE_WINDOW = 700
 
 
-def _hybrid_decode_edges(da, policy_cls):
-    """B2 and B7 at head dim 256 where the column-sliced sweep has its
-    edges: G 1, 5 and 16 query rows on one KV head; one row per cache_len
-    in HYBRID_EDGE_LENS (one key, a tile, a tile and a key, around the
-    512-key update block, the full ring); with no window and with a
-    window of 700 (the first kept key mid-block); B7 through a page table
-    in random order. Each held to its plain version under every exp
-    backend, with the half-block (half-page) and textbook-merge controls.
-    Returns (fields, [(tag, kernel, readings)])."""
-    g = torch.Generator(device="cuda").manual_seed(14)
-    s, d, page = 2048, 256, HYBRID_PAGE
+def _decode_edges(da, policy_cls, d=256, seed=14):
+    """B2 and B7 at head dim ``d`` (256, or 128) where the column-sliced
+    sweep has its edges: G 1, 5 and 16 query rows on one KV head; one row
+    per cache_len in HYBRID_EDGE_LENS (one key, a tile, a tile and a key,
+    around the 512-key update block, the full 2,048-row cache); with no
+    window and with a window of 700 (the first kept key mid-block); B7
+    through a page table in random order. Each held to its plain version
+    under every exp backend, with the half-block (half-page) and
+    textbook-merge controls. Returns (fields, [(tag, kernel,
+    readings)])."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    s, page = 2048, HYBRID_PAGE
     b, ns = len(HYBRID_EDGE_LENS), s // page
     cl = torch.tensor(HYBRID_EDGE_LENS, dtype=torch.int32, device="cuda")
     kp, vp = (torch.randn(1 + b * ns, page, 1, d, generator=g,
@@ -4049,7 +4094,7 @@ def phase_hybrid_kernels(policy_cls):
     fa_res, fa_checks = _hybrid_fa_rows(fa, policy_cls, block_k)
     dec, dec_rd = _hybrid_decode_case(da, policy_cls, False)
     pdec, pdec_rd = _hybrid_decode_case(da, policy_cls, True)
-    edges, edge_rds = _hybrid_decode_edges(da, policy_cls)
+    edges, edge_rds = _decode_edges(da, policy_cls)
     emit({"phase": "hybrid_attention_kernels", "block_k": block_k,
           "flash_attention": fa_res, "decode_attention": dec,
           "decode_attention_paged": pdec, "decode_edges": edges})
@@ -4305,6 +4350,385 @@ def phase_serve_hybrid_spec(kernels, smi, cfg, params, policy, groups,
     return out
 
 
+# ------------------------------------------ the SwiGLU dense family (phi3)
+
+PHI3_ARCH = "phi3-medium-14b"
+PHI3_MAX_SEQ = 2048
+PHI3_PAGE = 64
+PHI3_CHUNK = 256
+PHI3_PROMPT = (32, 1024)
+PHI3_TIER_STEPS = 16           # teacher-forced steps of the tier check
+# phi3's cuda tier against its reference tier over a teacher-forced
+# replay (the decode kernels round q and p to bf16 where the reference
+# tier keeps f32, as the Pallas kernels do, and bf16 activations carry
+# that through 40 layers): max |cuda - reference| <= PHI3_TIER_LIMIT[exp]
+# x max |logit|, and every served token the reference argmax where its
+# top two are more than twice that apart. Twice the JAX package's own
+# pallas-vs-reference gap under this check's conditions: phi3's widths,
+# prompts of 300 and 1,000 tokens, 16 forced steps, read at 2, 4, 6 and
+# 8 layers (0.00984 / 0.01110 / 0.01176, 0.01216 / 0.01209 / 0.01378,
+# 0.01337 / 0.01373 / 0.01545 and 0.01324 / 0.01310 / 0.01569 of max
+# |logit| under exact / vexp / vexp_hw) and carried to 40 by the power
+# law the four readings fit (tools/tier_gap.py --width full --layers 6 8
+# --prior <the 2 / 4 lines> --extrapolate 40: powers 0.23 / 0.14 / 0.22,
+# 0.01992 / 0.01704 / 0.02280 at 40). REPLAY_LOGIT_TOL's 0.1 was set on
+# gpt2-small's 12 layers and logits of magnitude ~1.
+PHI3_TIER_LIMIT = {"exact": 0.0398, "vexp": 0.0341, "vexp_hw": 0.0456}
+
+
+def phi3_fa_inputs():
+    """B3's inputs at phi3-medium's shapes, from seed 21: a wave's q (B 8,
+    S 1024, 40 query heads, D 128) over K and V of its 10 KV heads (G 4)
+    with ragged kv_len in [32, 1024] (row 0 full); a chunk's q
+    (PHI3_CHUNK rows) with its (B,) offsets and token counts (row 3 none)
+    over a 2,048-position cache, of which the wave reads the first 1,024.
+    Returns (q, k, v, kv_len, q_chunk, offsets, tokens)."""
+    g = torch.Generator(device="cuda").manual_seed(21)
+    b, s, sq, h, hkv, d = 8, PHI3_MAX_SEQ, 1024, 40, 10, 128
+    q = torch.randn(b, sq, h, d, generator=g, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn(b, s, hkv, d, generator=g, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    kv_len = torch.randint(32, sq + 1, (b,), generator=g, device="cuda",
+                           dtype=torch.int32)
+    kv_len[0] = sq
+    qc = torch.randn(b, PHI3_CHUNK, h, d, generator=g,
+                     device="cuda").to(torch.bfloat16)
+    offs = torch.tensor([0, 256, 1792, 0, 1000, 512, 1500, 1536],
+                        dtype=torch.int32, device="cuda")
+    clens = torch.tensor([256, 256, 256, 0, 200, 37, 256, 100],
+                         dtype=torch.int32, device="cuda")
+    return q, k, v, kv_len, qc, offs, clens
+
+
+def _phi3_fa_rows(fa, policy_cls, block_k):
+    """B3 at phi3-medium's shapes (``fa_rows`` at D 128, G 4): the
+    admission wave (B 8, S 1024, ragged kv_len, causal, no window) and a
+    chunk (256 query rows at (B,) offsets over 2,048 keys, kv_len =
+    offset + tokens), then the edge cases (``_fa_edges``). Returns
+    (fields, [(tag, readings)])."""
+    q, k, v, kv_len, qc, offs, clens = phi3_fa_inputs()
+    b, sq, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    res, rd = _fa_case(fa, policy_cls, block_k, q, k[:, :sq], v[:, :sq],
+                       kv_len, 0, "")
+    out = [("d128", rd)]
+    chunk, rd_chunk = _fa_case(fa, policy_cls, block_k, qc, k, v,
+                               offs + clens, offs, "chunk_")
+    res.update(chunk)
+    out.append(("d128 chunk", rd_chunk))
+    res["shape"] = (f"B={b} S={sq} H={h} Hkv={hkv} D={d}, causal, ragged "
+                    f"kv_len")
+    res["chunk_shape"] = (f"B={b} Sq={qc.shape[1]} Sk={s} H={h} Hkv={hkv} "
+                          f"D={d}, (B,) q_offset tensor")
+    edges, edge_rds = _fa_edges(fa, policy_cls, q, k, v, qc, None, "d128")
+    res["edges"] = edges
+    return res, out + edge_rds
+
+
+def phase_phi3_kernels(policy_cls):
+    """B3, B2 and B7 at phi3-medium-14b's shapes (head dim 128, 40 query
+    heads on 10 KV heads): FA at the config's ``attn_block_k`` of 512
+    (its serve's update block; the edge cases at block_k 128 and the
+    largest the card admits), B2 over a 2,048-token cache with ragged
+    cache_len in both layouts, B7 through a page-64 table in random
+    order, and both at their edges (``_decode_edges`` at D 128:
+    G 1, 5 and 16, cache_len at the tile and block bounds, a window).
+    Each held to its plain version under the unchanged
+    ATT_LIMITS with its negative controls; FA's rows also carry their
+    CUDA-core FMA floor (a reading). Returns {kernel row name: fields}
+    for the kernel table (rows 3p, 4p and 7p)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.runtime import resolve_policy
+    block_k = resolve_policy(get_config(PHI3_ARCH), env={}).block_k
+    fa_res, fa_checks = _phi3_fa_rows(fa, policy_cls, block_k)
+    shape = dict(b=8, s=PHI3_MAX_SEQ, h=40, hkv=10, d=128, page=PHI3_PAGE,
+                 full=1)
+    dec, dec_rd = _decode_case(
+        da, policy_cls, False, decode_inputs(da, False, seed=22, **shape),
+        PHI3_PAGE, "d128")
+    dech, dech_rd = _decode_case(
+        da, policy_cls, False,
+        decode_inputs(da, False, seed=23, layout="bhsd", **shape),
+        PHI3_PAGE, "d128 bhsd", layout="bhsd")
+    pdec, pdec_rd = _decode_case(
+        da, policy_cls, True, decode_inputs(da, True, seed=24, **shape),
+        PHI3_PAGE, "d128")
+    edges, edge_rds = _decode_edges(da, policy_cls, d=128, seed=25)
+    emit({"phase": "phi3_attention_kernels", "block_k": block_k,
+          "flash_attention": fa_res, "decode_attention": dec,
+          "decode_attention_bhsd": dech, "decode_attention_paged": pdec,
+          "decode_edges": edges})
+    for tag, rd in fa_checks:
+        check_attention("flash_attention", rd, f" {tag}")
+    check_attention("decode_attention", dec_rd, " d128 g4 bshd")
+    check_attention("decode_attention", dech_rd, " d128 g4 bhsd")
+    check_attention("decode_attention_paged", pdec_rd, " d128 g4")
+    for tag, kernel, rd in edge_rds:
+        check_attention(kernel, rd, f" d128 {tag}")
+    keys = ("ms_vexp", "graph_ms_vexp", "plain_ms_vexp", "bound_ms",
+            "bound_by", "library_ms", "library_graph_ms", "shape")
+
+    def worst(rd):
+        return max(e for (_, who), (e, _) in rd.items() if who == "kernel")
+    fa_keys = keys + ("fma_floor_ms", "sm_clock_mhz")
+    fa_row = {k: fa_res[k] for k in fa_keys}
+    fa_row.update({f"chunk_{k}": fa_res[f"chunk_{k}"] for k in fa_keys
+                   if f"chunk_{k}" in fa_res})
+    fa_row["chunk_shape"] = fa_res["chunk_shape"]
+    fa_row["max_abs_err"] = max(worst(rd) for _, rd in fa_checks)
+    dec_row = {k: dec[k] for k in keys + ("stage_us_vexp",)}
+    dec_row["max_abs_err"] = max([worst(dec_rd), worst(dech_rd)] + [
+        worst(e) for _, k, e in edge_rds if k == "decode_attention"])
+    dec_row["bhsd_graph_ms_vexp"] = dech["graph_ms_vexp"]
+    pdec_row = {k: pdec[k] for k in keys + ("stage_us_vexp",)}
+    pdec_row["max_abs_err"] = max([worst(pdec_rd)] + [
+        worst(e) for _, k, e in edge_rds if k == "decode_attention_paged"])
+    return {"flash_attention_bhsd": fa_row,
+            "decode_attention_kernel": dec_row,
+            "decode_attention_kernel_paged": pdec_row}
+
+
+def phi3_setup():
+    """Full-width phi3-medium-14b (40 layers, d 5120, 40 heads on 10 KV
+    heads of 128, SwiGLU d_ff 17920, untied vocab 100,352) with random
+    weights drawn on the card from ``torch.Generator("cuda")
+    .manual_seed(0)``, its default policy (the cuda tier) and the three
+    policy groups."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.runtime import parse_policy_groups, resolve_policy
+    cfg = get_config(PHI3_ARCH)
+    params = api.init_params(cfg, 0, device="cuda")
+    policy = resolve_policy(cfg, env={})
+    if policy.kernel_backend != "cuda":
+        fail(f"phi3: default tier is {policy.kernel_backend}, not cuda")
+    groups = parse_policy_groups("eval=exact,bulk=vexp,hw=vexp_hw", cfg,
+                                 base=policy)
+    return cfg, params, policy, groups
+
+
+def phi3_requests(cfg, groups, n=16, max_new=64, seed=0):
+    """``n`` requests with prompts in PHI3_PROMPT from ``seed``, groups
+    round-robin."""
+    from repro_torch.launch.serve import make_requests
+    lo, hi = PHI3_PROMPT
+    return make_requests(cfg, n, hi, max_new, mixed_lengths=True,
+                         min_len=lo, groups=sorted(groups), seed=seed)
+
+
+def phi3_server(cfg, params, policy, groups, cuda_graphs=True, paged=False):
+    """max_batch 8, max_seq 2,048 (a group's contiguous pool is 3.4 GB)."""
+    from repro_torch.launch.serve import Server
+    return Server(cfg, params, max_batch=8, max_seq=PHI3_MAX_SEQ,
+                  policy=policy, policy_groups=groups, device="cuda",
+                  cuda_graphs=cuda_graphs, paged=paged)
+
+
+def check_phi3_serve(cfg, st, counts, replayed, sdpa_calls, arm, decode,
+                     other, what):
+    """A phi3 serve's launches and graphs: per decode step ``decode`` (B2
+    or B7) and the vexp kernel (the SwiGLU gate) once a layer, per
+    admission wave or prefill chunk FA and the vexp kernel once a layer;
+    no other kernel, no SDPA call (``check_serve_counts``); graph arm:
+    every step and chunk a replay of a graph captured with its group
+    (``check_graph_stats``), the vexp launches of the steps and chunks
+    all replayed. Returns (waves, chunks, steps)."""
+    waves, chunks, steps = check_serve_counts(cfg, st, counts, sdpa_calls,
+                                              decode, other, what)
+    graphs = check_graph_stats(cfg, st, arm, replayed, decode, what)
+    want = cfg.n_layers * (steps + waves + chunks)
+    if counts["vexp"] != want:
+        fail(f"{what}: vexp launches {counts['vexp']} != {cfg.n_layers} "
+             f"layers x ({steps} steps + {waves} waves + {chunks} chunks)")
+    reps = sum(v[1] + v[3] for v in graphs.values())
+    if replayed["vexp"] != cfg.n_layers * reps:
+        fail(f"{what}: {replayed['vexp']} replayed vexp launches != "
+             f"{cfg.n_layers} layers x {reps} step and chunk replays")
+    rest = {k: v for k, v in counts.items()
+            if k not in ("vexp", decode, "flash_attention", "vexp_hw_table")
+            and v}
+    if rest:
+        fail(f"{what}: launched {rest}")
+    return waves, chunks, steps
+
+
+def phi3_serve_once(kernels, cfg, make_server, make_reqs, arm, decode,
+                    other, what):
+    """One serve with the launch counts set to 0 just before it and read
+    just after, checked; the server is dropped before it returns (two
+    phi3 servers' pools together would crowd the weights). Returns the
+    turn."""
+    srv = make_server(arm == "graph")
+    reqs = make_reqs()
+    secs, counts, sdpa_calls, peak, clocks = timed_serve(kernels, srv, reqs)
+    replayed = kernels.replay_counts()
+    st = srv.stats()
+    check_requests(cfg, reqs, reqs[0].max_new)
+    waves, chunks, steps = check_phi3_serve(
+        cfg, st, counts, replayed, sdpa_calls, arm, decode, other, what)
+    some = next(iter(st.values()))
+    readings = {**serve_metrics(reqs, secs),
+                "wall_per_decode_step_s": some["wall_per_decode_step_s"],
+                "admit_waves": waves, "prefill_chunks": chunks,
+                "decode_steps": steps,
+                "admit_s_total": sum(s["admit_s_total"] for s in st.values()),
+                "capture_s": sum(s["graph_capture_s"]
+                                 + s["chunk_graph_capture_s"]
+                                 for s in st.values()),
+                "launches": {k: counts[k] for k in
+                             ("vexp", decode, "flash_attention")},
+                "replayed": {k: replayed[k] for k in
+                             ("vexp", decode, "flash_attention")},
+                "peak_memory_bytes": peak, "clocks_power": clocks}
+    pools = {n: s["pool"] for n, s in st.items() if "pool" in s}
+    if pools:
+        srv.assert_idle_clean()       # drops the prefix cache's pages
+        for name, g in srv._groups.items():
+            if g.state.alloc.n_used():
+                fail(f"{what} group {name}: {g.state.alloc.n_used()} pages "
+                     f"held after the serve")
+        readings["pools"] = pools
+    del srv
+    gc.collect()
+    return {"reqs": reqs, "stats": st, "counts": counts,
+            "readings": readings}
+
+
+def phi3_step_bound(cfg, params, srv):
+    """The decode step's bound on this card: every parameter but the
+    embedding table read once (bf16 matmul weights, the f32
+    unembedding, the norms) plus each live group's K and V up to its
+    rows' positions, over the HBM rate. Returns (bytes, ms)."""
+    nbytes = sum(p.numel() * p.element_size()
+                 for n, p in params.named_parameters() if n != "embed")
+    out = {}
+    kv_row = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * 2
+    for name, g in srv._groups.items():
+        if g.busy:
+            live = g.live_dev.bool()
+            keys = float((g.state.pos_dev[live] + 1).double().sum())
+            b = nbytes + keys * kv_row
+            out[name] = {"bytes": b, "bound_ms": b / HBM_BYTES_PER_S * 1e3}
+    return out
+
+
+def phase_serve_phi3(kernels, smi, cfg, params, policy, groups):
+    """Full-width phi3-medium-14b through the port's Server: max_batch 8,
+    max_seq 2,048, 16 requests with prompts in [32, 1024] (seed 0), 64
+    new tokens, groups eval=exact, bulk=vexp, hw=vexp_hw; the graph and
+    eager arms in turns (graph, eager, graph, eager; graph tokens ==
+    eager tokens), the capture audit, the decode step's graph ms and
+    kernels per group against its bound, and a teacher-forced replay of
+    2 requests a group whose every SwiGLU gate exp is held to its plain
+    version (GateCheck) and whose cuda-tier logits are held to the
+    reference tier's (REPLAY_LOGIT_TOL). Returns ({path: launch
+    counts}, the first graph turn's requests)."""
+
+    def server(cuda_graphs=True):
+        return phi3_server(cfg, params, policy, groups, cuda_graphs)
+
+    t0 = time.perf_counter()
+    for arm in ARMS:                     # warm-up, not measured
+        srv = server(arm == "graph")
+        srv.run(phi3_requests(cfg, groups, 3, 4, seed=1))
+        del srv
+    torch.cuda.synchronize()
+    secs = {"warm_up": time.perf_counter() - t0}
+    runs = {arm: [] for arm in ARMS}
+    for _ in range(ARM_TURNS):
+        for arm in ARMS:
+            runs[arm].append(phi3_serve_once(
+                kernels, cfg, server, lambda: phi3_requests(cfg, groups),
+                arm, "decode_attention", "decode_attention_paged",
+                f"serve_phi3 ({arm} arm)"))
+    compare = compare_arms(runs, "serve_phi3")
+    first = runs["graph"][0]
+    reqs = first["reqs"]
+    secs["turns"] = time.perf_counter() - t0 - sum(secs.values())
+    audits = capture_audits(cfg, server, lambda: phi3_requests(
+        cfg, groups, 6, 8, seed=3), "serve_phi3")
+    srv = ssm_live_server(server, phi3_requests(cfg, groups, max_new=8,
+                                                seed=3))
+    steps = ssm_step_readings(srv)
+    for name, b in phi3_step_bound(cfg, params, srv).items():
+        steps[name].update(b)
+        steps[name]["launches_per_step"] = dict(
+            srv._groups[name].state.graph.launches)
+    del srv
+    secs["audit_and_step"] = time.perf_counter() - t0 - sum(secs.values())
+    gates, tiers = GateCheck(), {}
+    for name, pol in groups.items():
+        two = [r for r in reqs if r.group == name][:2]
+        with gates:
+            fast = replay_logits(cfg, params, two, pol, PHI3_TIER_STEPS)
+        ref = replay_logits(cfg, params, two,
+                            pol.replace(kernel_backend="reference"),
+                            PHI3_TIER_STEPS)
+        top = max(float(lg[:, :cfg.vocab].abs().max()) for lg in ref)
+        limit = PHI3_TIER_LIMIT[pol.exp_backend] * top
+        tiers[name] = {"max_abs_diff": check_replay(f"phi3 {name}", two,
+                                                    fast, ref, limit),
+                       "max_abs_logit": top, "limit": limit}
+    secs["replays"] = time.perf_counter() - t0 - sum(secs.values())
+    emit({"phase": "serve_phi3", "arch": cfg.arch_id,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+          "head_dim": cfg.hd, "d_ff": cfg.d_ff, "act": cfg.act,
+          "vocab_padded": cfg.vocab_padded, "arm": "graph",
+          **first["readings"], "prompt_lens": [len(r.prompt) for r in reqs],
+          "turns": {arm: [t["readings"] for t in runs[arm]] for arm in ARMS},
+          "graph_vs_eager_tokens": compare, "capture_audit": audits,
+          "step_graph": steps, "tier_max_abs_logit_diff": tiers,
+          "gate_exps_checked": dict(gates.calls),
+          "gate_exp_max_ulp": gates.max_ulp, "phase_seconds": secs,
+          "nvidia_smi": smi})
+    return ({"serve_phi3": first["counts"],
+             "serve_phi3_eager": runs["eager"][0]["counts"]}, reqs)
+
+
+def phase_serve_phi3_paged(kernels, smi, cfg, params, policy, groups, mono):
+    """The serve_phi3 requests on the paged pool (page 64), graph arm: B7
+    on every decode step, no page held after the serve; tokens equal the
+    contiguous serve's (``mono``: one update per 512 keys, the paged one
+    per page) up to a near tie."""
+    grp = {n: p.replace(block_page=PHI3_PAGE) for n, p in groups.items()}
+    pol = policy.replace(block_page=PHI3_PAGE)
+    turn = phi3_serve_once(
+        kernels, cfg, lambda cg=True: phi3_server(cfg, params, pol, grp, cg,
+                                                  paged=True),
+        lambda: phi3_requests(cfg, groups), "graph",
+        "decode_attention_paged", "decode_attention", "serve_phi3_paged")
+    vs = near_tie_compare(cfg, params, groups, turn["reqs"],
+                          [r.out for r in mono], "paged phi3 request",
+                          "the contiguous serve's tokens")
+    emit({"phase": "serve_phi3_paged", "page": PHI3_PAGE,
+          **turn["readings"], "vs_contiguous": vs, "nvidia_smi": smi})
+    return {"serve_phi3_paged": turn["counts"]}
+
+
+def phase_serve_phi3_chunked(kernels, smi, cfg, params, policy, groups,
+                             mono):
+    """The serve_phi3 requests with chunked prefill (256) on the
+    contiguous pool, graph arm: each group's chunk program a second graph
+    built with the group, every chunk a replay (FA and the gate's vexp
+    once a layer a chunk); tokens equal the monolithic serve's (``mono``)
+    up to a near tie."""
+    pol, grp = chunked_groups(policy, groups, PHI3_CHUNK)
+    turn = phi3_serve_once(
+        kernels, cfg, lambda cg=True: phi3_server(cfg, params, pol, grp, cg),
+        lambda: phi3_requests(cfg, groups), "graph", "decode_attention",
+        "decode_attention_paged", "serve_phi3_chunked")
+    vs = near_tie_compare(cfg, params, groups, turn["reqs"],
+                          [r.out for r in mono], "chunked phi3 request",
+                          "the monolithic serve's tokens")
+    emit({"phase": "serve_phi3_chunked", "chunk": PHI3_CHUNK,
+          **turn["readings"], "vs_monolithic": vs, "nvidia_smi": smi})
+    return {"serve_phi3_chunked": turn["counts"]}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -4369,6 +4793,19 @@ def main():
     by_path.update(phase_serve_hybrid_spec(kernels, smi, cfg, params,
                                            policy, groups, hyb_mono,
                                            hyb_paged))
+    del params
+    torch.cuda.empty_cache()
+    phi3_rows = phase_phi3_kernels(ExecPolicy)
+    for row in rows[2:5]:
+        row["d128"] = phi3_rows[row["name"]]
+    cfg, params, policy, groups = phi3_setup()
+    phi3_counts, phi3_mono = phase_serve_phi3(kernels, smi, cfg, params,
+                                              policy, groups)
+    by_path.update(phi3_counts)
+    by_path.update(phase_serve_phi3_paged(kernels, smi, cfg, params, policy,
+                                          groups, phi3_mono))
+    by_path.update(phase_serve_phi3_chunked(kernels, smi, cfg, params,
+                                            policy, groups, phi3_mono))
     for row, name in zip(rows, ("vexp", "softmax", "flash_attention",
                                 "decode_attention",
                                 "decode_attention_paged",

@@ -21,7 +21,9 @@ dtype; the port holds each value as that cast leaves it:
   held as f32 copies of those values); the attention layer's 2-D
   weights go to the compute dtype and its norms stay f32.
 
-``embed`` and ``unembed`` stay f32.
+``embed`` and, where the embeddings are untied (``cfg.tie_embeddings``
+false: every family but gpt2-small's), ``unembed`` stay f32. A SwiGLU
+layer's gate ``wg`` crosses with its other 2-D weights.
 """
 
 from __future__ import annotations
@@ -96,6 +98,6 @@ def params_from_numpy(tree: dict, cfg, *, device=None):
     for name, arr in tree["ln_f"].items():
         _copy(getattr(model.ln_f, name), arr)
     _copy(model.embed, tree["embed"])
-    if cfg.family != "dense":
+    if not cfg.tie_embeddings:
         _copy(model.unembed, tree["unembed"])
     return model

@@ -10,10 +10,13 @@ until their slice lands.
 
 Execution fields resolve into a ``runtime.ExecPolicy``: ``REPRO_*``
 environment variables and per-call overrides take precedence over them.
-The port supports f32 attention and logits matmul inputs only (the
-reference's ``attn_mm_dtype`` / ``logits_mm_dtype`` defaults), and no
-parallel blocks, so those knobs are not carried. ``sliding_window`` is
-read by the hybrid family's local attention only.
+The dense family takes GELU or SwiGLU MLPs (``act``), tied or untied
+embeddings (``tie_embeddings``), any ``rope_theta`` and the head dims
+the attention kernels instantiate (32, 64, 128 and 256). The port
+supports f32 attention and logits matmul inputs only (the reference's
+``attn_mm_dtype`` / ``logits_mm_dtype`` defaults), and no parallel
+blocks, so those knobs are not carried. ``sliding_window`` is read by
+the hybrid family's local attention only.
 """
 
 from __future__ import annotations

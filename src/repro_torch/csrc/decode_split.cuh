@@ -36,17 +36,20 @@
 // their V rows while split_scores drains, and wait for it
 // (griddepcontrol.wait) before reading its output.
 //
-// Head dim 256 with G = 16 (recurrentgemma's MQA; normalized mode only)
-// runs three kernels of its own, spread over the card by query rows in
-// stage 1, by column slices in stage 2 and by outputs in stage 3; every
-// f32 operation of every output, and its order, is the one described
-// above for the block's keys:
+// Head dims 128 and 256 (block_chain: phi3-medium's 4 query heads a KV
+// head, recurrentgemma's 16 on one; normalized mode only) run three
+// kernels of their own, sized for up to 16 query rows a KV head (rows
+// past G are computed and not written), spread over the card by query
+// rows in stage 1, by column slices in stage 2 and by outputs in stage 3;
+// every f32 operation of every output, and its order, is the one
+// described above for the block's keys:
 //   1. split_scores_rows, one CTA per (tile, h, b) of 128 threads: a
 //      warp per four query rows, a lane per two keys, eight f32 FMA
 //      chains over d from 0 a thread in flight together, K rows and q
 //      read from shared memory (dynamic, 49 KB);
 //   2. split_pv_slice, one CTA per (update block, column slice of 64, h,
-//      b), kSlices = 4 slices a row: the block's m_j and alpha_j as
+//      b), D / 64 slices a row (4 at D 256, 2 at D 128): the block's m_j
+//      and alpha_j as
 //      above, p against m_j for the block's kept keys (each slice takes
 //      the same exps; p goes to shared memory rounded to bf16, which it
 //      is exactly), then each thread chains 4 query rows x 2 columns
@@ -69,7 +72,7 @@
 //      dense heads: there the combine ran on a few CTAs at the kernel's
 //      tail (7.6 µs of stage 2 on a page-64 ring, on an H100).
 // (Each choice read on the card by tools/decode_split_ablation.py.)
-// The dense heads (D 32, 64; G <= 8) keep split_scores and split_pv.
+// D 32 and 64 (G <= 8) keep split_scores and split_pv.
 //
 // Why the running max per update block, and not one max per tile merged
 // at the end (the usual split-KV merge): under vexp and vexp_hw,
@@ -83,8 +86,8 @@
 // r = (b * Hkv + h) * G + g, R = B * Hkv * G, nT tiles and nB update
 // blocks per row. D 32, 64: scores R * nT * kTile, tile maxes R * nT,
 // tile l R * nT, the tile's block alpha R * nT, tile p @ v R * nT * D,
-// then B * Hkv ticket counters. D 256: scores B * Hkv * nT * kTile * 16
-// (each tile's keys by query row, [key][16]), block p @ v R * nB * D,
+// then B * Hkv ticket counters. D 128, 256: scores B * Hkv * nT * kTile *
+// 16 (each tile's keys by query row, [key][16]), block p @ v R * nB * D,
 // tile maxes R * nT, block alpha R * nB, block l R * nB.
 
 #pragma once
@@ -99,12 +102,15 @@ namespace split {
 
 constexpr int kTile = 64;             // keys per tile, one thread each
 constexpr int kPvThreads = 128;
-// D = 256: stage 1's row groups, stage 2's column slices a row, the
-// blocks whose statistics the combine loads at once, and the keys whose
-// operands the chain loads at once
+// the smallest head dim that chains each update block (block_chain)
+constexpr int kChainMinD = 128;
+// D >= kChainMinD: query rows a KV head, stage 1's row groups, stage 2's
+// columns a slice, the blocks whose statistics the combine loads at
+// once, and the keys whose operands the chain loads at once
+constexpr int kChainG = 16;
 constexpr int kRowSplit = 4;          // stage 1: warps a tile, 4 rows each
 constexpr int kScoreThreads = 32 * kRowSplit;
-constexpr int kSlices = 4;
+constexpr int kSliceCols = 64;
 constexpr int kBatch = 8;
 constexpr int kUnroll = 8;            // keys a step of stage 2's chain
 constexpr float kNegInf = -1e30f;     // core/softmax.py KERNEL_NEG_INF
@@ -123,9 +129,9 @@ struct Args {
   const int* tab;           // paged: (B, nS) pool page ids
   float* scores;            // scratch, carved by scratch_floats' layout
   float* tmax;              // each tile's max
-  float* tl;                // l: each tile's (D 256: each block's)
-  float* ta;                // alpha_j: each tile's block's (D 256: a block's)
-  float* tpv;               // p @ v: each tile's (D 256: each block's)
+  float* tl;                // l: each tile's (chained D: each block's)
+  float* ta;                // alpha_j: each tile's block's (chained: a block's)
+  float* tpv;               // p @ v: each tile's (chained D: each block's)
   unsigned* tickets;        // stage-2 CTAs done per row (D 32, 64)
   int B, Hkv, G, S;         // S: keys in the slice (paged: nS * page)
   int nS;                   // paged: table columns
@@ -138,21 +144,29 @@ struct Args {
   int window, seq_offset, backend;
 };
 
-// Query rows per KV head an instantiation takes: 8 at the dense heads
-// (D 32, 64), 16 at D 256 (recurrentgemma's 16 query heads on one KV
-// head). Shared memory is sized by it, so the small heads keep theirs.
-template <int D>
-__host__ __device__ constexpr int max_g() {
-  return D >= 256 ? 16 : 8;
-}
-
 // Whether the sweep chains each update block's p @ v and l over the
 // block's keys in order, by column slices (split_scores_rows,
-// split_pv_slice; D = 256), instead of summing per-tile partials
-// (split_scores, split_pv).
+// split_pv_slice; D = 128 and 256), instead of summing per-tile partials
+// (split_scores, split_pv; D = 32 and 64). The chain is the order of the
+// plain sweep's key-major products on the card (KEY_MAJOR_DIMS in
+// kernels/decode_attention.py).
 template <int D>
 __host__ __device__ constexpr bool block_chain() {
-  return D >= 256;
+  return D >= kChainMinD;
+}
+
+// Query rows per KV head an instantiation takes: 8 at D 32, 64; 16 where
+// the block chains (phi3-medium's 4 at D 128, recurrentgemma's 16 at D
+// 256). Shared memory is sized by it, so the small heads keep theirs.
+template <int D>
+__host__ __device__ constexpr int max_g() {
+  return block_chain<D>() ? kChainG : 8;
+}
+
+// Column slices of a row in stage 2 at a chained head dim.
+template <int D>
+__host__ __device__ constexpr int slices() {
+  return D / kSliceCols;
 }
 
 // split_scores_rows' dynamic shared memory, in bytes (above the 48 KB
@@ -167,9 +181,9 @@ __host__ __device__ constexpr size_t rows_smem() {
 // wrappers compute the same.
 inline long long scratch_floats(int B, int Hkv, int G, int D, int nT,
                                 int nB) {
-  if (D >= 256)
+  if (D >= kChainMinD)
     return (long long)B * Hkv *
-           ((long long)nT * kTile * max_g<256>() +
+           ((long long)nT * kTile * kChainG +
             G * ((long long)nT + (long long)nB * (D + 2)));
   return (long long)B * Hkv * (G * nT * (kTile + 3 + D) + 1);
 }
@@ -268,7 +282,7 @@ __device__ __forceinline__ void load_rows(const Args& a,
 // ---- stage 1: scores and the tile's max
 template <int D, bool PAGED>
 __global__ void __launch_bounds__(kTile) split_scores(Args a) {
-  static_assert(!block_chain<D>(), "D = 256 takes split_scores_rows");
+  static_assert(!block_chain<D>(), "a chained D takes split_scores_rows");
   constexpr int PITCH = D + 8;            // 16 bytes of padding per row
   constexpr int kMaxG = max_g<D>();
   __shared__ float sQ[kMaxG * D];
@@ -415,7 +429,7 @@ __device__ void combine_row(const Args& a, int b, int h, int lo, int len) {
 // would otherwise take the registers of half of them)
 template <int D, int MODE, bool PAGED>
 __global__ void __launch_bounds__(kPvThreads, 8) split_pv(Args a) {
-  static_assert(!block_chain<D>(), "D = 256 takes split_pv_slice");
+  static_assert(!block_chain<D>(), "a chained D takes split_pv_slice");
   constexpr int kMaxG = max_g<D>();
   constexpr int KG = kPvThreads / D;      // key groups in p @ v
   constexpr int WARPS = kPvThreads / 32;
@@ -529,7 +543,7 @@ __global__ void __launch_bounds__(kPvThreads, 8) split_pv(Args a) {
   combine_row<D, MODE>(a, b, h, lo, len);
 }
 
-// ---- D = 256 (block_chain), stage 1: a warp per four query rows
+// ---- D = 128, 256 (block_chain), stage 1: a warp per four query rows
 // (quarter, quarter + 4, ...), a lane per two keys (lane, lane + 32):
 // eight f32 FMA chains over d from 0 a thread, in flight together, so
 // each q value read from shared memory feeds two keys and each K value
@@ -729,7 +743,7 @@ __device__ __forceinline__ void chain_tile(float (&acc)[4][2], float& lsum,
                       WITH_L ? pl[c * PS] : 0.0f);
 }
 
-// ---- D = 256, stage 3: a kernel of its own after stage 2, one thread
+// ---- D = 128, 256, stage 3: a kernel of its own after stage 2, one thread
 // per (query row, four columns), spread over the card: the outputs
 // chained over the row's live update blocks in order, l = l * alpha_j +
 // l_j and acc = acc * alpha_j + pv_j, rounded step by step, kBatch
@@ -778,7 +792,7 @@ __global__ void __launch_bounds__(kPvThreads) combine_blocks(Args a) {
     o[k] = __float2bfloat16_rn(__fmul_rn(acc[k], inv));
 }
 
-// ---- D = 256, stage 2: one CTA per (update block j, column slice sl,
+// ---- D = 128, 256, stage 2: one CTA per (update block j, column slice sl,
 // h, b). m_{j-1} and m_j from the tile maxes of blocks 0..j-1 and 0..j
 // (slice 0 writes the block's alpha_j); then, tile by tile over the
 // block's live tiles, p = exp(s - m_j) for the tile's kept keys into
@@ -790,7 +804,7 @@ __global__ void __launch_bounds__(kPvThreads) combine_blocks(Args a) {
 template <int D, bool PAGED>
 __global__ void __launch_bounds__(kPvThreads, 6) split_pv_slice(Args a) {
   constexpr int kMaxG = max_g<D>();
-  constexpr int SC = D / kSlices;                  // columns a slice
+  constexpr int SC = kSliceCols;                   // columns a slice
   constexpr int WARPS = kPvThreads / 32;
   constexpr int RPW = kMaxG / WARPS;               // query rows a warp
   constexpr int PER = kMaxG * kTile / kPvThreads;  // (key, row) pairs a thread
@@ -801,7 +815,7 @@ __global__ void __launch_bounds__(kPvThreads, 6) split_pv_slice(Args a) {
   __shared__ __align__(16) __nv_bfloat16 sPr[2][kTile * kMaxG];  // [key][g]
   __shared__ __align__(16) float sP[2][kTile * kMaxG];       // unrounded
   __shared__ float sM[kMaxG];
-  const int j = blockIdx.x / kSlices, sl = blockIdx.x % kSlices;
+  const int j = blockIdx.x / slices<D>(), sl = blockIdx.x % slices<D>();
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int G = a.G;
@@ -946,7 +960,8 @@ inline cudaError_t launch_dependent(void (*kernel)(Args), dim3 grid,
 }
 
 // Fills the tile geometry and scratch pointers of `a` (whose B, Hkv, G,
-// S and block are set) and launches the kernels (two; three at D = 256).
+// S and block are set) and launches the kernels (two; three where the
+// block chains, D = 128 and 256).
 // Returns a CUDA error code: invalid arguments, too little scratch, or
 // the first launch that failed.
 template <int D, int MODE, bool PAGED>
@@ -962,7 +977,7 @@ int launch(Args a, float* scratch, long long scratch_len,
   const long long tiles = (long long)a.B * a.Hkv * a.G * a.nT;
   const long long blocks = (long long)a.B * a.Hkv * a.G * a.nB;
   if constexpr (block_chain<D>()) {
-    static_assert(MODE == kNormalized, "D = 256 is normalized only");
+    static_assert(MODE == kNormalized, "a chained D is normalized only");
     a.scores = scratch;                   // kMaxG rows a key
     a.tpv = a.scores +                    // 16-byte aligned: float4 reads
             (long long)a.B * a.Hkv * a.nT * kTile * max_g<D>();
@@ -1002,7 +1017,7 @@ int launch(Args a, float* scratch, long long scratch_len,
         return 0;
       return n;
     }();
-    const dim3 grid2(a.nB * kSlices, a.Hkv, a.B);
+    const dim3 grid2(a.nB * slices<D>(), a.Hkv, a.B);
     split_scores_rows<D, PAGED>
         <<<dim3(a.nT, a.Hkv, a.B), kScoreThreads, rows_smem<D>(), stream>>>(
             a);
@@ -1048,8 +1063,9 @@ int launch(Args a, float* scratch, long long scratch_len,
 }
 
 // `launch` for the head dims the port instantiates (gpt2-small's 64 and
-// its --reduced form's 32, in every mode; recurrentgemma's 256 in the
-// normalized mode only: the hybrid never shards its sequence).
+// its --reduced form's 32, in every mode; phi3-medium's 128 and
+// recurrentgemma's 256 in the normalized mode only: neither shards its
+// sequence).
 template <int MODE, bool PAGED>
 int run(const Args& a, int D, float* scratch, long long scratch_len,
         cudaStream_t stream) {
@@ -1060,6 +1076,11 @@ int run(const Args& a, int D, float* scratch, long long scratch_len,
       return launch<32, MODE, PAGED>(a, scratch, scratch_len, stream);
     case 64:
       return launch<64, MODE, PAGED>(a, scratch, scratch_len, stream);
+    case 128:
+      if constexpr (MODE == kNormalized)
+        return launch<128, MODE, PAGED>(a, scratch, scratch_len, stream);
+      else
+        return (int)cudaErrorInvalidValue;
     case 256:
       if constexpr (MODE == kNormalized)
         return launch<256, MODE, PAGED>(a, scratch, scratch_len, stream);

@@ -56,25 +56,30 @@
 // an H100. The shared-memory limit is raised once per instantiation and
 // device.
 //
-// Head dim 256 (recurrentgemma: 16 query heads on one KV head) has a
-// kernel of its own, fa256 below, built for this card's CUDA cores: the
-// function's f32 FMA chains run at most at one FMA a clock on each of an
-// SM's 128 lanes, so the design spends itself on how many FMAs each
-// shared-memory load and each issued instruction feeds.
+// Head dims 128 (phi3-medium: 4 query heads a KV head) and 256
+// (recurrentgemma: 16 query heads on one KV head) have a kernel of their
+// own, fa_rows below, templated on the head dim and built for this
+// card's CUDA cores: the function's f32 FMA chains run at most at one FMA
+// a clock on each of an SM's 128 lanes, so the design spends itself on
+// how many FMAs each shared-memory load and each issued instruction
+// feeds.
 // - A CTA of 256 threads takes 64 query rows of one KV head, rows being
 //   (position, query head) pairs, position-major: at G 16 four positions
-//   of all 16 heads, which share every key and so the causal bound.
-// - Each thread holds an 8 x 8 register tile in both phases: 8 rows by 8
-//   keys for the scores, 8 rows by 8 output columns for p . v; rows 4 tr
-//   + i and 32 + 4 tr + i (tr = lane % 8), the same in both phases.
-// - K arrives in 16-d slabs of 256 keys and V in 16-key slabs of all 256
-//   columns, each 16 KB, through the thread's registers: loaded as bf16
-//   while the slab before computes, widened once to f32 and stored into
-//   a two-stage ring, so the inner loops issue FMAs and shared loads only
-//   (90-94 % FMAs). A block's live keys go in 32-key groups, one group a
-//   warp; where four or fewer (or two or fewer) are left, two (or four)
-//   warps share a group at 4 (or 2) rows a thread, and 5 or 6 left run as
-//   4 and the rest, so that few warps idle.
+//   of all 16 heads, at G 4 sixteen positions of 4 heads, which share
+//   every key and so the causal bound.
+// - Each thread holds 8 rows of a register tile in both phases: 8 rows by
+//   8 keys for the scores, 8 rows by D / 32 output columns for p . v (8
+//   at D 256, 4 at D 128); rows 4 tr + i and 32 + 4 tr + i (tr = lane %
+//   8), the same in both phases.
+// - K arrives in 16-d slabs of 256 keys (16 KB) and V in 16-key slabs of
+//   all D columns (16 KB at D 256, 8 at 128), through the thread's
+//   registers: loaded as bf16 while the slab before computes, widened
+//   once to f32 and stored into a two-stage ring, so the inner loops
+//   issue FMAs and shared loads only (90-94 % FMAs at D 256). A block's
+//   live keys go in 32-key groups, one group a warp; where four or fewer
+//   (or two or fewer) are left, two (or four) warps share a group at 4
+//   (or 2) rows a thread, and 5 or 6 left run as 4 and the rest, so that
+//   few warps idle.
 // - The block's scores go to a shared f32 score tile, key-major, 64 rows
 //   a key; the block max, then p = exp(s - m_new) written over them, one
 //   key a thread a group, a group ahead of the p . v that reads it.
@@ -83,11 +88,12 @@
 //   that thread keeps; the lanes tc = 0 publish m_new and alpha.
 // - The tiles of a batch row launch from the last position down, so
 //   that under a causal mask heavy CTAs start first.
-// Shared memory: the f32 q^T tile (64 KB), the f32 ring (32 KB), 2.8 KB
-// of row state, and the score tile, 256 bytes a key: 227 KB at block_k =
-// 512, the largest block_k the card admits; one CTA per SM. What holds
+// Shared memory: the f32 q^T tile (D x 256 bytes: 64 KB at D 256, 32 at
+// 128), the f32 ring (32 KB), 2.8 KB of row state, and the score tile,
+// 256 bytes a key: 227 KB at block_k = 512 at D 256 and 195 KB at D 128,
+// where the card admits block_k up to 640; one CTA per SM. What holds
 // the function is unchanged from the reference's scan: q * sm_scale
-// rounded first, each score one FMA chain over d = 0 .. 255, the online
+// rounded first, each score one FMA chain over d = 0 .. D - 1, the online
 // update once per block_k keys from key 0, p masked after the exp, each
 // p . v and each l one chain over the block's keys in order (l as the
 // plain version's product of p with ones sums it), l = l alpha + sum and
@@ -106,7 +112,8 @@ constexpr int kThreads = 256;  // eight warps
 constexpr float kNegInf = -1e30f;
 
 // The tiling of head dim D = 32 and 64: 64 query rows by 64-key
-// sub-tiles, two CTAs per SM. D = 256 has a kernel of its own (fa256).
+// sub-tiles, two CTAs per SM. D = 128 and 256 have a kernel of their own
+// (fa_rows).
 template <int D>
 struct Tile {
   static constexpr int kBQ = 64;                // query rows per CTA
@@ -602,12 +609,11 @@ fa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// ---------------------------------------------------------------- D = 256
+// ------------------------------------------------------- D = 128 and 256
 //
-// fa256_kernel: see the head of this file.
-namespace fa256 {
+// fa_rows_kernel: see the head of this file.
+namespace fa_rows {
 
-constexpr int kD = 256;
 constexpr int kRows = 64;              // query rows of a CTA
 constexpr int kGroup = 32;             // keys of a group: a warp's keys in
                                        // the score phase
@@ -615,21 +621,30 @@ constexpr int kSubGroups = 8;          // groups of a K piece (256 keys)
 constexpr int kSlabD = 16;             // d of one K slab
 constexpr int kVKeys = 16;             // keys of one V slab
 constexpr int kStage = kSubGroups * kGroup * kSlabD;   // f32 of a stage:
-                                       // a K slab [256][16] or V [16][256]
-static_assert(kStage == kVKeys * kD, "K and V slabs share the stages");
+                                       // a K slab [256][16] or a V slab
+                                       // [16][kD]
 
-// Shared memory, in bytes from the start; the score tile, last, holds the
-// block's keys rounded up to whole groups.
-constexpr size_t kQt = 0;                                    // f32 [256][64]
-constexpr size_t kRing = kQt + (size_t)kD * kRows * 4;       // f32 [2][kStage]
-constexpr size_t kMax = kRing + 2 * (size_t)kStage * 4;      // f32 [8][64]
-constexpr size_t kMn = kMax + 8 * kRows * 4;                 // f32 [64]
-constexpr size_t kA = kMn + kRows * 4;                       // f32 [64]
-constexpr size_t kQp = kA + kRows * 4;                       // int [64]
-constexpr size_t kS = kQp + kRows * 4;                       // f32 [nk][64]
+// Shared memory of head dim kD, in bytes from the start; the score tile,
+// last, holds the block's keys rounded up to whole groups. kCols: the
+// p . v columns of a thread (8 rows by kCols columns).
+template <int kD>
+struct Layout {
+  static_assert(kD == 128 || kD == 256, "fa_rows takes head dim 128, 256");
+  static_assert(kVKeys * kD <= kStage, "a V slab fits a stage");
+  static constexpr int kCols = kD / 32;
+  static constexpr size_t kQt = 0;                           // f32 [kD][64]
+  static constexpr size_t kRing = kQt + (size_t)kD * kRows * 4;  // [2][kStg]
+  static constexpr size_t kMax = kRing + 2 * (size_t)kStage * 4; // [8][64]
+  static constexpr size_t kMn = kMax + 8 * kRows * 4;        // f32 [64]
+  static constexpr size_t kA = kMn + kRows * 4;              // f32 [64]
+  static constexpr size_t kQp = kA + kRows * 4;              // int [64]
+  static constexpr size_t kS = kQp + kRows * 4;              // f32 [nk][64]
+};
 
+template <int kD>
 inline size_t smem_bytes(int block_k) {
-  return kS + (size_t)(block_k + kGroup - 1) / kGroup * kGroup * kRows * 4;
+  return Layout<kD>::kS +
+         (size_t)(block_k + kGroup - 1) / kGroup * kGroup * kRows * 4;
 }
 
 // The KV blocks of one CTA, counted from key 0 in units of block_k: a
@@ -700,11 +715,13 @@ __device__ __forceinline__ void store_k(float* stage, const Staged& st,
   }
 }
 
-// V slab: 16 keys from key0, all 256 d, [key][256]
+// V slab: 16 keys from key0, all kD d, [key][kD]; 16 bytes a thread at
+// kD = 128, 32 at 256
+template <int kD>
 __device__ __forceinline__ void load_v(Staged& st, const __nv_bfloat16* vb,
                                        long long vss, int key0, int km) {
 #pragma unroll
-  for (int n = 0; n < 2; ++n) {
+  for (int n = 0; n < kVKeys * kD / 8 / kThreads; ++n) {
     const int i = threadIdx.x + n * kThreads;
     const int r = i / (kD / 8), c = i % (kD / 8);
     const int key = key0 + r;
@@ -714,9 +731,10 @@ __device__ __forceinline__ void load_v(Staged& st, const __nv_bfloat16* vb,
   }
 }
 
+template <int kD>
 __device__ __forceinline__ void store_v(float* stage, const Staged& st) {
 #pragma unroll
-  for (int n = 0; n < 2; ++n) {
+  for (int n = 0; n < kVKeys * kD / 8 / kThreads; ++n) {
     const int i = threadIdx.x + n * kThreads;
     const int r = i / (kD / 8), c = i % (kD / 8);
     float f[8];
@@ -849,41 +867,45 @@ __device__ __forceinline__ void p_group(float* sS, int g, int tr, int tc,
 // One V slab of p . v: pv[i][j] = fma(p[row i][c], v[c][col j], pv[i][j])
 // for the slab's 16 keys c in order, and the l chain of row lrow:
 // lch = lch + p[lrow][c]. sp: the score tile at the slab's first key;
-// vs: the V slab at the thread's first column.
+// vs: the V slab at the thread's first column (C columns a thread).
+template <int kD, int C = Layout<kD>::kCols>
 __device__ __forceinline__ void pv_slab(const float* sp, const float* vs,
-                                        int tr, int lrow, float (&pv)[8][8],
+                                        int tr, int lrow, float (&pv)[8][C],
                                         float& lch) {
 #pragma unroll
   for (int c = 0; c < kVKeys; ++c) {
-    float p[8], v[8];
+    float p[8], v[C];
     load_f32<4>(sp + c * kRows + 4 * tr, p);
     load_f32<4>(sp + c * kRows + 32 + 4 * tr, p + 4);
-    load_f32<8>(vs + c * kD, v);
+    load_f32<C>(vs + c * kD, v);
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) pv[i][j] = fmaf(p[i], v[j], pv[i][j]);
+      for (int j = 0; j < C; ++j) pv[i][j] = fmaf(p[i], v[j], pv[i][j]);
     lch = __fadd_rn(lch, sp[c * kRows + lrow]);
   }
 }
 
-template <int BACKEND>
+template <int kD, int BACKEND>
 __global__ void __launch_bounds__(kThreads, 1)
-fa256_kernel(const __nv_bfloat16* __restrict__ q,
-             const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v,
-             __nv_bfloat16* __restrict__ o, const int* __restrict__ kv_len,
-             const int* __restrict__ q_offset, int q_off, int H, int Hkv,
-             int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os,
-             float sm_scale, int causal, int window, int block_k) {
+fa_rows_kernel(const __nv_bfloat16* __restrict__ q,
+               const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v,
+               __nv_bfloat16* __restrict__ o, const int* __restrict__ kv_len,
+               const int* __restrict__ q_offset, int q_off, int H, int Hkv,
+               int Sq, int Sk, Strides qs, Strides ks, Strides vs,
+               Strides os, float sm_scale, int causal, int window,
+               int block_k) {
+  using L = Layout<kD>;
+  constexpr int C = L::kCols;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* sQt = reinterpret_cast<float*>(smem + kQt);
-  float* ring = reinterpret_cast<float*>(smem + kRing);  // [2][kStage]
-  float* sMax = reinterpret_cast<float*>(smem + kMax);   // [warp][row]
-  float* sMn = reinterpret_cast<float*>(smem + kMn);     // the block's m_new
-  float* sA = reinterpret_cast<float*>(smem + kA);       // and alpha a row
-  int* sQp = reinterpret_cast<int*>(smem + kQp);         // row positions
-  float* sS = reinterpret_cast<float*>(smem + kS);
+  float* sQt = reinterpret_cast<float*>(smem + L::kQt);
+  float* ring = reinterpret_cast<float*>(smem + L::kRing);  // [2][kStage]
+  float* sMax = reinterpret_cast<float*>(smem + L::kMax);   // [warp][row]
+  float* sMn = reinterpret_cast<float*>(smem + L::kMn);   // the block's m_new
+  float* sA = reinterpret_cast<float*>(smem + L::kA);     // and alpha a row
+  int* sQp = reinterpret_cast<int*>(smem + L::kQp);       // row positions
+  float* sS = reinterpret_cast<float*>(smem + L::kS);
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int tr = lane % 8, tc = lane / 8;
@@ -949,11 +971,11 @@ fa256_kernel(const __nv_bfloat16* __restrict__ q,
   // tc = 0 .. 3, of which tc = 0 writes the block's m_new and alpha to
   // sMn and sA for every thread.
   float m_run = kNegInf, l_run = 0.0f;
-  float acc[8][8];
+  float acc[8][C];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < C; ++j) acc[i][j] = 0.0f;
   const int lrow = (warp / 4) * 32 + 4 * tr + warp % 4;
 
   while (blk < wk.blk_end) {
@@ -994,7 +1016,7 @@ fa256_kernel(const __nv_bfloat16* __restrict__ q,
                                         kGroup,
                  nn * kGroup, km, (sl + 1) % (kD / kSlabD));
         else
-          load_v(st, vb, vs.s, k0 + g_lo * kGroup, km);
+          load_v<kD>(st, vb, vs.s, k0 + g_lo * kGroup, km);
         if (on) {
           const float* kst = ring + stage * kStage +
                              (gw * kGroup + tc) * kSlabD;
@@ -1009,7 +1031,7 @@ fa256_kernel(const __nv_bfloat16* __restrict__ q,
         if (nk)
           store_k(nst, st, nn * kGroup);
         else
-          store_v(nst, st);
+          store_v<kD>(nst, st);
         stage ^= 1;
       }
       if (on) {
@@ -1042,11 +1064,11 @@ fa256_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     // ---- p . v, group by group; the block's l chained per row
-    float pv[8][8], lch = 0.0f, a_own = 1.0f;   // a_own: row lrow's
+    float pv[8][C], lch = 0.0f, a_own = 1.0f;   // a_own: row lrow's
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) pv[i][j] = 0.0f;
+      for (int j = 0; j < C; ++j) pv[i][j] = 0.0f;
     const int nxt = wk.next_live(blk + 1);
     int n_lo = 0, n_hi = 0;
     if (nxt < wk.blk_end) wk.live(nxt, n_lo, n_hi);
@@ -1056,7 +1078,7 @@ fa256_kernel(const __nv_bfloat16* __restrict__ q,
       float* nst = ring + (stage ^ 1) * kStage;
       const bool nv = hg + 1 < 2 * g_hi;
       if (nv)
-        load_v(st, vb, vs.s, k0 + (hg + 1) * kVKeys, km);
+        load_v<kD>(st, vb, vs.s, k0 + (hg + 1) * kVKeys, km);
       else if (nxt < wk.blk_end)
         load_k(st, kb, ks.s, nxt * block_k + n_lo * kGroup,
                piece(n_hi - n_lo) * kGroup, wk.kmax(nxt), 0);
@@ -1083,11 +1105,11 @@ fa256_kernel(const __nv_bfloat16* __restrict__ q,
         p_group<BACKEND>(sS, g + 2, tr, tc, warp, inner(g + 2), k0, km, sQp,
                          sMn, causal, window);
       }
-      pv_slab(sS + hg * kVKeys * kRows, ring + stage * kStage + 32 * warp +
-                                            8 * tc,
-              tr, lrow, pv, lch);
+      pv_slab<kD>(sS + hg * kVKeys * kRows,
+                  ring + stage * kStage + C * (4 * warp + tc), tr, lrow, pv,
+                  lch);
       if (nv)
-        store_v(nst, st);
+        store_v<kD>(nst, st);
       else if (nxt < wk.blk_end)
         store_k(nst, st, piece(n_hi - n_lo) * kGroup);
       stage ^= 1;
@@ -1101,7 +1123,7 @@ fa256_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < C; ++j)
           acc[i][j] = __fadd_rn(__fmul_rn(acc[i][j], alpha[i]), pv[i][j]);
     }
     blk = nxt;
@@ -1119,17 +1141,17 @@ fa256_kernel(const __nv_bfloat16* __restrict__ q,
     const int row = r0 + (i / 4) * 32 + 4 * tr + i % 4;
     if (row >= nrows) continue;
     __nv_bfloat16* ob = o + b * os.b + (hk * G + row % G) * os.h +
-                        (long long)(row / G) * os.s + 32 * warp + 8 * tc;
+                        (long long)(row / G) * os.s + C * (4 * warp + tc);
     const float inv = 1.0f / fmaxf(l_all[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < 8; j += 2)
+    for (int j = 0; j < C; j += 2)
       *reinterpret_cast<__nv_bfloat162*>(ob + j) =
           __floats2bfloat162_rn(__fmul_rn(acc[i][j], inv),
                                 __fmul_rn(acc[i][j + 1], inv));
   }
 }
 
-template <int BACKEND>
+template <int kD, int BACKEND>
 int launch(const void* q, const void* k, const void* v, void* o,
            const void* kv_len, const void* q_offset, int q_off, int B, int H,
            int Hkv, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
@@ -1147,7 +1169,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                  dev);
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(fa256_kernel<BACKEND>,
+    err = cudaFuncSetAttribute(fa_rows_kernel<kD, BACKEND>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                optin);
     if (err != cudaSuccess) return (int)err;
@@ -1156,8 +1178,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
   const long long ctas = (long long)B * Hkv *
                          (((long long)Sq * (H / Hkv) + kRows - 1) / kRows);
   if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  fa256_kernel<BACKEND><<<(unsigned)ctas, kThreads, smem_bytes(block_k),
-                          stream>>>(
+  fa_rows_kernel<kD, BACKEND><<<(unsigned)ctas, kThreads,
+                                smem_bytes<kD>(block_k), stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
@@ -1167,7 +1189,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-}  // namespace fa256
+}  // namespace fa_rows
 
 size_t smem_bytes(int D, int block_k) {
   switch (D) {
@@ -1175,8 +1197,10 @@ size_t smem_bytes(int D, int block_k) {
       return Smem<32>::bytes(score_keys<32>(block_k));
     case 64:
       return Smem<64>::bytes(score_keys<64>(block_k));
+    case 128:
+      return fa_rows::smem_bytes<128>(block_k);
     case 256:
-      return fa256::smem_bytes(block_k);
+      return fa_rows::smem_bytes<256>(block_k);
     default:
       return 0;
   }
@@ -1188,10 +1212,11 @@ int launch(const void* q, const void* k, const void* v, void* o,
            int H, int Hkv, int Sq, int Sk, Strides qs, Strides ks,
            Strides vs, Strides os, float sm_scale, int causal, int window,
            int block_k, cudaStream_t stream) {
-  if constexpr (D == 256) {
-    return fa256::launch<BACKEND>(q, k, v, o, kv_len, q_offset, q_off, B, H,
-                                  Hkv, Sq, Sk, qs, ks, vs, os, sm_scale,
-                                  causal, window, block_k, stream);
+  if constexpr (D >= 128) {
+    return fa_rows::launch<D, BACKEND>(q, k, v, o, kv_len, q_offset, q_off,
+                                       B, H, Hkv, Sq, Sk, qs, ks, vs, os,
+                                       sm_scale, causal, window, block_k,
+                                       stream);
   } else {
     // the shared-memory limit, raised to the card's once per instantiation
     // and device
@@ -1291,6 +1316,10 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
       return launch_exp<64>(backend, q, k, v, o, kv_len, q_offset, q_off, B,
                             H, Hkv, Sq, Sk, qs, ks, vs, os, sm_scale, causal,
                             window, block_k, s);
+    case 128:
+      return launch_exp<128>(backend, q, k, v, o, kv_len, q_offset, q_off,
+                             B, H, Hkv, Sq, Sk, qs, ks, vs, os, sm_scale,
+                             causal, window, block_k, s);
     case 256:
       return launch_exp<256>(backend, q, k, v, o, kv_len, q_offset, q_off,
                              B, H, Hkv, Sq, Sk, qs, ks, vs, os, sm_scale,

@@ -33,14 +33,15 @@ On the card every mode of both sweeps is the sequence-split sweep of
 ``csrc/decode_split.cuh``: 64-key tiles spread over CTAs, p taken against
 each update block's running max (the plain sweep's exp arguments, bit for
 bit), the blocks chained in order. One C entry call launches its kernels
-(two; three at head dim 256) and counts as one launch; the wrapper hands
-it one uninitialized scratch buffer (``_split_scratch``). At head dim
-256 (recurrentgemma: 16 query heads on one KV head, normalized mode only)
-a CTA per (update block, 64-column slice) chains the block's p @ v for
-its columns, and slice 0 each row's l, in key order, the order of the
-plain sweep's key-major products on the card, so the kernels match their
-plain versions bit for bit there; a third kernel chains the blocks, one
-thread per four outputs.
+(two; three at head dims 128 and 256) and counts as one launch; the
+wrapper hands it one uninitialized scratch buffer (``_split_scratch``).
+At head dims 128 and 256 (phi3-medium: 4 query heads a KV head;
+recurrentgemma: 16 on one KV head; normalized mode only) a CTA per
+(update block, 64-column slice) chains the block's p @ v for its
+columns, and slice 0 each row's l, in key order, the order of the plain
+sweep's key-major products on the card, so the kernels match their plain
+versions bit for bit there; a third kernel chains the blocks, one thread
+per four outputs.
 """
 
 from __future__ import annotations
@@ -63,21 +64,24 @@ PAGED_LIB = KernelLib("decode_attention_paged.cu")     # paged_decode_fwd
 PAGED_PARTIAL_LIB = KernelLib("decode_attention_paged.cu")
 PAGED_PACKED_LIB = KernelLib("decode_attention_paged.cu")
 # head dims of the normalized sweeps (B2, B7): gpt2-small's 64, its
-# --reduced config's 32, recurrentgemma's 256; the partial and packed
-# modes (B5, B6, B8, B9) serve the sequence-sharded dense path only
-HEAD_DIMS = (32, 64, 256)
+# --reduced config's 32, phi3-medium's 128, recurrentgemma's 256; the
+# partial and packed modes (B5, B6, B8, B9) serve the sequence-sharded
+# dense path only, whose configs have head dims 32 and 64
+HEAD_DIMS = (32, 64, 128, 256)
 STAT_HEAD_DIMS = (32, 64)
-# query heads per KV head an instantiation takes (its shared memory is
-# sized by it): 16 only where a ported config needs it (recurrentgemma's
-# MQA), so the dense heads keep their occupancy
-MAX_GROUP = {32: 8, 64: 8, 256: 16}
-TILE = 64                 # keys per tile of the split sweep (decode_split.cuh)
 # head dims whose plain sweep writes its products key-major, (keys, d) @
 # (d, G) and (d, keys) @ (keys, G): the orientation in which cuBLAS's
 # f32 product on the H100 sums each score over d and each p @ v and l over
 # the block's keys in order (tools/matmul_order.py reads it), the order
-# the D 256 kernels chain them in; the other head dims keep einsum / sum
-KEY_MAJOR_DIMS = (256,)
+# the kernels at these head dims chain them in (block_chain in
+# decode_split.cuh); 32 and 64 keep einsum / sum
+KEY_MAJOR_DIMS = (128, 256)
+# query heads per KV head an instantiation takes (its shared memory is
+# sized by it): 16 where the block chains (phi3-medium's 4 at D 128,
+# recurrentgemma's 16 at D 256), 8 at D 32 and 64, so gpt2's heads keep
+# their occupancy
+MAX_GROUP = {d: 16 if d in KEY_MAJOR_DIMS else 8 for d in HEAD_DIMS}
+TILE = 64                 # keys per tile of the split sweep (decode_split.cuh)
 
 
 def _as_bhsd(cache, layout):

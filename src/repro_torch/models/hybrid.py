@@ -247,7 +247,7 @@ def rec_layer_apply(x, p, cfg, h0=None, conv_state=None, last_idx=None,
     gate = gelu(hin @ p.wy)
     x = x + (y * gate) @ p.w_out
     h2 = norm_apply(x, p.ln_mlp, cfg.norm, cfg.norm_eps)
-    x = x + mlp_apply(h2, p.mlp, cfg.act)
+    x = x + mlp_apply(h2, p.mlp, cfg.act, policy=policy)
     return x, (h_last, conv_state)
 
 
@@ -268,17 +268,17 @@ def rec_layer_decode(x, p, cfg, state, *, policy):
     gate = gelu(hin[:, 0] @ p.wy)
     x = x + ((h.to(x.dtype) * gate) @ p.w_out)[:, None, :]
     h2 = norm_apply(x, p.ln_mlp, cfg.norm, cfg.norm_eps)
-    x = x + mlp_apply(h2, p.mlp, cfg.act)
+    x = x + mlp_apply(h2, p.mlp, cfg.act, policy=policy)
     return x, {"h": h, "conv": new_conv}
 
 
 # ----------------------------------------------------- attention layers
 
-def _attn_out(x, o, p, cfg):
+def _attn_out(x, o, p, cfg, policy):
     """Residual of the attention output, then the layer's MLP."""
     x = x + o.flatten(2) @ p.attn.wo
     h2 = norm_apply(x, p.ln_mlp, cfg.norm, cfg.norm_eps)
-    return x + mlp_apply(h2, p.mlp, cfg.act)
+    return x + mlp_apply(h2, p.mlp, cfg.act, policy=policy)
 
 
 @hot_path
@@ -290,7 +290,7 @@ def attn_layer_apply(x, p, cfg, pos, kv_len=None, *, policy):
     q, k, v = _qkv(h, p.attn, cfg, pos)
     o = attention(q, k, v, causal=True, window=cfg.sliding_window,
                   kv_len=kv_len, policy=policy)
-    return _attn_out(x, o, p, cfg), (k, v)
+    return _attn_out(x, o, p, cfg, policy), (k, v)
 
 
 def _ring_len(cfg, pos):
@@ -317,7 +317,7 @@ def attn_layer_decode(x, p, cfg, ck, cv, pos, wpos, ok, *, policy):
     _write_token_kv(cv, v, wpos, ok, LAYOUT)
     o = decode_attention(q, ck, cv, _ring_len(cfg, pos), layout=LAYOUT,
                          policy=policy)
-    return _attn_out(x, o, p, cfg)
+    return _attn_out(x, o, p, cfg, policy)
 
 
 @hot_path
@@ -339,7 +339,7 @@ def attn_layer_decode_paged(x, p, cfg, pk, pv, tables, pos, wpos, ok, *,
     o = dispatch("decode_attention_paged", policy)(
         q, pk, pv, tables, _ring_len(cfg, pos), window=None, sm_scale=None,
         layout=LAYOUT, policy=policy)
-    return _attn_out(x, o, p, cfg)
+    return _attn_out(x, o, p, cfg, policy)
 
 
 # ------------------------------------------------------------ full model
@@ -536,7 +536,8 @@ def _prefill_chunk_impl(params, cfg, tokens, state, clens, attn_fn, policy):
         for j, rec in enumerate(per.recs):
             x = rec_chunk(x, rec, *_rec_rows(state, i, j))
         hn = norm_apply(x, per.attn.ln, cfg.norm, cfg.norm_eps)
-        x = _attn_out(x, attn_fn(i, hn, per.attn.attn), per.attn, cfg)
+        x = _attn_out(x, attn_fn(i, hn, per.attn.attn), per.attn, cfg,
+                      policy)
     for j, rec in enumerate(params.tail):
         x = rec_chunk(x, rec, *_rec_rows(state, None, j))
     return _last_logits(params, cfg, x, last_idx)

@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.dispatch import exp_callable
+
 
 def rmsnorm(x, w, eps=1e-5):
     xf = x.float()
@@ -89,17 +91,22 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def mlp_apply(x, p, act):
-    """Dense GELU FFN; ``p`` holds wu, wd and the optional biases bu, bd.
-    (The reference's SwiGLU branch, with its vexp-gated SiLU, is not
-    ported yet.)"""
-    if act != "gelu":
-        raise NotImplementedError(f"mlp activation {act!r} is not ported "
-                                  f"yet")
-    h = x @ p.wu
-    if p.bu is not None:
-        h = h + p.bu.to(h.dtype)
-    h = gelu(h)
+def mlp_apply(x, p, act, *, policy):
+    """The FFN (reference ``layers.py:130-144``). ``act == "swiglu"``:
+    ``p`` holds wg, wu and wd; h = vexp_silu(x @ wg) * (x @ wu), whose
+    gate exp comes from ``kernels.dispatch.exp_callable(policy)`` (one
+    launch of the vexp kernel a call under the ``cuda`` tier on the card,
+    the plain function on the CPU). ``act == "gelu"``: ``p`` holds wu, wd
+    and the optional biases bu, bd; ``policy`` is not read."""
+    if act == "swiglu":
+        h = vexp_silu(x @ p.wg, exp_callable(policy)) * (x @ p.wu)
+    elif act == "gelu":
+        h = x @ p.wu
+        if p.bu is not None:
+            h = h + p.bu.to(h.dtype)
+        h = gelu(h)
+    else:
+        raise NotImplementedError(f"mlp activation {act!r} is not ported")
     y = h @ p.wd
     if p.bd is not None:
         y = y + p.bd.to(y.dtype)

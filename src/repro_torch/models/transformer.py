@@ -7,7 +7,10 @@ Parameter layout and dtypes follow the reference: matmul weights are
 reference casts each layer's 2-D f32 params to bf16 as it enters the scan;
 casting once at load gives the same values) and 1-D params stay f32; the
 embedding stays f32 and lookups are cast to the compute dtype afterwards;
-logits are an f32 matmul against ``embed.T``.
+logits are an f32 matmul against ``embed.T`` (tied embeddings) or the
+f32 ``unembed`` (d_model, vocab_padded) (untied). The MLP is GELU or
+SwiGLU (``layers.mlp_apply``; the SwiGLU gate's exp takes the policy's
+exponential, on the card one launch of the vexp kernel a layer).
 
 The KV cache is a dict {"k", "v"} of stacked (L, B, S, Hkv, hd) ("bshd")
 or (L, B, Hkv, S, hd) ("bhsd") bf16 tensors. ``decode_step`` writes it in
@@ -73,6 +76,8 @@ class Attention(nn.Module):
 class MLP(nn.Module):
     def __init__(self, cfg, g, dtype, device):
         super().__init__()
+        if cfg.act == "swiglu":
+            self.wg = _param(_dense(g, cfg.d_model, cfg.d_ff, dtype, device))
         self.wu = _param(_dense(g, cfg.d_model, cfg.d_ff, dtype, device))
         self.wd = _param(_dense(g, cfg.d_ff, cfg.d_model, dtype, device))
         _opt(self, "bu", torch.zeros(cfg.d_ff, device=device)
@@ -95,22 +100,27 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg, g: torch.Generator, device):
         super().__init__()
-        if cfg.family != "dense" or not cfg.tie_embeddings:
+        if cfg.family != "dense":
             raise NotImplementedError(
-                f"{cfg.arch_id}: only dense tied-embedding decoders are "
-                f"ported yet")
+                f"{cfg.arch_id}: family {cfg.family!r} (MoE, parallel "
+                f"blocks, modality inputs, the logit softcap) is not "
+                f"ported yet; only dense decoders are")
         dtype = getattr(torch, cfg.compute_dtype)
         self.layers = nn.ModuleList(
             [Block(cfg, g, dtype, device) for _ in range(cfg.n_layers)])
         self.ln_f = Norm(cfg.d_model, cfg.norm, device)
         self.embed = _param(torch.randn(cfg.vocab_padded, cfg.d_model,
                                         generator=g, device=device) * 0.02)
+        if not cfg.tie_embeddings:
+            self.unembed = _param(_dense(g, cfg.d_model, cfg.vocab_padded,
+                                         torch.float32, device))
 
 
 def init_params(cfg, g: torch.Generator, device) -> Transformer:
     """Random weights with the reference's layout and scales (dense
-    N(0,1)/sqrt(d_in), embedding N(0,1)*0.02, zero biases, unit norms),
-    drawn from ``g`` on ``device``."""
+    N(0,1)/sqrt(d_in), embedding N(0,1)*0.02, an untied unembedding
+    N(0,1)/sqrt(d_model) in f32, zero biases, unit norms), drawn from
+    ``g`` on ``device``."""
     return Transformer(cfg, g, device)
 
 
@@ -133,10 +143,10 @@ def _qkv(x, p, cfg, pos):
     return q, k, v
 
 
-def _finish_block(x, a, blk, cfg):
+def _finish_block(x, a, blk, cfg, policy):
     x = x + a
     h = norm_apply(x, blk.ln_mlp, cfg.norm, cfg.norm_eps)
-    return x + mlp_apply(h, blk.mlp, cfg.act)
+    return x + mlp_apply(h, blk.mlp, cfg.act, policy=policy)
 
 
 def embed_inputs(params, cfg, tokens):
@@ -152,13 +162,20 @@ def forward(params, cfg, tokens, *, policy):
         h = norm_apply(x, blk.ln_attn, cfg.norm, cfg.norm_eps)
         q, k, v = _qkv(h, blk.attn, cfg, pos)
         o = attention(q, k, v, causal=cfg.causal, policy=policy)
-        x = _finish_block(x, o.flatten(2) @ blk.attn.wo, blk, cfg)
+        x = _finish_block(x, o.flatten(2) @ blk.attn.wo, blk, cfg, policy)
     return norm_apply(x, params.ln_f, cfg.norm, cfg.norm_eps)
 
 
+def unembed_matrix(params, cfg):
+    """(d_model, vocab_padded) f32: the tied embedding's transpose, or
+    the untied ``unembed`` (reference ``transformer.py:333-335``)."""
+    return params.embed.T if cfg.tie_embeddings else params.unembed
+
+
 def _logits(params, cfg, x):
-    """f32 logits against the tied embedding, padded vocab masked."""
-    return mask_padded_logits(x.float() @ params.embed.T, cfg.vocab)
+    """f32 logits against the unembedding, padded vocab masked."""
+    return mask_padded_logits(x.float() @ unembed_matrix(params, cfg),
+                              cfg.vocab)
 
 
 def init_cache(cfg, batch, seq_len, device):
@@ -220,7 +237,7 @@ def prefill(params, cfg, tokens, *, prompt_len=None, policy, hist=None):
             vc = torch.cat([hist["v"][i].to(v.dtype), v], dim=1)
             o = attention(q, kc, vc, causal=True, kv_len=kv_len,
                           q_offset=h0, policy=policy)
-        x = _finish_block(x, o.flatten(2) @ blk.attn.wo, blk, cfg)
+        x = _finish_block(x, o.flatten(2) @ blk.attn.wo, blk, cfg, policy)
         if valid is not None:
             k = torch.where(valid, k, 0)
             v = torch.where(valid, v, 0)
@@ -289,7 +306,8 @@ def _chunk_all_logits(params, cfg, x):
     return _final_logits(params, cfg, x)
 
 
-def _chunk_layers(params, cfg, tokens, lanes, layer_attn, all_lanes=False):
+def _chunk_layers(params, cfg, tokens, lanes, layer_attn, all_lanes=False,
+                  *, policy):
     """The chunk program's layer loop over ``lanes`` (``_chunk_lanes``):
     ``layer_attn(i, q, k, v)`` lands the chunk's K/V in layer i's cache
     and returns its attention output (B, C, H, hd). Returns the
@@ -301,7 +319,7 @@ def _chunk_layers(params, cfg, tokens, lanes, layer_attn, all_lanes=False):
         h = norm_apply(x, blk.ln_attn, cfg.norm, cfg.norm_eps)
         q, k, v = _qkv(h, blk.attn, cfg, pos)
         o = layer_attn(i, q, k, v)
-        x = _finish_block(x, o.flatten(2) @ blk.attn.wo, blk, cfg)
+        x = _finish_block(x, o.flatten(2) @ blk.attn.wo, blk, cfg, policy)
     if all_lanes:
         return _chunk_all_logits(params, cfg, x)
     return _chunk_logits(params, cfg, x, kv_len - off)
@@ -340,7 +358,7 @@ def prefill_chunk(params, cfg, tokens, cache, off, clens, *, policy,
                          q_offset=off, policy=policy)
 
     return _chunk_layers(params, cfg, tokens, lanes, layer_attn,
-                         all_lanes), cache
+                         all_lanes, policy=policy), cache
 
 
 def _write_token_kv(cache, kv, pos, ok, layout, offset=0):
@@ -368,7 +386,7 @@ def _write_token_kv(cache, kv, pos, ok, layout, offset=0):
         cache[rows, p] = torch.where(ok[:, None, None], new, old)
 
 
-def _decode_layers(params, cfg, token, pos, layer_attn):
+def _decode_layers(params, cfg, token, pos, layer_attn, *, policy):
     """The decode step's layer loop: ``layer_attn(i, q, k, v)`` lands the
     token's K/V in layer i's cache and returns its attention output
     (B, 1, H, hd); everything else is the same for every cache form.
@@ -378,7 +396,7 @@ def _decode_layers(params, cfg, token, pos, layer_attn):
         h = norm_apply(x, blk.ln_attn, cfg.norm, cfg.norm_eps)
         q, k, v = _qkv(h, blk.attn, cfg, pos[:, None])
         o = layer_attn(i, q, k, v)
-        x = _finish_block(x, o.flatten(2) @ blk.attn.wo, blk, cfg)
+        x = _finish_block(x, o.flatten(2) @ blk.attn.wo, blk, cfg, policy)
     return _final_logits(params, cfg, x)
 
 
@@ -412,7 +430,8 @@ def decode_step(params, cfg, token, cache, pos, *, policy, live=None):
         return decode_attention(q, ck, cv, pos + 1, layout=lay,
                                 policy=policy)
 
-    return _decode_layers(params, cfg, token, pos, layer_attn), cache
+    return _decode_layers(params, cfg, token, pos, layer_attn,
+                          policy=policy), cache
 
 
 def attn_decode_sharded(q, k, v, cache_k, cache_v, pos, ok, *, shard,
@@ -453,7 +472,8 @@ def decode_step_sharded(params, cfg, token, cache, pos, *, policy, shard,
                                    pos, ok, shard=shard, layout=lay,
                                    policy=policy)
 
-    return _decode_layers(params, cfg, token, pos, layer_attn), cache
+    return _decode_layers(params, cfg, token, pos, layer_attn,
+                          policy=policy), cache
 
 
 def _final_logits(params, cfg, x):
@@ -536,7 +556,8 @@ def decode_step_paged(params, cfg, token, cache, tables, pos, *, policy,
         _write_token_kv_paged(pv, v, gids, offs, ok, lay)
         return _paged_attn(q, pk, pv, tables, pos + 1, cfg, policy)
 
-    return _decode_layers(params, cfg, token, pos, layer_attn), cache
+    return _decode_layers(params, cfg, token, pos, layer_attn,
+                          policy=policy), cache
 
 
 def _write_chunk_kv_paged(pool, kv, gids, offs, ok, layout):
@@ -590,7 +611,7 @@ def prefill_chunk_paged(params, cfg, tokens, cache, tables, off, clens, *,
                          q_offset=off, policy=policy)
 
     return _chunk_layers(params, cfg, tokens, lanes, layer_attn,
-                         all_lanes), cache
+                         all_lanes, policy=policy), cache
 
 
 @hot_path
@@ -622,4 +643,5 @@ def decode_step_paged_sharded(params, cfg, token, cache, tables, pos, *,
             q, pk, pv, tables, pos + 1, shard.offset, comm=shard.comm,
             layout=lay, policy=policy)
 
-    return _decode_layers(params, cfg, token, pos, layer_attn), cache
+    return _decode_layers(params, cfg, token, pos, layer_attn,
+                          policy=policy), cache

@@ -1,5 +1,5 @@
 """The partition of FlashAttention's head-dim-256 kernel, checked on the
-CPU with this file's own emulation of it (the kernel is ``fa256`` in
+CPU with this file's own emulation of it (the kernel is ``fa_rows<256>`` in
 ``csrc/flash_attention.cu``; the package holds no emulation):
 
 * a CTA takes 64 query rows of one KV head, rows being (position, query
@@ -323,7 +323,7 @@ def test_half_block_outside_the_limits(case, exp):
 
 
 def test_score_tile_fits_block_k_512():
-    """fa256's shared memory: q^T f32 (64 KB), the two f32 stages (32
+    """fa_rows<256>'s shared memory: q^T f32 (64 KB), the two f32 stages (32
     KB: 256 keys by 16 d, or 16 keys by 256 d), the row maxima of eight warps, each row's m_new, alpha and
     position, then the score tile of 64 rows by block_k keys rounded up
     to whole groups: the policy's 512 fits an H100's 227 KB a block, the

@@ -25,7 +25,9 @@ the parent commit unpacked with ``git archive`` into a directory that
 timed in turns with this tree's: parent, this, this, parent. With
 ``--cuts`` each cut of this tree's D 256 design is timed once more under
 vexp. The cuts are written for the design the source holds (its marker
-string picks the table): ``fa256`` here, and the earlier ``Tile<256>``
+string picks the table): ``fa_rows`` here (its D 256 instance; the
+earlier ``fa256`` kernel before its head dim became a template parameter
+read the same cuts), and the earlier ``Tile<256>``
 design (32-row tiles in the shared kernel) for a copy of this tool run
 in a checkout that still holds it.
 
@@ -81,8 +83,8 @@ _COPY_21 = ("    cp_async16(dst + r * Smem<D>::kRowB + c * 8,\n"
             "ok ? 16 : 0);\n", "")
 _SCORES_256 = ("  for (int d4 = 0; d4 < kSlabD / 4; ++d4) {",
                "  for (int d4 = 0; d4 < 1; ++d4) {")
-_PV_256 = ("  for (int c = 0; c < kVKeys; ++c) {\n    float p[8], v[8];",
-           "  for (int c = 0; c < 1; ++c) {\n    float p[8], v[8];")
+_PV_256 = ("  for (int c = 0; c < kVKeys; ++c) {\n    float p[8], v[C];",
+           "  for (int c = 0; c < 1; ++c) {\n    float p[8], v[C];")
 _EXP_256 = ("      const float ex = vexp::apply_exp(BACKEND, "
             "__fsub_rn(sv[i], m[i]));",
             "      const float ex = __fsub_rn(sv[i], m[i]);")
@@ -100,7 +102,7 @@ CUTS_D256 = {
     # 64 (position, head) rows a CTA, 8 x 8 register tiles, K in 16-d
     # slabs and V in 16-key slabs widened to f32 through registers, l in
     # the p . v loop
-    "fa256_kernel": {
+    "fa_rows_kernel": {
         "no_score_fma": [_SCORES_256],
         "no_pv_fma": [_PV_256],
         "no_p_exp": [_EXP_256],

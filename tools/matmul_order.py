@@ -12,10 +12,13 @@ At recurrentgemma's decode shape (16 query rows on one KV head, d 256)
 the key-major products ``(keys, d) @ (d, G)`` and ``(d, keys) @ (keys,
 G)`` match the chain at 64 and 512 keys, while ``einsum`` sums p @ v in
 another order; this is why ``kernels/decode_attention.py``'s plain sweep
-is written key-major at D 256. The last lines read a block's l (the row
-sums of p) taken as a product of p with a column of ones, or with D
-columns, in the decode sweep's key-major orientation and in FA's einsum,
-against one f32 chain over the keys in order.
+is written key-major at D 256; phi3-medium's shapes (4 query rows a KV
+head, 10 KV heads, d 128) are read the same way. Then lines read a
+block's l (the row sums of p) taken as a product of p with a column of
+ones, or with D columns, in the decode sweep's key-major orientation
+and in FA's einsum, against one f32 chain over the keys in order; the
+last line reads FA's two einsums (scores over d, p . v over a block's
+keys) at phi3's wave against in-order chains.
 """
 
 import json
@@ -64,10 +67,10 @@ def main():
         return torch.randn(*shape, generator=g, device="cuda").to(
             torch.bfloat16).float()
 
-    for G, D in ((16, 256), (1, 64)):
+    for G, D, H in ((16, 256, 1), (1, 64, 1), (4, 128, 10)):
         for K in (512, 64):
-            q, k, v = bf16_randn(8, 1, G, D), bf16_randn(8, 1, K, D), \
-                bf16_randn(8, 1, K, D)
+            q, k, v = bf16_randn(8, H, G, D), bf16_randn(8, H, K, D), \
+                bf16_randn(8, H, K, D)
             sc = chain(q, k.transpose(-1, -2))
             s = torch.einsum("bkgd,bktd->bkgt", q, k)
             p = torch.softmax(s / D ** 0.5, -1).to(torch.bfloat16).float()
@@ -89,13 +92,13 @@ def main():
     # a block's l, the row sums of p, as the plain versions take it at
     # D 256: a product of p with ones in the orientation of their p @ v,
     # with one column of ones or D columns (of which one is kept)
-    for G, D in ((16, 256),):
+    for G, D, H in ((16, 256, 1), (4, 128, 10)):
         for K in (512, 64):
-            s = bf16_randn(8, 1, G, K)
+            s = bf16_randn(8, H, G, K)
             p = torch.softmax(s, -1)
             lc = key_sum(p)
             pt = p.contiguous().transpose(-1, -2)
-            vt = bf16_randn(8, 1, K, D).transpose(-1, -2)
+            vt = bf16_randn(8, H, K, D).transpose(-1, -2)
             print(json.dumps({
                 "l": "decode", "G": G, "d": D, "keys": K,
                 "outputs": lc.numel(),
@@ -104,11 +107,13 @@ def main():
                 "l_onesD_keymajor_vs_chain": differ(
                     (torch.ones_like(vt) @ pt)[..., 0, :], lc),
                 "device": torch.cuda.get_device_name(0)}), flush=True)
-    for G, D, S in ((16, 256, 2048), (16, 256, 256), (16, 256, 5)):
+    for G, D, S, H in ((16, 256, 2048, 1), (16, 256, 256, 1),
+                       (16, 256, 5, 1), (4, 128, 1024, 10),
+                       (4, 128, 256, 10)):
         K = 512
-        p = torch.softmax(bf16_randn(8, 1, G, S, K), -1)
+        p = torch.softmax(bf16_randn(8, H, G, S, K), -1)
         lc = key_sum(p)
-        v = bf16_randn(8, K, 1, D)
+        v = bf16_randn(8, K, H, D)
         print(json.dumps({
             "l": "flash", "G": G, "d": D, "queries": S, "keys": K,
             "outputs": lc.numel(),
@@ -118,6 +123,22 @@ def main():
             "l_onesD_einsum_vs_chain": differ(torch.einsum(
                 "bkgst,btkd->bkgsd", p, torch.ones_like(v))[..., 0], lc),
             "device": torch.cuda.get_device_name(0)}), flush=True)
+    # FA's einsums at phi3-medium's wave (4 query heads a KV head, d 128,
+    # a 512-key block; 2 batch rows, 2 KV heads, 256 queries): each score
+    # against a chain over d, each p . v against a chain over the keys
+    G, D, S, H, K = 4, 128, 256, 2, 512
+    qg = bf16_randn(2, S, H, G, D)
+    k, v = bf16_randn(2, K, H, D), bf16_randn(2, K, H, D)
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k)
+    sc = chain(qg.permute(0, 2, 3, 1, 4), k.permute(0, 2, 3, 1)[:, :, None])
+    p = torch.softmax(s, -1).to(torch.bfloat16).float()
+    pv = torch.einsum("bkgst,btkd->bkgsd", p, v)
+    pc = chain(p, v.permute(0, 2, 1, 3)[:, :, None])
+    print(json.dumps({
+        "fa": "einsum", "G": G, "d": D, "queries": S, "keys": K,
+        "outputs": s.numel(), "scores_einsum_vs_chain": differ(s, sc),
+        "pv_outputs": pv.numel(), "pv_einsum_vs_chain": differ(pv, pc),
+        "device": torch.cuda.get_device_name(0)}), flush=True)
 
 
 if __name__ == "__main__":
