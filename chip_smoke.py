@@ -91,7 +91,15 @@ def fail(msg: str):
     sys.exit(1)
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj: dict):
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (``elapsed_s``), from which each phase's own seconds
+    follow."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -4017,8 +4025,10 @@ def _decode_edges(da, policy_cls, d=256, seed=14):
     per cache_len in HYBRID_EDGE_LENS (one key, a tile, a tile and a key,
     around the 512-key update block, the full 2,048-row cache); with no
     window and with a window of 700 (the first kept key mid-block); B7
-    through a page table in random order. Each held to its plain version
-    under every exp backend, with the half-block (half-page) and
+    through a page table in random order. At head dim 128 also B7 at G 4
+    through pages of two tiles (128 keys), where the four-row sweep's
+    stage 2 rings its V tiles within a page. Each held to its plain
+    version under every exp backend, with the half-block (half-page) and
     textbook-merge controls. Returns (fields, [(tag, kernel,
     readings)])."""
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -4031,48 +4041,63 @@ def _decode_edges(da, policy_cls, d=256, seed=14):
     tab = ((torch.randperm(b * ns, generator=g, device="cuda") + 1)
            .reshape(b, ns).to(torch.int32))
     kc, vc = da.paged_gather(kp, tab), da.paged_gather(vp, tab)
+    qs = {grp: torch.randn(b, 1, grp, d, generator=g,
+                           device="cuda").to(torch.bfloat16)
+          for grp in HYBRID_EDGE_GROUPS}
+    pools = {page: (kp, vp, tab)}
+    cases = [(grp, window, paged, page) for grp in HYBRID_EDGE_GROUPS
+             for window in (None, HYBRID_EDGE_WINDOW)
+             for paged in (False, True)]
+    if d == 128:
+        qs[4] = torch.randn(b, 1, 4, d, generator=g,
+                            device="cuda").to(torch.bfloat16)
+        big, nb2 = 2 * page, s // (2 * page)
+        tab2 = ((torch.randperm(b * nb2, generator=g, device="cuda") + 1)
+                .reshape(b, nb2).to(torch.int32))
+        pools[big] = tuple(
+            torch.zeros(1 + b * nb2, big, 1, d, dtype=torch.bfloat16,
+                        device="cuda").index_copy_(
+                0, tab2.reshape(-1).long(), x.reshape(b * nb2, big, 1, d))
+            for x in (kc, vc)) + (tab2,)
+        assert torch.equal(da.paged_gather(pools[big][0], tab2), kc)
+        cases += [(4, window, True, big)
+                  for window in (None, HYBRID_EDGE_WINDOW)]
     res, out = {}, []
-    for grp in HYBRID_EDGE_GROUPS:
-        q = torch.randn(b, 1, grp, d, generator=g,
-                        device="cuda").to(torch.bfloat16)
-        for window in (None, HYBRID_EDGE_WINDOW):
-            for paged in (False, True):
-                kernel = ("decode_attention_paged" if paged
-                          else "decode_attention")
-                block = page if paged else policy_cls().block_s
-                readings = {}
-                for exp in EXP_BACKENDS:
-                    pol = policy_cls(exp_backend=exp, block_page=page)
-                    if paged:
-                        got = da.decode_attention_paged(
-                            q, kp, vp, tab, cl, window=window,
-                            layout="bshd", policy=pol)
-                    else:
-                        got = da.decode_attention(q, kc, vc, cl,
-                                                  window=window,
-                                                  layout="bshd", policy=pol)
-                    ref = da.decode_attention_plain(
-                        q, kc, vc, cl, window=window, layout="bshd",
-                        block_s=block, exp_backend=exp)
-                    readings[exp, "kernel"] = kernel_vs_plain(got, ref)
-                    if exp != "exact":
-                        half = da.decode_attention_plain(
-                            q, kc, vc, cl, window=window, layout="bshd",
-                            block_s=block // 2, exp_backend=exp)
-                        readings[exp, "half_page" if paged
-                                 else "half_block"] = \
-                            kernel_vs_plain(half, ref)
-                        tb = textbook_partial(q, kc, vc, cl, 0,
-                                              layout="bshd", exp=exp,
-                                              window=window)
-                        readings[exp, "textbook_merge"] = kernel_vs_plain(
-                            _norm_stats(*tb).reshape(ref.shape), ref)
-                tag = (f"g{grp}_w{window or 0}_"
-                       + ("paged" if paged else "contig"))
-                for (exp, who), val in readings.items():
-                    res[f"{tag}_{exp}_{who}_max_abs_err"] = val[0]
-                    res[f"{tag}_{exp}_{who}_mismatch_share"] = val[1]
-                out.append((tag, kernel, readings))
+    for grp, window, paged, pg in cases:
+        q = qs[grp]
+        kernel = "decode_attention_paged" if paged else "decode_attention"
+        block = pg if paged else policy_cls().block_s
+        readings = {}
+        for exp in EXP_BACKENDS:
+            pol = policy_cls(exp_backend=exp, block_page=pg)
+            if paged:
+                got = da.decode_attention_paged(
+                    q, *pools[pg], cl, window=window, layout="bshd",
+                    policy=pol)
+            else:
+                got = da.decode_attention(q, kc, vc, cl, window=window,
+                                          layout="bshd", policy=pol)
+            ref = da.decode_attention_plain(
+                q, kc, vc, cl, window=window, layout="bshd",
+                block_s=block, exp_backend=exp)
+            readings[exp, "kernel"] = kernel_vs_plain(got, ref)
+            if exp != "exact":
+                half = da.decode_attention_plain(
+                    q, kc, vc, cl, window=window, layout="bshd",
+                    block_s=block // 2, exp_backend=exp)
+                readings[exp, "half_page" if paged else "half_block"] = \
+                    kernel_vs_plain(half, ref)
+                tb = textbook_partial(q, kc, vc, cl, 0, layout="bshd",
+                                      exp=exp, window=window)
+                readings[exp, "textbook_merge"] = kernel_vs_plain(
+                    _norm_stats(*tb).reshape(ref.shape), ref)
+        tag = (f"g{grp}_w{window or 0}_"
+               + (f"paged{pg if pg != page else ''}" if paged
+                  else "contig"))
+        for (exp, who), val in readings.items():
+            res[f"{tag}_{exp}_{who}_max_abs_err"] = val[0]
+            res[f"{tag}_{exp}_{who}_mismatch_share"] = val[1]
+        out.append((tag, kernel, readings))
     res["cache_len"] = list(HYBRID_EDGE_LENS)
     return res, out
 
@@ -4358,6 +4383,9 @@ PHI3_PAGE = 64
 PHI3_CHUNK = 256
 PHI3_PROMPT = (32, 1024)
 PHI3_TIER_STEPS = 16           # teacher-forced steps of the tier check
+# the serve_phi3 arms in turns: the eager arm once (an eager serve takes
+# ~30 s at full width), every graph turn's tokens held to it
+PHI3_ARM_TURNS = ("graph", "eager", "graph")
 # phi3's cuda tier against its reference tier over a teacher-forced
 # replay (the decode kernels round q and p to bf16 where the reference
 # tier keeps f32, as the Pallas kernels do, and bf16 activations carry
@@ -4401,6 +4429,12 @@ def phi3_fa_inputs():
     return q, k, v, kv_len, qc, offs, clens
 
 
+# B2 / B7 at phi3-medium's decode shape (``decode_inputs``' keywords): B 8,
+# 40 query heads on 10 KV heads of 128, a 2,048-token cache, page 64
+PHI3_DECODE_SHAPE = dict(b=8, s=PHI3_MAX_SEQ, h=40, hkv=10, d=128,
+                         page=PHI3_PAGE, full=1)
+
+
 def _phi3_fa_rows(fa, policy_cls, block_k):
     """B3 at phi3-medium's shapes (``fa_rows`` at D 128, G 4): the
     admission wave (B 8, S 1024, ragged kv_len, causal, no window) and a
@@ -4433,7 +4467,8 @@ def phase_phi3_kernels(policy_cls):
     largest the card admits), B2 over a 2,048-token cache with ragged
     cache_len in both layouts, B7 through a page-64 table in random
     order, and both at their edges (``_decode_edges`` at D 128:
-    G 1, 5 and 16, cache_len at the tile and block bounds, a window).
+    G 1, 5 and 16, cache_len at the tile and block bounds, a window; B7
+    at G 4 through pages of 128 keys).
     Each held to its plain version under the unchanged
     ATT_LIMITS with its negative controls; FA's rows also carry their
     CUDA-core FMA floor (a reading). Returns {kernel row name: fields}
@@ -4444,8 +4479,7 @@ def phase_phi3_kernels(policy_cls):
     from repro_torch.runtime import resolve_policy
     block_k = resolve_policy(get_config(PHI3_ARCH), env={}).block_k
     fa_res, fa_checks = _phi3_fa_rows(fa, policy_cls, block_k)
-    shape = dict(b=8, s=PHI3_MAX_SEQ, h=40, hkv=10, d=128, page=PHI3_PAGE,
-                 full=1)
+    shape = PHI3_DECODE_SHAPE
     dec, dec_rd = _decode_case(
         da, policy_cls, False, decode_inputs(da, False, seed=22, **shape),
         PHI3_PAGE, "d128")
@@ -4619,8 +4653,9 @@ def phase_serve_phi3(kernels, smi, cfg, params, policy, groups):
     """Full-width phi3-medium-14b through the port's Server: max_batch 8,
     max_seq 2,048, 16 requests with prompts in [32, 1024] (seed 0), 64
     new tokens, groups eval=exact, bulk=vexp, hw=vexp_hw; the graph and
-    eager arms in turns (graph, eager, graph, eager; graph tokens ==
-    eager tokens), the capture audit, the decode step's graph ms and
+    eager arms in turns (PHI3_ARM_TURNS: graph, eager, graph; every graph
+    turn's tokens == the eager turn's), the capture audit, the decode
+    step's graph ms and
     kernels per group against its bound, and a teacher-forced replay of
     2 requests a group whose every SwiGLU gate exp is held to its plain
     version (GateCheck) and whose cuda-tier logits are held to the
@@ -4638,13 +4673,14 @@ def phase_serve_phi3(kernels, smi, cfg, params, policy, groups):
     torch.cuda.synchronize()
     secs = {"warm_up": time.perf_counter() - t0}
     runs = {arm: [] for arm in ARMS}
-    for _ in range(ARM_TURNS):
-        for arm in ARMS:
-            runs[arm].append(phi3_serve_once(
-                kernels, cfg, server, lambda: phi3_requests(cfg, groups),
-                arm, "decode_attention", "decode_attention_paged",
-                f"serve_phi3 ({arm} arm)"))
-    compare = compare_arms(runs, "serve_phi3")
+    for arm in PHI3_ARM_TURNS:
+        runs[arm].append(phi3_serve_once(
+            kernels, cfg, server, lambda: phi3_requests(cfg, groups),
+            arm, "decode_attention", "decode_attention_paged",
+            f"serve_phi3 ({arm} arm)"))
+    compare = compare_arms(
+        {"graph": runs["graph"], "eager": runs["eager"] * len(runs["graph"])},
+        "serve_phi3")
     first = runs["graph"][0]
     reqs = first["reqs"]
     secs["turns"] = time.perf_counter() - t0 - sum(secs.values())
@@ -4691,22 +4727,41 @@ def phase_serve_phi3(kernels, smi, cfg, params, policy, groups):
 
 def phase_serve_phi3_paged(kernels, smi, cfg, params, policy, groups, mono):
     """The serve_phi3 requests on the paged pool (page 64), graph arm: B7
-    on every decode step, no page held after the serve; tokens equal the
-    contiguous serve's (``mono``: one update per 512 keys, the paged one
-    per page) up to a near tie."""
-    grp = {n: p.replace(block_page=PHI3_PAGE) for n, p in groups.items()}
-    pol = policy.replace(block_page=PHI3_PAGE)
-    turn = phi3_serve_once(
-        kernels, cfg, lambda cg=True: phi3_server(cfg, params, pol, grp, cg,
-                                                  paged=True),
-        lambda: phi3_requests(cfg, groups), "graph",
-        "decode_attention_paged", "decode_attention", "serve_phi3_paged")
-    vs = near_tie_compare(cfg, params, groups, turn["reqs"],
-                          [r.out for r in mono], "paged phi3 request",
-                          "the contiguous serve's tokens")
+    on every decode step, no page held after the serve; its tokens equal,
+    request by request, those of a contiguous serve whose groups update
+    once per 64 keys (``block_s`` = the page, B2 on every step), the same
+    function; against the serve_phi3 tokens (``mono``, one update per
+    512 keys, another function under vexp) the first divergences and
+    their reference top-2 gaps are a note. Returns {path: counts}."""
+    grp = {n: p.replace(block_page=PHI3_PAGE, block_s=PHI3_PAGE)
+           for n, p in groups.items()}
+    pol = policy.replace(block_page=PHI3_PAGE, block_s=PHI3_PAGE)
+    turns = {}
+    for paged in (False, True):
+        what = "serve_phi3_paged" if paged else "serve_phi3_block64"
+        turns[what] = phi3_serve_once(
+            kernels, cfg, lambda cg=True, pg=paged: phi3_server(
+                cfg, params, pol, grp, cg, paged=pg),
+            lambda: phi3_requests(cfg, groups), "graph",
+            "decode_attention_paged" if paged else "decode_attention",
+            "decode_attention" if paged else "decode_attention_paged", what)
+    turn, ring = turns["serve_phi3_paged"], turns["serve_phi3_block64"]
+    for r, want in zip(turn["reqs"], ring["reqs"]):
+        if list(r.out) != list(want.out):
+            i = next((i for i, (a, b) in enumerate(zip(r.out, want.out))
+                      if a != b), min(len(r.out), len(want.out)))
+            fail(f"serve_phi3_paged: request {r.rid} ({r.group}) leaves "
+                 f"the block-64 contiguous serve's tokens at step {i}")
+    note = near_tie_compare(cfg, params, groups, turn["reqs"],
+                            [r.out for r in mono], "paged phi3 request",
+                            "the 512-block contiguous serve's tokens",
+                            check=False)
     emit({"phase": "serve_phi3_paged", "page": PHI3_PAGE,
-          **turn["readings"], "vs_contiguous": vs, "nvidia_smi": smi})
-    return {"serve_phi3_paged": turn["counts"]}
+          **turn["readings"], "block64_contiguous": ring["readings"],
+          "vs_block64_contiguous": {"identical": len(ring["reqs"])},
+          "note_vs_block512_contiguous": note, "nvidia_smi": smi})
+    return {"serve_phi3_block64": ring["counts"],
+            "serve_phi3_paged": turn["counts"]}
 
 
 def phase_serve_phi3_chunked(kernels, smi, cfg, params, policy, groups,

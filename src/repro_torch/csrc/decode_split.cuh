@@ -41,12 +41,15 @@
 // kernels of their own, sized for up to 16 query rows a KV head (rows
 // past G are computed and not written), spread over the card by query
 // rows in stage 1, by column slices in stage 2 and by outputs in stage 3;
+// at D 128 and G <= 4 an instantiation of four rows a KV head (chosen by
+// G at launch; stage 2 split_pv_rows4, below) computes no row past G;
 // every f32 operation of every output, and its order, is the one
 // described above for the block's keys:
 //   1. split_scores_rows, one CTA per (tile, h, b) of 128 threads: a
-//      warp per four query rows, a lane per two keys, eight f32 FMA
-//      chains over d from 0 a thread in flight together, K rows and q
-//      read from shared memory (dynamic, 49 KB);
+//      warp per four query rows (one at four rows a KV head), a lane per
+//      two keys, eight (two) f32 FMA chains over d from 0 a thread in
+//      flight together, K rows and q read from shared memory (dynamic,
+//      49 KB; 19 KB at D 128 and four rows);
 //   2. split_pv_slice, one CTA per (update block, column slice of 64, h,
 //      b), D / 64 slices a row (4 at D 256, 2 at D 128): the block's m_j
 //      and alpha_j as
@@ -71,6 +74,10 @@
 //      (kBatch blocks a load). Not the last CTA of each slice, as at the
 //      dense heads: there the combine ran on a few CTAs at the kernel's
 //      tail (7.6 µs of stage 2 on a page-64 ring, on an H100).
+// At four rows a KV head stage 2 is split_pv_rows4: one CTA per (update
+// block, h, b) takes all D columns (the exps once a block), four warps
+// chaining a column and the four rows a lane and a fifth warp the l
+// chains, a 16-byte load of a key's four p a step.
 // (Each choice read on the card by tools/decode_split_ablation.py.)
 // D 32 and 64 (G <= 8) keep split_scores and split_pv.
 //
@@ -87,8 +94,9 @@
 // blocks per row. D 32, 64: scores R * nT * kTile, tile maxes R * nT,
 // tile l R * nT, the tile's block alpha R * nT, tile p @ v R * nT * D,
 // then B * Hkv ticket counters. D 128, 256: scores B * Hkv * nT * kTile *
-// 16 (each tile's keys by query row, [key][16]), block p @ v R * nB * D,
-// tile maxes R * nT, block alpha R * nB, block l R * nB.
+// chain_rows(D, G) (each tile's keys by query row, [key][16], or [key][4]
+// at D 128 and G <= 4), block p @ v R * nB * D, tile maxes R * nT, block
+// alpha R * nB, block l R * nB.
 
 #pragma once
 
@@ -108,6 +116,21 @@ constexpr int kChainMinD = 128;
 // columns a slice, the blocks whose statistics the combine loads at
 // once, and the keys whose operands the chain loads at once
 constexpr int kChainG = 16;
+// D = 128 at G <= 4 (phi3-medium's 4 query heads a KV head): the rows a
+// KV head of its own instantiation, chosen by G at launch
+constexpr int kChainG4 = 4;
+// its stage 2: four warps chaining p @ v, a column and the four query
+// rows a lane (D 128), one more warp chaining l
+constexpr int kRows4Chain = 128;
+constexpr int kRows4Threads = kRows4Chain + 32;
+constexpr int kRows4Unroll = 16;      // keys whose operands a chain loads
+// its stage 2's V tiles in flight or held a CTA, at most: 64 KB, 3
+// CTAs an SM, so the 320 block CTAs of phi3-medium's decode (4 blocks of
+// 512 keys a row) are all resident; with one barrier a tile two buffers
+// would leave a single tile in flight, which on an H100 reads slower
+// (PERF.md). A page of fewer tiles (64 keys: one) takes as many buffers
+// as it has tiles (rows4_bufs)
+constexpr int kRows4Bufs = 4;
 constexpr int kRowSplit = 4;          // stage 1: warps a tile, 4 rows each
 constexpr int kScoreThreads = 32 * kRowSplit;
 constexpr int kSliceCols = 64;
@@ -163,17 +186,25 @@ __host__ __device__ constexpr int max_g() {
   return block_chain<D>() ? kChainG : 8;
 }
 
+// Query rows a KV head the chained sweep computes at head dim D for G
+// query heads a KV head: 4 at D 128 and G <= 4, else max_g<D>(). Stage 1,
+// stage 2 and the scores' scratch are sized by it, so at phi3-medium's
+// G 4 no FMA, exp or scratch byte goes to a row past G.
+__host__ __device__ constexpr int chain_rows(int D, int G) {
+  return D == 128 && G <= kChainG4 ? kChainG4 : kChainG;
+}
+
 // Column slices of a row in stage 2 at a chained head dim.
 template <int D>
 __host__ __device__ constexpr int slices() {
   return D / kSliceCols;
 }
 
-// split_scores_rows' dynamic shared memory, in bytes (above the 48 KB
-// static limit at D = 256).
-template <int D>
+// split_scores_rows' dynamic shared memory at MAXG rows a KV head, in
+// bytes (above the 48 KB static limit at D = 256).
+template <int D, int MAXG>
 __host__ __device__ constexpr size_t rows_smem() {
-  return (size_t)max_g<D>() * D * sizeof(float) +             // sQ
+  return (size_t)MAXG * D * sizeof(float) +                   // sQ
          (size_t)kTile * (D + 8) * sizeof(__nv_bfloat16);     // sK
 }
 
@@ -183,7 +214,7 @@ inline long long scratch_floats(int B, int Hkv, int G, int D, int nT,
                                 int nB) {
   if (D >= kChainMinD)
     return (long long)B * Hkv *
-           ((long long)nT * kTile * kChainG +
+           ((long long)nT * kTile * chain_rows(D, G) +
             G * ((long long)nT + (long long)nB * (D + 2)));
   return (long long)B * Hkv * (G * nT * (kTile + 3 + D) + 1);
 }
@@ -543,18 +574,19 @@ __global__ void __launch_bounds__(kPvThreads, 8) split_pv(Args a) {
   combine_row<D, MODE>(a, b, h, lo, len);
 }
 
-// ---- D = 128, 256 (block_chain), stage 1: a warp per four query rows
-// (quarter, quarter + 4, ...), a lane per two keys (lane, lane + 32):
-// eight f32 FMA chains over d from 0 a thread, in flight together, so
-// each q value read from shared memory feeds two keys and each K value
-// four rows. Scores go to scratch as [key][kMaxG] per tile, the rows of a
-// key side by side for stage 2's loads; each warp's maxes are its rows'
-// tile maxes.
-template <int D, bool PAGED>
+// ---- D = 128, 256 (block_chain), stage 1: a warp per MAXG / 4 query rows
+// (quarter, quarter + 4, ...), a lane per two keys (lane, lane + 32): at
+// MAXG 16 eight f32 FMA chains over d from 0 a thread, in flight
+// together, so each q value read from shared memory feeds two keys and
+// each K value four rows; at MAXG 4 (G <= 4) a warp per query row, two
+// chains a thread. Scores go to scratch as [key][MAXG] per tile, the rows
+// of a key side by side for stage 2's loads; each warp's maxes are its
+// rows' tile maxes.
+template <int D, bool PAGED, int MAXG>
 __global__ void __launch_bounds__(kScoreThreads) split_scores_rows(Args a) {
   static_assert(block_chain<D>(), "the dense heads take split_scores");
   constexpr int PITCH = D + 8;            // 16 bytes of padding per row
-  constexpr int kMaxG = max_g<D>();
+  constexpr int kMaxG = MAXG;
   constexpr int RPT = kMaxG / kRowSplit;  // query rows a thread
   constexpr int KPT = kTile / 32;         // keys a thread
   extern __shared__ __align__(16) unsigned char dsmem[];
@@ -938,25 +970,334 @@ __global__ void __launch_bounds__(kPvThreads, 6) split_pv_slice(Args a) {
   }
 }
 
+// ---- D = 128 at G <= 4, stage 2: one CTA per (update block j, h, b) of
+// five warps. Warps 0 .. 3 chain a column a lane (32 w + lane) of the
+// four query rows, warp 4 each row's l (lane g < G, row g), over the
+// block's kept keys in key order from +0.0; so at G 4 every lane of the
+// chains is on a live row, each chain step is four FMAs fed by one
+// 16-byte load of the key's four p (bf16-rounded, held as f32 side by side
+// in shared memory) and one bf16 of V, and the l chain runs beside the
+// p @ v chains instead of in one of them. m_{j-1}, m_j and alpha_j as in
+// split_pv_slice; p of the next tile (warps 0 .. 3, two (key, row) pairs a
+// thread) beside a tile's chains; the next tiles' V rows in flight
+// (cp.async into rows4_bufs<PAGED>(tpb) buffers of dynamic shared
+// memory: four on the contiguous cache, and where a block is a page as
+// many as it has tiles up to four, one at a page of 64 keys), the tile
+// after next's scores in registers; one
+// barrier a tile. Writes the block's p @ v, alpha and l slots, which
+// combine_blocks chains. One CTA takes all D columns: the exps of a block
+// are taken once, not once a column slice.
+template <bool PAGED>
+__host__ __device__ constexpr int rows4_bufs(int tpb) {
+  return !PAGED || tpb > kRows4Bufs ? kRows4Bufs : tpb;
+}
+
+template <int D>
+__host__ __device__ constexpr size_t rows4_smem(int nbuf) {
+  return (size_t)nbuf * kTile * D * sizeof(__nv_bfloat16);
+}
+
+// wait until this thread's copies of the current tile have landed, with
+// `ahead` (0 .. 3) later tiles' copy groups committed after it
+__device__ __forceinline__ void cp_async_wait_ahead(int ahead) {
+  if (ahead >= 3)
+    cp_async_wait<3>();
+  else if (ahead == 2)
+    cp_async_wait<2>();
+  else if (ahead == 1)
+    cp_async_wait<1>();
+  else
+    cp_async_wait<0>();
+}
+
+// p = exp(s - m) of a chain thread's PER (key, row) pairs of a tile, as
+// tile_p, the bf16-rounded p stored as its f32 value
+template <int BK, int PER, int CSTEP, int THREADS>
+__device__ __forceinline__ void tile_p4(const float (&sv)[PER], float m,
+                                        int k0, int k1, bool grow, float* pr,
+                                        float* pu) {
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int c = u * CSTEP;
+    const float ex = exp_as<BK>(__fsub_rn(sv[u], m));
+    const float p = (grow && c >= k0 && c < k1) ? ex : 0.0f;
+    pr[u * THREADS] = bf16_round(p);
+    pu[u * THREADS] = p;
+  }
+}
+
+// a lane's four chains (one column) over a tile's kept keys [c0, c1), in
+// key order, kRows4Unroll keys' operands loaded before their FMAs: pr the
+// tile's bf16-rounded p [key][4] (f32), vcol the lane's V element of key
+// 0, rows D apart (bf16 is the top half of its f32)
+template <int D>
+__device__ __forceinline__ void chain_col4(float (&acc)[kChainG4],
+                                           const float* pr,
+                                           const __nv_bfloat16* vcol, int c0,
+                                           int c1) {
+  auto p_at = [&](int c) {
+    return *reinterpret_cast<const float4*>(pr + c * kChainG4);
+  };
+  auto v_at = [&](int c) {
+    return __uint_as_float((unsigned)__bfloat16_as_ushort(vcol[c * D]) << 16);
+  };
+  auto key = [&](float4 p, float v) {
+    acc[0] = fmaf(p.x, v, acc[0]);
+    acc[1] = fmaf(p.y, v, acc[1]);
+    acc[2] = fmaf(p.z, v, acc[2]);
+    acc[3] = fmaf(p.w, v, acc[3]);
+  };
+  int c = c0;
+  for (; c + kRows4Unroll <= c1; c += kRows4Unroll) {
+    float4 p[kRows4Unroll];
+    float v[kRows4Unroll];
+#pragma unroll
+    for (int k = 0; k < kRows4Unroll; ++k) {
+      p[k] = p_at(c + k);
+      v[k] = v_at(c + k);
+    }
+#pragma unroll
+    for (int k = 0; k < kRows4Unroll; ++k) key(p[k], v[k]);
+  }
+  for (; c < c1; ++c) key(p_at(c), v_at(c));
+}
+
+template <int D, bool PAGED>
+__global__ void __launch_bounds__(kRows4Threads) split_pv_rows4(Args a) {
+  constexpr int G4 = kChainG4;
+  constexpr int CW = kRows4Chain / 32;            // chain warps; warp CW: l
+  constexpr int PER = G4 * kTile / kRows4Chain;   // (key, row) pairs a thread
+  constexpr int CSTEP = kRows4Chain / G4;         // keys between a thread's
+  static_assert(D == kRows4Chain, "a chain lane takes one column");
+  static_assert(kRows4Bufs <= 4, "cp_async_wait_ahead takes up to 3 ahead");
+  // V tiles [nbuf][key][col]; a compile-time four on the contiguous cache
+  const int nbuf = rows4_bufs<PAGED>(a.tpb);
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(dsmem);
+  __shared__ __align__(16) float sPr[2][kTile * G4];   // [key][g], rounded
+  __shared__ __align__(16) float sP[2][kTile * G4];    // unrounded
+  __shared__ float sM[G4];
+  // grid (Hkv, nB, B), the KV heads of a block side by side
+  const int j = blockIdx.y, h = blockIdx.x, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const bool lwarp = warp == CW;
+  const int G = a.G;
+  const long long bh = (long long)b * a.Hkv + h, row0 = bh * G;
+  // stage 3 may launch now: it waits for this grid before reading its
+  // output
+  asm volatile("griddepcontrol.launch_dependents;");
+  int lo, len;
+  kept_range(a, b, lo, len);
+  if (!block_live(a, j, lo, len)) return;
+  // the block's live tiles [t_lo, t_hi) (its kept keys are contiguous);
+  // V is not stage 1's output: the first tiles' copies start now
+  const int b0 = j * a.block;
+  const int t_lo = j * a.tpb + (max(b0, lo) - b0) / kTile;
+  const int t_hi =
+      j * a.tpb + (min(min(b0 + a.block, a.S), len) - 1 - b0) / kTile + 1;
+  for (int u = 0; u < nbuf && t_lo + u < t_hi; ++u) {
+    load_rows<D, PAGED, kRows4Threads>(
+        a, a.v, b, h, page_of<PAGED>(a, b, t_lo + u),
+        tile_of(a, t_lo + u, lo, len), sV + u * kTile * D, D);
+    cp_async_commit();
+  }
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int t_mid = j * a.tpb, t_end = t_mid + a.tpb;
+  for (int g = warp; g < G; g += CW + 1) {
+    const float* tm = a.tmax + (row0 + g) * a.nT;
+    float before = kNegInf, mx = kNegInf;
+    for (int i = lane; i < t_end; i += 32) {
+      const float v = tm[i];
+      if (i < t_mid) before = fmaxf(before, v);
+      mx = fmaxf(mx, v);
+    }
+    before = warp_max(before);
+    mx = warp_max(mx);
+    if (lane == 0) {
+      sM[g] = mx;
+      a.ta[(row0 + g) * a.nB + j] =
+          vexp::apply_exp(a.backend, __fsub_rn(before, mx));
+    }
+  }
+  // a chain thread's (key, row) pairs of a tile: row pg, keys c_first +
+  // u * CSTEP (scratch index [key][G4] = tid + u * kRows4Chain)
+  const int pg = tid % G4, c_first = tid / G4;
+  const bool grow = !lwarp && pg < G;
+  float sv[PER];
+  auto load_scores = [&](int tt) {
+    const Tile y = tile_of(a, tt, lo, len);
+    const float* src = a.scores + (bh * a.nT + tt) * kTile * G4 + tid;
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int kp = y.k0 + c_first + u * CSTEP;
+      sv[u] = (grow && kp >= y.c0 && kp < y.c1) ? src[u * kRows4Chain]
+                                                : 0.0f;
+    }
+  };
+  load_scores(t_lo);
+  __syncthreads();                        // sM
+  const float m_g = grow ? sM[pg] : 0.0f;
+  // p of tile tt into p buffer (tt - t_lo) & 1, and the next tile's scores
+  // into registers (the chain warps)
+  auto tile_exps = [&](int tt) {
+    const Tile y = tile_of(a, tt, lo, len);
+    const int k0 = y.c0 - y.k0 - c_first, k1 = y.c1 - y.k0 - c_first;
+    const int buf = (tt - t_lo) & 1;
+    float* pr_out = sPr[buf] + tid;
+    float* p_out = sP[buf] + tid;
+    if (a.backend == vexp::kExact)
+      tile_p4<vexp::kExact, PER, CSTEP, kRows4Chain>(sv, m_g, k0, k1, grow,
+                                                     pr_out, p_out);
+    else if (a.backend == vexp::kVexp)
+      tile_p4<vexp::kVexp, PER, CSTEP, kRows4Chain>(sv, m_g, k0, k1, grow,
+                                                    pr_out, p_out);
+    else
+      tile_p4<vexp::kVexpHw, PER, CSTEP, kRows4Chain>(sv, m_g, k0, k1, grow,
+                                                      pr_out, p_out);
+    if (tt + 1 < t_hi) load_scores(tt + 1);
+  };
+  if (!lwarp) tile_exps(t_lo);
+  float acc[G4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float lsum = 0.0f;
+  // one barrier a tile: past it, tile tt's p and V are in shared memory
+  // and every thread is done with tile tt - 1, whose V buffer then takes
+  // tile tt - 1 + nbuf and whose p buffer tile tt + 1's p, beside tile
+  // tt's chains (nbuf >= 2 wherever the block has a second tile)
+  for (int tt = t_lo; tt < t_hi; ++tt) {
+    const int buf = (tt - t_lo) & 1;
+    __nv_bfloat16* vbuf = sV + (tt - t_lo) % nbuf * kTile * D;
+    // this tile's V; later tiles' copies fly: nbuf - 1 committed after it
+    // at the first tile, nbuf - 2 after (tile tt - 1 + nbuf is not yet)
+    cp_async_wait_ahead(min(nbuf - 1 - (tt > t_lo), t_hi - 1 - tt));
+    __syncthreads();
+    if (tt > t_lo && tt - 1 + nbuf < t_hi) {
+      load_rows<D, PAGED, kRows4Threads>(
+          a, a.v, b, h, page_of<PAGED>(a, b, tt - 1 + nbuf),
+          tile_of(a, tt - 1 + nbuf, lo, len),
+          sV + (tt - 1 - t_lo) % nbuf * kTile * D, D);
+      cp_async_commit();
+    }
+    if (!lwarp && tt + 1 < t_hi) tile_exps(tt + 1);
+    const Tile y = tile_of(a, tt, lo, len);
+    const int c0 = y.c0 - y.k0, c1 = y.c1 - y.k0;
+    if (lwarp) {
+      // lanes past G read a row that is there and write nothing
+      const float* pl = sP[buf] + (lane & (G4 - 1));
+      for (int c = c0; c < c1; ++c) lsum = __fadd_rn(lsum, pl[c * G4]);
+    } else {
+      chain_col4<D>(acc, sPr[buf], vbuf + tid, c0, c1);
+    }
+  }
+  if (lwarp) {
+    if (lane < G) a.tl[(row0 + lane) * a.nB + j] = lsum;
+  } else {
+#pragma unroll
+    for (int g = 0; g < G4; ++g)
+      if (g < G) a.tpv[((row0 + g) * a.nB + j) * D + tid] = acc[g];
+  }
+}
+
 // The next kernel of the sweep on `stream`, as a programmatic dependent
 // launch where `pdl`: its CTAs start while the kernel before drains (stage
 // 2's copy their V rows) and wait for it (griddepcontrol.wait) before
 // reading its output; without `pdl`, griddepcontrol.wait returns at once.
 inline cudaError_t launch_dependent(void (*kernel)(Args), dim3 grid,
                                     int threads, const Args& a,
-                                    cudaStream_t stream, bool pdl = true) {
+                                    cudaStream_t stream, bool pdl = true,
+                                    size_t smem = 0) {
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = pdl ? 1 : 0;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <int D, bool PAGED, int MAXG>
+int launch_chain(Args a, float* scratch, cudaStream_t stream) {
+  constexpr bool kRows4 = MAXG == kChainG4;
+  const long long tiles = (long long)a.B * a.Hkv * a.G * a.nT;
+  const long long blocks = (long long)a.B * a.Hkv * a.G * a.nB;
+  a.scores = scratch;                     // MAXG rows a key
+  a.tpv = a.scores +                      // 16-byte aligned: float4 reads
+          (long long)a.B * a.Hkv * a.nT * kTile * MAXG;
+  a.tmax = a.tpv + blocks * D;
+  a.ta = a.tmax + tiles;
+  a.tl = a.ta + blocks;
+  // stage 1's dynamic shared memory (above the 48 KB default) allowed,
+  // and as many CTAs per SM as shared memory allows (set once per
+  // process)
+  static const cudaError_t attrs = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        split_scores_rows<D, PAGED, MAXG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)rows_smem<D, MAXG>());
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(
+          split_scores_rows<D, PAGED, MAXG>,
+          cudaFuncAttributePreferredSharedMemoryCarveout,
+          (int)cudaSharedmemCarveoutMaxShared);
+    if (e == cudaSuccess) {
+      if constexpr (kRows4) {
+        e = cudaFuncSetAttribute(
+            split_pv_rows4<D, PAGED>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)rows4_smem<D>(kRows4Bufs));
+        if (e == cudaSuccess)
+          e = cudaFuncSetAttribute(
+              split_pv_rows4<D, PAGED>,
+              cudaFuncAttributePreferredSharedMemoryCarveout,
+              (int)cudaSharedmemCarveoutMaxShared);
+      } else {
+        e = cudaFuncSetAttribute(
+            split_pv_slice<D, PAGED>,
+            cudaFuncAttributePreferredSharedMemoryCarveout,
+            (int)cudaSharedmemCarveoutMaxShared);
+      }
+    }
+    return e;
+  }();
+  if (attrs != cudaSuccess) return (int)attrs;
+  // the dependent launch only where stage 2 has more CTAs than the card
+  // has SMs: a smaller grid started early lands its CTAs beside stage
+  // 1's, two long block chains to some SMs and none to others, where
+  // started after stage 1 it takes one SM a CTA
+  // (tools/decode_split_ablation.py)
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return 0;
+    return n;
+  }();
+  const dim3 grid1(a.nT, a.Hkv, a.B);
+  const dim3 grid2 =
+      kRows4 ? dim3(a.Hkv, a.nB, a.B) : dim3(a.nB * slices<D>(), a.Hkv, a.B);
+  split_scores_rows<D, PAGED, MAXG>
+      <<<grid1, kScoreThreads, rows_smem<D, MAXG>(), stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const bool pdl = (long long)grid2.x * grid2.y * grid2.z > sms;
+  if constexpr (kRows4)
+    err = launch_dependent(split_pv_rows4<D, PAGED>, grid2, kRows4Threads, a,
+                           stream, pdl,
+                           rows4_smem<D>(rows4_bufs<PAGED>(a.tpb)));
+  else
+    err = launch_dependent(split_pv_slice<D, PAGED>, grid2, kPvThreads, a,
+                           stream, pdl);
+  if (err != cudaSuccess) return (int)err;
+  const long long groups = (long long)a.B * a.Hkv * a.G * (D / 4);
+  return (int)launch_dependent(
+      combine_blocks<D>,
+      dim3((unsigned)((groups + kPvThreads - 1) / kPvThreads)), kPvThreads,
+      a, stream);
 }
 
 // Fills the tile geometry and scratch pointers of `a` (whose B, Hkv, G,
@@ -974,65 +1315,15 @@ int launch(Args a, float* scratch, long long scratch_len,
   a.nT = a.nB * a.tpb;
   if (scratch_floats(a.B, a.Hkv, a.G, D, a.nT, a.nB) > scratch_len)
     return (int)cudaErrorInvalidValue;
-  const long long tiles = (long long)a.B * a.Hkv * a.G * a.nT;
-  const long long blocks = (long long)a.B * a.Hkv * a.G * a.nB;
   if constexpr (block_chain<D>()) {
     static_assert(MODE == kNormalized, "a chained D is normalized only");
-    a.scores = scratch;                   // kMaxG rows a key
-    a.tpv = a.scores +                    // 16-byte aligned: float4 reads
-            (long long)a.B * a.Hkv * a.nT * kTile * max_g<D>();
-    a.tmax = a.tpv + blocks * D;
-    a.ta = a.tmax + tiles;
-    a.tl = a.ta + blocks;
-    // stage 1's dynamic shared memory (above the 48 KB default) allowed,
-    // and as many CTAs per SM as shared memory allows (set once per
-    // process)
-    static const cudaError_t attrs = [] {
-      cudaError_t e = cudaFuncSetAttribute(
-          split_scores_rows<D, PAGED>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rows_smem<D>());
-      if (e == cudaSuccess)
-        e = cudaFuncSetAttribute(
-            split_scores_rows<D, PAGED>,
-            cudaFuncAttributePreferredSharedMemoryCarveout,
-            (int)cudaSharedmemCarveoutMaxShared);
-      if (e == cudaSuccess)
-        e = cudaFuncSetAttribute(
-            split_pv_slice<D, PAGED>,
-            cudaFuncAttributePreferredSharedMemoryCarveout,
-            (int)cudaSharedmemCarveoutMaxShared);
-      return e;
-    }();
-    if (attrs != cudaSuccess) return (int)attrs;
-    // the dependent launch only where stage 2 has more CTAs than the card
-    // has SMs: a smaller grid started early lands its CTAs beside stage
-    // 1's, two long block chains to some SMs and none to others, where
-    // started after stage 1 it takes one SM a CTA
-    // (tools/decode_split_ablation.py)
-    static const int sms = [] {
-      int dev = 0, n = 0;
-      if (cudaGetDevice(&dev) != cudaSuccess ||
-          cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-              cudaSuccess)
-        return 0;
-      return n;
-    }();
-    const dim3 grid2(a.nB * slices<D>(), a.Hkv, a.B);
-    split_scores_rows<D, PAGED>
-        <<<dim3(a.nT, a.Hkv, a.B), kScoreThreads, rows_smem<D>(), stream>>>(
-            a);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    err = launch_dependent(split_pv_slice<D, PAGED>, grid2, kPvThreads, a,
-                           stream,
-                           (long long)grid2.x * grid2.y * grid2.z > sms);
-    if (err != cudaSuccess) return (int)err;
-    const long long groups = (long long)a.B * a.Hkv * a.G * (D / 4);
-    return (int)launch_dependent(
-        combine_blocks<D>,
-        dim3((unsigned)((groups + kPvThreads - 1) / kPvThreads)), kPvThreads,
-        a, stream);
+    if constexpr (D == 128) {
+      if (chain_rows(D, a.G) == kChainG4)
+        return launch_chain<D, PAGED, kChainG4>(a, scratch, stream);
+    }
+    return launch_chain<D, PAGED, kChainG>(a, scratch, stream);
   } else {
+    const long long tiles = (long long)a.B * a.Hkv * a.G * a.nT;
     a.scores = scratch;
     a.tmax = a.scores + tiles * kTile;
     a.tl = a.tmax + tiles;

@@ -71,11 +71,13 @@
 //   8 keys for the scores, 8 rows by D / 32 output columns for p . v (8
 //   at D 256, 4 at D 128); rows 4 tr + i and 32 + 4 tr + i (tr = lane %
 //   8), the same in both phases.
-// - K arrives in 16-d slabs of 256 keys (16 KB) and V in 16-key slabs of
-//   all D columns (16 KB at D 256, 8 at 128), through the thread's
-//   registers: loaded as bf16 while the slab before computes, widened
-//   once to f32 and stored into a two-stage ring, so the inner loops
-//   issue FMAs and shared loads only (90-94 % FMAs at D 256). A block's
+// - K arrives in 16-d slabs of 256 keys (16 KB) and V in slabs of all D
+//   columns that fill a 16 KB stage (16 keys at D 256; at D 128 a whole
+//   32-key group, so p . v takes one barrier and one V copy a group),
+//   through the thread's registers: loaded as bf16 while the slab before
+//   computes, widened once to f32 and stored into a two-stage ring, so
+//   the inner loops issue FMAs and shared loads only (90-94 % FMAs at D
+//   256; the score slab's loop 93 % at D 128, from its SASS). A block's
 //   live keys go in 32-key groups, one group a warp; where four or fewer
 //   (or two or fewer) are left, two (or four) warps share a group at 4
 //   (or 2) rows a thread, and 5 or 6 left run as 4 and the rest, so that
@@ -619,18 +621,20 @@ constexpr int kGroup = 32;             // keys of a group: a warp's keys in
                                        // the score phase
 constexpr int kSubGroups = 8;          // groups of a K piece (256 keys)
 constexpr int kSlabD = 16;             // d of one K slab
-constexpr int kVKeys = 16;             // keys of one V slab
 constexpr int kStage = kSubGroups * kGroup * kSlabD;   // f32 of a stage:
                                        // a K slab [256][16] or a V slab
                                        // [16][kD]
 
 // Shared memory of head dim kD, in bytes from the start; the score tile,
 // last, holds the block's keys rounded up to whole groups. kCols: the
-// p . v columns of a thread (8 rows by kCols columns).
+// p . v columns of a thread (8 rows by kCols columns). kVKeys: the keys of
+// one V slab, as many as fill a stage: 16 at D 256, a whole 32-key group
+// at D 128, so that D 128 takes one barrier and one V copy a group.
 template <int kD>
 struct Layout {
   static_assert(kD == 128 || kD == 256, "fa_rows takes head dim 128, 256");
-  static_assert(kVKeys * kD <= kStage, "a V slab fits a stage");
+  static constexpr int kVKeys = kStage / kD;
+  static_assert(kGroup % kVKeys == 0, "a group is whole V slabs");
   static constexpr int kCols = kD / 32;
   static constexpr size_t kQt = 0;                           // f32 [kD][64]
   static constexpr size_t kRing = kQt + (size_t)kD * kRows * 4;  // [2][kStg]
@@ -721,7 +725,7 @@ template <int kD>
 __device__ __forceinline__ void load_v(Staged& st, const __nv_bfloat16* vb,
                                        long long vss, int key0, int km) {
 #pragma unroll
-  for (int n = 0; n < kVKeys * kD / 8 / kThreads; ++n) {
+  for (int n = 0; n < Layout<kD>::kVKeys * kD / 8 / kThreads; ++n) {
     const int i = threadIdx.x + n * kThreads;
     const int r = i / (kD / 8), c = i % (kD / 8);
     const int key = key0 + r;
@@ -734,7 +738,7 @@ __device__ __forceinline__ void load_v(Staged& st, const __nv_bfloat16* vb,
 template <int kD>
 __device__ __forceinline__ void store_v(float* stage, const Staged& st) {
 #pragma unroll
-  for (int n = 0; n < kVKeys * kD / 8 / kThreads; ++n) {
+  for (int n = 0; n < Layout<kD>::kVKeys * kD / 8 / kThreads; ++n) {
     const int i = threadIdx.x + n * kThreads;
     const int r = i / (kD / 8), c = i % (kD / 8);
     float f[8];
@@ -873,7 +877,7 @@ __device__ __forceinline__ void pv_slab(const float* sp, const float* vs,
                                         int tr, int lrow, float (&pv)[8][C],
                                         float& lch) {
 #pragma unroll
-  for (int c = 0; c < kVKeys; ++c) {
+  for (int c = 0; c < Layout<kD>::kVKeys; ++c) {
     float p[8], v[C];
     load_f32<4>(sp + c * kRows + 4 * tr, p);
     load_f32<4>(sp + c * kRows + 32 + 4 * tr, p + 4);
@@ -1072,17 +1076,19 @@ fa_rows_kernel(const __nv_bfloat16* __restrict__ q,
     const int nxt = wk.next_live(blk + 1);
     int n_lo = 0, n_hi = 0;
     if (nxt < wk.blk_end) wk.live(nxt, n_lo, n_hi);
-    for (int hg = 2 * g_lo; hg < 2 * g_hi; ++hg) {   // 16-key slabs
-      const int g = hg / 2;
+    // V slabs of kVKeys keys, SPG a group
+    constexpr int VK = L::kVKeys, SPG = kGroup / VK;
+    for (int hg = SPG * g_lo; hg < SPG * g_hi; ++hg) {
+      const int g = hg / SPG;
       __syncthreads();
       float* nst = ring + (stage ^ 1) * kStage;
-      const bool nv = hg + 1 < 2 * g_hi;
+      const bool nv = hg + 1 < SPG * g_hi;
       if (nv)
-        load_v<kD>(st, vb, vs.s, k0 + (hg + 1) * kVKeys, km);
+        load_v<kD>(st, vb, vs.s, k0 + (hg + 1) * VK, km);
       else if (nxt < wk.blk_end)
         load_k(st, kb, ks.s, nxt * block_k + n_lo * kGroup,
                piece(n_hi - n_lo) * kGroup, wk.kmax(nxt), 0);
-      if (hg == 2 * g_lo) {
+      if (hg == SPG * g_lo) {
         // row lrow's block max, m_new and alpha, for every thread; then p
         // of the block's first two groups
         float m = sMax[lrow];
@@ -1100,12 +1106,17 @@ fa_rows_kernel(const __nv_bfloat16* __restrict__ q,
           p_group<BACKEND>(sS, gp, tr, tc, warp, inner(gp), k0, km, sQp,
                            sMn, causal, window);
         __syncthreads();            // p of the first group
-      } else if (hg % 2 == 1 && g + 2 < g_hi) {
-        // p of the group after next, beside this one's p . v
+      } else if (SPG == 2 && hg % 2 == 1 && g + 2 < g_hi) {
+        // p of the group after next, beside this one's p . v (in its
+        // second slab)
         p_group<BACKEND>(sS, g + 2, tr, tc, warp, inner(g + 2), k0, km, sQp,
                          sMn, causal, window);
       }
-      pv_slab<kD>(sS + hg * kVKeys * kRows,
+      if (SPG == 1 && g + 2 < g_hi)
+        // one slab a group: the group after next's p in every slab
+        p_group<BACKEND>(sS, g + 2, tr, tc, warp, inner(g + 2), k0, km, sQp,
+                         sMn, causal, window);
+      pv_slab<kD>(sS + hg * VK * kRows,
                   ring + stage * kStage + C * (4 * warp + tc), tr, lrow, pv,
                   lch);
       if (nv)

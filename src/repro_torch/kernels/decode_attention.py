@@ -41,7 +41,9 @@ recurrentgemma: 16 on one KV head; normalized mode only) a CTA per
 columns, and slice 0 each row's l, in key order, the order of the plain
 sweep's key-major products on the card, so the kernels match their plain
 versions bit for bit there; a third kernel chains the blocks, one thread
-per four outputs.
+per four outputs. At head dim 128 with at most ``CHAIN_G4`` query heads a
+KV head an instantiation of its own computes only those rows: scores for
+four rows a key, and a CTA per update block chaining all 128 columns.
 """
 
 from __future__ import annotations
@@ -81,6 +83,11 @@ KEY_MAJOR_DIMS = (128, 256)
 # recurrentgemma's 16 at D 256), 8 at D 32 and 64, so gpt2's heads keep
 # their occupancy
 MAX_GROUP = {d: 16 if d in KEY_MAJOR_DIMS else 8 for d in HEAD_DIMS}
+# query rows a KV head the chained sweep computes at head dim 128 when G
+# is at most this (phi3-medium's 4 query heads a KV head): an
+# instantiation of its own, so that no row past G costs an FMA, an exp or
+# scratch (chain_rows in decode_split.cuh); G 5 to 16 take MAX_GROUP's 16
+CHAIN_G4 = 4
 TILE = 64                 # keys per tile of the split sweep (decode_split.cuh)
 
 
@@ -242,6 +249,13 @@ def _ptrs(outs):
     return p + [None] * (3 - len(p))
 
 
+def _chain_rows(d, g):
+    """Query rows a KV head the chained sweep computes at head dim ``d``
+    for ``g`` query heads a KV head: CHAIN_G4 at head dim 128 and g <=
+    CHAIN_G4, else MAX_GROUP[d]."""
+    return CHAIN_G4 if d == 128 and g <= CHAIN_G4 else MAX_GROUP[d]
+
+
 def _split_scratch(qg, keys, block):
     """The split sweep's scratch for ``keys`` slice rows updated once per
     ``block`` keys, one flat f32 buffer (uninitialized: the kernels write
@@ -249,14 +263,14 @@ def _split_scratch(qg, keys, block):
     tile's l, block alpha and p @ v and one ticket counter per (b, KV
     head); at ``KEY_MAJOR_DIMS``, where the kernels chain each update
     block by column slices (``block_chain``), the scores of
-    ``MAX_GROUP[d]`` query rows a key, and each update block's p @ v,
-    alpha and l. Returns (buffer, its length)."""
+    ``_chain_rows(d, g)`` query rows a key, and each update block's p @
+    v, alpha and l. Returns (buffer, its length)."""
     b, hkv, g, d = qg.shape
     bs = max(min(block, keys), 1)
     blocks = max(-(-keys // bs), 1)
     tiles = blocks * -(-bs // TILE)
     if d in KEY_MAJOR_DIMS:
-        n = b * hkv * (tiles * TILE * MAX_GROUP[d]
+        n = b * hkv * (tiles * TILE * _chain_rows(d, g)
                        + g * (tiles + blocks * (d + 2)))
     else:
         n = b * hkv * (g * tiles * (TILE + 3 + d) + 1)

@@ -245,8 +245,10 @@ def test_decode_plain_d128_matches_pallas_interpret():
 def test_decode_d128_shape_checks_and_scratch():
     """D 128 takes the normalized sweeps at G up to 16 (the chained
     design's rows a KV head) and no partial / packed mode; the scratch
-    is the chained layout's: 16 query rows of scores a key, then per
-    row the tile maxes and each update block's p @ v, alpha and l."""
+    is the chained layout's: the scores of the rows the sweep computes a
+    key (4 at phi3-medium's G 4, the G-4 instantiation; 16 from G 5),
+    then per row the tile maxes and each update block's p @ v, alpha and
+    l."""
     assert D in kdec.HEAD_DIMS and D in kdec.KEY_MAJOR_DIMS
     assert D not in kdec.STAT_HEAD_DIMS and kdec.MAX_GROUP[D] >= G
     kdec._check_shape("t", "normalized", D, 40, 10)
@@ -255,7 +257,8 @@ def test_decode_d128_shape_checks_and_scratch():
     with pytest.raises(ValueError):
         kdec._check_shape("t", "normalized", D, 17 * 2, 2)
     b, hkv, keys, block = 8, 10, 2048, 512
-    qg = torch.empty(b, hkv, G, D)
-    _, n = kdec._split_scratch(qg, keys, block)
     tiles, blocks = keys // 64, keys // block
-    assert n == b * hkv * (tiles * 64 * 16 + G * (tiles + blocks * (D + 2)))
+    for g, rows in ((G, 4), (1, 4), (5, 16), (16, 16)):
+        _, n = kdec._split_scratch(torch.empty(b, hkv, g, D), keys, block)
+        assert n == b * hkv * (tiles * 64 * rows
+                               + g * (tiles + blocks * (D + 2))), g

@@ -473,6 +473,11 @@ def test_d256_sliced_sweep_inside_limits(exp, g, window, lens, paged):
     ((8, 1, 16, 256), 2048, 64, 8 * (32 * 64 * 16 + 16 * (32 + 32 * 258))),
     # G 5 over a 256-key ring at block_s 128: nT 4, nB 2
     ((1, 1, 5, 256), 256, 128, 4 * 64 * 16 + 5 * (4 + 2 * 258)),
+    # phi3-medium's decode at head dim 128, G 4: the four-row
+    # instantiation, scores for 4 query rows a key (not 16), block_s 512
+    ((8, 10, 4, 128), 2048, 512, 80 * (32 * 64 * 4 + 4 * (32 + 4 * 130))),
+    # and paged, page 64
+    ((8, 10, 4, 128), 2048, 64, 80 * (32 * 64 * 4 + 4 * (32 + 32 * 130))),
 ])
 def test_split_scratch_length(shape, keys, block, n):
     buf, got = kdec._split_scratch(torch.empty(shape), keys, block)

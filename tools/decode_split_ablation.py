@@ -12,7 +12,11 @@ else hides it.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 tools/decode_split_ablation.py
+    python3 tools/decode_split_ablation.py [--phi3]
+
+With ``--phi3`` the variants run at phi3-medium-14b's decode shape
+instead (``PHI3_DECODE_SHAPE``: B 8, 40 query heads on 10 KV heads of
+128, a 2,048-token cache, block_s 512 or page 64).
 
 It prints one JSON line per variant (each timed in a process of its own)
 and exits non-zero if a cut no longer matches the source (the source
@@ -35,8 +39,9 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import (cuda_graph_time_ms, hybrid_decode_inputs,  # noqa: E402
-                        stage_device_us)
+from chip_smoke import (PHI3_DECODE_SHAPE, PHI3_PAGE,  # noqa: E402
+                        cuda_graph_time_ms, decode_inputs,
+                        hybrid_decode_inputs, stage_device_us)
 from repro_torch.kernels import build, decode_attention as da  # noqa: E402
 from repro_torch.runtime import ExecPolicy  # noqa: E402
 
@@ -63,6 +68,29 @@ S2_V0 = ("      load_rows<SC, PAGED, kPvThreads>(\n",
 # stage 3's chain over the blocks, and the dependent launch
 S3 = ("for (int j0 = j_first; j0 < j_last; j0 += kBatch) {",
       "for (int j0 = j_first; j0 < j_first; j0 += kBatch) {")
+# the G-4 stage 2 at D 128 (split_pv_rows4): its V copies, its exps, its
+# p @ v and l chains, its wait for stage 1
+R4_V0 = ("    load_rows<D, PAGED, kRows4Threads>(\n        a, a.v, b, h, "
+         "page_of<PAGED>(a, b, t_lo + u),",
+         "    if (false) load_rows<D, PAGED, kRows4Threads>(\n        a, a.v, "
+         "b, h, page_of<PAGED>(a, b, t_lo + u),")
+R4_V = ("      load_rows<D, PAGED, kRows4Threads>(\n          a, a.v, b, h, "
+        "page_of<PAGED>(a, b, tt - 1 + nbuf),",
+        "      if (false) load_rows<D, PAGED, kRows4Threads>(\n          a, "
+        "a.v, b, h, page_of<PAGED>(a, b, tt - 1 + nbuf),")
+R4_CHAIN = [("  for (; c + kRows4Unroll <= c1; c += kRows4Unroll) {",
+             "  for (; c + kRows4Unroll <= c0; c += kRows4Unroll) {"),
+            ("  for (; c < c1; ++c) key(p_at(c), v_at(c));",
+             "  for (; c < c0; ++c) key(p_at(c), v_at(c));")]
+R4_EXP = ("const float ex = exp_as<BK>(__fsub_rn(sv[u], m));",
+          "const float ex = __fsub_rn(sv[u], m);")
+R4_L = ("      for (int c = c0; c < c1; ++c) lsum = __fadd_rn(lsum, pl[c * G4]);",
+        "      for (int c = c0; c < c0; ++c) lsum = __fadd_rn(lsum, pl[c * G4]);")
+R4_WAIT = ("  asm volatile(\"griddepcontrol.wait;\" ::: \"memory\");\n"
+           "  const int t_mid = j * a.tpb, t_end = t_mid + a.tpb;\n"
+           "  for (int g = warp; g < G; g += CW + 1) {",
+           "  const int t_mid = j * a.tpb, t_end = t_mid + a.tpb;\n"
+           "  for (int g = warp; g < G; g += CW + 1) {")
 NO_PDL = ("  cfg.numAttrs = pdl ? 1 : 0;\n", "  cfg.numAttrs = 0;\n")
 ALL_PDL = ("  cfg.numAttrs = pdl ? 1 : 0;\n", "  cfg.numAttrs = 1;\n")
 # variant -> text replacements in decode_split.cuh
@@ -80,12 +108,25 @@ CUTS = {
     "no_pdl": [NO_PDL],
     "all_pdl": [ALL_PDL],
 }
+# the cuts of the G-4 path (``--phi3``): its stage 2's own chains, V
+# copies and wait for stage 1 replace the D 256 path's stage-2 cuts
+CUTS_G4 = {name: cuts for name, cuts in CUTS.items()
+           if name not in ("s2_no_exp", "s2_no_chain", "s2_no_v",
+                           "s2_skeleton")}
+CUTS_G4.update({
+    "s2_no_exp": [R4_EXP],
+    "s2_no_chain": R4_CHAIN,
+    "s2_no_l": [R4_L],
+    "s2_no_v": [R4_V, R4_V0],
+    "s2_skeleton": [R4_EXP, R4_V, R4_V0, R4_L] + R4_CHAIN,
+    "s2_no_wait": [R4_WAIT],
+})
 
 
-def build_variants(out_dir: Path) -> dict:
+def build_variants(out_dir: Path, cuts_table: dict) -> dict:
     src = (build.CSRC / "decode_split.cuh").read_text()
     procs = {}
-    for name, cuts in CUTS.items():
+    for name, cuts in cuts_table.items():
         text = src
         for old, new in cuts:
             if text.count(old) != 1:
@@ -109,22 +150,25 @@ def build_variants(out_dir: Path) -> dict:
         if proc.returncode != 0:
             sys.exit(f"[decode_split_ablation] nvcc failed on {name} "
                      f"{cu}:\n{out}")
-    return {name: out_dir / name for name in CUTS}
+    return {name: out_dir / name for name in cuts_table}
 
 
-def time_variant(name: str, vdir: Path):
+def time_variant(name: str, vdir: Path, phi3: bool):
     """One variant's times, in a process of its own (one build of the
     sources loaded per process)."""
     for cu, lib in SOURCES.items():
         lib._lib = ctypes.CDLL(os.fspath(vdir / Path(cu).with_suffix(".so")))
         lib._fns = {}
-    pol = ExecPolicy(exp_backend="vexp", block_page=64)
+    pol = ExecPolicy(exp_backend="vexp",
+                     block_page=PHI3_PAGE if phi3 else 64)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     row = {"variant": name, "nvidia_smi": smi}
     for paged in (False, True):
-        *_, run = hybrid_decode_inputs(da, paged)
+        *_, run = (decode_inputs(da, paged, seed=22 + 2 * paged,
+                                 **PHI3_DECODE_SHAPE) if phi3
+                   else hybrid_decode_inputs(da, paged))
         tag = "paged" if paged else "contig"
         row[f"graph_ms_{tag}"] = cuda_graph_time_ms(lambda: run(pol),
                                                     iters=50)
@@ -136,13 +180,17 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("[decode_split_ablation] no CUDA device")
     out_dir = ROOT / "build" / "decode_split_ablation"
-    if len(sys.argv) == 3 and sys.argv[1] == "--variant":
-        time_variant(sys.argv[2], out_dir / sys.argv[2])
+    phi3 = "--phi3" in sys.argv[1:]
+    args = [a for a in sys.argv[1:] if a != "--phi3"]
+    if len(args) == 2 and args[0] == "--variant":
+        time_variant(args[1], out_dir / args[1], phi3)
         return
-    build_variants(out_dir)
-    failed = [name for name in CUTS
+    table = CUTS_G4 if phi3 else CUTS
+    build_variants(out_dir, table)
+    failed = [name for name in table
               if subprocess.run([sys.executable, __file__, "--variant",
-                                 name], cwd=ROOT).returncode != 0]
+                                 name] + (["--phi3"] if phi3 else []),
+                                cwd=ROOT).returncode != 0]
     if failed:
         sys.exit(f"[decode_split_ablation] failed: {failed}")
 

@@ -1,15 +1,18 @@
-"""Where the head-dim-256 flash-decode sweep's time goes, on the card.
+"""Where the chained flash-decode sweep's time goes, on the card.
 
 Runs ``chip_smoke.py``'s B2 and B7 case at recurrentgemma-9b's decode
 shape (B 8, 16 query heads on one KV head, head dim 256, a 2048-slot ring,
 block_s 512 or page 64; ``_hybrid_decode_case``) and prints, per pool, the
 graph ms, the eager ms, the device µs of each CUDA kernel of one call
 (torch.profiler), SDPA's graph ms, the bound and the kernel's readings
-against its plain version under every exp backend.
+against its plain version under every exp backend. With ``--phi3`` the
+cases are phi3-medium-14b's instead (``PHI3_DECODE_SHAPE``: B 8, 40 query
+heads on 10 KV heads of 128, a 2,048-token cache): B2 in both layouts and
+B7 through a page-64 table, as ``phase_phi3_kernels`` runs them.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 tools/decode_split_stages.py [--parent DIR] [--dense]
+    python3 tools/decode_split_stages.py [--parent DIR] [--dense] [--phi3]
 
 With ``--dense`` each turn also runs ``chip_smoke.py``'s gpt2-small
 decode phases (B2 and B7 at head dim 64, their own JSON lines), whose
@@ -32,7 +35,22 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def worker(tree: Path, label: str, dense: bool):
+def phi3_cases(chip_smoke, da, policy_cls):
+    """(pool, fields) of B2 bshd, B2 bhsd and B7 at phi3-medium's shape,
+    from ``phase_phi3_kernels``' seeds."""
+    shape = chip_smoke.PHI3_DECODE_SHAPE
+    for pool, paged, layout, seed in (("bshd", False, "bshd", 22),
+                                      ("bhsd", False, "bhsd", 23),
+                                      ("paged", True, "bshd", 24)):
+        res, _ = chip_smoke._decode_case(
+            da, policy_cls, paged,
+            chip_smoke.decode_inputs(da, paged, seed=seed, layout=layout,
+                                     **shape),
+            chip_smoke.PHI3_PAGE, f"d128 {pool}", layout=layout)
+        yield pool, res
+
+
+def worker(tree: Path, label: str, dense: bool, phi3: bool):
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(tree / "src"))
     import torch
@@ -45,6 +63,11 @@ def worker(tree: Path, label: str, dense: bool):
         sys.exit(f"[decode_split_stages] imported {da.__file__}, "
                  f"not {tree}")
     build.build_all(["decode_attention.cu", "decode_attention_paged.cu"])
+    if phi3:
+        for pool, res in phi3_cases(chip_smoke, da, ExecPolicy):
+            print(json.dumps({"tree": label, "pool": pool, **res}),
+                  flush=True)
+        return
     for paged in (False, True):
         res, _ = chip_smoke._hybrid_decode_case(da, ExecPolicy, paged)
         print(json.dumps({"tree": label, "paged": paged, **res}),
@@ -61,16 +84,18 @@ def main():
     ap.add_argument("--worker", type=Path, default=None)
     ap.add_argument("--label", default="this")
     ap.add_argument("--dense", action="store_true")
+    ap.add_argument("--phi3", action="store_true")
     args = ap.parse_args()
     if args.worker is not None:
-        worker(args.worker, args.label, args.dense)
+        worker(args.worker, args.label, args.dense, args.phi3)
         return
     turns = ([("parent", args.parent), ("this", ROOT), ("this", ROOT),
               ("parent", args.parent)] if args.parent else [("this", ROOT)])
     for label, tree in turns:
         proc = subprocess.run(
             [sys.executable, __file__, "--worker", str(tree), "--label",
-             label] + (["--dense"] if args.dense else []), cwd=ROOT)
+             label] + (["--dense"] if args.dense else [])
+            + (["--phi3"] if args.phi3 else []), cwd=ROOT)
         if proc.returncode != 0:
             sys.exit(f"[decode_split_stages] the {label} turn failed "
                      f"({proc.returncode})")

@@ -10,6 +10,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 tools/fa_ablation.py
     python3 tools/fa_ablation.py --d256 [--parent DIR] [--cuts]
+    python3 tools/fa_ablation.py --d128 [--parent DIR] [--cuts]
 
 Without ``--d256``: the head-dim-64 path at ``chip_smoke.py``'s cold FA
 shape (B=8, H=12, D=64, S=512, ragged kv_len, causal, block_k 512), under
@@ -30,6 +31,12 @@ earlier ``fa256`` kernel before its head dim became a template parameter
 read the same cuts), and the earlier ``Tile<256>``
 design (32-row tiles in the shared kernel) for a copy of this tool run
 in a checkout that still holds it.
+
+With ``--d128``: the same at phi3-medium-14b's shapes
+(``phi3_fa_inputs``: the wave, B 8 x 1024 queries of 40 heads on 10 KV
+heads, ragged kv_len, causal; the chunk, 256 queries at (B,) offsets over
+2,048 keys), block_k 512, with the cuts of the design that holds head dim
+128 in the source.
 
 It prints one JSON line per reading and exits non-zero if a cut no
 longer matches the source (the source changed under it).
@@ -83,7 +90,8 @@ _COPY_21 = ("    cp_async16(dst + r * Smem<D>::kRowB + c * 8,\n"
             "ok ? 16 : 0);\n", "")
 _SCORES_256 = ("  for (int d4 = 0; d4 < kSlabD / 4; ++d4) {",
                "  for (int d4 = 0; d4 < 1; ++d4) {")
-_PV_256 = ("  for (int c = 0; c < kVKeys; ++c) {\n    float p[8], v[C];",
+_PV_256 = ("  for (int c = 0; c < Layout<kD>::kVKeys; ++c) {\n"
+           "    float p[8], v[C];",
            "  for (int c = 0; c < 1; ++c) {\n    float p[8], v[C];")
 _EXP_256 = ("      const float ex = vexp::apply_exp(BACKEND, "
             "__fsub_rn(sv[i], m[i]));",
@@ -124,6 +132,10 @@ CUTS_D256 = {
         "skeleton": [SCORES, PV, EXP, _L_CHAIN_21, _COPY_21] + WIDEN,
     },
 }
+
+# The D 128 cuts, per design: fa_rows<128> shares fa_rows<256>'s source
+# (its V slabs are whole 32-key groups), so its table is the same.
+CUTS_D128 = {"fa_rows_kernel": CUTS_D256["fa_rows_kernel"]}
 
 
 def _apply(src: str, cuts, name: str) -> str:
@@ -191,7 +203,32 @@ def main_d64():
         print(json.dumps(row), flush=True)
 
 
-def main_d256(parent: Path | None, cuts: bool):
+def rows_shapes(d: int) -> dict:
+    """name -> run(policy): the wave and the chunk at head dim d (256:
+    recurrentgemma's, 128: phi3-medium's)."""
+    if d == 128:
+        q, k, v, kv_len, qc, offs, clens = chip_smoke.phi3_fa_inputs()
+        sq = q.shape[1]
+        kw, vw = k[:, :sq], v[:, :sq]
+        return {
+            "wave": lambda pol: fa.flash_attention(
+                q, kw, vw, causal=True, kv_len=kv_len, policy=pol),
+            "chunk": lambda pol: fa.flash_attention(
+                qc, k, v, causal=True, kv_len=offs + clens, q_offset=offs,
+                policy=pol),
+        }
+    q, k, v, kv_len, qc, offs, clens = chip_smoke.hybrid_fa_inputs()
+    win = chip_smoke.HYBRID_FA_WINDOW
+    return {
+        "wave": lambda pol: fa.flash_attention(
+            q, k, v, causal=True, window=win, kv_len=kv_len, policy=pol),
+        "chunk": lambda pol: fa.flash_attention(
+            qc, k, v, causal=True, window=win, kv_len=offs + clens,
+            q_offset=offs, policy=pol),
+    }
+
+
+def main_rows(d: int, parent: Path | None, cuts: bool):
     src = (build.CSRC / "flash_attention.cu").read_text()
     variants = {"this": (src, build.CSRC)}
     if parent is not None:
@@ -199,21 +236,14 @@ def main_d256(parent: Path | None, cuts: bool):
         variants["parent"] = ((pcsrc / "flash_attention.cu").read_text(),
                               pcsrc)
     if cuts:
-        design = [m for m in CUTS_D256 if m in src]
+        table = CUTS_D128 if d == 128 else CUTS_D256
+        design = [m for m in table if m in src]
         if len(design) != 1:
-            sys.exit("[fa_ablation] no D 256 cut table matches the source")
-        for name, cut in CUTS_D256[design[0]].items():
+            sys.exit(f"[fa_ablation] no D {d} cut table matches the source")
+        for name, cut in table[design[0]].items():
             variants[name] = (_apply(src, cut, name), build.CSRC)
-    libs = build_variants(ROOT / "build" / "fa_ablation_d256", variants)
-    q, k, v, kv_len, qc, offs, clens = chip_smoke.hybrid_fa_inputs()
-    win = chip_smoke.HYBRID_FA_WINDOW
-    shapes = {
-        "wave": lambda pol: fa.flash_attention(
-            q, k, v, causal=True, window=win, kv_len=kv_len, policy=pol),
-        "chunk": lambda pol: fa.flash_attention(
-            qc, k, v, causal=True, window=win, kv_len=offs + clens,
-            q_offset=offs, policy=pol),
-    }
+    libs = build_variants(ROOT / "build" / f"fa_ablation_d{d}", variants)
+    shapes = rows_shapes(d)
     smi = smi_line()
 
     def reading(name, turn, exps):
@@ -238,13 +268,14 @@ def main_d256(parent: Path | None, cuts: bool):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--d256", action="store_true")
+    ap.add_argument("--d128", action="store_true")
     ap.add_argument("--parent", type=Path, default=None)
     ap.add_argument("--cuts", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("[fa_ablation] no CUDA device")
-    if args.d256:
-        main_d256(args.parent, args.cuts)
+    if args.d256 or args.d128:
+        main_rows(128 if args.d128 else 256, args.parent, args.cuts)
     else:
         main_d64()
 
