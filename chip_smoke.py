@@ -14,7 +14,9 @@ its SASS instructions per element from ``cuobjdump -sass``), serves
 full-width gpt2-small through the port's ``Server`` on the contiguous
 cache and on the paged pool with a shared-prefix cache (each group's
 decode step as one CUDA graph, and eagerly, in turns; the replays held
-to the eager step by the capture audit), both again with chunked
+to the eager step by the capture audit; the paged serve's cold requests
+held to a contiguous serve at the page's update block request by
+request), both again with chunked
 prefill (each group's chunk program a second CUDA graph; tokens held to
 the monolithic serves'), a chaos serve (paged, chunked, a seeded fault
 injector at all six points, a squeezed page budget, the degradation
@@ -37,7 +39,13 @@ phi3-medium-14b at full width: B3 / B2 / B7 at its head dim 128 (40
 query heads on 10 KV heads) held to their plain versions with their
 controls, and its serves (graph and eager arms in turns, paged, chunked
 256; every SwiGLU gate exp one launch of the exp kernel, held to its
-plain version over a teacher-forced replay), and checks what comes out.
+plain version over a teacher-forced replay), then the MoE family,
+dbrx-132b at full width with its depth cut to 8 layers: B3 / B2 / B7 at
+48 query heads on 8 KV heads (G 6) with their controls, its serve (graph
+then eager, the router's and the experts' gate exps two launches of the
+exp kernel a layer, held to their plain versions over a teacher-forced
+replay, the tiers' routing flips counted) and its paged serve held to a
+contiguous one request by request, and checks what comes out.
 Every phase prints one JSON line; the first failure on any rank exits
 non-zero.
 The last two lines are the kernel table and the device line. Without a
@@ -1639,22 +1647,24 @@ def _pct(xs, q):
     return xs[min(len(xs) * q // 100, len(xs) - 1)]
 
 
-def replay_logits(cfg, params, reqs, policy, steps=None):
+def replay_logits(cfg, params, reqs, policy, steps=None, width=None):
     """Teacher-forced logits of ``reqs`` (prompts + their emitted tokens)
-    under ``policy``: one ragged prefill, then one decode step per
+    under ``policy``: one ragged prefill (at ``width`` padded positions
+    where given, else the longest prompt's), then one decode step per
     emitted token (the first ``steps`` logits only, where given). Returns
     a list of (B, V) f32 logits per step."""
     from repro_torch.models import transformer
     b = len(reqs)
     plen = np.array([len(r.prompt) for r in reqs], np.int32)
-    toks = np.zeros((b, int(plen.max())), np.int32)
+    toks = np.zeros((b, width or int(plen.max())), np.int32)
     for i, r in enumerate(reqs):
         toks[i, :plen[i]] = r.prompt
     n = steps or len(reqs[0].out)
     logits, pref = transformer.prefill(
         params, cfg, torch.as_tensor(toks, device="cuda"),
         prompt_len=torch.as_tensor(plen, device="cuda"), policy=policy)
-    cache = transformer.init_cache(cfg, b, int(plen.max()) + n, "cuda")
+    cache = transformer.init_cache(
+        cfg, b, max(toks.shape[1], int(plen.max()) + n), "cuda")
     for name in ("k", "v"):
         cache[name][:, :, :toks.shape[1]] = pref[name]
     out = [logits[:, 0]]
@@ -1884,7 +1894,10 @@ def gpt2_small_setup():
 
 
 ARMS = ("graph", "eager")
-ARM_TURNS = 2          # graph, eager, graph, eager: the host spreads by 1.7x
+# turns of each serve path's arms: one (graph, then eager), so that the
+# run keeps inside its limit as paths are added; every arm and every
+# comparison still runs once
+ARM_TURNS = 1
 
 
 def check_serve_counts(cfg, st, counts, sdpa_calls, decode, other, what):
@@ -1947,62 +1960,65 @@ def check_graph_stats(cfg, st, arm, replayed, decode, what):
     return out
 
 
+def serve_turn(kernels, cfg, make_server, make_reqs, arm, decode, other,
+               what, after=None):
+    """One serve of ``make_reqs()`` through ``make_server(arm ==
+    "graph")``, its launch counts set to 0 just before and read just
+    after and checked (``check_serve_counts``, ``check_graph_stats``);
+    ``after(srv, stats)`` runs on the drained server. Returns the turn: a
+    dict with the requests, stats, counts and readings."""
+    srv = make_server(arm == "graph")
+    reqs = make_reqs()
+    secs, counts, sdpa_calls, peak, clocks = timed_serve(kernels, srv, reqs)
+    replayed = kernels.replay_counts()
+    st = srv.stats()
+    where = f"{what} ({arm} arm)"
+    waves, chunks, steps = check_serve_counts(
+        cfg, st, counts, sdpa_calls, decode, other, where)
+    graphs = check_graph_stats(cfg, st, arm, replayed, decode, where)
+    if after is not None:
+        after(srv, st)
+    some = next(iter(st.values()))
+    return {
+        "reqs": reqs, "stats": st, "counts": counts,
+        "readings": {
+            **serve_metrics(reqs, secs),
+            "wall_per_decode_step_s": some["wall_per_decode_step_s"],
+            "p50_host_dispatch_s": {
+                n: s["p50_host_dispatch_s"] for n, s in st.items()
+                if s["decode_steps"]},
+            "admit_s_total": sum(s["admit_s_total"] for s in st.values()),
+            "graph_capture_s": sum(s["graph_capture_s"]
+                                   for s in st.values()),
+            "admit_waves": waves, "decode_steps": steps,
+            "prefill_chunks": chunks,
+            "chunk_dispatch_s_total": sum(s["chunk_s_total"]
+                                          for s in st.values()),
+            "p50_chunk_dispatch_s": {
+                n: s["p50_chunk_dispatch_s"] for n, s in st.items()
+                if s["prefill_chunks"]},
+            "decode_steps_prefilling": sum(
+                s["decode_steps_prefilling"] for s in st.values()),
+            "graph_captures": sum(v[0] for v in graphs.values()),
+            "graph_replays": sum(v[1] for v in graphs.values()),
+            "chunk_graph_captures": sum(v[2] for v in graphs.values()),
+            "chunk_graph_replays": sum(v[3] for v in graphs.values()),
+            "chunk_graph_capture_s": sum(s["chunk_graph_capture_s"]
+                                         for s in st.values()),
+            "replayed_launches": replayed[decode],
+            "replayed_flash_attention": replayed["flash_attention"],
+            "peak_memory_bytes": peak, "clocks_power": clocks}}
+
+
 def serve_in_turns(kernels, cfg, make_server, make_reqs, decode, other,
                    what, after=None):
-    """Serve ``make_reqs()`` through ``make_server(cuda_graphs)`` with
-    graphs and eagerly, in turns (graph, eager, graph, eager), every
-    serve with its launch counts set to 0 just before and read just
-    after and checked; ``after(srv, stats)`` runs on each drained
-    server. Returns {arm: [turn, ...]}, each turn a dict with the
-    requests, stats, counts and readings."""
+    """``serve_turn`` with graphs and eagerly, in turns (ARM_TURNS of
+    graph, eager). Returns {arm: [turn, ...]}."""
     runs = {arm: [] for arm in ARMS}
     for _ in range(ARM_TURNS):
         for arm in ARMS:
-            srv = make_server(arm == "graph")
-            reqs = make_reqs()
-            secs, counts, sdpa_calls, peak, clocks = timed_serve(kernels,
-                                                                 srv, reqs)
-            replayed = kernels.replay_counts()
-            st = srv.stats()
-            where = f"{what} ({arm} arm)"
-            waves, chunks, steps = check_serve_counts(
-                cfg, st, counts, sdpa_calls, decode, other, where)
-            graphs = check_graph_stats(cfg, st, arm, replayed, decode, where)
-            if after is not None:
-                after(srv, st)
-            some = next(iter(st.values()))
-            runs[arm].append({
-                "reqs": reqs, "stats": st, "counts": counts,
-                "readings": {
-                    **serve_metrics(reqs, secs),
-                    "wall_per_decode_step_s": some["wall_per_decode_step_s"],
-                    "p50_host_dispatch_s": {
-                        n: s["p50_host_dispatch_s"] for n, s in st.items()
-                        if s["decode_steps"]},
-                    "admit_s_total": sum(s["admit_s_total"]
-                                         for s in st.values()),
-                    "graph_capture_s": sum(s["graph_capture_s"]
-                                           for s in st.values()),
-                    "admit_waves": waves, "decode_steps": steps,
-                    "prefill_chunks": chunks,
-                    "chunk_dispatch_s_total": sum(s["chunk_s_total"]
-                                                  for s in st.values()),
-                    "p50_chunk_dispatch_s": {
-                        n: s["p50_chunk_dispatch_s"] for n, s in st.items()
-                        if s["prefill_chunks"]},
-                    "decode_steps_prefilling": sum(
-                        s["decode_steps_prefilling"] for s in st.values()),
-                    "graph_captures": sum(v[0] for v in graphs.values()),
-                    "graph_replays": sum(v[1] for v in graphs.values()),
-                    "chunk_graph_captures": sum(v[2]
-                                                for v in graphs.values()),
-                    "chunk_graph_replays": sum(v[3]
-                                               for v in graphs.values()),
-                    "chunk_graph_capture_s": sum(s["chunk_graph_capture_s"]
-                                                 for s in st.values()),
-                    "replayed_launches": replayed[decode],
-                    "replayed_flash_attention": replayed["flash_attention"],
-                    "peak_memory_bytes": peak, "clocks_power": clocks}})
+            runs[arm].append(serve_turn(kernels, cfg, make_server, make_reqs,
+                                        arm, decode, other, what, after))
     return runs
 
 
@@ -2127,8 +2143,11 @@ def phase_serve_paged(kernels, smi, cfg, params, policy, groups):
     plus a suffix of [32, 256] tokens (seed 0), 64 new tokens each, the
     same three policy groups, with graphs and eagerly in turns. Each
     group's first wave is cold and publishes the prefix; its later waves
-    attach it and prefill only the suffixes (FA at q_offset=256).
-    Returns ({path: launch counts}, the first graph turn's requests)."""
+    attach it and prefill only the suffixes (FA at q_offset=256). The
+    cold requests' tokens equal a contiguous serve's at ``block_s`` 64
+    (path serve_paged_block64) request by request; each hot request is
+    held to its cold solo serve up to a near tie. Returns ({path: launch
+    counts}, the first graph turn's requests)."""
     from repro_torch.launch.serve import Request, Server, make_requests
     shared, suffix, max_new = 256, 256, 64     # as in paged_requests
     policy = policy.replace(block_page=PAGE)
@@ -2197,6 +2216,34 @@ def phase_serve_paged(kernels, smi, cfg, params, policy, groups):
         worst[name] = check_replay(f"paged {name}", two, fast, ref)
     res["replay_max_abs_logit_diff"] = worst
 
+    # the same requests on the contiguous pool, every group's update block
+    # at the page (B2 on every step, one update per 64 keys: the function
+    # B7 computes through 64-key pages), one graph arm. A request the
+    # paged serve admitted cold prefills the same tokens in both serves,
+    # so its tokens must be equal; a hot one prefilled only its suffix
+    # against the cached prefix pages (held below to its cold solo serve)
+    blk = {n: p.replace(block_s=PAGE) for n, p in groups.items()}
+    ring = serve_turn(
+        kernels, cfg, lambda cg=True: Server(
+            cfg, params, max_batch=8, max_seq=1024,
+            policy=policy.replace(block_s=PAGE), policy_groups=blk,
+            device="cuda", cuda_graphs=cg),
+        lambda: paged_requests(cfg, groups), "graph", "decode_attention",
+        "decode_attention_paged", "serve_paged_block64")
+    cold = [(r, o) for r, o in zip(reqs, ring["reqs"]) if not r.prefix_hit]
+    if not cold:
+        fail("serve_paged: no request was admitted cold")
+    for r, o in cold:
+        if list(r.out) != list(o.out):
+            i = next((i for i, (a, b) in enumerate(zip(r.out, o.out))
+                      if a != b), min(len(r.out), len(o.out)))
+            fail(f"serve_paged: cold request {r.rid} ({r.group}) leaves the "
+                 f"block-64 contiguous serve's tokens at step {i}")
+    res["block64_contiguous"] = ring["readings"]
+    res["vs_block64_contiguous"] = {
+        "identical_cold_requests": len(cold),
+        "hot_requests_not_compared": len(reqs) - len(cold)}
+
     # every hot request against the same request served cold and alone
     solos = []
     for r in hot_reqs:
@@ -2222,7 +2269,8 @@ def phase_serve_paged(kernels, smi, cfg, params, policy, groups):
     emit(res)
     arm_summary(runs, profiles, audits, compare, "serve_paged")
     return ({"serve_paged": counts,
-             "serve_paged_eager": runs["eager"][0]["counts"]}, reqs)
+             "serve_paged_eager": runs["eager"][0]["counts"],
+             "serve_paged_block64": ring["counts"]}, reqs)
 
 
 def chunked_groups(policy, groups, chunk, page=None):
@@ -3402,7 +3450,7 @@ def phase_serve_ssm(kernels, smi, cfg, params, policy, groups):
     """Full-width mamba2-1.3b through the port's Server: max_batch 8,
     max_seq 1,024, 16 requests with prompts in [32, 512] (seed 0), 64 new
     tokens, groups eval=exact, bulk=vexp, hw=vexp_hw; the graph and eager
-    arms in turns (graph, eager, graph, eager), then the capture audit,
+    arms in turns (ARM_TURNS of graph, eager), then the capture audit,
     the decode step's graph ms per group on the cuda and the reference
     tier with its kernels from a profile window, the gate exps against
     their plain versions (over a short eager serve at the serve's shapes
@@ -4019,9 +4067,11 @@ HYBRID_EDGE_GROUPS = (1, 5, 16)          # MAX_GROUP[128, 256] is 16
 HYBRID_EDGE_WINDOW = 700
 
 
-def _decode_edges(da, policy_cls, d=256, seed=14):
+def _decode_edges(da, policy_cls, d=256, seed=14,
+                  groups=HYBRID_EDGE_GROUPS):
     """B2 and B7 at head dim ``d`` (256, or 128) where the column-sliced
-    sweep has its edges: G 1, 5 and 16 query rows on one KV head; one row
+    sweep has its edges: ``groups`` query rows on one KV head (G 1, 5
+    and 16; dbrx's phase takes its G 6); one row
     per cache_len in HYBRID_EDGE_LENS (one key, a tile, a tile and a key,
     around the 512-key update block, the full 2,048-row cache); with no
     window and with a window of 700 (the first kept key mid-block); B7
@@ -4029,8 +4079,8 @@ def _decode_edges(da, policy_cls, d=256, seed=14):
     through pages of two tiles (128 keys), where the four-row sweep's
     stage 2 rings its V tiles within a page. Each held to its plain
     version under every exp backend, with the half-block (half-page) and
-    textbook-merge controls. Returns (fields, [(tag, kernel,
-    readings)])."""
+    textbook-merge controls (the pages of 128 keys only at the default
+    ``groups``). Returns (fields, [(tag, kernel, readings)])."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     s, page = 2048, HYBRID_PAGE
     b, ns = len(HYBRID_EDGE_LENS), s // page
@@ -4043,12 +4093,12 @@ def _decode_edges(da, policy_cls, d=256, seed=14):
     kc, vc = da.paged_gather(kp, tab), da.paged_gather(vp, tab)
     qs = {grp: torch.randn(b, 1, grp, d, generator=g,
                            device="cuda").to(torch.bfloat16)
-          for grp in HYBRID_EDGE_GROUPS}
+          for grp in groups}
     pools = {page: (kp, vp, tab)}
-    cases = [(grp, window, paged, page) for grp in HYBRID_EDGE_GROUPS
+    cases = [(grp, window, paged, page) for grp in groups
              for window in (None, HYBRID_EDGE_WINDOW)
              for paged in (False, True)]
-    if d == 128:
+    if d == 128 and groups == HYBRID_EDGE_GROUPS:
         qs[4] = torch.randn(b, 1, 4, d, generator=g,
                             device="cuda").to(torch.bfloat16)
         big, nb2 = 2 * page, s // (2 * page)
@@ -4385,7 +4435,7 @@ PHI3_PROMPT = (32, 1024)
 PHI3_TIER_STEPS = 16           # teacher-forced steps of the tier check
 # the serve_phi3 arms in turns: the eager arm once (an eager serve takes
 # ~30 s at full width), every graph turn's tokens held to it
-PHI3_ARM_TURNS = ("graph", "eager", "graph")
+PHI3_ARM_TURNS = ("graph", "eager")
 # phi3's cuda tier against its reference tier over a teacher-forced
 # replay (the decode kernels round q and p to bf16 where the reference
 # tier keeps f32, as the Pallas kernels do, and bf16 activations carry
@@ -4404,15 +4454,15 @@ PHI3_ARM_TURNS = ("graph", "eager", "graph")
 PHI3_TIER_LIMIT = {"exact": 0.0398, "vexp": 0.0341, "vexp_hw": 0.0456}
 
 
-def phi3_fa_inputs():
-    """B3's inputs at phi3-medium's shapes, from seed 21: a wave's q (B 8,
-    S 1024, 40 query heads, D 128) over K and V of its 10 KV heads (G 4)
-    with ragged kv_len in [32, 1024] (row 0 full); a chunk's q
-    (PHI3_CHUNK rows) with its (B,) offsets and token counts (row 3 none)
-    over a 2,048-position cache, of which the wave reads the first 1,024.
-    Returns (q, k, v, kv_len, q_chunk, offsets, tokens)."""
-    g = torch.Generator(device="cuda").manual_seed(21)
-    b, s, sq, h, hkv, d = 8, PHI3_MAX_SEQ, 1024, 40, 10, 128
+def d128_fa_inputs(h, hkv, seed):
+    """B3's inputs at head dim 128, from ``seed``: a wave's q (B 8, S
+    1024, ``h`` query heads) over K and V of ``hkv`` KV heads with ragged
+    kv_len in [32, 1024] (row 0 full); a chunk's q (PHI3_CHUNK rows) with
+    its (B,) offsets and token counts (row 3 none) over a 2,048-position
+    cache, of which the wave reads the first 1,024. Returns (q, k, v,
+    kv_len, q_chunk, offsets, tokens)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, s, sq, d = 8, PHI3_MAX_SEQ, 1024, 128
     q = torch.randn(b, sq, h, d, generator=g, device="cuda").to(
         torch.bfloat16)
     k, v = (torch.randn(b, s, hkv, d, generator=g, device="cuda")
@@ -4429,77 +4479,93 @@ def phi3_fa_inputs():
     return q, k, v, kv_len, qc, offs, clens
 
 
+def phi3_fa_inputs():
+    """B3's inputs at phi3-medium's shapes (``d128_fa_inputs``: 40 query
+    heads on 10 KV heads, G 4), from seed 21."""
+    return d128_fa_inputs(40, 10, 21)
+
+
 # B2 / B7 at phi3-medium's decode shape (``decode_inputs``' keywords): B 8,
 # 40 query heads on 10 KV heads of 128, a 2,048-token cache, page 64
 PHI3_DECODE_SHAPE = dict(b=8, s=PHI3_MAX_SEQ, h=40, hkv=10, d=128,
                          page=PHI3_PAGE, full=1)
 
 
-def _phi3_fa_rows(fa, policy_cls, block_k):
-    """B3 at phi3-medium's shapes (``fa_rows`` at D 128, G 4): the
-    admission wave (B 8, S 1024, ragged kv_len, causal, no window) and a
-    chunk (256 query rows at (B,) offsets over 2,048 keys, kv_len =
-    offset + tokens), then the edge cases (``_fa_edges``). Returns
-    (fields, [(tag, readings)])."""
-    q, k, v, kv_len, qc, offs, clens = phi3_fa_inputs()
+def _d128_fa_rows(fa, policy_cls, block_k, inputs, label, chunk=True):
+    """B3 at head dim 128 (``fa_rows<128>``) on ``inputs``
+    (``d128_fa_inputs``): the admission wave (B 8, S 1024, ragged
+    kv_len, causal, no window), with ``chunk`` a chunk (256 query rows at
+    (B,) offsets over 2,048 keys, kv_len = offset + tokens), then the
+    edge cases (``_fa_edges``). Returns (fields, [(tag, readings)])."""
+    q, k, v, kv_len, qc, offs, clens = inputs
     b, sq, h, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     res, rd = _fa_case(fa, policy_cls, block_k, q, k[:, :sq], v[:, :sq],
                        kv_len, 0, "")
-    out = [("d128", rd)]
-    chunk, rd_chunk = _fa_case(fa, policy_cls, block_k, qc, k, v,
-                               offs + clens, offs, "chunk_")
-    res.update(chunk)
-    out.append(("d128 chunk", rd_chunk))
+    out = [(label, rd)]
     res["shape"] = (f"B={b} S={sq} H={h} Hkv={hkv} D={d}, causal, ragged "
                     f"kv_len")
-    res["chunk_shape"] = (f"B={b} Sq={qc.shape[1]} Sk={s} H={h} Hkv={hkv} "
-                          f"D={d}, (B,) q_offset tensor")
-    edges, edge_rds = _fa_edges(fa, policy_cls, q, k, v, qc, None, "d128")
+    if chunk:
+        more, rd_chunk = _fa_case(fa, policy_cls, block_k, qc, k, v,
+                                  offs + clens, offs, "chunk_")
+        res.update(more)
+        out.append((f"{label} chunk", rd_chunk))
+        res["chunk_shape"] = (f"B={b} Sq={qc.shape[1]} Sk={s} H={h} "
+                              f"Hkv={hkv} D={d}, (B,) q_offset tensor")
+    edges, edge_rds = _fa_edges(fa, policy_cls, q, k, v, qc, None, label)
     res["edges"] = edges
     return res, out + edge_rds
 
 
-def phase_phi3_kernels(policy_cls):
-    """B3, B2 and B7 at phi3-medium-14b's shapes (head dim 128, 40 query
-    heads on 10 KV heads): FA at the config's ``attn_block_k`` of 512
-    (its serve's update block; the edge cases at block_k 128 and the
-    largest the card admits), B2 over a 2,048-token cache with ragged
-    cache_len in both layouts, B7 through a page-64 table in random
-    order, and both at their edges (``_decode_edges`` at D 128:
-    G 1, 5 and 16, cache_len at the tile and block bounds, a window; B7
-    at G 4 through pages of 128 keys).
-    Each held to its plain version under the unchanged
-    ATT_LIMITS with its negative controls; FA's rows also carry their
-    CUDA-core FMA floor (a reading). Returns {kernel row name: fields}
-    for the kernel table (rows 3p, 4p and 7p)."""
+def d128_kernel_rows(policy_cls, arch, fa_inputs, decode_shape, label,
+                     seed, phase, edge_groups=HYBRID_EDGE_GROUPS,
+                     bhsd=True, chunk=True):
+    """B3, B2 and B7 at head dim 128 on ``arch``'s shapes: FA at the
+    config's ``attn_block_k`` of 512 (its serve's update block; the edge
+    cases at block_k 128 and the largest the card admits) on
+    ``fa_inputs``, B2 over ``decode_shape``'s 2,048-token cache with
+    ragged cache_len ("bshd", and with ``bhsd`` also "bhsd"), B7 through
+    a page-64 table in random order (seeds from ``seed``), and both at
+    their edges (``_decode_edges`` at D 128 with ``edge_groups`` query
+    heads a KV head: cache_len at the tile and block bounds, a window).
+    Each held to its plain version under the unchanged ATT_LIMITS with
+    its negative controls; FA's rows also carry their CUDA-core FMA
+    floor (a reading). Emits one ``phase`` line; returns {kernel row
+    name: fields} for the kernel table."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.runtime import resolve_policy
-    block_k = resolve_policy(get_config(PHI3_ARCH), env={}).block_k
-    fa_res, fa_checks = _phi3_fa_rows(fa, policy_cls, block_k)
-    shape = PHI3_DECODE_SHAPE
+    block_k = resolve_policy(get_config(arch), env={}).block_k
+    fa_res, fa_checks = _d128_fa_rows(fa, policy_cls, block_k, fa_inputs,
+                                      label, chunk)
+    page = decode_shape["page"]
     dec, dec_rd = _decode_case(
-        da, policy_cls, False, decode_inputs(da, False, seed=22, **shape),
-        PHI3_PAGE, "d128")
-    dech, dech_rd = _decode_case(
         da, policy_cls, False,
-        decode_inputs(da, False, seed=23, layout="bhsd", **shape),
-        PHI3_PAGE, "d128 bhsd", layout="bhsd")
+        decode_inputs(da, False, seed=seed, **decode_shape), page, label)
     pdec, pdec_rd = _decode_case(
-        da, policy_cls, True, decode_inputs(da, True, seed=24, **shape),
-        PHI3_PAGE, "d128")
-    edges, edge_rds = _decode_edges(da, policy_cls, d=128, seed=25)
-    emit({"phase": "phi3_attention_kernels", "block_k": block_k,
-          "flash_attention": fa_res, "decode_attention": dec,
-          "decode_attention_bhsd": dech, "decode_attention_paged": pdec,
-          "decode_edges": edges})
+        da, policy_cls, True,
+        decode_inputs(da, True, seed=seed + 2, **decode_shape), page, label)
+    edges, edge_rds = _decode_edges(da, policy_cls, d=128, seed=seed + 3,
+                                    groups=edge_groups)
+    line = {"phase": phase, "block_k": block_k, "flash_attention": fa_res,
+            "decode_attention": dec, "decode_attention_paged": pdec,
+            "decode_edges": edges}
+    checks = [("decode_attention", dec_rd, "bshd")]
+    if bhsd:
+        line["decode_attention_bhsd"], dech_rd = _decode_case(
+            da, policy_cls, False,
+            decode_inputs(da, False, seed=seed + 1, layout="bhsd",
+                          **decode_shape), page, f"{label} bhsd",
+            layout="bhsd")
+        checks.append(("decode_attention", dech_rd, "bhsd"))
+    emit(line)
+    g = decode_shape["h"] // decode_shape["hkv"]
     for tag, rd in fa_checks:
         check_attention("flash_attention", rd, f" {tag}")
-    check_attention("decode_attention", dec_rd, " d128 g4 bshd")
-    check_attention("decode_attention", dech_rd, " d128 g4 bhsd")
-    check_attention("decode_attention_paged", pdec_rd, " d128 g4")
+    for kernel, rd, lay in checks:
+        check_attention(kernel, rd, f" d128 g{g} {lay}")
+    check_attention("decode_attention_paged", pdec_rd, f" d128 g{g}")
     for tag, kernel, rd in edge_rds:
         check_attention(kernel, rd, f" d128 {tag}")
     keys = ("ms_vexp", "graph_ms_vexp", "plain_ms_vexp", "bound_ms",
@@ -4509,20 +4575,34 @@ def phase_phi3_kernels(policy_cls):
         return max(e for (_, who), (e, _) in rd.items() if who == "kernel")
     fa_keys = keys + ("fma_floor_ms", "sm_clock_mhz")
     fa_row = {k: fa_res[k] for k in fa_keys}
-    fa_row.update({f"chunk_{k}": fa_res[f"chunk_{k}"] for k in fa_keys
-                   if f"chunk_{k}" in fa_res})
-    fa_row["chunk_shape"] = fa_res["chunk_shape"]
+    if chunk:
+        fa_row.update({f"chunk_{k}": fa_res[f"chunk_{k}"] for k in fa_keys
+                       if f"chunk_{k}" in fa_res})
+        fa_row["chunk_shape"] = fa_res["chunk_shape"]
     fa_row["max_abs_err"] = max(worst(rd) for _, rd in fa_checks)
     dec_row = {k: dec[k] for k in keys + ("stage_us_vexp",)}
-    dec_row["max_abs_err"] = max([worst(dec_rd), worst(dech_rd)] + [
+    dec_row["max_abs_err"] = max([worst(rd) for _, rd, _ in checks] + [
         worst(e) for _, k, e in edge_rds if k == "decode_attention"])
-    dec_row["bhsd_graph_ms_vexp"] = dech["graph_ms_vexp"]
+    if bhsd:
+        dec_row["bhsd_graph_ms_vexp"] = \
+            line["decode_attention_bhsd"]["graph_ms_vexp"]
     pdec_row = {k: pdec[k] for k in keys + ("stage_us_vexp",)}
     pdec_row["max_abs_err"] = max([worst(pdec_rd)] + [
         worst(e) for _, k, e in edge_rds if k == "decode_attention_paged"])
     return {"flash_attention_bhsd": fa_row,
             "decode_attention_kernel": dec_row,
             "decode_attention_kernel_paged": pdec_row}
+
+
+def phase_phi3_kernels(policy_cls):
+    """B3, B2 and B7 at phi3-medium-14b's shapes (head dim 128, 40 query
+    heads on 10 KV heads, G 4; ``d128_kernel_rows``): FA's wave and
+    chunk, B2 in both layouts, B7, and the edges at G 1, 5 and 16 (B7
+    also at G 4 through pages of 128 keys). Returns the rows 3p, 4p and
+    7p."""
+    return d128_kernel_rows(policy_cls, PHI3_ARCH, phi3_fa_inputs(),
+                            PHI3_DECODE_SHAPE, "d128", 22,
+                            "phi3_attention_kernels")
 
 
 def phi3_setup():
@@ -4562,25 +4642,29 @@ def phi3_server(cfg, params, policy, groups, cuda_graphs=True, paged=False):
 
 
 def check_phi3_serve(cfg, st, counts, replayed, sdpa_calls, arm, decode,
-                     other, what):
-    """A phi3 serve's launches and graphs: per decode step ``decode`` (B2
-    or B7) and the vexp kernel (the SwiGLU gate) once a layer, per
-    admission wave or prefill chunk FA and the vexp kernel once a layer;
-    no other kernel, no SDPA call (``check_serve_counts``); graph arm:
-    every step and chunk a replay of a graph captured with its group
+                     other, what, gates=1):
+    """A phi3 (or dbrx) serve's launches and graphs: per decode step
+    ``decode`` (B2 or B7) once a layer and the vexp kernel ``gates``
+    times a layer (phi3: the SwiGLU gate; dbrx: the router softmax and
+    the experts' SwiGLU gate), per admission wave or prefill chunk FA
+    once and the vexp kernel ``gates`` times a layer; no other kernel,
+    no SDPA call (``check_serve_counts``); graph arm: every step and
+    chunk a replay of a graph captured with its group
     (``check_graph_stats``), the vexp launches of the steps and chunks
     all replayed. Returns (waves, chunks, steps)."""
     waves, chunks, steps = check_serve_counts(cfg, st, counts, sdpa_calls,
                                               decode, other, what)
     graphs = check_graph_stats(cfg, st, arm, replayed, decode, what)
-    want = cfg.n_layers * (steps + waves + chunks)
+    want = gates * cfg.n_layers * (steps + waves + chunks)
     if counts["vexp"] != want:
-        fail(f"{what}: vexp launches {counts['vexp']} != {cfg.n_layers} "
-             f"layers x ({steps} steps + {waves} waves + {chunks} chunks)")
+        fail(f"{what}: vexp launches {counts['vexp']} != {gates} x "
+             f"{cfg.n_layers} layers x ({steps} steps + {waves} waves + "
+             f"{chunks} chunks)")
     reps = sum(v[1] + v[3] for v in graphs.values())
-    if replayed["vexp"] != cfg.n_layers * reps:
+    if replayed["vexp"] != gates * cfg.n_layers * reps:
         fail(f"{what}: {replayed['vexp']} replayed vexp launches != "
-             f"{cfg.n_layers} layers x {reps} step and chunk replays")
+             f"{gates} x {cfg.n_layers} layers x {reps} step and chunk "
+             f"replays")
     rest = {k: v for k, v in counts.items()
             if k not in ("vexp", decode, "flash_attention", "vexp_hw_table")
             and v}
@@ -4590,9 +4674,10 @@ def check_phi3_serve(cfg, st, counts, replayed, sdpa_calls, arm, decode,
 
 
 def phi3_serve_once(kernels, cfg, make_server, make_reqs, arm, decode,
-                    other, what):
+                    other, what, gates=1):
     """One serve with the launch counts set to 0 just before it and read
-    just after, checked; the server is dropped before it returns (two
+    just after, checked (``check_phi3_serve`` with ``gates`` vexp
+    launches a layer); the server is dropped before it returns (two
     phi3 servers' pools together would crowd the weights). Returns the
     turn."""
     srv = make_server(arm == "graph")
@@ -4602,7 +4687,8 @@ def phi3_serve_once(kernels, cfg, make_server, make_reqs, arm, decode,
     st = srv.stats()
     check_requests(cfg, reqs, reqs[0].max_new)
     waves, chunks, steps = check_phi3_serve(
-        cfg, st, counts, replayed, sdpa_calls, arm, decode, other, what)
+        cfg, st, counts, replayed, sdpa_calls, arm, decode, other, what,
+        gates)
     some = next(iter(st.values()))
     readings = {**serve_metrics(reqs, secs),
                 "wall_per_decode_step_s": some["wall_per_decode_step_s"],
@@ -4653,7 +4739,7 @@ def phase_serve_phi3(kernels, smi, cfg, params, policy, groups):
     """Full-width phi3-medium-14b through the port's Server: max_batch 8,
     max_seq 2,048, 16 requests with prompts in [32, 1024] (seed 0), 64
     new tokens, groups eval=exact, bulk=vexp, hw=vexp_hw; the graph and
-    eager arms in turns (PHI3_ARM_TURNS: graph, eager, graph; every graph
+    eager arms in turns (PHI3_ARM_TURNS: graph, eager; every graph
     turn's tokens == the eager turn's), the capture audit, the decode
     step's graph ms and
     kernels per group against its bound, and a teacher-forced replay of
@@ -4725,43 +4811,51 @@ def phase_serve_phi3(kernels, smi, cfg, params, policy, groups):
              "serve_phi3_eager": runs["eager"][0]["counts"]}, reqs)
 
 
-def phase_serve_phi3_paged(kernels, smi, cfg, params, policy, groups, mono):
-    """The serve_phi3 requests on the paged pool (page 64), graph arm: B7
-    on every decode step, no page held after the serve; its tokens equal,
+def phase_serve_phi3_paged(kernels, smi, cfg, params, policy, groups, mono,
+                           name="phi3", gates=1):
+    """The serve_phi3 requests (or dbrx's, with ``name`` "dbrx" and its
+    two gate exps a layer) on the paged pool (page 64), graph arm: B7 on
+    every decode step, no page held after the serve; its tokens equal,
     request by request, those of a contiguous serve whose groups update
     once per 64 keys (``block_s`` = the page, B2 on every step), the same
-    function; against the serve_phi3 tokens (``mono``, one update per
-    512 keys, another function under vexp) the first divergences and
-    their reference top-2 gaps are a note. Returns {path: counts}."""
+    function. The requests share no prefix, so both serves prefill the
+    same tokens. Against the monolithic serve's tokens (``mono``, one
+    update per 512 keys, another function under vexp; phi3 only) the
+    first divergences and their reference top-2 gaps are a note. Returns
+    {path: counts}."""
     grp = {n: p.replace(block_page=PHI3_PAGE, block_s=PHI3_PAGE)
            for n, p in groups.items()}
     pol = policy.replace(block_page=PHI3_PAGE, block_s=PHI3_PAGE)
     turns = {}
     for paged in (False, True):
-        what = "serve_phi3_paged" if paged else "serve_phi3_block64"
+        what = f"serve_{name}_paged" if paged else f"serve_{name}_block64"
         turns[what] = phi3_serve_once(
             kernels, cfg, lambda cg=True, pg=paged: phi3_server(
                 cfg, params, pol, grp, cg, paged=pg),
             lambda: phi3_requests(cfg, groups), "graph",
             "decode_attention_paged" if paged else "decode_attention",
-            "decode_attention" if paged else "decode_attention_paged", what)
-    turn, ring = turns["serve_phi3_paged"], turns["serve_phi3_block64"]
+            "decode_attention" if paged else "decode_attention_paged", what,
+            gates)
+    turn = turns[f"serve_{name}_paged"]
+    ring = turns[f"serve_{name}_block64"]
     for r, want in zip(turn["reqs"], ring["reqs"]):
         if list(r.out) != list(want.out):
             i = next((i for i, (a, b) in enumerate(zip(r.out, want.out))
                       if a != b), min(len(r.out), len(want.out)))
-            fail(f"serve_phi3_paged: request {r.rid} ({r.group}) leaves "
+            fail(f"serve_{name}_paged: request {r.rid} ({r.group}) leaves "
                  f"the block-64 contiguous serve's tokens at step {i}")
-    note = near_tie_compare(cfg, params, groups, turn["reqs"],
-                            [r.out for r in mono], "paged phi3 request",
-                            "the 512-block contiguous serve's tokens",
-                            check=False)
-    emit({"phase": "serve_phi3_paged", "page": PHI3_PAGE,
-          **turn["readings"], "block64_contiguous": ring["readings"],
-          "vs_block64_contiguous": {"identical": len(ring["reqs"])},
-          "note_vs_block512_contiguous": note, "nvidia_smi": smi})
-    return {"serve_phi3_block64": ring["counts"],
-            "serve_phi3_paged": turn["counts"]}
+    line = {"phase": f"serve_{name}_paged", "page": PHI3_PAGE,
+            **turn["readings"], "block64_contiguous": ring["readings"],
+            "vs_block64_contiguous": {"identical": len(ring["reqs"])},
+            "nvidia_smi": smi}
+    if mono is not None:
+        line["note_vs_block512_contiguous"] = near_tie_compare(
+            cfg, params, groups, turn["reqs"], [r.out for r in mono],
+            f"paged {name} request", "the 512-block contiguous serve's "
+            "tokens", check=False)
+    emit(line)
+    return {f"serve_{name}_block64": ring["counts"],
+            f"serve_{name}_paged": turn["counts"]}
 
 
 def phase_serve_phi3_chunked(kernels, smi, cfg, params, policy, groups,
@@ -4782,6 +4876,198 @@ def phase_serve_phi3_chunked(kernels, smi, cfg, params, policy, groups,
     emit({"phase": "serve_phi3_chunked", "chunk": PHI3_CHUNK,
           **turn["readings"], "vs_monolithic": vs, "nvidia_smi": smi})
     return {"serve_phi3_chunked": turn["counts"]}
+
+
+# ------------------------------------------------------- the MoE family
+
+DBRX_ARCH = "dbrx-132b"
+# dbrx-132b at full width with its depth cut from 40 layers to 8: a layer
+# is ~6.5 GB of bf16 weights (16 experts of 3 x 6144 x 10752), the untied
+# f32 embedding and unembedding 4.9 GB, so 8 layers are ~52 GB and the
+# serve peaks near 62-64 GB; 10 would leave no room for the graph pools
+DBRX_LAYERS = 8
+DBRX_GATES = 2                 # vexp launches a layer: router, SwiGLU gate
+# B2 / B7 at dbrx's decode shape: B 8, 48 query heads on 8 KV heads of
+# 128 (G 6: the 16-row path), a 2,048-token cache, page 64
+DBRX_DECODE_SHAPE = dict(b=8, s=PHI3_MAX_SEQ, h=48, hkv=8, d=128,
+                         page=PHI3_PAGE, full=1)
+# dbrx's cuda tier against its reference tier over a teacher-forced
+# replay (PHI3_TIER_STEPS forced steps, 2 requests a group, each at its
+# wave's width), as phi3's: max |cuda - reference| <= DBRX_TIER_LIMIT[exp]
+# x max |logit|. The gap is bimodal: where the two tiers route every
+# token alike it is ~1 % of max |logit|, and one routing flip (a token's
+# expert set changed by the tiers' rounding at a near tie) moves it to
+# 10-30 %. Twice the JAX package's own pallas-vs-reference gap at dbrx's
+# shape (tools/tier_gap.py --arch dbrx-132b --width narrow: 16 experts,
+# top-4, G 6, head dim 128, d 768, prompts of 300 and 1,000 tokens, 16
+# forced steps), the largest read at 2, 4 and 8 layers (0.1663 / 0.1735
+# / 0.1441 of max |logit| under exact / vexp / vexp_hw; at 8 layers
+# 0.1181 / 0.1171 / 0.1004): the flips' jumps do not grow with depth, so
+# they are carried to 8 layers as read. The reduced width's 4 experts,
+# top-2 (0.0085-0.3036) are not dbrx's routing and are not used.
+DBRX_TIER_LIMIT = {"exact": 0.3326, "vexp": 0.3470, "vexp_hw": 0.2882}
+
+
+def dbrx_setup():
+    """dbrx-132b at full width, depth cut to DBRX_LAYERS (d 6144, 48
+    heads on 8 KV heads of 128, 16 SwiGLU experts of d_ff 10752 a layer,
+    4 taken a token, untied vocab 100,352), random weights drawn on the
+    card from ``torch.Generator("cuda").manual_seed(0)`` (each expert
+    matrix drawn in f32 and held in bf16, one at a time), its default
+    policy (the cuda tier) and the three policy groups."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.runtime import parse_policy_groups, resolve_policy
+    cfg = dataclasses.replace(get_config(DBRX_ARCH), n_layers=DBRX_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    policy = resolve_policy(cfg, env={})
+    if policy.kernel_backend != "cuda":
+        fail(f"dbrx: default tier is {policy.kernel_backend}, not cuda")
+    groups = parse_policy_groups("eval=exact,bulk=vexp,hw=vexp_hw", cfg,
+                                 base=policy)
+    emit({"phase": "dbrx_setup", "n_layers": cfg.n_layers,
+          "cut_from_layers": get_config(DBRX_ARCH).n_layers,
+          "parameters": sum(p.numel() for p in params.parameters()),
+          "weight_bytes": sum(p.numel() * p.element_size()
+                              for p in params.parameters()),
+          "init_peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    return cfg, params, policy, groups
+
+
+def phase_dbrx_kernels(policy_cls):
+    """B3, B2 and B7 at dbrx-132b's shapes (head dim 128, 48 query heads
+    on 8 KV heads, G 6; ``d128_kernel_rows``): FA's admission wave (B 8,
+    S 1024, ragged kv_len) and its edges, B2 ("bshd", the serve's
+    layout) and B7 through a page-64 table, and both at their edges at
+    G 6. Returns the rows 3d, 4d and 7d."""
+    return d128_kernel_rows(policy_cls, DBRX_ARCH, d128_fa_inputs(48, 8, 31),
+                            DBRX_DECODE_SHAPE, "d128g6", 32,
+                            "dbrx_attention_kernels", edge_groups=(6,),
+                            bhsd=False, chunk=False)
+
+
+class RouteLog:
+    """While active, every routing decision of ``models.moe`` (the
+    experts ``top_k`` picks for each token, a layer at a time) is kept on
+    the card in call order, with no host sync."""
+
+    def __init__(self):
+        from repro_torch.models import moe as mod
+        self.mod, self.calls = mod, []
+
+    def __enter__(self):
+        self.orig = self.mod.top_k
+        self.mod.top_k = self.picked
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.top_k = self.orig
+        return False
+
+    def picked(self, probs, k):
+        vals, idx = self.orig(probs, k)
+        self.calls.append(torch.sort(idx, dim=-1).values)
+        return vals, idx
+
+    def flips(self, other, real):
+        """(decisions whose expert set differs from ``other``'s, all
+        decisions) over the real tokens: one decision a token a layer,
+        the two logs' calls taken in order, a prefill's positions from
+        ``real`` on (the pads, which route last and displace no real
+        token) left out."""
+        if len(self.calls) != len(other.calls):
+            fail(f"routing logs of {len(self.calls)} and "
+                 f"{len(other.calls)} calls")
+        pairs = [(a[:, :real], b[:, :real])
+                 for a, b in zip(self.calls, other.calls)]
+        return (sum(int((a != b).any(-1).sum()) for a, b in pairs),
+                sum(a[..., 0].numel() for a, _ in pairs))
+
+
+def phase_serve_dbrx(kernels, smi, cfg, params, policy, groups):
+    """dbrx-132b (8 layers, full width) through the port's Server on
+    phi3's request mix: max_batch 8, max_seq 2,048, 16 requests with
+    prompts in [32, 1024] (seed 0), 64 new tokens, groups eval=exact,
+    bulk=vexp, hw=vexp_hw; the graph arm, then one eager arm (tokens
+    equal), the capture audit, the decode step's graph ms and kernels per
+    group against its weight-read bound, and a teacher-forced replay of
+    2 requests a group whose every router and gate exp is held to its
+    plain version (GateCheck) and whose cuda-tier logits are held to the
+    reference tier's within DBRX_TIER_LIMIT, with the routing decisions
+    that differ between the tiers counted. Returns {path: launch
+    counts}."""
+
+    def server(cuda_graphs=True):
+        return phi3_server(cfg, params, policy, groups, cuda_graphs)
+
+    t0 = time.perf_counter()
+    for arm in ARMS:                     # warm-up, not measured
+        srv = server(arm == "graph")
+        srv.run(phi3_requests(cfg, groups, 3, 4, seed=1))
+        del srv
+    torch.cuda.synchronize()
+    secs = {"warm_up": time.perf_counter() - t0}
+    runs = {arm: [phi3_serve_once(
+        kernels, cfg, server, lambda: phi3_requests(cfg, groups), arm,
+        "decode_attention", "decode_attention_paged",
+        f"serve_dbrx ({arm} arm)", DBRX_GATES)] for arm in ARMS}
+    compare = compare_arms(runs, "serve_dbrx")
+    first = runs["graph"][0]
+    reqs = first["reqs"]
+    secs["arms"] = time.perf_counter() - t0 - sum(secs.values())
+    audits = capture_audits(cfg, server, lambda: phi3_requests(
+        cfg, groups, 6, 8, seed=3), "serve_dbrx")
+    srv = ssm_live_server(server, phi3_requests(cfg, groups, max_new=8,
+                                                seed=3))
+    steps = ssm_step_readings(srv)
+    for name, b in phi3_step_bound(cfg, params, srv).items():
+        steps[name].update(b)
+        steps[name]["launches_per_step"] = dict(
+            srv._groups[name].state.graph.launches)
+    del srv
+    gc.collect()
+    secs["audit_and_step"] = time.perf_counter() - t0 - sum(secs.values())
+    # each request replayed alone at the width of the wave that admitted
+    # it: an expert's capacity is a function of the prefill's width, so
+    # only there is the replay's prefill the serve's
+    gates, tiers = GateCheck(), {}
+    for name, pol in groups.items():
+        rows = []
+        for r in [r for r in reqs if r.group == name][:2]:
+            with gates, RouteLog() as fast_routes:
+                fast = replay_logits(cfg, params, [r], pol, PHI3_TIER_STEPS,
+                                     r.admit_width)
+            with RouteLog() as ref_routes:
+                ref = replay_logits(cfg, params, [r],
+                                    pol.replace(kernel_backend="reference"),
+                                    PHI3_TIER_STEPS, r.admit_width)
+            top = max(float(lg[:, :cfg.vocab].abs().max()) for lg in ref)
+            limit = DBRX_TIER_LIMIT[pol.exp_backend] * top
+            rows.append({"rid": r.rid, "max_abs_logit": top, "limit": limit,
+                         "max_abs_diff": check_replay(f"dbrx {name}", [r],
+                                                      fast, ref, limit)})
+            rows[-1]["routing_flips"], rows[-1]["routing_decisions"] = \
+                fast_routes.flips(ref_routes, len(r.prompt))
+        tiers[name] = rows
+    secs["replays"] = time.perf_counter() - t0 - sum(secs.values())
+    emit({"phase": "serve_dbrx", "arch": cfg.arch_id,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+          "head_dim": cfg.hd, "d_ff": cfg.d_ff, "experts": cfg.n_experts,
+          "top_k": cfg.top_k, "vocab_padded": cfg.vocab_padded,
+          "arm": "graph", **first["readings"],
+          "prompt_lens": [len(r.prompt) for r in reqs],
+          "turns": {arm: [t["readings"] for t in runs[arm]] for arm in ARMS},
+          "graph_vs_eager_tokens": compare, "capture_audit": audits,
+          "step_graph": steps, "tier_max_abs_logit_diff": tiers,
+          "gate_exps_checked": dict(gates.calls),
+          "gate_exp_max_ulp": gates.max_ulp, "phase_seconds": secs,
+          "nvidia_smi": smi})
+    return {"serve_dbrx": first["counts"],
+            "serve_dbrx_eager": runs["eager"][0]["counts"]}
 
 
 def main():
@@ -4861,6 +5147,17 @@ def main():
                                           groups, phi3_mono))
     by_path.update(phase_serve_phi3_chunked(kernels, smi, cfg, params,
                                             policy, groups, phi3_mono))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    dbrx_rows = phase_dbrx_kernels(ExecPolicy)
+    for row in rows[2:5]:
+        row["d128g6"] = dbrx_rows[row["name"]]
+    cfg, params, policy, groups = dbrx_setup()
+    by_path.update(phase_serve_dbrx(kernels, smi, cfg, params, policy,
+                                    groups))
+    by_path.update(phase_serve_phi3_paged(kernels, smi, cfg, params, policy,
+                                          groups, None, "dbrx", DBRX_GATES))
     for row, name in zip(rows, ("vexp", "softmax", "flash_attention",
                                 "decode_attention",
                                 "decode_attention_paged",

@@ -64,6 +64,9 @@ HOT_PATH_FUNCTIONS = {
         "_write_chunk_kv", "_write_chunk_kv_paged",
     ),
     "repro_torch/models/decode_state.py": ("_guard_tokens",),
+    "repro_torch/models/moe.py": (
+        "route", "top_k", "_dispatch", "_expert_mlp",
+    ),
     "repro_torch/models/hybrid.py": (
         "_combine", "_assoc_scan", "_log_a_base", "_gates", "_attn_out",
         "_ring_len", "_ring_pos", "_embed", "_logits", "_last_logits",
@@ -83,6 +86,11 @@ STEP_STRICT = (
     ("repro_torch/models/decode_state.py", "_guard_tokens"),
     ("repro_torch/models/transformer.py", "decode_step*"),
     ("repro_torch/models/transformer.py", "prefill_chunk*"),
+    ("repro_torch/models/moe.py", "moe_apply"),
+    ("repro_torch/models/moe.py", "route"),
+    ("repro_torch/models/moe.py", "top_k"),
+    ("repro_torch/models/moe.py", "_dispatch"),
+    ("repro_torch/models/moe.py", "_expert_mlp"),
     ("repro_torch/models/hybrid.py", "decode_step*"),
     ("repro_torch/models/hybrid.py", "prefill_chunk*"),
     ("repro_torch/models/decode_state.py", "*._chunk_*"),

@@ -3,17 +3,17 @@
 ``params_from_numpy(tree, cfg)`` takes the reference's parameter tree
 (``repro.models.api.init_params`` or a checkpoint's arrays) as nested
 dicts of numpy arrays and returns the port's module of ``cfg``'s family
-holding the same values: a ``Transformer`` (dense), an ``SSM`` (ssm) or
-a ``Hybrid`` (hybrid). Matmul weights keep the reference's (d_in, d_out)
+holding the same values: a ``Transformer`` (dense, moe), an ``SSM``
+(ssm) or a ``Hybrid`` (hybrid). Matmul weights keep the reference's (d_in, d_out)
 orientation.
 
 The reference stacks layers on leading axes and casts, as a stack enters
 its scan, every f32 leaf of more than one dimension to the compute
 dtype; the port holds each value as that cast leaves it:
 
-* dense and ssm: ``tree["layers"]`` stacks the layers on one ``L``
-  axis; a layer's 2-D weights go to the compute dtype, its 1-D leaves
-  stay f32;
+* dense, moe and ssm: ``tree["layers"]`` stacks the layers on one
+  ``L`` axis; a layer's weights of two or more dimensions go to the
+  compute dtype, its 1-D leaves stay f32;
 * hybrid: ``tree["periods"]`` stacks the periods, and within each its
   ``recs`` carry a second stacking axis; ``tree["tail"]`` stacks the
   tail. The recurrent layers are cast while stacked, so every one of
@@ -23,7 +23,11 @@ dtype; the port holds each value as that cast leaves it:
 
 ``embed`` and, where the embeddings are untied (``cfg.tie_embeddings``
 false: every family but gpt2-small's), ``unembed`` stay f32. A SwiGLU
-layer's gate ``wg`` crosses with its other 2-D weights.
+layer's gate ``wg`` crosses with its other 2-D weights. A MoE layer's
+``moe`` subtree crosses the same way: its ``router`` (D, E) goes to the
+compute dtype like every other 2-D weight (the reference lifts it back
+to f32 only after that cast), and its stacked ``experts`` {wg, wu, wd}
+keep their leading E axis and go to the compute dtype too.
 """
 
 from __future__ import annotations

@@ -1,12 +1,12 @@
 """Model configuration schema (the port's own copy).
 
 Mirrors ``repro/configs/base.py``'s ``ModelConfig`` for the fields the
-ported families read: the dense decoder, the ssm (Mamba-2) family and
-the hybrid (RG-LRU + local attention) family. The port keeps its own
-copy rather than importing the reference package, so it stays
-importable where JAX is absent. Fields of families not ported yet (MoE,
-modality stubs) and the training-only ``logit_softcap`` are left out
-until their slice lands.
+ported families read: the dense decoder, the MoE decoder, the ssm
+(Mamba-2) family and the hybrid (RG-LRU + local attention) family. The
+port keeps its own copy rather than importing the reference package, so
+it stays importable where JAX is absent. Fields of families not ported
+yet (modality stubs) and the training-only ``logit_softcap`` and
+``router_aux_coef`` are left out until their slice lands.
 
 Execution fields resolve into a ``runtime.ExecPolicy``: ``REPRO_*``
 environment variables and per-call overrides take precedence over them.
@@ -28,7 +28,7 @@ from typing import Optional
 @dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                     # dense | ssm | hybrid (ported)
+    family: str                     # dense | moe | ssm | hybrid (ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -45,6 +45,10 @@ class ModelConfig:
     act: str = "swiglu"             # swiglu | gelu
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
+    # MoE (grok-1 / dbrx style): experts, experts a token, bucket slack
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
     # hybrid (recurrentgemma / griffin)
     attn_period: int = 0            # 1 attention layer per `attn_period`
     lru_width: int = 0
@@ -95,6 +99,8 @@ class ModelConfig:
             head_dim=32,
             d_ff=256 if self.d_ff else 0,
             vocab=512,
+            n_experts=min(self.n_experts, 4),
+            top_k=min(self.top_k, 2),
             lru_width=128 if self.lru_width else 0,
             sliding_window=16 if self.sliding_window else None,
             ssm_headdim=32 if self.ssm_state else 64,

@@ -144,6 +144,9 @@ class Request:
     # without its tokens
     finish_reason: Optional[str] = None
     prefix_hit: int = 0                 # prompt tokens from the prefix cache
+    # the padded width of the wave that prefilled it (0: chunked or not
+    # admitted); a MoE layer's expert capacity is a function of it
+    admit_width: int = 0
     t_submit: float = 0.0
     t_first: float = 0.0
     t_done: float = 0.0
@@ -525,6 +528,7 @@ class _Group:
             self.ntok[j] = 1
             self._toks[j] = [first]
             r.prefix_hit = hist
+            r.admit_width = sp
             r.t_first = now
             self.ttft.append(now - r.t_submit)
             if admit_log is not None:
@@ -1269,6 +1273,10 @@ def main(argv=None):
     for name, pol in (groups or {}).items():
         say(f"[serve]   group {name}: {pol.describe()}")
     params = api.init_params(cfg, 0, device=device)
+    say(f"[serve] model: {cfg.arch_id}{' (reduced)' if args.reduced else ''}"
+        f", {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{sum(p.numel() for p in params.parameters()) / 1e9:.4f} B "
+        f"parameters")
     injector = None
     if args.chaos:
         seed = (args.fault_seed if args.fault_seed is not None

@@ -5,7 +5,7 @@ prefill_chunk_paged / decode_step_paged.
 
 One family dispatch (``_mod``, the reference's ``api.py:24-30``) picks
 the module: ``models.ssm`` for the ssm family, ``models.hybrid`` for the
-hybrid one, ``models.transformer`` for the dense one. The ssm family has
+hybrid one, ``models.transformer`` for the dense and MoE ones. The ssm family has
 no KV cache, so it refuses what needs one, with the reference's
 ``ValueError``s (``api.py:119-124, 139-140, 175, 189-190``): no
 shared-prefix history, no paged cache or paged step, no all-lanes chunk

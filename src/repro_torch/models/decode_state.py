@@ -1813,14 +1813,15 @@ class PagedHybridDecodeState(HybridDecodeState):
 def decode_state_for(cfg, paged=False):
     """The DecodeState class serving ``cfg`` (the serving stack's one
     family dispatch; reference ``decode_state.py:1942-1953``): paged or
-    contiguous KV for the dense family, paged or contiguous ring pools
-    for the hybrid; recurrent state is O(1) per slot, nothing to page, so
-    the ssm family serves through ``RecurrentDecodeState`` either way."""
+    contiguous KV for the dense and MoE families, paged or contiguous
+    ring pools for the hybrid; recurrent state is O(1) per slot, nothing
+    to page, so the ssm family serves through ``RecurrentDecodeState``
+    either way."""
     if cfg.family == "ssm":
         return RecurrentDecodeState
     if cfg.family == "hybrid":
         return PagedHybridDecodeState if paged else HybridDecodeState
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"{cfg.arch_id}: family {cfg.family!r} "
                                   f"has no ported decode state")
     return PagedKVDecodeState if paged else KVDecodeState

@@ -1,6 +1,8 @@
-"""Dense decoder transformer (port of ``repro/models/transformer.py``,
-dense path): parameters as ``nn.Module``s, prefill and decode as plain
-functions over them.
+"""Decoder transformer (port of ``repro/models/transformer.py``, the
+dense and MoE paths): parameters as ``nn.Module``s, prefill and decode as
+plain functions over them. A MoE block (``cfg.n_experts`` > 0) holds a
+``moe.MoE`` where a dense block holds its ``MLP``; that one branch, in
+``_finish_block``, covers forward, prefill, chunks and decode.
 
 Parameter layout and dtypes follow the reference: matmul weights are
 (d_in, d_out); per layer, 2-D weights are held in the compute dtype (the
@@ -34,6 +36,7 @@ from repro_torch.analysis.registry import hot_path
 from repro_torch.core.attention import attention, decode_attention
 from repro_torch.kernels.dispatch import dispatch
 from .layers import apply_rope, mask_padded_logits, mlp_apply, norm_apply
+from .moe import MoE, moe_apply
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -92,7 +95,10 @@ class Block(nn.Module):
         self.ln_attn = Norm(cfg.d_model, cfg.norm, device)
         self.attn = Attention(cfg, g, dtype, device)
         self.ln_mlp = Norm(cfg.d_model, cfg.norm, device)
-        self.mlp = MLP(cfg, g, dtype, device)
+        if cfg.n_experts:
+            self.moe = MoE(cfg, g, dtype, device)
+        else:
+            self.mlp = MLP(cfg, g, dtype, device)
 
 
 class Transformer(nn.Module):
@@ -100,11 +106,11 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg, g: torch.Generator, device):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"{cfg.arch_id}: family {cfg.family!r} (MoE, parallel "
-                f"blocks, modality inputs, the logit softcap) is not "
-                f"ported yet; only dense decoders are")
+                f"{cfg.arch_id}: family {cfg.family!r} (parallel blocks, "
+                f"modality inputs, the logit softcap) is not ported yet; "
+                f"only dense and MoE decoders are")
         dtype = getattr(torch, cfg.compute_dtype)
         self.layers = nn.ModuleList(
             [Block(cfg, g, dtype, device) for _ in range(cfg.n_layers)])
@@ -118,9 +124,10 @@ class Transformer(nn.Module):
 
 def init_params(cfg, g: torch.Generator, device) -> Transformer:
     """Random weights with the reference's layout and scales (dense
-    N(0,1)/sqrt(d_in), embedding N(0,1)*0.02, an untied unembedding
-    N(0,1)/sqrt(d_model) in f32, zero biases, unit norms), drawn from
-    ``g`` on ``device``."""
+    N(0,1)/sqrt(d_in), a MoE layer's router and each expert's FFN the
+    same, the experts stacked on a leading E axis, embedding N(0,1)*0.02,
+    an untied unembedding N(0,1)/sqrt(d_model) in f32, zero biases, unit
+    norms), drawn from ``g`` on ``device``."""
     return Transformer(cfg, g, device)
 
 
@@ -146,6 +153,8 @@ def _qkv(x, p, cfg, pos):
 def _finish_block(x, a, blk, cfg, policy):
     x = x + a
     h = norm_apply(x, blk.ln_mlp, cfg.norm, cfg.norm_eps)
+    if cfg.n_experts:
+        return x + moe_apply(h, blk.moe, cfg, policy=policy)
     return x + mlp_apply(h, blk.mlp, cfg.act, policy=policy)
 
 

@@ -1,33 +1,38 @@
-"""The gap between the JAX package's two kernel tiers on a dense decoder:
-the logits of a teacher-forced serve (one prefill, then one
-``decode_step`` per forced token) under the ``pallas`` tier (the Pallas
-FlashAttention and flash-decode kernels, interpreted on the CPU) against
-the same under the ``reference`` tier, on the same tokens, under every
-exp backend.
+"""The gap between the JAX package's two kernel tiers on a decoder
+(dense or MoE): the logits of a teacher-forced serve (one prefill, then
+one ``decode_step`` per forced token) under the ``pallas`` tier (the
+Pallas FlashAttention and flash-decode kernels, interpreted on the CPU)
+against the same under the ``reference`` tier, on the same tokens, under
+every exp backend.
 
-``chip_smoke.py``'s ``serve_phi3`` phase holds the port's ``cuda`` tier
-(its kernels, which compute what the Pallas kernels compute: q and p
-rounded to bf16 in the decode sweep, the blockwise online update) to its
-``reference`` tier on the card at full width, to a limit set from these
-readings, as ``tools/ssm_form_gap.py`` sets the recurrent families' form
-limits. Run from the repository root:
+``chip_smoke.py``'s ``serve_phi3`` and ``serve_dbrx`` phases hold the
+port's ``cuda`` tier (its kernels, which compute what the Pallas kernels
+compute: q and p rounded to bf16 in the decode sweep, the blockwise
+online update) to its ``reference`` tier on the card, to limits set from
+these readings, as ``tools/ssm_form_gap.py`` sets the recurrent
+families' form limits. Run from the repository root:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/tier_gap.py \
-        [--arch phi3-medium-14b] [--width reduced|full] \
+        [--arch phi3-medium-14b|dbrx-132b] [--width reduced|narrow|full] \
         [--layers 2 4 6] [--extrapolate 40] [--prior FILE]
 
-``--width full`` reads phi3-medium-14b's own widths (d 5120, 40 query
-heads on 10 KV heads of 128, SwiGLU d_ff 17,920, the whole untied
-vocabulary) on 2 prompts of 300 and 1,000 tokens and 16 forced steps, as
-``chip_smoke.py``'s check runs; only the depth is cut (f32 weights of one
-layer are 1.4 GB, the embedding and the unembedding 4.1 GB, so give it a
-few layers on the CPU). ``--width reduced`` reads its ``reduced()``
-config on prompts of 24 and 9 tokens. Prints one JSON line per depth:
-per backend the max |pallas - reference| over the forced steps, the max
-|logit| and their ratio. With ``--extrapolate L`` and two or more depths
-it also prints a least-squares fit of log(ratio) against log(depth) per
-backend and the ratio it gives at depth L; ``--prior FILE`` adds to the
-fit the depth lines an earlier run printed into FILE.
+``--width reduced`` reads the arch's ``reduced()`` config on prompts of
+24 and 9 tokens (dbrx: 4 experts, top-2, G 1, head dim 32). The other
+widths run 2 prompts of 300 and 1,000 tokens and 16 forced steps, as
+``chip_smoke.py``'s checks do, with only the depth cut: ``--width full``
+is phi3-medium-14b's own widths (d 5120, 40 query heads on 10 KV heads
+of 128, SwiGLU d_ff 17,920, the whole untied vocabulary; f32 weights of
+one layer are 1.4 GB, the embedding and the unembedding 4.1 GB, so give
+it a few layers on the CPU); ``--width narrow`` is dbrx-132b's shape at
+an eighth of its widths (d 768, 6 query heads on one KV head of 128: G 6
+and head dim 128 as on the card; 16 experts, top-4, capacity factor
+1.25, expert d_ff 1,344; the whole untied vocabulary; ~2 GB of f32
+weights at 8 layers). Prints one JSON line per depth: per backend the
+max |pallas - reference| over the forced steps, the max |logit| and
+their ratio. With ``--extrapolate L`` and two or more depths it also
+prints a least-squares fit of log(ratio) against log(depth) per backend
+and the ratio it gives at depth L; ``--prior FILE`` adds to the fit the
+depth lines an earlier run printed into FILE.
 """
 
 import argparse
@@ -49,7 +54,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from ssm_form_gap import fit  # noqa: E402
 
 # (prompt lengths, forced steps) per width
-SHAPES = {"reduced": ((24, 9), 16), "full": ((300, 1000), 16)}
+SHAPES = {"reduced": ((24, 9), 16), "narrow": ((300, 1000), 16),
+          "full": ((300, 1000), 16)}
+# dbrx-132b at an eighth of its widths (``--width narrow``)
+NARROW = {"d_model": 768, "n_heads": 6, "n_kv_heads": 1, "head_dim": 128,
+          "d_ff": 1344}
 
 
 def tier_logits(params, cfg, prompt, forced, pol):
@@ -74,6 +83,10 @@ def gap(width, n_layers=None, arch="phi3-medium-14b"):
     cfg = get_config(arch)
     if width == "reduced":
         cfg = cfg.reduced()
+    elif width == "narrow":
+        if cfg.family != "moe":
+            raise SystemExit("--width narrow is dbrx-132b's")
+        cfg = dataclasses.replace(cfg, **NARROW)
     prompts_len, steps = SHAPES[width]
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
@@ -108,7 +121,7 @@ def gap(width, n_layers=None, arch="phi3-medium-14b"):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=("phi3-medium-14b",),
+    ap.add_argument("--arch", choices=("phi3-medium-14b", "dbrx-132b"),
                     default="phi3-medium-14b")
     ap.add_argument("--width", choices=tuple(SHAPES), default="reduced")
     ap.add_argument("--layers", type=int, nargs="*", default=[None])
