@@ -4068,19 +4068,22 @@ HYBRID_EDGE_WINDOW = 700
 
 
 def _decode_edges(da, policy_cls, d=256, seed=14,
-                  groups=HYBRID_EDGE_GROUPS):
-    """B2 and B7 at head dim ``d`` (256, or 128) where the column-sliced
-    sweep has its edges: ``groups`` query rows on one KV head (G 1, 5
-    and 16; dbrx's phase takes its G 6); one row
-    per cache_len in HYBRID_EDGE_LENS (one key, a tile, a tile and a key,
-    around the 512-key update block, the full 2,048-row cache); with no
-    window and with a window of 700 (the first kept key mid-block); B7
-    through a page table in random order. At head dim 128 also B7 at G 4
-    through pages of two tiles (128 keys), where the four-row sweep's
-    stage 2 rings its V tiles within a page. Each held to its plain
-    version under every exp backend, with the half-block (half-page) and
-    textbook-merge controls (the pages of 128 keys only at the default
-    ``groups``). Returns (fields, [(tag, kernel, readings)])."""
+                  groups=HYBRID_EDGE_GROUPS, page128_groups=()):
+    """B2 and B7 at head dim ``d`` (256, or 128) where the chained sweep
+    has its edges: ``groups`` query rows on one KV head (G 1, 5 and 16;
+    at head dim 128 G 1 to 4 take the four-row tier, G 5 to 8 the
+    eight-row one and G 9 to 16 the sixteen-row path, so dbrx's phase
+    takes G 5, 6, 8 and 9, each side of the eight-row tier's bounds); one
+    row per cache_len in HYBRID_EDGE_LENS (one key, a tile, a tile and a
+    key, around the 512-key update block, the full 2,048-row cache); with
+    no window and with a window of 700 (the first kept key mid-block); B7
+    through a page table in random order. At head dim 128 also B7 at each
+    G of ``page128_groups`` (phi3's phase G 4, dbrx's G 6) through pages
+    of two tiles (128 keys), where the four- and eight-row sweeps' stage
+    2 rings its V tiles within a page. Each held to its plain version
+    under every exp backend, with the half-block (half-page) and
+    textbook-merge controls. Returns (fields, [(tag, kernel,
+    readings)])."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     s, page = 2048, HYBRID_PAGE
     b, ns = len(HYBRID_EDGE_LENS), s // page
@@ -4098,9 +4101,11 @@ def _decode_edges(da, policy_cls, d=256, seed=14,
     cases = [(grp, window, paged, page) for grp in groups
              for window in (None, HYBRID_EDGE_WINDOW)
              for paged in (False, True)]
-    if d == 128 and groups == HYBRID_EDGE_GROUPS:
-        qs[4] = torch.randn(b, 1, 4, d, generator=g,
-                            device="cuda").to(torch.bfloat16)
+    if page128_groups:
+        for grp in page128_groups:
+            if grp not in qs:
+                qs[grp] = torch.randn(b, 1, grp, d, generator=g,
+                                      device="cuda").to(torch.bfloat16)
         big, nb2 = 2 * page, s // (2 * page)
         tab2 = ((torch.randperm(b * nb2, generator=g, device="cuda") + 1)
                 .reshape(b, nb2).to(torch.int32))
@@ -4110,7 +4115,7 @@ def _decode_edges(da, policy_cls, d=256, seed=14,
                 0, tab2.reshape(-1).long(), x.reshape(b * nb2, big, 1, d))
             for x in (kc, vc)) + (tab2,)
         assert torch.equal(da.paged_gather(pools[big][0], tab2), kc)
-        cases += [(4, window, True, big)
+        cases += [(grp, window, True, big) for grp in page128_groups
                   for window in (None, HYBRID_EDGE_WINDOW)]
     res, out = {}, []
     for grp, window, paged, pg in cases:
@@ -4519,7 +4524,7 @@ def _d128_fa_rows(fa, policy_cls, block_k, inputs, label, chunk=True):
 
 def d128_kernel_rows(policy_cls, arch, fa_inputs, decode_shape, label,
                      seed, phase, edge_groups=HYBRID_EDGE_GROUPS,
-                     bhsd=True, chunk=True):
+                     page128_groups=(4,), bhsd=True, chunk=True):
     """B3, B2 and B7 at head dim 128 on ``arch``'s shapes: FA at the
     config's ``attn_block_k`` of 512 (its serve's update block; the edge
     cases at block_k 128 and the largest the card admits) on
@@ -4527,7 +4532,8 @@ def d128_kernel_rows(policy_cls, arch, fa_inputs, decode_shape, label,
     ragged cache_len ("bshd", and with ``bhsd`` also "bhsd"), B7 through
     a page-64 table in random order (seeds from ``seed``), and both at
     their edges (``_decode_edges`` at D 128 with ``edge_groups`` query
-    heads a KV head: cache_len at the tile and block bounds, a window).
+    heads a KV head: cache_len at the tile and block bounds, a window;
+    B7 at ``page128_groups`` also through pages of 128 keys).
     Each held to its plain version under the unchanged ATT_LIMITS with
     its negative controls; FA's rows also carry their CUDA-core FMA
     floor (a reading). Emits one ``phase`` line; returns {kernel row
@@ -4547,7 +4553,8 @@ def d128_kernel_rows(policy_cls, arch, fa_inputs, decode_shape, label,
         da, policy_cls, True,
         decode_inputs(da, True, seed=seed + 2, **decode_shape), page, label)
     edges, edge_rds = _decode_edges(da, policy_cls, d=128, seed=seed + 3,
-                                    groups=edge_groups)
+                                    groups=edge_groups,
+                                    page128_groups=page128_groups)
     line = {"phase": phase, "block_k": block_k, "flash_attention": fa_res,
             "decode_attention": dec, "decode_attention_paged": pdec,
             "decode_edges": edges}
@@ -4888,7 +4895,8 @@ DBRX_ARCH = "dbrx-132b"
 DBRX_LAYERS = 8
 DBRX_GATES = 2                 # vexp launches a layer: router, SwiGLU gate
 # B2 / B7 at dbrx's decode shape: B 8, 48 query heads on 8 KV heads of
-# 128 (G 6: the 16-row path), a 2,048-token cache, page 64
+# 128 (G 6: the eight-row tier, six rows chained), a 2,048-token cache,
+# page 64
 DBRX_DECODE_SHAPE = dict(b=8, s=PHI3_MAX_SEQ, h=48, hkv=8, d=128,
                          page=PHI3_PAGE, full=1)
 # dbrx's cuda tier against its reference tier over a teacher-forced
@@ -4937,16 +4945,24 @@ def dbrx_setup():
     return cfg, params, policy, groups
 
 
+# the edges of B2 / B7 at dbrx's phase: the eight-row tier's bounds at
+# head dim 128 (G 5 and 8) and their neighbours (G 4 is phi3's, G 9 the
+# sixteen-row path's), dbrx's G 6 also through pages of 128 keys
+DBRX_EDGE_GROUPS = (5, 6, 8, 9)
+
+
 def phase_dbrx_kernels(policy_cls):
     """B3, B2 and B7 at dbrx-132b's shapes (head dim 128, 48 query heads
     on 8 KV heads, G 6; ``d128_kernel_rows``): FA's admission wave (B 8,
     S 1024, ragged kv_len) and its edges, B2 ("bshd", the serve's
     layout) and B7 through a page-64 table, and both at their edges at
-    G 6. Returns the rows 3d, 4d and 7d."""
+    G 5, 6, 8 and 9 (B7 at G 6 also through pages of 128 keys). Returns
+    the rows 3d, 4d and 7d."""
     return d128_kernel_rows(policy_cls, DBRX_ARCH, d128_fa_inputs(48, 8, 31),
                             DBRX_DECODE_SHAPE, "d128g6", 32,
-                            "dbrx_attention_kernels", edge_groups=(6,),
-                            bhsd=False, chunk=False)
+                            "dbrx_attention_kernels",
+                            edge_groups=DBRX_EDGE_GROUPS,
+                            page128_groups=(6,), bhsd=False, chunk=False)
 
 
 class RouteLog:

@@ -37,19 +37,22 @@
 // (griddepcontrol.wait) before reading its output.
 //
 // Head dims 128 and 256 (block_chain: phi3-medium's 4 query heads a KV
-// head, recurrentgemma's 16 on one; normalized mode only) run three
-// kernels of their own, sized for up to 16 query rows a KV head (rows
-// past G are computed and not written), spread over the card by query
-// rows in stage 1, by column slices in stage 2 and by outputs in stage 3;
-// at D 128 and G <= 4 an instantiation of four rows a KV head (chosen by
-// G at launch; stage 2 split_pv_rows4, below) computes no row past G;
-// every f32 operation of every output, and its order, is the one
-// described above for the block's keys:
+// head, dbrx's 6, recurrentgemma's 16 on one; normalized mode only) run
+// three kernels of their own, in one of three tiers of query rows a KV
+// head chosen by G at launch (chain_rows): at D 128 four rows for G <= 4
+// and eight for 5 <= G <= 8, whose stage 2 is split_pv_rows (below) and
+// computes no FMA of a row past G; else sixteen rows (rows past G are
+// computed and not written), spread over the card by query rows in stage
+// 1, by column slices in stage 2 and by outputs in stage 3; every f32
+// operation of every output, and its order, is the one described above
+// for the block's keys:
 //   1. split_scores_rows, one CTA per (tile, h, b) of 128 threads: a
-//      warp per four query rows (one at four rows a KV head), a lane per
-//      two keys, eight (two) f32 FMA chains over d from 0 a thread in
-//      flight together, K rows and q read from shared memory (dynamic,
-//      49 KB; 19 KB at D 128 and four rows);
+//      warp per four query rows at sixteen rows a KV head, per two
+//      adjacent rows at eight (a warp whose rows are all past G does no
+//      FMA, one with a single live row chains it alone), per row at four;
+//      a lane per two keys, eight (four, two) f32 FMA chains over d from
+//      0 a thread in flight together, K rows and q read from shared
+//      memory (dynamic, 49 KB; 21 KB at D 128 and eight rows);
 //   2. split_pv_slice, one CTA per (update block, column slice of 64, h,
 //      b), D / 64 slices a row (4 at D 256, 2 at D 128): the block's m_j
 //      and alpha_j as
@@ -74,10 +77,11 @@
 //      (kBatch blocks a load). Not the last CTA of each slice, as at the
 //      dense heads: there the combine ran on a few CTAs at the kernel's
 //      tail (7.6 µs of stage 2 on a page-64 ring, on an H100).
-// At four rows a KV head stage 2 is split_pv_rows4: one CTA per (update
-// block, h, b) takes all D columns (the exps once a block), four warps
-// chaining a column and the four rows a lane and a fifth warp the l
-// chains, a 16-byte load of a key's four p a step.
+// At four and eight rows a KV head stage 2 is split_pv_rows: one CTA per
+// (update block, h, b) takes all D columns (the exps once a block), four
+// warps chaining a column and R rows a lane (R = 4; 6 at G 5 and 6, 8 at
+// G 7 and 8) and a fifth warp the l chains, a 16-byte load of four of a
+// key's p (eight-byte for the last two of six) a step.
 // (Each choice read on the card by tools/decode_split_ablation.py.)
 // D 32 and 64 (G <= 8) keep split_scores and split_pv.
 //
@@ -94,9 +98,9 @@
 // blocks per row. D 32, 64: scores R * nT * kTile, tile maxes R * nT,
 // tile l R * nT, the tile's block alpha R * nT, tile p @ v R * nT * D,
 // then B * Hkv ticket counters. D 128, 256: scores B * Hkv * nT * kTile *
-// chain_rows(D, G) (each tile's keys by query row, [key][16], or [key][4]
-// at D 128 and G <= 4), block p @ v R * nB * D, tile maxes R * nT, block
-// alpha R * nB, block l R * nB.
+// chain_rows(D, G) (each tile's keys by query row, [key][16], or at D 128
+// [key][4] for G <= 4 and [key][8] for 5 <= G <= 8), block p @ v R * nB *
+// D, tile maxes R * nT, block alpha R * nB, block l R * nB.
 
 #pragma once
 
@@ -116,21 +120,27 @@ constexpr int kChainMinD = 128;
 // columns a slice, the blocks whose statistics the combine loads at
 // once, and the keys whose operands the chain loads at once
 constexpr int kChainG = 16;
-// D = 128 at G <= 4 (phi3-medium's 4 query heads a KV head): the rows a
-// KV head of its own instantiation, chosen by G at launch
+// D = 128 at G <= 4 (phi3-medium's 4 query heads a KV head) and at 5 <= G
+// <= 8 (dbrx's 6): the scores' rows a key of an instantiation of its own,
+// chosen by G at launch
 constexpr int kChainG4 = 4;
-// its stage 2: four warps chaining p @ v, a column and the four query
-// rows a lane (D 128), one more warp chaining l
-constexpr int kRows4Chain = 128;
-constexpr int kRows4Threads = kRows4Chain + 32;
-constexpr int kRows4Unroll = 16;      // keys whose operands a chain loads
-// its stage 2's V tiles in flight or held a CTA, at most: 64 KB, 3
+constexpr int kChainG8 = 8;
+// the eight-row tier's stage 2 chains six rows up to this G, else eight
+constexpr int kChainG6 = 6;
+// their stage 2: four warps chaining p @ v, a column and R query rows a
+// lane (D 128), one more warp chaining l
+constexpr int kRowsChain = 128;
+constexpr int kRowsThreads = kRowsChain + 32;
+// keys whose operands a chain loads at once: R + 1 registers a key
+constexpr int kRowsUnroll4 = 16;
+constexpr int kRowsUnroll8 = 8;
+// their stage 2's V tiles in flight or held a CTA, at most: 64 KB, 3
 // CTAs an SM, so the 320 block CTAs of phi3-medium's decode (4 blocks of
 // 512 keys a row) are all resident; with one barrier a tile two buffers
 // would leave a single tile in flight, which on an H100 reads slower
 // (PERF.md). A page of fewer tiles (64 keys: one) takes as many buffers
-// as it has tiles (rows4_bufs)
-constexpr int kRows4Bufs = 4;
+// as it has tiles (rows_bufs)
+constexpr int kRowsBufs = 4;
 constexpr int kRowSplit = 4;          // stage 1: warps a tile, 4 rows each
 constexpr int kScoreThreads = 32 * kRowSplit;
 constexpr int kSliceCols = 64;
@@ -186,12 +196,16 @@ __host__ __device__ constexpr int max_g() {
   return block_chain<D>() ? kChainG : 8;
 }
 
-// Query rows a KV head the chained sweep computes at head dim D for G
-// query heads a KV head: 4 at D 128 and G <= 4, else max_g<D>(). Stage 1,
-// stage 2 and the scores' scratch are sized by it, so at phi3-medium's
-// G 4 no FMA, exp or scratch byte goes to a row past G.
+// Query rows a KV head the chained sweep's scores take at head dim D for
+// G query heads a KV head: at D 128 4 for G <= 4 and 8 for G <= 8, else
+// max_g<D>(). Stage 1, stage 2 and the scores' scratch are sized by it,
+// so at phi3-medium's G 4 no FMA, exp or scratch byte goes to a row past
+// G, and at dbrx's G 6 no FMA.
 __host__ __device__ constexpr int chain_rows(int D, int G) {
-  return D == 128 && G <= kChainG4 ? kChainG4 : kChainG;
+  return D != 128 ? kChainG
+         : G <= kChainG4 ? kChainG4
+         : G <= kChainG8 ? kChainG8
+                         : kChainG;
 }
 
 // Column slices of a row in stage 2 at a chained head dim.
@@ -574,47 +588,22 @@ __global__ void __launch_bounds__(kPvThreads, 8) split_pv(Args a) {
   combine_row<D, MODE>(a, b, h, lo, len);
 }
 
-// ---- D = 128, 256 (block_chain), stage 1: a warp per MAXG / 4 query rows
-// (quarter, quarter + 4, ...), a lane per two keys (lane, lane + 32): at
-// MAXG 16 eight f32 FMA chains over d from 0 a thread, in flight
-// together, so each q value read from shared memory feeds two keys and
-// each K value four rows; at MAXG 4 (G <= 4) a warp per query row, two
-// chains a thread. Scores go to scratch as [key][MAXG] per tile, the rows
-// of a key side by side for stage 2's loads; each warp's maxes are its
-// rows' tile maxes.
-template <int D, bool PAGED, int MAXG>
-__global__ void __launch_bounds__(kScoreThreads) split_scores_rows(Args a) {
-  static_assert(block_chain<D>(), "the dense heads take split_scores");
+// ---- D = 128, 256 (block_chain), stage 1: a warp's query rows against a
+// lane's two keys (lane, lane + 32): RPT rows first, first + STEP, ...
+// (rows past G computed, not written), KPT x RPT f32 FMA chains over d
+// from 0 a thread in flight together, so each q value read from shared
+// memory feeds two keys and each K value RPT rows. Scores go to scratch as
+// [key][MAXG] per tile, the rows of a key side by side for stage 2's
+// loads; each warp's maxes are its rows' tile maxes.
+template <int D, int MAXG, int RPT, int STEP>
+__device__ __forceinline__ void score_rows(const Args& a, const float* sQ,
+                                           const __nv_bfloat16* sK,
+                                           const Tile& x, int first,
+                                           int lane, float* sc,
+                                           long long row0, int t) {
   constexpr int PITCH = D + 8;            // 16 bytes of padding per row
-  constexpr int kMaxG = MAXG;
-  constexpr int RPT = kMaxG / kRowSplit;  // query rows a thread
   constexpr int KPT = kTile / 32;         // keys a thread
-  extern __shared__ __align__(16) unsigned char dsmem[];
-  float* sQ = reinterpret_cast<float*>(dsmem);                 // [kMaxG][D]
-  __nv_bfloat16* sK =
-      reinterpret_cast<__nv_bfloat16*>(sQ + kMaxG * D);        // [kTile][PITCH]
-  const int t = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid % 32, quarter = tid / 32;
   const int G = a.G;
-  const long long bh = (long long)b * a.Hkv + h, row0 = bh * G;
-  // stage 2 may launch now: it waits for this grid before reading its
-  // output (griddepcontrol.wait)
-  asm volatile("griddepcontrol.launch_dependents;");
-  const long long phys = page_of<PAGED>(a, b, t);
-  int lo, len;
-  kept_range(a, b, lo, len);
-  const Tile x = tile_of(a, t, lo, len);
-  if (x.c0 >= x.c1) {
-    if (tid < G) a.tmax[(row0 + tid) * a.nT + t] = kNegInf;
-    return;
-  }
-  load_rows<D, PAGED, kScoreThreads>(a, a.k, b, h, phys, x, sK, PITCH);
-  for (int i = tid; i < G * D; i += kScoreThreads)
-    sQ[i] = bf16_round(
-        __fmul_rn(__bfloat162float(a.q[row0 * D + i]), a.sm_scale));
-  cp_async_wait_all();
-  __syncthreads();
-
   // every key and row each step, unkept keys and rows past G included
   // (their scores are replaced or never written): one basic block, the
   // rows' q and the keys' K columns first, then column by column one FMA
@@ -647,7 +636,7 @@ __global__ void __launch_bounds__(kScoreThreads) split_scores_rows(Args a) {
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const float4* qv = reinterpret_cast<const float4*>(
-          sQ + (quarter + kRowSplit * i) * D + v8 * 8);
+          sQ + (first + STEP * i) * D + v8 * 8);
       const float4 q0 = qv[0], q1 = qv[1];
       q[i][0] = q0.x; q[i][1] = q0.y; q[i][2] = q0.z; q[i][3] = q0.w;
       q[i][4] = q1.x; q[i][5] = q1.y; q[i][6] = q1.z; q[i][7] = q1.w;
@@ -660,21 +649,69 @@ __global__ void __launch_bounds__(kScoreThreads) split_scores_rows(Args a) {
         for (int k = 0; k < KPT; ++k)
           s[k][i] = fmaf(q[i][j], kf[k][j], s[k][i]);
   }
-  float* sc = a.scores + (bh * a.nT + t) * kTile * kMaxG;
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
-    const int g = quarter + kRowSplit * i;
+    const int g = first + STEP * i;
     if (g < G) {                          // the same for the whole warp
       float mx = kNegInf;
 #pragma unroll
       for (int k = 0; k < KPT; ++k) {
         const float val = keep[k] ? s[k][i] : kNegInf;
-        if (kp[k] < x.kend) sc[(lane + 32 * k) * kMaxG + g] = val;
+        if (kp[k] < x.kend) sc[(lane + 32 * k) * MAXG + g] = val;
         mx = fmaxf(mx, val);
       }
       mx = warp_max(mx);
       if (lane == 0) a.tmax[(row0 + g) * a.nT + t] = mx;
     }
+  }
+}
+
+// one CTA per (tile, h, b) of kScoreThreads: at MAXG 16 a warp per four
+// rows (quarter, quarter + 4, ...), at MAXG 4 a warp per row, at MAXG 8
+// a warp per two adjacent rows, so that at G 5 to 7 a warp whose rows are
+// all past G does no FMA and one with a single live row chains it alone
+template <int D, bool PAGED, int MAXG>
+__global__ void __launch_bounds__(kScoreThreads) split_scores_rows(Args a) {
+  static_assert(block_chain<D>(), "the dense heads take split_scores");
+  constexpr int PITCH = D + 8;            // 16 bytes of padding per row
+  constexpr int kMaxG = MAXG;
+  constexpr int RPT = kMaxG / kRowSplit;  // query rows a warp
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  float* sQ = reinterpret_cast<float*>(dsmem);                 // [kMaxG][D]
+  __nv_bfloat16* sK =
+      reinterpret_cast<__nv_bfloat16*>(sQ + kMaxG * D);        // [kTile][PITCH]
+  const int t = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32, quarter = tid / 32;
+  const int G = a.G;
+  const long long bh = (long long)b * a.Hkv + h, row0 = bh * G;
+  // stage 2 may launch now: it waits for this grid before reading its
+  // output (griddepcontrol.wait)
+  asm volatile("griddepcontrol.launch_dependents;");
+  const long long phys = page_of<PAGED>(a, b, t);
+  int lo, len;
+  kept_range(a, b, lo, len);
+  const Tile x = tile_of(a, t, lo, len);
+  if (x.c0 >= x.c1) {
+    if (tid < G) a.tmax[(row0 + tid) * a.nT + t] = kNegInf;
+    return;
+  }
+  load_rows<D, PAGED, kScoreThreads>(a, a.k, b, h, phys, x, sK, PITCH);
+  for (int i = tid; i < G * D; i += kScoreThreads)
+    sQ[i] = bf16_round(
+        __fmul_rn(__bfloat162float(a.q[row0 * D + i]), a.sm_scale));
+  cp_async_wait_all();
+  __syncthreads();
+  float* sc = a.scores + (bh * a.nT + t) * kTile * kMaxG;
+  if constexpr (kMaxG == kChainG8) {
+    static_assert(RPT == 2, "a warp per two adjacent rows");
+    const int first = RPT * quarter;      // the same for the whole warp
+    if (first + 1 < G)
+      score_rows<D, kMaxG, 2, 1>(a, sQ, sK, x, first, lane, sc, row0, t);
+    else if (first < G)
+      score_rows<D, kMaxG, 1, 1>(a, sQ, sK, x, first, lane, sc, row0, t);
+  } else {
+    score_rows<D, kMaxG, RPT, kRowSplit>(a, sQ, sK, x, quarter, lane, sc,
+                                         row0, t);
   }
 }
 
@@ -970,31 +1007,44 @@ __global__ void __launch_bounds__(kPvThreads, 6) split_pv_slice(Args a) {
   }
 }
 
-// ---- D = 128 at G <= 4, stage 2: one CTA per (update block j, h, b) of
-// five warps. Warps 0 .. 3 chain a column a lane (32 w + lane) of the
-// four query rows, warp 4 each row's l (lane g < G, row g), over the
-// block's kept keys in key order from +0.0; so at G 4 every lane of the
-// chains is on a live row, each chain step is four FMAs fed by one
-// 16-byte load of the key's four p (bf16-rounded, held as f32 side by side
-// in shared memory) and one bf16 of V, and the l chain runs beside the
-// p @ v chains instead of in one of them. m_{j-1}, m_j and alpha_j as in
-// split_pv_slice; p of the next tile (warps 0 .. 3, two (key, row) pairs a
-// thread) beside a tile's chains; the next tiles' V rows in flight
-// (cp.async into rows4_bufs<PAGED>(tpb) buffers of dynamic shared
-// memory: four on the contiguous cache, and where a block is a page as
-// many as it has tiles up to four, one at a page of 64 keys), the tile
-// after next's scores in registers; one
-// barrier a tile. Writes the block's p @ v, alpha and l slots, which
-// combine_blocks chains. One CTA takes all D columns: the exps of a block
-// are taken once, not once a column slice.
+// ---- D = 128 at G <= 8, stage 2: one CTA per (update block j, h, b) of
+// five warps. Warps 0 .. 3 chain a column a lane (32 w + lane) of R query
+// rows (4 at G <= 4, 6 at G 5 and 6, 8 at G 7 and 8), warp 4 each row's l
+// (lane g < G, row g), over the block's kept keys in key order from +0.0;
+// so every lane of the chains is on a column, each chain step is R FMAs
+// fed by 16-byte loads of the key's p (bf16-rounded, held as f32 side by
+// side in shared memory, [key][PS] with PS = chain_rows: four a key, or
+// eight; at six rows one 16-byte and one 8-byte load) and one bf16 of V,
+// and the l chain runs beside the p @ v chains instead of in one of them.
+// m_{j-1}, m_j and alpha_j as in split_pv_slice; p of the next tile (warps
+// 0 .. 3, PS / 2 (key, row) pairs a thread, rows past G masked to 0)
+// beside a tile's chains; the next tiles' V rows in flight (cp.async into
+// rows_bufs<PAGED>(tpb) buffers of dynamic shared memory: four on the
+// contiguous cache, and where a block is a page as many as it has tiles
+// up to four, one at a page of 64 keys), the tile after next's scores in
+// registers; one barrier a tile. Writes the block's p @ v, alpha and l
+// slots, which combine_blocks chains. One CTA takes all D columns: the
+// exps of a block are taken once, not once a column slice.
 template <bool PAGED>
-__host__ __device__ constexpr int rows4_bufs(int tpb) {
-  return !PAGED || tpb > kRows4Bufs ? kRows4Bufs : tpb;
+__host__ __device__ constexpr int rows_bufs(int tpb) {
+  return !PAGED || tpb > kRowsBufs ? kRowsBufs : tpb;
 }
 
 template <int D>
-__host__ __device__ constexpr size_t rows4_smem(int nbuf) {
+__host__ __device__ constexpr size_t rows_smem(int nbuf) {
   return (size_t)nbuf * kTile * D * sizeof(__nv_bfloat16);
+}
+
+// the scores' rows a key (chain_rows) of the tier whose stage 2 chains R
+// rows, and the keys whose operands its chain loads at once
+template <int R>
+__host__ __device__ constexpr int rows_stride() {
+  return R <= kChainG4 ? kChainG4 : kChainG8;
+}
+
+template <int R>
+__host__ __device__ constexpr int rows_unroll() {
+  return R <= kChainG4 ? kRowsUnroll4 : kRowsUnroll8;
 }
 
 // wait until this thread's copies of the current tile have landed, with
@@ -1013,9 +1063,9 @@ __device__ __forceinline__ void cp_async_wait_ahead(int ahead) {
 // p = exp(s - m) of a chain thread's PER (key, row) pairs of a tile, as
 // tile_p, the bf16-rounded p stored as its f32 value
 template <int BK, int PER, int CSTEP, int THREADS>
-__device__ __forceinline__ void tile_p4(const float (&sv)[PER], float m,
-                                        int k0, int k1, bool grow, float* pr,
-                                        float* pu) {
+__device__ __forceinline__ void tile_p_f32(const float (&sv)[PER], float m,
+                                           int k0, int k1, bool grow,
+                                           float* pr, float* pu) {
 #pragma unroll
   for (int u = 0; u < PER; ++u) {
     const int c = u * CSTEP;
@@ -1026,57 +1076,68 @@ __device__ __forceinline__ void tile_p4(const float (&sv)[PER], float m,
   }
 }
 
-// a lane's four chains (one column) over a tile's kept keys [c0, c1), in
-// key order, kRows4Unroll keys' operands loaded before their FMAs: pr the
-// tile's bf16-rounded p [key][4] (f32), vcol the lane's V element of key
-// 0, rows D apart (bf16 is the top half of its f32)
-template <int D>
-__device__ __forceinline__ void chain_col4(float (&acc)[kChainG4],
-                                           const float* pr,
-                                           const __nv_bfloat16* vcol, int c0,
-                                           int c1) {
-  auto p_at = [&](int c) {
-    return *reinterpret_cast<const float4*>(pr + c * kChainG4);
+// a lane's R chains (one column) over a tile's kept keys [c0, c1), in key
+// order, rows_unroll<R>() keys' operands loaded before their FMAs: pr the
+// tile's bf16-rounded p [key][rows_stride<R>()] (f32), vcol the lane's V
+// element of key 0, rows D apart (bf16 is the top half of its f32)
+template <int D, int R>
+__device__ __forceinline__ void chain_col(float (&acc)[R], const float* pr,
+                                          const __nv_bfloat16* vcol, int c0,
+                                          int c1) {
+  static_assert(R == 4 || R == 6 || R == 8, "four, six or eight rows");
+  constexpr int PS = rows_stride<R>(), U = rows_unroll<R>();
+  auto p_at = [&](int c, float (&p)[R]) {
+    const float4 lo = *reinterpret_cast<const float4*>(pr + c * PS);
+    p[0] = lo.x; p[1] = lo.y; p[2] = lo.z; p[3] = lo.w;
+    if constexpr (R == 6) {
+      const float2 hi = *reinterpret_cast<const float2*>(pr + c * PS + 4);
+      p[4] = hi.x; p[5] = hi.y;
+    } else if constexpr (R == 8) {
+      const float4 hi = *reinterpret_cast<const float4*>(pr + c * PS + 4);
+      p[4] = hi.x; p[5] = hi.y; p[6] = hi.z; p[7] = hi.w;
+    }
   };
   auto v_at = [&](int c) {
     return __uint_as_float((unsigned)__bfloat16_as_ushort(vcol[c * D]) << 16);
   };
-  auto key = [&](float4 p, float v) {
-    acc[0] = fmaf(p.x, v, acc[0]);
-    acc[1] = fmaf(p.y, v, acc[1]);
-    acc[2] = fmaf(p.z, v, acc[2]);
-    acc[3] = fmaf(p.w, v, acc[3]);
+  auto key = [&](const float (&p)[R], float v) {
+#pragma unroll
+    for (int g = 0; g < R; ++g) acc[g] = fmaf(p[g], v, acc[g]);
   };
   int c = c0;
-  for (; c + kRows4Unroll <= c1; c += kRows4Unroll) {
-    float4 p[kRows4Unroll];
-    float v[kRows4Unroll];
+  for (; c + U <= c1; c += U) {
+    float p[U][R];
+    float v[U];
 #pragma unroll
-    for (int k = 0; k < kRows4Unroll; ++k) {
-      p[k] = p_at(c + k);
+    for (int k = 0; k < U; ++k) {
+      p_at(c + k, p[k]);
       v[k] = v_at(c + k);
     }
 #pragma unroll
-    for (int k = 0; k < kRows4Unroll; ++k) key(p[k], v[k]);
+    for (int k = 0; k < U; ++k) key(p[k], v[k]);
   }
-  for (; c < c1; ++c) key(p_at(c), v_at(c));
+  for (; c < c1; ++c) {
+    float p[R];
+    p_at(c, p);
+    key(p, v_at(c));
+  }
 }
 
-template <int D, bool PAGED>
-__global__ void __launch_bounds__(kRows4Threads) split_pv_rows4(Args a) {
-  constexpr int G4 = kChainG4;
-  constexpr int CW = kRows4Chain / 32;            // chain warps; warp CW: l
-  constexpr int PER = G4 * kTile / kRows4Chain;   // (key, row) pairs a thread
-  constexpr int CSTEP = kRows4Chain / G4;         // keys between a thread's
-  static_assert(D == kRows4Chain, "a chain lane takes one column");
-  static_assert(kRows4Bufs <= 4, "cp_async_wait_ahead takes up to 3 ahead");
+template <int D, bool PAGED, int R>
+__global__ void __launch_bounds__(kRowsThreads) split_pv_rows(Args a) {
+  constexpr int PS = rows_stride<R>();            // scores' rows a key
+  constexpr int CW = kRowsChain / 32;             // chain warps; warp CW: l
+  constexpr int PER = PS * kTile / kRowsChain;    // (key, row) pairs a thread
+  constexpr int CSTEP = kRowsChain / PS;          // keys between a thread's
+  static_assert(D == kRowsChain, "a chain lane takes one column");
+  static_assert(kRowsBufs <= 4, "cp_async_wait_ahead takes up to 3 ahead");
   // V tiles [nbuf][key][col]; a compile-time four on the contiguous cache
-  const int nbuf = rows4_bufs<PAGED>(a.tpb);
+  const int nbuf = rows_bufs<PAGED>(a.tpb);
   extern __shared__ __align__(16) unsigned char dsmem[];
   __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(dsmem);
-  __shared__ __align__(16) float sPr[2][kTile * G4];   // [key][g], rounded
-  __shared__ __align__(16) float sP[2][kTile * G4];    // unrounded
-  __shared__ float sM[G4];
+  __shared__ __align__(16) float sPr[2][kTile * PS];   // [key][g], rounded
+  __shared__ __align__(16) float sP[2][kTile * PS];    // unrounded
+  __shared__ float sM[PS];
   // grid (Hkv, nB, B), the KV heads of a block side by side
   const int j = blockIdx.y, h = blockIdx.x, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -1096,7 +1157,7 @@ __global__ void __launch_bounds__(kRows4Threads) split_pv_rows4(Args a) {
   const int t_hi =
       j * a.tpb + (min(min(b0 + a.block, a.S), len) - 1 - b0) / kTile + 1;
   for (int u = 0; u < nbuf && t_lo + u < t_hi; ++u) {
-    load_rows<D, PAGED, kRows4Threads>(
+    load_rows<D, PAGED, kRowsThreads>(
         a, a.v, b, h, page_of<PAGED>(a, b, t_lo + u),
         tile_of(a, t_lo + u, lo, len), sV + u * kTile * D, D);
     cp_async_commit();
@@ -1120,17 +1181,17 @@ __global__ void __launch_bounds__(kRows4Threads) split_pv_rows4(Args a) {
     }
   }
   // a chain thread's (key, row) pairs of a tile: row pg, keys c_first +
-  // u * CSTEP (scratch index [key][G4] = tid + u * kRows4Chain)
-  const int pg = tid % G4, c_first = tid / G4;
+  // u * CSTEP (scratch index [key][PS] = tid + u * kRowsChain)
+  const int pg = tid % PS, c_first = tid / PS;
   const bool grow = !lwarp && pg < G;
   float sv[PER];
   auto load_scores = [&](int tt) {
     const Tile y = tile_of(a, tt, lo, len);
-    const float* src = a.scores + (bh * a.nT + tt) * kTile * G4 + tid;
+    const float* src = a.scores + (bh * a.nT + tt) * kTile * PS + tid;
 #pragma unroll
     for (int u = 0; u < PER; ++u) {
       const int kp = y.k0 + c_first + u * CSTEP;
-      sv[u] = (grow && kp >= y.c0 && kp < y.c1) ? src[u * kRows4Chain]
+      sv[u] = (grow && kp >= y.c0 && kp < y.c1) ? src[u * kRowsChain]
                                                 : 0.0f;
     }
   };
@@ -1146,18 +1207,20 @@ __global__ void __launch_bounds__(kRows4Threads) split_pv_rows4(Args a) {
     float* pr_out = sPr[buf] + tid;
     float* p_out = sP[buf] + tid;
     if (a.backend == vexp::kExact)
-      tile_p4<vexp::kExact, PER, CSTEP, kRows4Chain>(sv, m_g, k0, k1, grow,
-                                                     pr_out, p_out);
+      tile_p_f32<vexp::kExact, PER, CSTEP, kRowsChain>(sv, m_g, k0, k1, grow,
+                                                       pr_out, p_out);
     else if (a.backend == vexp::kVexp)
-      tile_p4<vexp::kVexp, PER, CSTEP, kRows4Chain>(sv, m_g, k0, k1, grow,
-                                                    pr_out, p_out);
-    else
-      tile_p4<vexp::kVexpHw, PER, CSTEP, kRows4Chain>(sv, m_g, k0, k1, grow,
+      tile_p_f32<vexp::kVexp, PER, CSTEP, kRowsChain>(sv, m_g, k0, k1, grow,
                                                       pr_out, p_out);
+    else
+      tile_p_f32<vexp::kVexpHw, PER, CSTEP, kRowsChain>(sv, m_g, k0, k1,
+                                                        grow, pr_out, p_out);
     if (tt + 1 < t_hi) load_scores(tt + 1);
   };
   if (!lwarp) tile_exps(t_lo);
-  float acc[G4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float acc[R];
+#pragma unroll
+  for (int g = 0; g < R; ++g) acc[g] = 0.0f;
   float lsum = 0.0f;
   // one barrier a tile: past it, tile tt's p and V are in shared memory
   // and every thread is done with tile tt - 1, whose V buffer then takes
@@ -1171,7 +1234,7 @@ __global__ void __launch_bounds__(kRows4Threads) split_pv_rows4(Args a) {
     cp_async_wait_ahead(min(nbuf - 1 - (tt > t_lo), t_hi - 1 - tt));
     __syncthreads();
     if (tt > t_lo && tt - 1 + nbuf < t_hi) {
-      load_rows<D, PAGED, kRows4Threads>(
+      load_rows<D, PAGED, kRowsThreads>(
           a, a.v, b, h, page_of<PAGED>(a, b, tt - 1 + nbuf),
           tile_of(a, tt - 1 + nbuf, lo, len),
           sV + (tt - 1 - t_lo) % nbuf * kTile * D, D);
@@ -1182,17 +1245,17 @@ __global__ void __launch_bounds__(kRows4Threads) split_pv_rows4(Args a) {
     const int c0 = y.c0 - y.k0, c1 = y.c1 - y.k0;
     if (lwarp) {
       // lanes past G read a row that is there and write nothing
-      const float* pl = sP[buf] + (lane & (G4 - 1));
-      for (int c = c0; c < c1; ++c) lsum = __fadd_rn(lsum, pl[c * G4]);
+      const float* pl = sP[buf] + (lane & (PS - 1));
+      for (int c = c0; c < c1; ++c) lsum = __fadd_rn(lsum, pl[c * PS]);
     } else {
-      chain_col4<D>(acc, sPr[buf], vbuf + tid, c0, c1);
+      chain_col<D, R>(acc, sPr[buf], vbuf + tid, c0, c1);
     }
   }
   if (lwarp) {
     if (lane < G) a.tl[(row0 + lane) * a.nB + j] = lsum;
   } else {
 #pragma unroll
-    for (int g = 0; g < G4; ++g)
+    for (int g = 0; g < R; ++g)
       if (g < G) a.tpv[((row0 + g) * a.nB + j) * D + tid] = acc[g];
   }
 }
@@ -1219,9 +1282,12 @@ inline cudaError_t launch_dependent(void (*kernel)(Args), dim3 grid,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <int D, bool PAGED, int MAXG>
+// the three kernels of the chained sweep whose scores take MAXG rows a key
+// (chain_rows) and, below sixteen, whose stage 2 chains R of them
+template <int D, bool PAGED, int MAXG, int R = MAXG>
 int launch_chain(Args a, float* scratch, cudaStream_t stream) {
-  constexpr bool kRows4 = MAXG == kChainG4;
+  constexpr bool kRows = MAXG < kChainG;  // stage 2 split_pv_rows
+  static_assert(!kRows || rows_stride<R>() == MAXG, "R rows of MAXG");
   const long long tiles = (long long)a.B * a.Hkv * a.G * a.nT;
   const long long blocks = (long long)a.B * a.Hkv * a.G * a.nB;
   a.scores = scratch;                     // MAXG rows a key
@@ -1244,14 +1310,14 @@ int launch_chain(Args a, float* scratch, cudaStream_t stream) {
           cudaFuncAttributePreferredSharedMemoryCarveout,
           (int)cudaSharedmemCarveoutMaxShared);
     if (e == cudaSuccess) {
-      if constexpr (kRows4) {
+      if constexpr (kRows) {
         e = cudaFuncSetAttribute(
-            split_pv_rows4<D, PAGED>,
+            split_pv_rows<D, PAGED, R>,
             cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)rows4_smem<D>(kRows4Bufs));
+            (int)rows_smem<D>(kRowsBufs));
         if (e == cudaSuccess)
           e = cudaFuncSetAttribute(
-              split_pv_rows4<D, PAGED>,
+              split_pv_rows<D, PAGED, R>,
               cudaFuncAttributePreferredSharedMemoryCarveout,
               (int)cudaSharedmemCarveoutMaxShared);
       } else {
@@ -1279,16 +1345,16 @@ int launch_chain(Args a, float* scratch, cudaStream_t stream) {
   }();
   const dim3 grid1(a.nT, a.Hkv, a.B);
   const dim3 grid2 =
-      kRows4 ? dim3(a.Hkv, a.nB, a.B) : dim3(a.nB * slices<D>(), a.Hkv, a.B);
+      kRows ? dim3(a.Hkv, a.nB, a.B) : dim3(a.nB * slices<D>(), a.Hkv, a.B);
   split_scores_rows<D, PAGED, MAXG>
       <<<grid1, kScoreThreads, rows_smem<D, MAXG>(), stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const bool pdl = (long long)grid2.x * grid2.y * grid2.z > sms;
-  if constexpr (kRows4)
-    err = launch_dependent(split_pv_rows4<D, PAGED>, grid2, kRows4Threads, a,
-                           stream, pdl,
-                           rows4_smem<D>(rows4_bufs<PAGED>(a.tpb)));
+  if constexpr (kRows)
+    err = launch_dependent(split_pv_rows<D, PAGED, R>, grid2, kRowsThreads,
+                           a, stream, pdl,
+                           rows_smem<D>(rows_bufs<PAGED>(a.tpb)));
   else
     err = launch_dependent(split_pv_slice<D, PAGED>, grid2, kPvThreads, a,
                            stream, pdl);
@@ -1318,8 +1384,13 @@ int launch(Args a, float* scratch, long long scratch_len,
   if constexpr (block_chain<D>()) {
     static_assert(MODE == kNormalized, "a chained D is normalized only");
     if constexpr (D == 128) {
-      if (chain_rows(D, a.G) == kChainG4)
+      const int rows = chain_rows(D, a.G);
+      if (rows == kChainG4)
         return launch_chain<D, PAGED, kChainG4>(a, scratch, stream);
+      if (rows == kChainG8)
+        return a.G <= kChainG6
+                   ? launch_chain<D, PAGED, kChainG8, 6>(a, scratch, stream)
+                   : launch_chain<D, PAGED, kChainG8, 8>(a, scratch, stream);
     }
     return launch_chain<D, PAGED, kChainG>(a, scratch, stream);
   } else {

@@ -41,9 +41,11 @@ recurrentgemma: 16 on one KV head; normalized mode only) a CTA per
 columns, and slice 0 each row's l, in key order, the order of the plain
 sweep's key-major products on the card, so the kernels match their plain
 versions bit for bit there; a third kernel chains the blocks, one thread
-per four outputs. At head dim 128 with at most ``CHAIN_G4`` query heads a
-KV head an instantiation of its own computes only those rows: scores for
-four rows a key, and a CTA per update block chaining all 128 columns.
+per four outputs. At head dim 128 the rows a KV head come in three tiers
+(``_chain_rows``): up to ``CHAIN_G4`` query heads a KV head and up to
+``CHAIN_G8`` each take an instantiation of their own, scores for four or
+eight rows a key and a CTA per update block chaining all 128 columns for
+the live rows only; more take the sixteen-row path.
 """
 
 from __future__ import annotations
@@ -78,16 +80,18 @@ STAT_HEAD_DIMS = (32, 64)
 # the kernels at these head dims chain them in (block_chain in
 # decode_split.cuh); 32 and 64 keep einsum / sum
 KEY_MAJOR_DIMS = (128, 256)
-# query heads per KV head an instantiation takes (its shared memory is
-# sized by it): 16 where the block chains (phi3-medium's 4 at D 128,
-# recurrentgemma's 16 at D 256), 8 at D 32 and 64, so gpt2's heads keep
-# their occupancy
+# query heads per KV head the sweep takes at a head dim: 16 where the
+# block chains (phi3-medium's 4 and dbrx's 6 at D 128, recurrentgemma's 16
+# at D 256; the sixteen-row path's shared memory is sized by it), 8 at D 32
+# and 64, so gpt2's heads keep their occupancy
 MAX_GROUP = {d: 16 if d in KEY_MAJOR_DIMS else 8 for d in HEAD_DIMS}
-# query rows a KV head the chained sweep computes at head dim 128 when G
-# is at most this (phi3-medium's 4 query heads a KV head): an
-# instantiation of its own, so that no row past G costs an FMA, an exp or
-# scratch (chain_rows in decode_split.cuh); G 5 to 16 take MAX_GROUP's 16
+# the tiers of query rows a key the chained sweep's scores take at head
+# dim 128 (chain_rows in decode_split.cuh): G <= CHAIN_G4 (phi3-medium's
+# 4) takes four rows, G <= CHAIN_G8 (dbrx's 6) eight, each an
+# instantiation of its own whose stage 2 chains no row past G (at eight
+# rows: six for G <= 6); G 9 to 16 take MAX_GROUP's 16
 CHAIN_G4 = 4
+CHAIN_G8 = 8
 TILE = 64                 # keys per tile of the split sweep (decode_split.cuh)
 
 
@@ -250,10 +254,14 @@ def _ptrs(outs):
 
 
 def _chain_rows(d, g):
-    """Query rows a KV head the chained sweep computes at head dim ``d``
-    for ``g`` query heads a KV head: CHAIN_G4 at head dim 128 and g <=
-    CHAIN_G4, else MAX_GROUP[d]."""
-    return CHAIN_G4 if d == 128 and g <= CHAIN_G4 else MAX_GROUP[d]
+    """Query rows a key the chained sweep's scores take at head dim ``d``
+    for ``g`` query heads a KV head: at head dim 128 CHAIN_G4 for g <=
+    CHAIN_G4 and CHAIN_G8 for g <= CHAIN_G8, else MAX_GROUP[d]."""
+    if d == 128:
+        for rows in (CHAIN_G4, CHAIN_G8):
+            if g <= rows:
+                return rows
+    return MAX_GROUP[d]
 
 
 def _split_scratch(qg, keys, block):

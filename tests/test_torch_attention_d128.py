@@ -246,7 +246,8 @@ def test_decode_d128_shape_checks_and_scratch():
     """D 128 takes the normalized sweeps at G up to 16 (the chained
     design's rows a KV head) and no partial / packed mode; the scratch
     is the chained layout's: the scores of the rows the sweep computes a
-    key (4 at phi3-medium's G 4, the G-4 instantiation; 16 from G 5),
+    key (4 at phi3-medium's G 4, the four-row instantiation; 8 at G 5 to
+    8, dbrx's 6 among them; 16 from G 9),
     then per row the tile maxes and each update block's p @ v, alpha and
     l."""
     assert D in kdec.HEAD_DIMS and D in kdec.KEY_MAJOR_DIMS
@@ -258,7 +259,8 @@ def test_decode_d128_shape_checks_and_scratch():
         kdec._check_shape("t", "normalized", D, 17 * 2, 2)
     b, hkv, keys, block = 8, 10, 2048, 512
     tiles, blocks = keys // 64, keys // block
-    for g, rows in ((G, 4), (1, 4), (5, 16), (16, 16)):
+    for g, rows in ((G, 4), (1, 4), (5, 8), (6, 8), (8, 8), (9, 16),
+                    (16, 16)):
         _, n = kdec._split_scratch(torch.empty(b, hkv, g, D), keys, block)
         assert n == b * hkv * (tiles * 64 * rows
                                + g * (tiles + blocks * (D + 2))), g

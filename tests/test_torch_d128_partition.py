@@ -1,8 +1,8 @@
 """The head-dim-128 partitions of FlashAttention and flash-decode at
-phi3-medium's 4 query heads a KV head, checked on the CPU with this file's
-own emulations of them (the kernels are ``fa_rows<128>`` in
-``csrc/flash_attention.cu`` and the four-row instantiation of
-``csrc/decode_split.cuh``; the package holds no emulation):
+phi3-medium's 4 and dbrx's 6 query heads a KV head, checked on the CPU
+with this file's own emulations of them (the kernels are ``fa_rows<128>``
+in ``csrc/flash_attention.cu`` and the four- and eight-row instantiations
+of ``csrc/decode_split.cuh``; the package holds no emulation):
 
 FlashAttention, ``fa_rows<128>``:
 
@@ -21,18 +21,23 @@ FlashAttention, ``fa_rows<128>``:
   the card), and the block's l one chain of f32 adds over the same keys
   in order; then the one online update.
 
-Flash-decode at head dim 128 and G <= 4 (``chain_rows`` 4):
+Flash-decode at head dim 128 and G <= 8 (``chain_rows`` 4 at G <= 4, 8
+at G 5 to 8):
 
 1. scores for the G rows only, a 64-key tile at a time inside each update
-   block (``[key][4]`` in scratch), and each tile's max over its kept
+   block (``[key][4]`` or ``[key][8]`` in scratch, written by stage 1's
+   warps: a row each at four rows, two adjacent rows each at eight, a
+   warp whose rows are past G idle), and each tile's max over its kept
    keys;
 2. per update block j (one CTA on the card, all 128 columns): m_{j-1} and
    m_j from the tile maxes of blocks 0..j-1 and 0..j, alpha_j = exp(m_{j-1}
-   - m_j), p = exp(s - m_j) on the kept keys, rounded to bf16 for p @ v;
-   each (row, column) of p @ v one FMA chain over the block's kept keys in
-   key order from +0.0, tile by tile, and each row's l one chain of f32
-   adds of the unrounded p beside it; a block with no kept key leaves its
-   slot unused;
+   - m_j), p = exp(s - m_j) on the kept keys (a chain thread's (key, row)
+   pairs at flat indices tid + 128 u of the tile's scores), rounded to
+   bf16 for p @ v; each (row, column) of p @ v one FMA chain over the
+   block's kept keys in key order from +0.0, tile by tile (R rows a
+   column: 4, or 6 at G 5 and 6, 8 at G 7 and 8), and each row's l one
+   chain of f32 adds of the unrounded p beside it (lane g reads row g & (PS
+   - 1)); a block with no kept key leaves its slot unused;
 3. per four output columns the blocks chained in order: l = l alpha_j +
    l_j, acc = acc alpha_j + pv_j, rounded step by step.
 
@@ -40,15 +45,17 @@ What is shown: each emulation equals, bit for bit, the unpartitioned
 sweep written with the same chains (every key of every block, masked; the
 decode's m is also bitwise the plain sweep's); it sits inside
 ``ATT_LIMITS`` against the plain version under every exp backend, ragged
-rows, a (B,) q_offset, a window cutting the decode's keys, G 4 and G 2
-(rows past G computed by no one); and the plain version at half the block
-falls outside the limits under vexp and vexp_hw. Inputs are made with
-numpy from a seed. Also the order of stage 2's V copies on the card (a
-ring of up to four tile buffers, a page of 64 keys one): every live tile
-of a block is read after its copy has landed, at one to eight tiles a
-block.
+rows, a (B,) q_offset, a window cutting the decode's keys, G 2 and 4 and
+G 5 to 8 (rows past G written by no one); and the plain version at half
+the block falls outside the limits under vexp and vexp_hw. Inputs are
+made with numpy from a seed. Also the order of stage 2's V copies on the
+card (a ring of up to four tile buffers, a page of 64 keys one): every
+live tile of a block is read after its copy has landed, at one to eight
+tiles a block, with room for three CTAs an SM at each tier; and the
+wrapper's tiers and scratch length are the kernel's.
 """
 
+import functools
 import math
 import re
 from pathlib import Path
@@ -381,18 +388,66 @@ def _kept(cache_len, window):
     return keep                                              # (B, S)
 
 
-def rows4_sweep(q, k, v, cache_len, *, window, block, exp_backend,
-                scores):
-    """The four-row sweep's three stages (tiles, one CTA a block, the
-    combine per four columns). Returns ((m, l, acc), output, stats)."""
+@functools.lru_cache(maxsize=None)
+def _cuh_const(name):
+    """An int constant of decode_split.cuh (``constexpr int name = N;``)."""
+    src = (Path(kdec.__file__).resolve().parents[1] / "csrc"
+           / "decode_split.cuh").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+
+def chain_tier(g):
+    """``launch`` in decode_split.cuh at head dim 128: (the scores' rows a
+    key, chain_rows; the rows stage 2 chains, split_pv_rows' R, or None
+    on the sixteen-row path) for ``g`` query heads a KV head."""
+    g4, g8, g16 = (_cuh_const(n) for n in ("kChainG4", "kChainG8",
+                                           "kChainG"))
+    if g <= g4:
+        return g4, g4
+    if g <= g8:
+        return g8, 6 if g <= _cuh_const("kChainG6") else g8
+    return g16, None
+
+
+def score_warp_rows(quarter, maxg, g):
+    """The rows split_scores_rows' warp ``quarter`` chains: at eight rows
+    two adjacent rows, those past G skipped; else maxg / 4 rows quarter,
+    quarter + 4, ... (rows past G chained, not written)."""
+    rpt = maxg // 4
+    if maxg == 8:
+        return [r for r in (rpt * quarter, rpt * quarter + 1) if r < g]
+    return [quarter + 4 * i for i in range(rpt)]
+
+
+def rows_sweep(q, k, v, cache_len, *, window, block, exp_backend, scores):
+    """The four- and eight-row sweeps' three stages (tiles, one CTA a
+    block, the combine per four columns), with the kernels' layouts:
+    stage 1's warps write the scores of their rows < G to a tile of
+    scratch [key][PS] (the rest stays NaN, as uninitialised scratch),
+    stage 2's chain threads take (key, row) pairs at flat indices tid + u
+    * 128 of it, write p to [key][PS] buffers, R chains a column read rows
+    0 .. R - 1 of a key, and the l warp's lane reads row lane & (PS - 1).
+    Returns ((m, l, acc), output, stats)."""
     exp_fn = get_exp_fn(exp_backend)
     b, _, h, d = q.shape
     g = h // HKV
-    assert g <= kdec.CHAIN_G4 and kdec._chain_rows(d, g) == 4
+    ps, r = chain_tier(g)
+    assert r is not None and g <= r <= ps and kdec._chain_rows(d, g) == ps
+    chain, per = 128, ps * TILE // 128          # kRowsChain, PER
+    flat = torch.arange(chain)[:, None] + chain * torch.arange(per)[None]
+    flat = flat.reshape(-1)                     # every pair, once
+    assert torch.equal(flat.sort().values, torch.arange(TILE * ps))
+    p_key, p_row = flat // ps, flat % ps
+    lane_row = torch.arange(32) & (ps - 1)
     vv = v.float().permute(0, 2, 1, 3)                       # b k s d
     keep = _kept(cache_len, window)
     bs = min(block, S)
     nb = -(-S // bs)
+    written = sorted(x for qq in range(4)
+                     for x in score_warp_rows(qq, ps, g) if x < g)
+    s1_rows = sum(len(score_warp_rows(qq, ps, g)) for qq in range(4))
+    stats = {"blocks": 0, "tiles": 0, "written": written,
+             "s1_rows": s1_rows, "s2_rows": r}
     # stage 1: each 64-key tile of each update block, its max over kept
     # keys (-1e30 where it keeps none)
     s = torch.where(keep[:, None, None], scores, NEG_INF)
@@ -400,7 +455,6 @@ def rows4_sweep(q, k, v, cache_len, *, window, block, exp_backend,
     for j in range(nb):
         tmax.append([s[..., t:min(t + TILE, (j + 1) * bs, S)].amax(-1)
                      for t in range(j * bs, min((j + 1) * bs, S), TILE)])
-    stats = {"blocks": 0, "tiles": 0}
     slots = []
     for j in range(nb):
         live = keep[:, j * bs:(j + 1) * bs].any(-1)[:, None, None]
@@ -411,21 +465,36 @@ def rows4_sweep(q, k, v, cache_len, *, window, block, exp_backend,
         for t in tmax[j]:
             m_j = torch.maximum(m_j, t)
         alpha = exp_fn(before - m_j)
-        l_j = torch.zeros((b, HKV, g))
-        pv_j = torch.zeros((b, HKV, g, d))
+        m_pair = torch.zeros((b, HKV, ps))
+        m_pair[..., :g] = m_j                    # m_g, 0 past G
+        acc = torch.zeros((b, HKV, r, d))
+        lsum = torch.zeros((b, HKV, 32))
         if live.any():
             stats["blocks"] += int(live.sum()) * HKV
         for t0 in range(j * bs, min((j + 1) * bs, S), TILE):
             stats["tiles"] += 1
-            for c in range(t0, min(t0 + TILE, (j + 1) * bs, S)):
-                kc = keep[:, c][:, None, None]
-                p = torch.where(kc, exp_fn(s[..., c] - m_j), 0.0)
-                pr = p.to(torch.bfloat16).float()
-                pv_j = torch.where(kc[..., None],
-                                   fma(pv_j, pr[..., None],
-                                       vv[:, :, None, c]), pv_j)
-                l_j = torch.where(kc, l_j + p, l_j)
-        slots.append((live, alpha, l_j, pv_j))
+            kend = min(t0 + TILE, (j + 1) * bs, S)
+            tile = torch.full((b, HKV, TILE, ps), float("nan"))
+            tile[:, :, :kend - t0, written] = s[..., written, t0:kend] \
+                .transpose(-1, -2)
+            tile = tile.reshape(b, HKV, TILE * ps)
+            kp = t0 + p_key
+            kept = (kp < kend) & keep[:, kp.clamp(max=S - 1)]
+            grow = (p_row < g)[None] & kept                  # (B, pairs)
+            sv = torch.where(grow[:, None], tile[..., flat], 0.0)
+            e = exp_fn(sv - m_pair[..., p_row])
+            pu = torch.full((b, HKV, TILE * ps), float("nan"))
+            pu[..., flat] = torch.where(grow[:, None], e, 0.0)
+            pr = pu.to(torch.bfloat16).float()
+            pu, pr = pu.reshape(b, HKV, TILE, ps), pr.reshape(b, HKV, TILE,
+                                                              ps)
+            for c in range(kend - t0):
+                kc = keep[:, t0 + c][:, None, None]
+                acc = torch.where(kc[..., None],
+                                  fma(acc, pr[:, :, c, :r, None],
+                                      vv[:, :, None, t0 + c]), acc)
+                lsum = torch.where(kc, lsum + pu[:, :, c, lane_row], lsum)
+        slots.append((live, alpha, lsum[..., :g], acc[:, :, :g]))
     out = torch.empty((b, HKV, g, d))
     for c4 in range(0, d, 4):                    # the combine
         cols = slice(c4, c4 + 4)
@@ -501,22 +570,33 @@ def _dec_plain(q, k, v, cache_len, window, exp, paged, block):
                                              window=window, exp_backend=exp)
 
 
+# the rows-a-KV-head cases of the four- and eight-row tiers beside their
+# pools: the ids of G 4 (the tier's first cases) are the pools' alone
+TIER_CASES = [(paged, 4) for paged in (False, True)] + [
+    (paged, g) for g in (5, 6, 7, 8) for paged in (False, True)]
+TIER_IDS = [("paged" if paged else "contig") + ("" if g == 4 else f"-g{g}")
+            for paged, g in TIER_CASES]
+
+
 @pytest.mark.parametrize("exp", EXPS)
-@pytest.mark.parametrize("g", [4, 2])
+@pytest.mark.parametrize("g", [4, 2, 5, 6, 7, 8])
 @pytest.mark.parametrize("window,lens", DEC_CASES)
 @pytest.mark.parametrize("paged", [False, True], ids=["contig", "paged"])
 def test_rows4_sweep(exp, g, window, lens, paged):
-    """The four-row sweep, contiguous (128-key update blocks of two tiles)
-    and paged (one update a 64-key page): bit for bit the unpartitioned
-    chain, m bitwise the plain sweep's, the output inside the kernel's
-    ATT_LIMITS against its plain version."""
+    """The four-row sweep (G 2, 4) and the eight-row one (G 5 to 8),
+    contiguous (128-key update blocks of two tiles) and paged (one update
+    a 64-key page): bit for bit the unpartitioned chain, m bitwise the
+    plain sweep's, the output inside the kernel's ATT_LIMITS against its
+    plain version; stage 1 writes every row below G once, and at eight
+    rows chains no row past G, and stage 2 chains six rows at G 5 and 6
+    and eight at G 7 and 8."""
     q, k, v = _dec_inputs(g, 70 + g)
     cache_len = torch.tensor(lens, dtype=torch.int32)
     block = PAGE if paged else BLOCK
     scores = _dec_scores(q, k)
-    (m, _, _), out, stats = rows4_sweep(q, k, v, cache_len, window=window,
-                                        block=block, exp_backend=exp,
-                                        scores=scores)
+    (m, _, _), out, stats = rows_sweep(q, k, v, cache_len, window=window,
+                                       block=block, exp_backend=exp,
+                                       scores=scores)
     ref = dec_chain_reference(q, k, v, cache_len, window=window,
                               block=block, exp_backend=exp, scores=scores)
     assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
@@ -525,6 +605,10 @@ def test_rows4_sweep(exp, g, window, lens, paged):
                              exp_backend=exp)
     assert torch.equal(m, want[0])
     assert stats["tiles"] == S // TILE and stats["blocks"] > 0
+    assert stats["written"] == list(range(g))
+    if g > kdec.CHAIN_G4:
+        assert stats["s1_rows"] == g
+        assert stats["s2_rows"] == {5: 6, 6: 6, 7: 8, 8: 8}[g]
     kernel = "decode_attention_paged" if paged else "decode_attention"
     got = reading(out, _dec_plain(q, k, v, cache_len, window, exp, paged,
                                   block))
@@ -533,11 +617,11 @@ def test_rows4_sweep(exp, g, window, lens, paged):
 
 
 @pytest.mark.parametrize("exp", ("vexp", "vexp_hw"))
-@pytest.mark.parametrize("paged", [False, True], ids=["contig", "paged"])
-def test_rows4_half_block_outside_the_limits(exp, paged):
+@pytest.mark.parametrize("paged,g", TIER_CASES, ids=TIER_IDS)
+def test_rows4_half_block_outside_the_limits(exp, paged, g):
     """The plain sweep updating at half the block (half the page): the
-    limits see a four-row kernel with the wrong partition."""
-    q, k, v = _dec_inputs(4, 74)
+    limits see a four- or eight-row kernel with the wrong partition."""
+    q, k, v = _dec_inputs(g, 70 + g if g > kdec.CHAIN_G4 else 74)
     cache_len = torch.tensor(DEC_CASES[0][1], dtype=torch.int32)
     block = PAGE if paged else BLOCK
     ref = _dec_plain(q, k, v, cache_len, None, exp, paged, block)
@@ -546,25 +630,52 @@ def test_rows4_half_block_outside_the_limits(exp, paged):
     assert not inside(kernel, exp, reading(half, ref))
 
 
-# ---- the four-row stage 2's V ring (split_pv_rows4): which tile each
-# buffer holds, and whether its cp.async group has landed, as the kernel
-# issues, waits and reads; the buffer count as the kernel takes it
+@pytest.mark.parametrize("g", range(1, 17))
+def test_chain_rows_and_scratch_match_the_kernel(g):
+    """At head dim 128 the wrapper's tiers are the kernel's: _chain_rows
+    is chain_rows in decode_split.cuh (G 1-4: 4, 5-8: 8, 9-16: 16, its
+    constants read from the source), and _split_scratch's length is
+    scratch_floats' at those rows, contiguous (4 blocks of 512 keys) and
+    paged (32 pages of 64), so the kernel neither refuses the buffer nor
+    reads the scores at another stride."""
+    rows, r = chain_tier(g)
+    assert kdec._chain_rows(128, g) == rows == (4 if g <= 4 else
+                                                8 if g <= 8 else 16)
+    assert (r is None) == (g > 8)
+    assert kdec._chain_rows(256, g) == 16
+    b, hkv, d, keys = 2, 3, 128, 2048
+    for block in (512, 64):
+        n_b = keys // block
+        n_t = n_b * -(-block // TILE)
+        want = b * hkv * (n_t * TILE * rows + g * (n_t + n_b * (d + 2)))
+        buf, n = kdec._split_scratch(torch.empty(b, hkv, g, d), keys, block)
+        assert n == want == buf.numel()
 
 
-def _rows4_bufs_max():
-    src = (Path(kdec.__file__).resolve().parents[1] / "csrc"
-           / "decode_split.cuh").read_text()
-    return int(re.search(r"constexpr int kRows4Bufs = (\d+);", src)[1])
+# ---- the four- and eight-row stage 2's V ring (split_pv_rows): which
+# tile each buffer holds, and whether its cp.async group has landed, as
+# the kernel issues, waits and reads; the buffer count as the kernel
+# takes it
 
 
-def rows4_bufs(tpb, paged):
-    """rows4_bufs in decode_split.cuh: a block's V buffers, kRows4Bufs on
-    the contiguous cache, as many as a page has tiles up to kRows4Bufs."""
-    return min(tpb, _rows4_bufs_max()) if paged else _rows4_bufs_max()
+def rows_bufs(tpb, paged):
+    """rows_bufs in decode_split.cuh: a block's V buffers, kRowsBufs on
+    the contiguous cache, as many as a page has tiles up to kRowsBufs."""
+    most = _cuh_const("kRowsBufs")
+    return min(tpb, most) if paged else most
 
 
-def rows4_v_ring(nbuf, t_lo, t_hi):
-    """split_pv_rows4's copies of V tiles t_lo .. t_hi - 1 into ``nbuf``
+def rows_smem_per_cta(ps):
+    """split_pv_rows' shared memory at ``ps`` scores' rows a key, in
+    bytes: the V ring (dynamic, kRowsBufs tiles of 64 keys x 128 bf16),
+    two p buffers rounded and two unrounded ([key][ps] f32) and the row
+    maxes, and the 1 KB the card reserves a CTA."""
+    ring = _cuh_const("kRowsBufs") * TILE * D * 2
+    return ring + 2 * 2 * TILE * ps * 4 + ps * 4 + 1024
+
+
+def rows_v_ring(nbuf, t_lo, t_hi):
+    """split_pv_rows' copies of V tiles t_lo .. t_hi - 1 into ``nbuf``
     buffers: the prologue's copies, then a tile a step its wait
     (cp.async.wait_group `ahead`, and the barrier after it), the refill
     of the buffer the tile before used, and the chain's read. Returns the
@@ -594,19 +705,22 @@ def rows4_v_ring(nbuf, t_lo, t_hi):
 
 
 @pytest.mark.parametrize("tpb", range(1, 9))
-@pytest.mark.parametrize("paged", [False, True], ids=["contig", "paged"])
-def test_rows4_v_ring_reads_each_tile_landed(tpb, paged):
+@pytest.mark.parametrize("paged,g", TIER_CASES, ids=TIER_IDS)
+def test_rows4_v_ring_reads_each_tile_landed(tpb, paged, g):
     """Every run of live tiles a block can have (a window's first kept key
     mid-block, a cache ending mid-block) at 1 to 8 tiles a block (a page
     of 64 keys or a short cache to a 512-key block, pages of 128 keys and
-    more between): each tile read once, in order, after its copy landed
-    and before its buffer is refilled. Control: one buffer at two tiles a
-    block reads a tile whose copy is still in flight."""
-    nbuf = rows4_bufs(tpb, paged)
+    more between), at G's tier: each tile read once, in order, after its
+    copy landed and before its buffer is refilled; the full ring beside
+    the tier's p buffers leaves three CTAs an SM (228 KB). Control: one
+    buffer at two tiles a block reads a tile whose copy is still in
+    flight."""
+    nbuf = rows_bufs(tpb, paged)
     assert nbuf == (min(tpb, 4) if paged else 4)
+    assert 3 * rows_smem_per_cta(chain_tier(g)[0]) <= 228 * 1024
     for t_lo in range(tpb):
         for t_hi in range(t_lo + 1, tpb + 1):
-            assert rows4_v_ring(nbuf, t_lo, t_hi) == list(range(t_lo,
-                                                               t_hi))
+            assert rows_v_ring(nbuf, t_lo, t_hi) == list(range(t_lo,
+                                                              t_hi))
     if tpb > 1:
-        assert rows4_v_ring(1, 0, tpb) is None
+        assert rows_v_ring(1, 0, tpb) is None

@@ -478,6 +478,10 @@ def test_d256_sliced_sweep_inside_limits(exp, g, window, lens, paged):
     ((8, 10, 4, 128), 2048, 512, 80 * (32 * 64 * 4 + 4 * (32 + 4 * 130))),
     # and paged, page 64
     ((8, 10, 4, 128), 2048, 64, 80 * (32 * 64 * 4 + 4 * (32 + 32 * 130))),
+    # dbrx-132b's decode at head dim 128, G 6: the eight-row
+    # instantiation, scores for 8 query rows a key, block_s 512 and page 64
+    ((8, 8, 6, 128), 2048, 512, 64 * (32 * 64 * 8 + 6 * (32 + 4 * 130))),
+    ((8, 8, 6, 128), 2048, 64, 64 * (32 * 64 * 8 + 6 * (32 + 32 * 130))),
 ])
 def test_split_scratch_length(shape, keys, block, n):
     buf, got = kdec._split_scratch(torch.empty(shape), keys, block)

@@ -2,18 +2,20 @@
 
 Runs ``chip_smoke.py``'s ``_decode_edges(d=128)`` (G 1, 5 and 16 on one
 KV head, cache_len at the tile and block bounds, a window of 700, B7
-through a page-64 table and, at G 4, through pages of 128 keys) with the
-kernels of TREE, built from TREE's own sources, and prints one JSON line
-per case: each exp backend's kernel reading and negative controls
-against the plain version, as [max_abs_err, mismatch_share, "ok" or
-"BAD"] under ``ATT_LIMITS``; then the count of BAD readings. With TREE
+through a page-64 table and, at G 4, through pages of 128 keys; with
+``--dbrx`` G 5, 6, 8 and 9, and G 6 through pages of 128 keys, as
+``phase_dbrx_kernels`` runs them) with the kernels of TREE, built from
+TREE's own sources, and prints one JSON line per case: each exp
+backend's kernel reading and negative controls against the plain
+version, as [max_abs_err, mismatch_share, "ok" or "BAD"] under
+``ATT_LIMITS``; then the count of BAD readings. With TREE
 another checkout (say, a commit unpacked with ``git archive`` into a
 directory that ``.gitignore`` lists), it shows whether that tree's
 kernels pass the edge cases of this checkout's ``chip_smoke.py``.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 tools/decode_edges.py [TREE]
+    python3 tools/decode_edges.py [--dbrx] [TREE]
 """
 
 from __future__ import annotations
@@ -26,7 +28,9 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def main():
-    tree = Path(sys.argv[1] if len(sys.argv) > 1 else ROOT).resolve()
+    dbrx = "--dbrx" in sys.argv[1:]
+    args = [a for a in sys.argv[1:] if a != "--dbrx"]
+    tree = Path(args[0] if args else ROOT).resolve()
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(tree / "src"))
     import torch
@@ -39,7 +43,13 @@ def main():
     if Path(da.__file__).resolve().parents[3] != tree:
         sys.exit(f"[decode_edges] imported {da.__file__}, not {tree}")
     build.build_all(["decode_attention.cu", "decode_attention_paged.cu"])
-    _, rds = chip_smoke._decode_edges(da, ExecPolicy, d=128, seed=25)
+    if dbrx:
+        _, rds = chip_smoke._decode_edges(
+            da, ExecPolicy, d=128, seed=35,
+            groups=chip_smoke.DBRX_EDGE_GROUPS, page128_groups=(6,))
+    else:
+        _, rds = chip_smoke._decode_edges(da, ExecPolicy, d=128, seed=25,
+                                          page128_groups=(4,))
     bad = 0
     for tag, kernel, rd in rds:
         row = {}

@@ -12,11 +12,19 @@ else hides it.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 tools/decode_split_ablation.py [--phi3]
+    python3 tools/decode_split_ablation.py [--phi3 | --dbrx]
 
 With ``--phi3`` the variants run at phi3-medium-14b's decode shape
 instead (``PHI3_DECODE_SHAPE``: B 8, 40 query heads on 10 KV heads of
-128, a 2,048-token cache, block_s 512 or page 64).
+128, a 2,048-token cache, block_s 512 or page 64), with the cuts of the
+four- and eight-row stage 2 (``split_pv_rows``); with ``--dbrx`` at
+dbrx-132b's (``DBRX_DECODE_SHAPE``: B 8, 48 query heads on 8 KV heads of
+128, G 6, a 2,048-token cache, block_s 512 or page 64), with those cuts
+and the eight-row tier's design candidates: eight rows chained at G 6
+(``r8_at_g6``; the source chains six), the chain's unroll at 4 and 16
+keys (the source loads 8), stage 1 without its skip of the rows past G
+(``s1_no_skip``) and stage 2 held to three CTAs an SM
+(``s2_three_ctas``).
 
 It prints one JSON line per variant (each timed in a process of its own)
 and exits non-zero if a cut no longer matches the source (the source
@@ -39,8 +47,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import (PHI3_DECODE_SHAPE, PHI3_PAGE,  # noqa: E402
-                        cuda_graph_time_ms, decode_inputs,
+from chip_smoke import (DBRX_DECODE_SHAPE, PHI3_DECODE_SHAPE,  # noqa: E402
+                        PHI3_PAGE, cuda_graph_time_ms, decode_inputs,
                         hybrid_decode_inputs, stage_device_us)
 from repro_torch.kernels import build, decode_attention as da  # noqa: E402
 from repro_torch.runtime import ExecPolicy  # noqa: E402
@@ -68,24 +76,24 @@ S2_V0 = ("      load_rows<SC, PAGED, kPvThreads>(\n",
 # stage 3's chain over the blocks, and the dependent launch
 S3 = ("for (int j0 = j_first; j0 < j_last; j0 += kBatch) {",
       "for (int j0 = j_first; j0 < j_first; j0 += kBatch) {")
-# the G-4 stage 2 at D 128 (split_pv_rows4): its V copies, its exps, its
-# p @ v and l chains, its wait for stage 1
-R4_V0 = ("    load_rows<D, PAGED, kRows4Threads>(\n        a, a.v, b, h, "
+# the four- and eight-row stage 2 at D 128 (split_pv_rows): its V copies,
+# its exps, its p @ v and l chains, its wait for stage 1
+R4_V0 = ("    load_rows<D, PAGED, kRowsThreads>(\n        a, a.v, b, h, "
          "page_of<PAGED>(a, b, t_lo + u),",
-         "    if (false) load_rows<D, PAGED, kRows4Threads>(\n        a, a.v, "
+         "    if (false) load_rows<D, PAGED, kRowsThreads>(\n        a, a.v, "
          "b, h, page_of<PAGED>(a, b, t_lo + u),")
-R4_V = ("      load_rows<D, PAGED, kRows4Threads>(\n          a, a.v, b, h, "
+R4_V = ("      load_rows<D, PAGED, kRowsThreads>(\n          a, a.v, b, h, "
         "page_of<PAGED>(a, b, tt - 1 + nbuf),",
-        "      if (false) load_rows<D, PAGED, kRows4Threads>(\n          a, "
+        "      if (false) load_rows<D, PAGED, kRowsThreads>(\n          a, "
         "a.v, b, h, page_of<PAGED>(a, b, tt - 1 + nbuf),")
-R4_CHAIN = [("  for (; c + kRows4Unroll <= c1; c += kRows4Unroll) {",
-             "  for (; c + kRows4Unroll <= c0; c += kRows4Unroll) {"),
-            ("  for (; c < c1; ++c) key(p_at(c), v_at(c));",
-             "  for (; c < c0; ++c) key(p_at(c), v_at(c));")]
+R4_CHAIN = [("  for (; c + U <= c1; c += U) {",
+             "  for (; c + U <= c0; c += U) {"),
+            ("  for (; c < c1; ++c) {\n    float p[R];",
+             "  for (; c < c0; ++c) {\n    float p[R];")]
 R4_EXP = ("const float ex = exp_as<BK>(__fsub_rn(sv[u], m));",
           "const float ex = __fsub_rn(sv[u], m);")
-R4_L = ("      for (int c = c0; c < c1; ++c) lsum = __fadd_rn(lsum, pl[c * G4]);",
-        "      for (int c = c0; c < c0; ++c) lsum = __fadd_rn(lsum, pl[c * G4]);")
+R4_L = ("      for (int c = c0; c < c1; ++c) lsum = __fadd_rn(lsum, pl[c * PS]);",
+        "      for (int c = c0; c < c0; ++c) lsum = __fadd_rn(lsum, pl[c * PS]);")
 R4_WAIT = ("  asm volatile(\"griddepcontrol.wait;\" ::: \"memory\");\n"
            "  const int t_mid = j * a.tpb, t_end = t_mid + a.tpb;\n"
            "  for (int g = warp; g < G; g += CW + 1) {",
@@ -121,6 +129,21 @@ CUTS_G4.update({
     "s2_skeleton": [R4_EXP, R4_V, R4_V0, R4_L] + R4_CHAIN,
     "s2_no_wait": [R4_WAIT],
 })
+# the eight-row tier's candidates (``--dbrx``)
+R8_AT_G6 = ("constexpr int kChainG6 = 6;", "constexpr int kChainG6 = 0;")
+R8_UNROLL = "constexpr int kRowsUnroll8 = 8;"
+S1_NO_SKIP = ("  if constexpr (kMaxG == kChainG8) {",
+              "  if constexpr (false) {")
+S2_THREE_CTAS = ("__launch_bounds__(kRowsThreads) split_pv_rows",
+                 "__launch_bounds__(kRowsThreads, 3) split_pv_rows")
+CUTS_G8 = dict(CUTS_G4)
+CUTS_G8.update({
+    "r8_at_g6": [R8_AT_G6],
+    "unroll4": [(R8_UNROLL, R8_UNROLL.replace("8;", "4;"))],
+    "unroll16": [(R8_UNROLL, R8_UNROLL.replace("8;", "16;"))],
+    "s1_no_skip": [S1_NO_SKIP],
+    "s2_three_ctas": [S2_THREE_CTAS],
+})
 
 
 def build_variants(out_dir: Path, cuts_table: dict) -> dict:
@@ -153,22 +176,28 @@ def build_variants(out_dir: Path, cuts_table: dict) -> dict:
     return {name: out_dir / name for name in cuts_table}
 
 
-def time_variant(name: str, vdir: Path, phi3: bool):
+def time_variant(name: str, vdir: Path, shape: str):
     """One variant's times, in a process of its own (one build of the
-    sources loaded per process)."""
+    sources loaded per process), at ``shape``: "d256", "phi3" or
+    "dbrx"."""
     for cu, lib in SOURCES.items():
         lib._lib = ctypes.CDLL(os.fspath(vdir / Path(cu).with_suffix(".so")))
         lib._fns = {}
     pol = ExecPolicy(exp_backend="vexp",
-                     block_page=PHI3_PAGE if phi3 else 64)
+                     block_page=PHI3_PAGE if shape != "d256" else 64)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     row = {"variant": name, "nvidia_smi": smi}
     for paged in (False, True):
-        *_, run = (decode_inputs(da, paged, seed=22 + 2 * paged,
-                                 **PHI3_DECODE_SHAPE) if phi3
-                   else hybrid_decode_inputs(da, paged))
+        if shape == "d256":
+            *_, run = hybrid_decode_inputs(da, paged)
+        elif shape == "phi3":
+            *_, run = decode_inputs(da, paged, seed=22 + 2 * paged,
+                                    **PHI3_DECODE_SHAPE)
+        else:
+            *_, run = decode_inputs(da, paged, seed=32 + 2 * paged,
+                                    **DBRX_DECODE_SHAPE)
         tag = "paged" if paged else "contig"
         row[f"graph_ms_{tag}"] = cuda_graph_time_ms(lambda: run(pol),
                                                     iters=50)
@@ -180,17 +209,17 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("[decode_split_ablation] no CUDA device")
     out_dir = ROOT / "build" / "decode_split_ablation"
-    phi3 = "--phi3" in sys.argv[1:]
-    args = [a for a in sys.argv[1:] if a != "--phi3"]
+    flags = [a for a in sys.argv[1:] if a in ("--phi3", "--dbrx")]
+    args = [a for a in sys.argv[1:] if a not in flags]
+    shape = flags[0][2:] if flags else "d256"
     if len(args) == 2 and args[0] == "--variant":
-        time_variant(args[1], out_dir / args[1], phi3)
+        time_variant(args[1], out_dir / args[1], shape)
         return
-    table = CUTS_G4 if phi3 else CUTS
+    table = {"d256": CUTS, "phi3": CUTS_G4, "dbrx": CUTS_G8}[shape]
     build_variants(out_dir, table)
     failed = [name for name in table
               if subprocess.run([sys.executable, __file__, "--variant",
-                                 name] + (["--phi3"] if phi3 else []),
-                                cwd=ROOT).returncode != 0]
+                                 name] + flags, cwd=ROOT).returncode != 0]
     if failed:
         sys.exit(f"[decode_split_ablation] failed: {failed}")
 

@@ -8,11 +8,15 @@ graph ms, the eager ms, the device µs of each CUDA kernel of one call
 against its plain version under every exp backend. With ``--phi3`` the
 cases are phi3-medium-14b's instead (``PHI3_DECODE_SHAPE``: B 8, 40 query
 heads on 10 KV heads of 128, a 2,048-token cache): B2 in both layouts and
-B7 through a page-64 table, as ``phase_phi3_kernels`` runs them.
+B7 through a page-64 table, as ``phase_phi3_kernels`` runs them. With
+``--dbrx`` they are dbrx-132b's (``DBRX_DECODE_SHAPE``: B 8, 48 query
+heads on 8 KV heads of 128, G 6, a 2,048-token cache, page 64): B2
+"bshd" and B7, as ``phase_dbrx_kernels`` runs them.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 tools/decode_split_stages.py [--parent DIR] [--dense] [--phi3]
+    python3 tools/decode_split_stages.py [--parent DIR] [--dense]
+        [--phi3] [--dbrx]
 
 With ``--dense`` each turn also runs ``chip_smoke.py``'s gpt2-small
 decode phases (B2 and B7 at head dim 64, their own JSON lines), whose
@@ -35,22 +39,27 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def phi3_cases(chip_smoke, da, policy_cls):
+def d128_cases(chip_smoke, da, policy_cls, dbrx):
     """(pool, fields) of B2 bshd, B2 bhsd and B7 at phi3-medium's shape,
-    from ``phase_phi3_kernels``' seeds."""
-    shape = chip_smoke.PHI3_DECODE_SHAPE
-    for pool, paged, layout, seed in (("bshd", False, "bshd", 22),
-                                      ("bhsd", False, "bhsd", 23),
-                                      ("paged", True, "bshd", 24)):
+    from ``phase_phi3_kernels``' seeds, or with ``dbrx`` of B2 bshd and
+    B7 at dbrx-132b's, from ``phase_dbrx_kernels``'."""
+    if dbrx:
+        shape = chip_smoke.DBRX_DECODE_SHAPE
+        pools = (("bshd", False, "bshd", 32), ("paged", True, "bshd", 34))
+    else:
+        shape = chip_smoke.PHI3_DECODE_SHAPE
+        pools = (("bshd", False, "bshd", 22), ("bhsd", False, "bhsd", 23),
+                 ("paged", True, "bshd", 24))
+    for pool, paged, layout, seed in pools:
         res, _ = chip_smoke._decode_case(
             da, policy_cls, paged,
             chip_smoke.decode_inputs(da, paged, seed=seed, layout=layout,
                                      **shape),
-            chip_smoke.PHI3_PAGE, f"d128 {pool}", layout=layout)
+            shape["page"], f"d128 {pool}", layout=layout)
         yield pool, res
 
 
-def worker(tree: Path, label: str, dense: bool, phi3: bool):
+def worker(tree: Path, label: str, dense: bool, phi3: bool, dbrx: bool):
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(tree / "src"))
     import torch
@@ -63,8 +72,8 @@ def worker(tree: Path, label: str, dense: bool, phi3: bool):
         sys.exit(f"[decode_split_stages] imported {da.__file__}, "
                  f"not {tree}")
     build.build_all(["decode_attention.cu", "decode_attention_paged.cu"])
-    if phi3:
-        for pool, res in phi3_cases(chip_smoke, da, ExecPolicy):
+    if phi3 or dbrx:
+        for pool, res in d128_cases(chip_smoke, da, ExecPolicy, dbrx):
             print(json.dumps({"tree": label, "pool": pool, **res}),
                   flush=True)
         return
@@ -85,9 +94,10 @@ def main():
     ap.add_argument("--label", default="this")
     ap.add_argument("--dense", action="store_true")
     ap.add_argument("--phi3", action="store_true")
+    ap.add_argument("--dbrx", action="store_true")
     args = ap.parse_args()
     if args.worker is not None:
-        worker(args.worker, args.label, args.dense, args.phi3)
+        worker(args.worker, args.label, args.dense, args.phi3, args.dbrx)
         return
     turns = ([("parent", args.parent), ("this", ROOT), ("this", ROOT),
               ("parent", args.parent)] if args.parent else [("this", ROOT)])
@@ -95,7 +105,8 @@ def main():
         proc = subprocess.run(
             [sys.executable, __file__, "--worker", str(tree), "--label",
              label] + (["--dense"] if args.dense else [])
-            + (["--phi3"] if args.phi3 else []), cwd=ROOT)
+            + (["--phi3"] if args.phi3 else [])
+            + (["--dbrx"] if args.dbrx else []), cwd=ROOT)
         if proc.returncode != 0:
             sys.exit(f"[decode_split_stages] the {label} turn failed "
                      f"({proc.returncode})")
