@@ -45,7 +45,13 @@ dbrx-132b at full width with its depth cut to 8 layers: B3 / B2 / B7 at
 then eager, the router's and the experts' gate exps two launches of the
 exp kernel a layer, held to their plain versions over a teacher-forced
 replay, the tiers' routing flips counted) and its paged serve held to a
-contiguous one request by request, and checks what comes out.
+contiguous one request by request, then the sliding-window dense decoder
+h2o-danube3-4b at full width: B3 / B2 / B7 at its head dim 120 (the
+head-dim-128 kernels on zero-filled columns; 32 query heads on 8 KV
+heads, a 4,096-token wave and ring) with their controls and edges, its
+serve on the 4,096-slot ring (one request a group at the window, so
+every group's decode wraps; graph then eager) and its paged ring serve
+held to a ring serve request by request, and checks what comes out.
 Every phase prints one JSON line; the first failure on any rank exits
 non-zero.
 The last two lines are the kernel table and the device line. Without a
@@ -824,7 +830,7 @@ def _fa_readings(fa, policy_cls, block_k, q, k, v, kv_len, q_offset,
 
 
 def _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, q_offset, tag,
-             window=None):
+             window=None, truth=True, iters=20):
     """One FA case. The kernel vs the plain version per backend, and the
     plain version at half the block and with p in two bf16 terms (both
     must fail the limits); under the exact exp, both the kernel and the
@@ -832,8 +838,11 @@ def _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, q_offset, tag,
     graph), the library call's and the bound. Query i of row b sits at
     q_offset + i; its real rows are those below kv_len[b]; with a
     ``window`` it keeps the keys above its position minus the window.
-    K and V may have fewer heads than q (GQA / MQA). Returns (fields,
-    limit readings)."""
+    K and V may have fewer heads than q (GQA / MQA). ``truth`` False
+    leaves out the float64 evaluation (its score matrix would not fit the
+    card at h2o-danube3's 4,096-token wave); ``iters`` calls a timing
+    (the plain version's a quarter of them, at least two). Returns
+    (fields, limit readings)."""
     b, sq, h, d = q.shape
     hkv = k.shape[2]
     qpos = _qpos(sq, q_offset)
@@ -841,7 +850,7 @@ def _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, q_offset, tag,
     if window is not None:
         kw["window"] = window
     readings, truth = _fa_readings(fa, policy_cls, block_k, q, k, v,
-                                   kv_len, q_offset, window, truth=True)
+                                   kv_len, q_offset, window, truth=truth)
     res = {f"{tag}exact_{who}_vs_f64_mismatch_share": share
            for who, share in truth.items()}
     for (exp, who), (err, share) in readings.items():
@@ -851,12 +860,14 @@ def _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, q_offset, tag,
         for exp in ("exact", "vexp_hw", "vexp"):  # vexp last: the row's ms
             pol = policy_cls(exp_backend=exp, block_k=block_k)
             res[f"{tag}ms_{exp}"] = cuda_time_ms(
-                lambda: fa.flash_attention(q, k, v, policy=pol, **kw))
+                lambda: fa.flash_attention(q, k, v, policy=pol, **kw),
+                iters=iters)
         res[f"{tag}graph_ms_vexp"] = graph_ms(
             lambda: fa.flash_attention(q, k, v, policy=pol, **kw),
-            f"flash_attention {tag}")
+            f"flash_attention {tag}", iters=iters)
     plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(
-        q, k, v, block_k=block_k, exp_backend="vexp", **kw), iters=5)
+        q, k, v, block_k=block_k, exp_backend="vexp", **kw),
+        iters=max(2, iters // 4), warmup=1 if iters < 20 else 3)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     mask = _sdpa_mask_prefill(kv_len, sq, k.shape[1], q_offset, window)
     gqa = {"enable_gqa": True} if hkv != h else {}
@@ -864,8 +875,8 @@ def _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, q_offset, tag,
     def sdpa():
         return torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, **gqa)
-    lib_ms = cuda_time_ms(sdpa)
-    lib_g_ms = graph_ms(sdpa, f"sdpa {tag}")
+    lib_ms = cuda_time_ms(sdpa, iters=iters)
+    lib_g_ms = graph_ms(sdpa, f"sdpa {tag}", iters=iters)
     # the function's work: every query row attends, causally, to the keys
     # below its row's kv_len (and inside the window); q and o move whole,
     # K and V (Hkv heads) up to kv_len
@@ -1678,17 +1689,20 @@ def replay_logits(cfg, params, reqs, policy, steps=None, width=None):
     return out
 
 
-def replay_logits_paged(cfg, params, reqs, policy, hist_len, page):
+def replay_logits_paged(cfg, params, reqs, policy, hist_len, page,
+                        steps=None):
     """Teacher-forced logits of ``reqs`` through the paged path, as a hot
     admission serves them: the shared ``hist_len``-token prefix (whole
     pages) prefilled once into pool pages that every row's table
     shares, each row's suffix prefilled against that history (attention
-    at q_offset=hist_len), then one paged decode step per emitted
-    token. Returns a list of (B, V) f32 logits per step."""
+    at q_offset=hist_len), then one paged decode step per emitted token
+    (the first ``steps`` logits only, where given). Returns a list of
+    (B, V) f32 logits per step."""
     from repro_torch.models import transformer
     from repro_torch.models.decode_state import (_paged_gather_hist,
                                                  _paged_scatter)
-    b, n, lay = len(reqs), len(reqs[0].out), cfg.kv_cache_layout
+    b, lay = len(reqs), cfg.kv_cache_layout
+    n = steps or len(reqs[0].out)
     hp = hist_len // page
     slen = np.array([len(r.prompt) - hist_len for r in reqs], np.int32)
     sp = int(slen.max())
@@ -1734,6 +1748,9 @@ def replay_logits_paged(cfg, params, reqs, policy, hist_len, page):
 # decode keeps f32 (the Pallas kernels do the same), and bf16
 # activations carry that through 12 layers; logits are O(1).
 REPLAY_LOGIT_TOL = 0.1
+# gpt2's replays (serve, paged): the first 16 of each request's 64
+# tokens forced, as phi3's and dbrx's tier checks take
+GPT2_REPLAY_STEPS = 16
 
 
 def check_replay(name, reqs, fast, ref, limit=None):
@@ -2093,14 +2110,17 @@ def phase_serve(kernels, smi, cfg, params, policy, groups):
                              min_len=32, groups=sorted(groups), seed=0)
 
     # warm-up (cuBLAS handles, library loads), not measured
+    t0 = time.perf_counter()
     for arm in ARMS:
         server(arm == "graph").run(make_requests(
             cfg, 3, 64, 4, groups=sorted(groups), seed=1))
     torch.cuda.synchronize()
+    secs = {"warm_up": time.perf_counter() - t0}
 
     runs = serve_in_turns(kernels, cfg, server, requests,
                           "decode_attention", "decode_attention_paged",
                           "serve")
+    secs["turns"] = time.perf_counter() - t0 - sum(secs.values())
     first = runs["graph"][0]
     reqs, counts = first["reqs"], first["counts"]
     for arm in ARMS:
@@ -2116,22 +2136,28 @@ def phase_serve(kernels, smi, cfg, params, policy, groups):
     worst = {}
     for name, pol in groups.items():
         two = [r for r in reqs if r.group == name][:2]
-        fast = replay_logits(cfg, params, two, pol)
+        fast = replay_logits(cfg, params, two, pol, GPT2_REPLAY_STEPS)
         ref = replay_logits(cfg, params, two,
-                            pol.replace(kernel_backend="reference"))
+                            pol.replace(kernel_backend="reference"),
+                            GPT2_REPLAY_STEPS)
         worst[name] = check_replay(name, two, fast, ref)
     res["replay_max_abs_logit_diff"] = worst
+    secs["replays"] = time.perf_counter() - t0 - sum(secs.values())
 
-    def short():
-        return make_requests(cfg, 8, 512, 16, mixed_lengths=True,
+    def short():              # 8 new tokens: gathering the profiler's
+        # CPU + CUDA trace takes ~0.4 s a decode step
+        return make_requests(cfg, 8, 512, 8, mixed_lengths=True,
                              min_len=32, groups=sorted(groups), seed=2)
 
     profiles = {arm: profile_serve(kernels, lambda a=arm: server(a == "graph"),
                                    short(), f"serve ({arm} arm)")
                 for arm in ARMS}
     res["profile"] = profiles["graph"]
+    secs["profiles"] = time.perf_counter() - t0 - sum(secs.values())
     audits = capture_audits(cfg, server, lambda: make_requests(
         cfg, 6, 64, 8, groups=sorted(groups), seed=3), "serve")
+    secs["audit"] = time.perf_counter() - t0 - sum(secs.values())
+    res["phase_seconds"] = secs
     emit(res)
     arm_summary(runs, profiles, audits, compare, "serve")
     return {"serve": counts, "serve_eager": runs["eager"][0]["counts"]}, reqs
@@ -2168,10 +2194,12 @@ def phase_serve_paged(kernels, smi, cfg, params, policy, groups):
                      f"prefix hits; every group needs a hot wave")
         srv.assert_idle_clean()     # drops the prefix cache: stats first
 
+    t0 = time.perf_counter()
     runs = serve_in_turns(kernels, cfg, server,
                           lambda: paged_requests(cfg, groups),
                           "decode_attention_paged", "decode_attention",
                           "serve_paged", after=hot_and_clean)
+    secs = {"turns": time.perf_counter() - t0}
     first = runs["graph"][0]
     reqs, st, counts = first["reqs"], first["stats"], first["counts"]
     for arm in ARMS:
@@ -2209,12 +2237,14 @@ def phase_serve_paged(kernels, smi, cfg, params, policy, groups):
     worst = {}
     for name, pol in groups.items():
         two = [r for r in hot_reqs if r.group == name][:2]
-        fast = replay_logits_paged(cfg, params, two, pol, shared, PAGE)
+        fast = replay_logits_paged(cfg, params, two, pol, shared, PAGE,
+                                   GPT2_REPLAY_STEPS)
         ref = replay_logits_paged(cfg, params, two,
                                   pol.replace(kernel_backend="reference"),
-                                  shared, PAGE)
+                                  shared, PAGE, GPT2_REPLAY_STEPS)
         worst[name] = check_replay(f"paged {name}", two, fast, ref)
     res["replay_max_abs_logit_diff"] = worst
+    secs["replays"] = time.perf_counter() - t0 - sum(secs.values())
 
     # the same requests on the contiguous pool, every group's update block
     # at the page (B2 on every step, one update per 64 keys: the function
@@ -2243,6 +2273,7 @@ def phase_serve_paged(kernels, smi, cfg, params, policy, groups):
     res["vs_block64_contiguous"] = {
         "identical_cold_requests": len(cold),
         "hot_requests_not_compared": len(reqs) - len(cold)}
+    secs["block64"] = time.perf_counter() - t0 - sum(secs.values())
 
     # every hot request against the same request served cold and alone
     solos = []
@@ -2253,9 +2284,10 @@ def phase_serve_paged(kernels, smi, cfg, params, policy, groups):
     res["hot_equals_cold_solo"] = near_tie_compare(
         cfg, params, groups, hot_reqs, solos, "hot request",
         "its cold solo tokens")
+    secs["hot_solos"] = time.perf_counter() - t0 - sum(secs.values())
 
-    def short():
-        return make_requests(cfg, 8, suffix, 16, mixed_lengths=True,
+    def short():              # 8 new tokens, as serve's profile window
+        return make_requests(cfg, 8, suffix, 8, mixed_lengths=True,
                              min_len=32, groups=sorted(groups), seed=2,
                              shared_prefix=shared)
 
@@ -2263,9 +2295,12 @@ def phase_serve_paged(kernels, smi, cfg, params, policy, groups):
                                    short(), f"serve_paged ({arm} arm)")
                 for arm in ARMS}
     res["profile"] = profiles["graph"]
+    secs["profiles"] = time.perf_counter() - t0 - sum(secs.values())
     audits = capture_audits(cfg, server, lambda: make_requests(
         cfg, 6, 64, 8, groups=sorted(groups), seed=3, shared_prefix=PAGE),
         "serve_paged")
+    secs["audit"] = time.perf_counter() - t0 - sum(secs.values())
+    res["phase_seconds"] = secs
     emit(res)
     arm_summary(runs, profiles, audits, compare, "serve_paged")
     return ({"serve_paged": counts,
@@ -2968,10 +3003,13 @@ def phase_serve_sharded(kernels, smi, cfg, params, policy, groups,
     (in each rank) assert_idle_clean. Returns {path: rank 0's counts}."""
     from repro_torch.launch.serve import Request, Server
     groups = sharded_groups(groups)
+    t0 = time.perf_counter()
     ranks = _spawn_ranks(SHARD_RANKS)
+    secs = {"ranks": time.perf_counter() - t0}
     base_reqs = contiguous_sharded_requests(cfg, groups)
     Server(cfg, params, max_batch=8, max_seq=1024, policy=policy,
            policy_groups=groups, device="cuda").run(base_reqs)
+    secs["unsharded"] = time.perf_counter() - t0 - sum(secs.values())
     baselines = {"serve_sharded": base_reqs,
                  "serve_paged_sharded": paged_reqs}
     kernel_of = {"serve_sharded": ("decode_attention_partial",
@@ -3046,6 +3084,8 @@ def phase_serve_sharded(kernels, smi, cfg, params, policy, groups,
         res["equals_unsharded"] = near_tie_compare(
             cfg, params, groups, reqs, [b.out for b in base],
             "sharded request", "its unsharded tokens")
+        secs[path] = time.perf_counter() - t0 - sum(secs.values())
+        res["phase_seconds"] = dict(secs)
         emit(res)
         by_path[path] = counts
     return by_path
@@ -3998,13 +4038,14 @@ def _hybrid_decode_case(da, policy_cls, paged):
 
 
 def _decode_case(da, policy_cls, paged, inputs, page, label,
-                 layout="bshd"):
+                 layout="bshd", stages=True):
     """B2 (or B7) on ``inputs`` (``decode_inputs``' tuple, the cache in
     ``layout``): held to its plain version under every exp backend, with
     the half-block (half-page) and textbook-merge controls; graph ms,
     device µs per CUDA kernel, SDPA's graph ms (over the gathered pages
     for B7; GQA through ``enable_gqa``), the plain version's ms and the
-    bound. Returns (fields, readings)."""
+    bound; with ``stages``, device µs per CUDA kernel (torch.profiler,
+    ~3 s a case). Returns (fields, readings)."""
     q, cl, kc, vc, run = inputs
     b, _, h, d = q.shape
     s, hkv = (kc.shape[2], kc.shape[1]) if layout == "bhsd" else \
@@ -4032,7 +4073,8 @@ def _decode_case(da, policy_cls, paged, inputs, page, label,
     res["ms_vexp"] = cuda_time_ms(lambda: run(pol), iters=50)
     res["graph_ms_vexp"] = graph_ms(lambda: run(pol),
                                     f"decode {label} paged={paged}", iters=50)
-    res["stage_us_vexp"] = stage_device_us(lambda: run(pol))
+    if stages:
+        res["stage_us_vexp"] = stage_device_us(lambda: run(pol))
     res["plain_ms_vexp"] = cuda_time_ms(lambda: da.decode_attention_plain(
         q, kc, vc, cl, layout=layout, block_s=block, exp_backend="vexp"),
         iters=5)
@@ -4068,14 +4110,16 @@ HYBRID_EDGE_WINDOW = 700
 
 
 def _decode_edges(da, policy_cls, d=256, seed=14,
-                  groups=HYBRID_EDGE_GROUPS, page128_groups=()):
+                  groups=HYBRID_EDGE_GROUPS, page128_groups=(),
+                  lens=HYBRID_EDGE_LENS):
     """B2 and B7 at head dim ``d`` (256, or 128) where the chained sweep
     has its edges: ``groups`` query rows on one KV head (G 1, 5 and 16;
     at head dim 128 G 1 to 4 take the four-row tier, G 5 to 8 the
     eight-row one and G 9 to 16 the sixteen-row path, so dbrx's phase
     takes G 5, 6, 8 and 9, each side of the eight-row tier's bounds); one
-    row per cache_len in HYBRID_EDGE_LENS (one key, a tile, a tile and a
-    key, around the 512-key update block, the full 2,048-row cache); with
+    row per cache_len in ``lens`` (HYBRID_EDGE_LENS: one key, a tile, a
+    tile and a key, around the 512-key update block, the full 2,048-row
+    cache; the cache is as long as the longest); with
     no window and with a window of 700 (the first kept key mid-block); B7
     through a page table in random order. At head dim 128 also B7 at each
     G of ``page128_groups`` (phi3's phase G 4, dbrx's G 6) through pages
@@ -4085,9 +4129,9 @@ def _decode_edges(da, policy_cls, d=256, seed=14,
     textbook-merge controls. Returns (fields, [(tag, kernel,
     readings)])."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    s, page = 2048, HYBRID_PAGE
-    b, ns = len(HYBRID_EDGE_LENS), s // page
-    cl = torch.tensor(HYBRID_EDGE_LENS, dtype=torch.int32, device="cuda")
+    s, page = max(lens), HYBRID_PAGE
+    b, ns = len(lens), s // page
+    cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
     kp, vp = (torch.randn(1 + b * ns, page, 1, d, generator=g,
                           device="cuda").to(torch.bfloat16)
               for _ in range(2))
@@ -4153,7 +4197,7 @@ def _decode_edges(da, policy_cls, d=256, seed=14,
             res[f"{tag}_{exp}_{who}_max_abs_err"] = val[0]
             res[f"{tag}_{exp}_{who}_mismatch_share"] = val[1]
         out.append((tag, kernel, readings))
-    res["cache_len"] = list(HYBRID_EDGE_LENS)
+    res["cache_len"] = list(lens)
     return res, out
 
 
@@ -4459,15 +4503,16 @@ PHI3_ARM_TURNS = ("graph", "eager")
 PHI3_TIER_LIMIT = {"exact": 0.0398, "vexp": 0.0341, "vexp_hw": 0.0456}
 
 
-def d128_fa_inputs(h, hkv, seed):
-    """B3's inputs at head dim 128, from ``seed``: a wave's q (B 8, S
-    1024, ``h`` query heads) over K and V of ``hkv`` KV heads with ragged
-    kv_len in [32, 1024] (row 0 full); a chunk's q (PHI3_CHUNK rows) with
-    its (B,) offsets and token counts (row 3 none) over a 2,048-position
-    cache, of which the wave reads the first 1,024. Returns (q, k, v,
-    kv_len, q_chunk, offsets, tokens)."""
+def d128_fa_inputs(h, hkv, seed, d=128, sq=1024, s=PHI3_MAX_SEQ):
+    """B3's inputs at head dim ``d`` (128), from ``seed``: a wave's q (B
+    8, ``sq`` (1024) positions, ``h`` query heads) over K and V of
+    ``hkv`` KV heads with ragged kv_len in [32, sq] (row 0 full); a
+    chunk's q (PHI3_CHUNK rows) with its (B,) offsets and token counts
+    (row 3 none) over an ``s``-position (2,048) cache, of which the wave
+    reads the first ``sq``. Returns (q, k, v, kv_len, q_chunk, offsets,
+    tokens)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    b, s, sq, d = 8, PHI3_MAX_SEQ, 1024, 128
+    b = 8
     q = torch.randn(b, sq, h, d, generator=g, device="cuda").to(
         torch.bfloat16)
     k, v = (torch.randn(b, s, hkv, d, generator=g, device="cuda")
@@ -4496,20 +4541,33 @@ PHI3_DECODE_SHAPE = dict(b=8, s=PHI3_MAX_SEQ, h=40, hkv=10, d=128,
                          page=PHI3_PAGE, full=1)
 
 
-def _d128_fa_rows(fa, policy_cls, block_k, inputs, label, chunk=True):
-    """B3 at head dim 128 (``fa_rows<128>``) on ``inputs``
-    (``d128_fa_inputs``): the admission wave (B 8, S 1024, ragged
-    kv_len, causal, no window), with ``chunk`` a chunk (256 query rows at
-    (B,) offsets over 2,048 keys, kv_len = offset + tokens), then the
-    edge cases (``_fa_edges``). Returns (fields, [(tag, readings)])."""
+def _d128_fa_rows(fa, policy_cls, block_k, inputs, label, chunk=True,
+                  window=None, truth=True, cut_window=None, iters=20):
+    """B3 on ``fa_rows<128>`` (head dim 128, or 120 on zero-filled
+    columns) on ``inputs`` (``d128_fa_inputs``): the admission wave (B 8,
+    ragged kv_len, causal, under ``window``; ``truth`` as ``_fa_case``),
+    with ``cut_window`` the readings of the wave's first two rows again
+    under a window that cuts their keys, with ``chunk`` a chunk (256
+    query rows at (B,) offsets over 2,048 keys, kv_len = offset +
+    tokens), then the edge cases (``_fa_edges``, under ``window``).
+    Returns (fields, [(tag, readings)])."""
     q, k, v, kv_len, qc, offs, clens = inputs
     b, sq, h, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     res, rd = _fa_case(fa, policy_cls, block_k, q, k[:, :sq], v[:, :sq],
-                       kv_len, 0, "")
+                       kv_len, 0, "", window=window, truth=truth,
+                       iters=iters)
     out = [(label, rd)]
     res["shape"] = (f"B={b} S={sq} H={h} Hkv={hkv} D={d}, causal, ragged "
-                    f"kv_len")
+                    f"kv_len" + (f", window {window}" if window else ""))
+    if cut_window is not None:        # rows 0 (every key) and 1
+        rd_cut, _ = _fa_readings(fa, policy_cls, block_k, q[:2],
+                                 k[:2, :sq], v[:2, :sq], kv_len[:2], 0,
+                                 cut_window)
+        for (exp, who), (err, share) in rd_cut.items():
+            res[f"w{cut_window}_{exp}_{who}_max_abs_err"] = err
+            res[f"w{cut_window}_{exp}_{who}_mismatch_share"] = share
+        out.append((f"{label} window {cut_window}", rd_cut))
     if chunk:
         more, rd_chunk = _fa_case(fa, policy_cls, block_k, qc, k, v,
                                   offs + clens, offs, "chunk_")
@@ -4517,14 +4575,17 @@ def _d128_fa_rows(fa, policy_cls, block_k, inputs, label, chunk=True):
         out.append((f"{label} chunk", rd_chunk))
         res["chunk_shape"] = (f"B={b} Sq={qc.shape[1]} Sk={s} H={h} "
                               f"Hkv={hkv} D={d}, (B,) q_offset tensor")
-    edges, edge_rds = _fa_edges(fa, policy_cls, q, k, v, qc, None, label)
+    edges, edge_rds = _fa_edges(fa, policy_cls, q, k, v, qc, window, label)
     res["edges"] = edges
     return res, out + edge_rds
 
 
 def d128_kernel_rows(policy_cls, arch, fa_inputs, decode_shape, label,
                      seed, phase, edge_groups=HYBRID_EDGE_GROUPS,
-                     page128_groups=(4,), bhsd=True, chunk=True):
+                     page128_groups=(4,), bhsd=True, chunk=True,
+                     fa_window=None, fa_truth=True, cut_window=None,
+                     edge_lens=HYBRID_EDGE_LENS, fa_iters=20,
+                     decode_stages=True):
     """B3, B2 and B7 at head dim 128 on ``arch``'s shapes: FA at the
     config's ``attn_block_k`` of 512 (its serve's update block; the edge
     cases at block_k 128 and the largest the card admits) on
@@ -4533,28 +4594,38 @@ def d128_kernel_rows(policy_cls, arch, fa_inputs, decode_shape, label,
     a page-64 table in random order (seeds from ``seed``), and both at
     their edges (``_decode_edges`` at D 128 with ``edge_groups`` query
     heads a KV head: cache_len at the tile and block bounds, a window;
-    B7 at ``page128_groups`` also through pages of 128 keys).
-    Each held to its plain version under the unchanged ATT_LIMITS with
-    its negative controls; FA's rows also carry their CUDA-core FMA
-    floor (a reading). Emits one ``phase`` line; returns {kernel row
-    name: fields} for the kernel table."""
+    B7 at ``page128_groups`` also through pages of 128 keys; one row a
+    cache_len of ``edge_lens``). The head dim is ``decode_shape``'s (128,
+    or h2o-danube3's 120: FA's wave then under ``fa_window``, without
+    the float64 truth where ``fa_truth`` is false, and again under
+    ``cut_window``; its timings over ``fa_iters`` calls; B2's and B7's
+    per-kernel µs with ``decode_stages``). Each held to
+    its plain version under the unchanged ATT_LIMITS with its negative
+    controls; FA's rows also carry their CUDA-core FMA floor (a
+    reading). Emits one ``phase`` line; returns {kernel row name:
+    fields} for the kernel table."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.runtime import resolve_policy
     block_k = resolve_policy(get_config(arch), env={}).block_k
     fa_res, fa_checks = _d128_fa_rows(fa, policy_cls, block_k, fa_inputs,
-                                      label, chunk)
+                                      label, chunk, fa_window, fa_truth,
+                                      cut_window, fa_iters)
     page = decode_shape["page"]
     dec, dec_rd = _decode_case(
         da, policy_cls, False,
-        decode_inputs(da, False, seed=seed, **decode_shape), page, label)
+        decode_inputs(da, False, seed=seed, **decode_shape), page, label,
+        stages=decode_stages)
     pdec, pdec_rd = _decode_case(
         da, policy_cls, True,
-        decode_inputs(da, True, seed=seed + 2, **decode_shape), page, label)
-    edges, edge_rds = _decode_edges(da, policy_cls, d=128, seed=seed + 3,
+        decode_inputs(da, True, seed=seed + 2, **decode_shape), page, label,
+        stages=decode_stages)
+    d = decode_shape["d"]
+    edges, edge_rds = _decode_edges(da, policy_cls, d=d, seed=seed + 3,
                                     groups=edge_groups,
-                                    page128_groups=page128_groups)
+                                    page128_groups=page128_groups,
+                                    lens=edge_lens)
     line = {"phase": phase, "block_k": block_k, "flash_attention": fa_res,
             "decode_attention": dec, "decode_attention_paged": pdec,
             "decode_edges": edges}
@@ -4564,17 +4635,17 @@ def d128_kernel_rows(policy_cls, arch, fa_inputs, decode_shape, label,
             da, policy_cls, False,
             decode_inputs(da, False, seed=seed + 1, layout="bhsd",
                           **decode_shape), page, f"{label} bhsd",
-            layout="bhsd")
+            layout="bhsd", stages=False)
         checks.append(("decode_attention", dech_rd, "bhsd"))
     emit(line)
     g = decode_shape["h"] // decode_shape["hkv"]
     for tag, rd in fa_checks:
         check_attention("flash_attention", rd, f" {tag}")
     for kernel, rd, lay in checks:
-        check_attention(kernel, rd, f" d128 g{g} {lay}")
-    check_attention("decode_attention_paged", pdec_rd, f" d128 g{g}")
+        check_attention(kernel, rd, f" d{d} g{g} {lay}")
+    check_attention("decode_attention_paged", pdec_rd, f" d{d} g{g}")
     for tag, kernel, rd in edge_rds:
-        check_attention(kernel, rd, f" d128 {tag}")
+        check_attention(kernel, rd, f" d{d} {tag}")
     keys = ("ms_vexp", "graph_ms_vexp", "plain_ms_vexp", "bound_ms",
             "bound_by", "library_ms", "library_graph_ms", "shape")
 
@@ -4587,13 +4658,14 @@ def d128_kernel_rows(policy_cls, arch, fa_inputs, decode_shape, label,
                        if f"chunk_{k}" in fa_res})
         fa_row["chunk_shape"] = fa_res["chunk_shape"]
     fa_row["max_abs_err"] = max(worst(rd) for _, rd in fa_checks)
-    dec_row = {k: dec[k] for k in keys + ("stage_us_vexp",)}
+    dec_row = {k: dec[k] for k in keys + ("stage_us_vexp",) if k in dec}
     dec_row["max_abs_err"] = max([worst(rd) for _, rd, _ in checks] + [
         worst(e) for _, k, e in edge_rds if k == "decode_attention"])
     if bhsd:
         dec_row["bhsd_graph_ms_vexp"] = \
             line["decode_attention_bhsd"]["graph_ms_vexp"]
-    pdec_row = {k: pdec[k] for k in keys + ("stage_us_vexp",)}
+    pdec_row = {k: pdec[k] for k in keys + ("stage_us_vexp",)
+                if k in pdec}
     pdec_row["max_abs_err"] = max([worst(pdec_rd)] + [
         worst(e) for _, k, e in edge_rds if k == "decode_attention_paged"])
     return {"flash_attention_bhsd": fa_row,
@@ -4728,7 +4800,8 @@ def phi3_step_bound(cfg, params, srv):
     """The decode step's bound on this card: every parameter but the
     embedding table read once (bf16 matmul weights, the f32
     unembedding, the norms) plus each live group's K and V up to its
-    rows' positions, over the HBM rate. Returns (bytes, ms)."""
+    rows' positions (a ring: at most the window), over the HBM rate.
+    Returns (bytes, ms)."""
     nbytes = sum(p.numel() * p.element_size()
                  for n, p in params.named_parameters() if n != "embed")
     out = {}
@@ -4736,7 +4809,10 @@ def phi3_step_bound(cfg, params, srv):
     for name, g in srv._groups.items():
         if g.busy:
             live = g.live_dev.bool()
-            keys = float((g.state.pos_dev[live] + 1).double().sum())
+            held = g.state.pos_dev[live] + 1
+            if cfg.sliding_window:
+                held = torch.clamp(held, max=cfg.sliding_window)
+            keys = float(held.double().sum())
             b = nbytes + keys * kv_row
             out[name] = {"bytes": b, "bound_ms": b / HBM_BYTES_PER_S * 1e3}
     return out
@@ -4819,7 +4895,8 @@ def phase_serve_phi3(kernels, smi, cfg, params, policy, groups):
 
 
 def phase_serve_phi3_paged(kernels, smi, cfg, params, policy, groups, mono,
-                           name="phi3", gates=1):
+                           name="phi3", gates=1, make_server=None,
+                           make_requests=None, page=PHI3_PAGE):
     """The serve_phi3 requests (or dbrx's, with ``name`` "dbrx" and its
     two gate exps a layer) on the paged pool (page 64), graph arm: B7 on
     every decode step, no page held after the serve; its tokens equal,
@@ -4828,18 +4905,22 @@ def phase_serve_phi3_paged(kernels, smi, cfg, params, policy, groups, mono,
     function. The requests share no prefix, so both serves prefill the
     same tokens. Against the monolithic serve's tokens (``mono``, one
     update per 512 keys, another function under vexp; phi3 only) the
-    first divergences and their reference top-2 gaps are a note. Returns
-    {path: counts}."""
-    grp = {n: p.replace(block_page=PHI3_PAGE, block_s=PHI3_PAGE)
+    first divergences and their reference top-2 gaps are a note.
+    ``make_server`` / ``make_requests`` (default phi3's) and ``page``
+    serve another dense arch the same way (h2o-danube3: a ring table of
+    64 pages a slot). Returns {path: counts}."""
+    make_server = make_server or phi3_server
+    make_requests = make_requests or phi3_requests
+    grp = {n: p.replace(block_page=page, block_s=page)
            for n, p in groups.items()}
-    pol = policy.replace(block_page=PHI3_PAGE, block_s=PHI3_PAGE)
+    pol = policy.replace(block_page=page, block_s=page)
     turns = {}
     for paged in (False, True):
         what = f"serve_{name}_paged" if paged else f"serve_{name}_block64"
         turns[what] = phi3_serve_once(
-            kernels, cfg, lambda cg=True, pg=paged: phi3_server(
+            kernels, cfg, lambda cg=True, pg=paged: make_server(
                 cfg, params, pol, grp, cg, paged=pg),
-            lambda: phi3_requests(cfg, groups), "graph",
+            lambda: make_requests(cfg, groups), "graph",
             "decode_attention_paged" if paged else "decode_attention",
             "decode_attention" if paged else "decode_attention_paged", what,
             gates)
@@ -4851,7 +4932,7 @@ def phase_serve_phi3_paged(kernels, smi, cfg, params, policy, groups, mono,
                       if a != b), min(len(r.out), len(want.out)))
             fail(f"serve_{name}_paged: request {r.rid} ({r.group}) leaves "
                  f"the block-64 contiguous serve's tokens at step {i}")
-    line = {"phase": f"serve_{name}_paged", "page": PHI3_PAGE,
+    line = {"phase": f"serve_{name}_paged", "page": page,
             **turn["readings"], "block64_contiguous": ring["readings"],
             "vs_block64_contiguous": {"identical": len(ring["reqs"])},
             "nvidia_smi": smi}
@@ -5086,6 +5167,207 @@ def phase_serve_dbrx(kernels, smi, cfg, params, policy, groups):
             "serve_dbrx_eager": runs["eager"][0]["counts"]}
 
 
+
+# ------------------------------------------------ the sliding-window family
+
+DANUBE_ARCH = "h2o-danube3-4b"
+DANUBE_WINDOW = 4096           # the config's sliding window: the ring
+# max_seq past the window: each group's pool is a full-window ring of
+# 4,096 slots (Server's cache_s = min(max_seq, window)), which decodes
+# without bound, so a request at the window wraps it on its first step
+DANUBE_MAX_SEQ = 8192
+DANUBE_PROMPT = (32, DANUBE_WINDOW)
+DANUBE_REQUESTS = 12           # 4 a group, the first of each at the window
+DANUBE_BATCH = 4               # a group's requests admitted in one wave
+DANUBE_PAGE = 64               # a ring table of 64 pages a slot
+# B2 / B7 at danube's decode shape: B 8, 32 query heads on 8 KV heads of
+# 120 (G 4: the four-row tier, on the D 128 instantiation with columns
+# 120-127 zero-filled), a 4,096-slot ring, page 64
+DANUBE_DECODE_SHAPE = dict(b=8, s=DANUBE_WINDOW, h=32, hkv=8, d=120,
+                           page=DANUBE_PAGE, full=1)
+# the edges at head dim 120: G 1 and 4 (the four-row tier), 5 (the
+# eight-row tier's first) and 16 (the sixteen-row path); cache_len from
+# one key to the whole ring
+DANUBE_EDGE_GROUPS = (1, 4, 5, 16)
+DANUBE_EDGE_LENS = (1, 64, 65, 511, 512, 513, 2048, 4095, 4096)
+# danube's cuda tier against its reference tier over a teacher-forced
+# replay of each group's 4,096-token request (PHI3_TIER_STEPS forced
+# steps, every one past the ring's wrap), as phi3's: max |cuda -
+# reference| <= DANUBE_TIER_LIMIT[exp] x max |logit|. Twice the JAX
+# package's own pallas-vs-reference gap under this check's conditions
+# (tools/tier_gap.py --arch h2o-danube3-4b --width full: danube's
+# widths, prompts of 1,000 and 4,096 tokens, 16 forced steps) read at 2
+# and 4 layers (0.01103 / 0.01108 / 0.01319 and 0.01236 / 0.01245 /
+# 0.01384 of max |logit| under exact / vexp / vexp_hw) and carried to
+# 24 by the power law the two readings fit (powers 0.16 / 0.17 / 0.07:
+# 0.01657 / 0.01686 / 0.01566 at 24).
+DANUBE_TIER_LIMIT = {"exact": 0.0331, "vexp": 0.0337, "vexp_hw": 0.0313}
+
+
+def phase_danube_kernels(policy_cls):
+    """B3, B2 and B7 at h2o-danube3-4b's shapes (head dim 120, 32 query
+    heads on 8 KV heads, G 4; ``d128_kernel_rows`` on the D 128 kernels
+    with columns 120-127 zero-filled): FA's admission wave (B 8, S 4,096,
+    ragged kv_len, causal, the 4,096 window; no float64 truth: its score
+    matrix would not fit) and the same under a window of 700, and its
+    edges (Sq 1,021 and 61, block_k 128 and the largest the card admits;
+    the ~33 ms wave timed over 5 calls; no per-kernel µs of B2 / B7,
+    ~3 s a case);
+    B2 on a 4,096-slot ring in both layouts and B7 through a page-64 ring
+    table in random order; both at their edges at G 1, 4, 5 and 16,
+    cache_len 1 to 4,096, a window of 700 or none, B7 at G 4 also
+    through pages of 128 keys. Returns the rows 3w, 4w and 7w."""
+    return d128_kernel_rows(
+        policy_cls, DANUBE_ARCH,
+        d128_fa_inputs(32, 8, 41, d=120, sq=DANUBE_WINDOW, s=DANUBE_WINDOW),
+        DANUBE_DECODE_SHAPE, "d120", 42, "danube_attention_kernels",
+        edge_groups=DANUBE_EDGE_GROUPS, page128_groups=(4,), chunk=False,
+        fa_window=DANUBE_WINDOW, fa_truth=False, cut_window=700,
+        edge_lens=DANUBE_EDGE_LENS, fa_iters=5, decode_stages=False)
+
+
+def danube_setup():
+    """Full-width h2o-danube3-4b, all 24 layers (d 3840, 32 heads on 8 KV
+    heads of 120, SwiGLU d_ff 10,240, untied vocab 32,000, window 4,096),
+    random weights drawn on the card from ``torch.Generator("cuda")
+    .manual_seed(0)``, its default policy (the cuda tier) and the three
+    policy groups."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.runtime import parse_policy_groups, resolve_policy
+    cfg = get_config(DANUBE_ARCH)
+    if cfg.sliding_window != DANUBE_WINDOW or cfg.hd != 120:
+        fail(f"danube: window {cfg.sliding_window}, head dim {cfg.hd}")
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    policy = resolve_policy(cfg, env={})
+    if policy.kernel_backend != "cuda":
+        fail(f"danube: default tier is {policy.kernel_backend}, not cuda")
+    groups = parse_policy_groups("eval=exact,bulk=vexp,hw=vexp_hw", cfg,
+                                 base=policy)
+    emit({"phase": "danube_setup", "n_layers": cfg.n_layers,
+          "parameters": sum(p.numel() for p in params.parameters()),
+          "weight_bytes": sum(p.numel() * p.element_size()
+                              for p in params.parameters()),
+          "init_peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    return cfg, params, policy, groups
+
+
+def danube_requests(cfg, groups, n=DANUBE_REQUESTS, max_new=64, seed=0):
+    """``n`` requests with prompts in DANUBE_PROMPT from ``seed``, groups
+    round-robin; the first request of each group is exactly the window
+    long, so its decode runs past the ring's wrap from its first step."""
+    from repro_torch.launch.serve import make_requests
+    lo, hi = DANUBE_PROMPT
+    reqs = make_requests(cfg, n, hi, max_new, mixed_lengths=True,
+                         min_len=lo, groups=sorted(groups), seed=seed)
+    rng = np.random.default_rng(seed + 1000)
+    for r in reqs[:len(groups)]:
+        r.prompt = rng.integers(0, cfg.vocab, (hi,), dtype=np.int32)
+    return reqs
+
+
+def danube_server(cfg, params, policy, groups, cuda_graphs=True,
+                  paged=False):
+    """max_batch 4, max_seq 8,192: each group's pool a full-window ring
+    (contiguous: 1.5 GB; paged: 64-page ring tables, no prefix cache)."""
+    from repro_torch.launch.serve import Server
+    return Server(cfg, params, max_batch=DANUBE_BATCH,
+                  max_seq=DANUBE_MAX_SEQ, policy=policy,
+                  policy_groups=groups, device="cuda",
+                  cuda_graphs=cuda_graphs, paged=paged)
+
+
+def steps_past_window(reqs):
+    """Decode steps taken at positions at or past the window: a
+    request's steps write positions plen .. plen + emitted - 2."""
+    return sum(max(0, len(r.prompt) + len(r.out) - 1
+                   - max(len(r.prompt), DANUBE_WINDOW)) for r in reqs)
+
+
+def phase_serve_danube(kernels, smi, cfg, params, policy, groups):
+    """Full-width h2o-danube3-4b through the port's Server on its rings:
+    max_batch 4, max_seq 8,192 (a 4,096-slot ring a slot), 12 requests,
+    4 a group, with prompts in [32, 4,096] and one a group exactly 4,096
+    long (seed 0), 64 new tokens, groups eval=exact, bulk=vexp,
+    hw=vexp_hw; the graph arm, then the eager arm (tokens equal), the
+    decode steps taken past the window counted (the run fails at 0), the
+    capture audit, the decode step's graph ms and kernels per group
+    against its bound, and a teacher-forced replay of each group's
+    4,096-token request whose every SwiGLU gate exp is held to its plain
+    version (GateCheck) and whose cuda-tier logits are held to the
+    reference tier's within DANUBE_TIER_LIMIT. Returns ({path: launch
+    counts}, the graph arm's requests)."""
+
+    def server(cuda_graphs=True):
+        return danube_server(cfg, params, policy, groups, cuda_graphs)
+
+    t0 = time.perf_counter()
+    server().run(danube_requests(cfg, groups, 3, 4, seed=1))   # warm-up
+    torch.cuda.synchronize()
+    secs = {"warm_up": time.perf_counter() - t0}
+    runs = {arm: [phi3_serve_once(
+        kernels, cfg, server, lambda: danube_requests(cfg, groups), arm,
+        "decode_attention", "decode_attention_paged",
+        f"serve_danube ({arm} arm)")] for arm in ARMS}
+    compare = compare_arms(runs, "serve_danube")
+    first = runs["graph"][0]
+    reqs = first["reqs"]
+    wrapped = steps_past_window(reqs)
+    per_group = {name: steps_past_window([r for r in reqs
+                                          if r.group == name])
+                 for name in groups}
+    if min(per_group.values()) == 0:
+        fail(f"serve_danube: decode steps past position {DANUBE_WINDOW} "
+             f"per group {per_group}: a group's ring never wrapped")
+    secs["arms"] = time.perf_counter() - t0 - sum(secs.values())
+    audits = capture_audits(cfg, server, lambda: danube_requests(
+        cfg, groups, 6, 8, seed=3), "serve_danube")
+    srv = ssm_live_server(server, danube_requests(cfg, groups, max_new=8,
+                                                  seed=3))
+    steps = ssm_step_readings(srv)
+    for name, b in phi3_step_bound(cfg, params, srv).items():
+        steps[name].update(b)
+        steps[name]["launches_per_step"] = dict(
+            srv._groups[name].state.graph.launches)
+    del srv
+    gc.collect()
+    secs["audit_and_step"] = time.perf_counter() - t0 - sum(secs.values())
+    gates, tiers = GateCheck(), {}
+    for name, pol in groups.items():
+        one = [r for r in reqs if r.group == name
+               and len(r.prompt) == DANUBE_WINDOW][:1]
+        with gates:
+            fast = replay_logits(cfg, params, one, pol, PHI3_TIER_STEPS)
+        ref = replay_logits(cfg, params, one,
+                            pol.replace(kernel_backend="reference"),
+                            PHI3_TIER_STEPS)
+        top = max(float(lg[:, :cfg.vocab].abs().max()) for lg in ref)
+        limit = DANUBE_TIER_LIMIT[pol.exp_backend] * top
+        tiers[name] = {"rid": one[0].rid,
+                       "max_abs_diff": check_replay(f"danube {name}", one,
+                                                    fast, ref, limit),
+                       "max_abs_logit": top, "limit": limit}
+    secs["replays"] = time.perf_counter() - t0 - sum(secs.values())
+    emit({"phase": "serve_danube", "arch": cfg.arch_id,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+          "head_dim": cfg.hd, "d_ff": cfg.d_ff, "window": DANUBE_WINDOW,
+          "vocab_padded": cfg.vocab_padded, "arm": "graph",
+          **first["readings"], "prompt_lens": [len(r.prompt) for r in reqs],
+          "decode_steps_past_window": wrapped,
+          "decode_steps_past_window_by_group": per_group,
+          "turns": {arm: [t["readings"] for t in runs[arm]] for arm in ARMS},
+          "graph_vs_eager_tokens": compare, "capture_audit": audits,
+          "step_graph": steps, "tier_max_abs_logit_diff": tiers,
+          "gate_exps_checked": dict(gates.calls),
+          "gate_exp_max_ulp": gates.max_ulp, "phase_seconds": secs,
+          "nvidia_smi": smi})
+    return ({"serve_danube": first["counts"],
+             "serve_danube_eager": runs["eager"][0]["counts"]}, reqs)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -5174,6 +5456,20 @@ def main():
                                     groups))
     by_path.update(phase_serve_phi3_paged(kernels, smi, cfg, params, policy,
                                           groups, None, "dbrx", DBRX_GATES))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    danube_rows = phase_danube_kernels(ExecPolicy)
+    for row in rows[2:5]:
+        row["d120"] = danube_rows[row["name"]]
+    cfg, params, policy, groups = danube_setup()
+    danube_counts, _ = phase_serve_danube(kernels, smi, cfg, params, policy,
+                                          groups)
+    by_path.update(danube_counts)
+    by_path.update(phase_serve_phi3_paged(
+        kernels, smi, cfg, params, policy, groups, None, "danube",
+        make_server=danube_server, make_requests=danube_requests,
+        page=DANUBE_PAGE))
     for row, name in zip(rows, ("vexp", "softmax", "flash_attention",
                                 "decode_attention",
                                 "decode_attention_paged",
@@ -5183,6 +5479,10 @@ def main():
                                 "decode_attention_paged_packed")):
         row["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
+        if "d120" in row:            # danube's share, its serve paths'
+            row["d120"]["launches"] = sum(
+                n for p, n in row["launches_by_path"].items()
+                if p.startswith("serve_danube"))
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

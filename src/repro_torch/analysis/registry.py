@@ -61,7 +61,7 @@ HOT_PATH_FUNCTIONS = {
         "_write_token_kv_paged", "_paged_coords", "_paged_attn",
         "_final_logits", "_chunk_lanes", "_chunk_layers", "_chunk_logits",
         "_chunk_all_logits",
-        "_write_chunk_kv", "_write_chunk_kv_paged",
+        "_write_chunk_kv", "_write_chunk_kv_paged", "_ring_len", "_ring_pos",
     ),
     "repro_torch/models/decode_state.py": ("_guard_tokens",),
     "repro_torch/models/moe.py": (
@@ -69,7 +69,7 @@ HOT_PATH_FUNCTIONS = {
     ),
     "repro_torch/models/hybrid.py": (
         "_combine", "_assoc_scan", "_log_a_base", "_gates", "_attn_out",
-        "_ring_len", "_ring_pos", "_embed", "_logits", "_last_logits",
+        "_embed", "_logits", "_last_logits",
         "_rec_rows", "_prefill_chunk_impl", "_decode_layers",
     ),
 }

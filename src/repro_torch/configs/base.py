@@ -12,11 +12,13 @@ Execution fields resolve into a ``runtime.ExecPolicy``: ``REPRO_*``
 environment variables and per-call overrides take precedence over them.
 The dense family takes GELU or SwiGLU MLPs (``act``), tied or untied
 embeddings (``tie_embeddings``), any ``rope_theta`` and the head dims
-the attention kernels instantiate (32, 64, 128 and 256). The port
-supports f32 attention and logits matmul inputs only (the reference's
-``attn_mm_dtype`` / ``logits_mm_dtype`` defaults), and no parallel
-blocks, so those knobs are not carried. ``sliding_window`` is read by
-the hybrid family's local attention only.
+the attention kernels take (32, 64, 120, 128 and 256; 120 runs the 128
+kernels on zero-filled columns). The port supports f32 attention and
+logits matmul inputs only (the reference's ``attn_mm_dtype`` /
+``logits_mm_dtype`` defaults), and no parallel blocks, so those knobs are
+not carried. ``sliding_window`` is the local attention window of the
+hybrid family and of the dense family (h2o-danube3-4b): its cache is a
+ring of ``min(max_seq, window)`` slots, as in the reference.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ class ModelConfig:
     causal: bool = True
     rope_theta: float = 10000.0
     rope_pct: float = 1.0           # fraction of head_dim rotated
-    sliding_window: Optional[int] = None   # hybrid: local attention window
+    sliding_window: Optional[int] = None   # dense, hybrid: local window
     use_bias: bool = False
     norm: str = "rmsnorm"           # rmsnorm | layernorm
     act: str = "swiglu"             # swiglu | gelu

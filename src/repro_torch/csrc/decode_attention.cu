@@ -85,12 +85,13 @@ int run(const void* q, const void* kc, const void* vc, void* o, void* om,
 // rows 16-byte aligned, S rows from global position seq_offset on;
 // scratch: scratch_len f32 elements, at least
 // B*Hkv*(G*nT*(64 + 3 + D) + 1), at D = 128 and 256
-// B*Hkv*(nT*64*16 + G*(nT + nB*(D + 2))), with nB = max(ceil(S / bs), 1)
+// B*Hkv*(nT*64*chain_rows(D, G) + G*(nT + nB*(D + 2))) (D = 120: as
+// D = 128), with nB = max(ceil(S / bs), 1)
 // update blocks and nT = nB * ceil(bs / 64) tiles per row,
 // bs = max(min(block_s, S), 1); cache_len: (B,) int32
-// global lengths. window <= 0 means no window. G <= 8 (16 at D = 128 and 256,
+// global lengths. window <= 0 means no window. G <= 8 (16 at D = 120, 128 and 256,
 // normalized mode only). Each launches the
-// sweep's kernels (two; three at D = 128, 256) and returns cudaGetLastError()
+// sweep's kernels (two; three at D = 120, 128, 256) and returns cudaGetLastError()
 // after the last launch (or the first failed one).
 //
 // decode_fwd: o (B,Hkv,G,D) bf16, the normalized output (om, ol unused).

@@ -89,13 +89,14 @@ int run(const void* q, const void* kp, const void* vp, void* o, void* om,
 // base + p*psn + h*psh + t*pst (+ d, packed), rows 16-byte aligned;
 // scratch: scratch_len f32 elements, at least
 // B*Hkv*(G*nT*(64 + 3 + D) + 1), at D = 128 and 256
-// B*Hkv*(nT*64*16 + G*(nT + nB*(D + 2))), with nT = max(nS * ceil(page
+// B*Hkv*(nT*64*chain_rows(D, G) + G*(nT + nB*(D + 2))) (D = 120: as
+// D = 128), with nT = max(nS * ceil(page
 // / 64), 1) tiles and nB = max(nS, 1) pages per row; block_tab: (B,nS)
 // int32 packed, pool page ids, logical
 // page 0 at global position seq_offset; cache_len: (B,) int32 global
-// lengths. window <= 0 means no window. G <= 8 (16 at D = 128 and 256,
+// lengths. window <= 0 means no window. G <= 8 (16 at D = 120, 128 and 256,
 // normalized mode only). Each launches the sweep's
-// kernels (two; three at D = 128, 256) and returns cudaGetLastError() after the
+// kernels (two; three at D = 120, 128, 256) and returns cudaGetLastError() after the
 // last launch (or the first failed one).
 //
 // paged_decode_fwd: o (B,Hkv,G,D) bf16, the normalized output (om, ol

@@ -84,6 +84,13 @@
 // key's p (eight-byte for the last two of six) a step.
 // (Each choice read on the card by tools/decode_split_ablation.py.)
 // D 32 and 64 (G <= 8) keep split_scores and split_pv.
+// Head dim 120 (h2o-danube3: 4 query heads a KV head) runs the D 128
+// kernels instantiated with DV = 120, the columns of the tensors' rows:
+// K and V rows arrive as 15 16-byte chunks and a zero chunk, q as 120
+// values and 8 zeros, so each score's chain ends in exact +0 terms and
+// the chains of columns 120-127 run on zeros; the scratch keeps 128
+// columns a row, and stage 3 writes 120. Every other head dim has DV = D,
+// where that code folds away.
 //
 // Why the running max per update block, and not one max per tile merged
 // at the end (the usual split-KV merge): under vexp and vexp_hw,
@@ -243,6 +250,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                "l"(src));
 }
 
+// 16 bytes of zeros into shared memory through the copy path (a source
+// size of 0 reads nothing from src)
+__device__ __forceinline__ void cp_async16_zero(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, 0;\n" ::"r"(s),
+               "l"(src));
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
                    : "memory");
@@ -303,14 +318,15 @@ __device__ __forceinline__ long long page_of(const Args& a, int b, int t) {
   return 0;
 }
 
-// kept rows [c0, c1) of a tile -> shared rows (c - k0) of `pitch` bf16;
+// kept rows [c0, c1) of a tile -> shared rows (c - k0) of `pitch` bf16,
+// D columns of which the first `cols` are copied and the rest zeroed;
 // rows of one tile sit ss apart (a tile never crosses a page)
 template <int D, bool PAGED, int THREADS>
 __device__ __forceinline__ void load_rows(const Args& a,
                                           const __nv_bfloat16* base, int b,
                                           int h, long long phys,
                                           const Tile& x, __nv_bfloat16* dst,
-                                          int pitch) {
+                                          int pitch, int cols = D) {
   constexpr int CH = D / 8;               // 16-byte chunks per row
   const __nv_bfloat16* src =
       PAGED ? base + phys * a.sb + h * a.sh +
@@ -320,7 +336,10 @@ __device__ __forceinline__ void load_rows(const Args& a,
   const int n = (x.c1 - x.c0) * CH;
   for (int i = threadIdx.x; i < n; i += THREADS) {
     const int r = i / CH, ch = i % CH;
-    cp_async16(out + r * pitch + ch * 8, src + r * a.ss + ch * 8);
+    if (cols >= D || ch * 8 < cols)
+      cp_async16(out + r * pitch + ch * 8, src + r * a.ss + ch * 8);
+    else
+      cp_async16_zero(out + r * pitch + ch * 8, src + r * a.ss);
   }
 }
 
@@ -669,8 +688,9 @@ __device__ __forceinline__ void score_rows(const Args& a, const float* sQ,
 // one CTA per (tile, h, b) of kScoreThreads: at MAXG 16 a warp per four
 // rows (quarter, quarter + 4, ...), at MAXG 4 a warp per row, at MAXG 8
 // a warp per two adjacent rows, so that at G 5 to 7 a warp whose rows are
-// all past G does no FMA and one with a single live row chains it alone
-template <int D, bool PAGED, int MAXG>
+// all past G does no FMA and one with a single live row chains it alone.
+// q, K and V rows hold DV <= D columns (the rest zero-filled here).
+template <int D, bool PAGED, int MAXG, int DV = D>
 __global__ void __launch_bounds__(kScoreThreads) split_scores_rows(Args a) {
   static_assert(block_chain<D>(), "the dense heads take split_scores");
   constexpr int PITCH = D + 8;            // 16 bytes of padding per row
@@ -695,10 +715,20 @@ __global__ void __launch_bounds__(kScoreThreads) split_scores_rows(Args a) {
     if (tid < G) a.tmax[(row0 + tid) * a.nT + t] = kNegInf;
     return;
   }
-  load_rows<D, PAGED, kScoreThreads>(a, a.k, b, h, phys, x, sK, PITCH);
-  for (int i = tid; i < G * D; i += kScoreThreads)
-    sQ[i] = bf16_round(
-        __fmul_rn(__bfloat162float(a.q[row0 * D + i]), a.sm_scale));
+  load_rows<D, PAGED, kScoreThreads>(a, a.k, b, h, phys, x, sK, PITCH, DV);
+  if constexpr (DV == D) {
+    for (int i = tid; i < G * D; i += kScoreThreads)
+      sQ[i] = bf16_round(
+          __fmul_rn(__bfloat162float(a.q[row0 * D + i]), a.sm_scale));
+  } else {                                // q rows of DV columns, zero-filled
+    for (int i = tid; i < G * D; i += kScoreThreads) {
+      const int g = i / D, d = i % D;
+      sQ[i] = d < DV ? bf16_round(__fmul_rn(
+                           __bfloat162float(a.q[(row0 + g) * DV + d]),
+                           a.sm_scale))
+                     : 0.0f;
+    }
+  }
   cp_async_wait_all();
   __syncthreads();
   float* sc = a.scores + (bh * a.nT + t) * kTile * kMaxG;
@@ -817,9 +847,9 @@ __device__ __forceinline__ void chain_tile(float (&acc)[4][2], float& lsum,
 // chained over the row's live update blocks in order, l = l * alpha_j +
 // l_j and acc = acc * alpha_j + pv_j, rounded step by step, kBatch
 // blocks' statistics loaded at once before their chain.
-template <int D>
+template <int D, int DV = D>
 __global__ void __launch_bounds__(kPvThreads) combine_blocks(Args a) {
-  constexpr int QPR = D / 4;              // four-column groups a row
+  constexpr int QPR = DV / 4;             // four-column groups a row
   asm volatile("griddepcontrol.wait;" ::: "memory");
   const long long i = (long long)blockIdx.x * kPvThreads + threadIdx.x;
   const long long r = i / QPR;            // (b * Hkv + h) * G + g
@@ -855,7 +885,7 @@ __global__ void __launch_bounds__(kPvThreads) combine_blocks(Args a) {
     }
   }
   const float inv = 1.0f / fmaxf(l, 1e-30f);
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.o) + r * D + col;
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.o) + r * DV + col;
 #pragma unroll
   for (int k = 0; k < 4; ++k)
     o[k] = __float2bfloat16_rn(__fmul_rn(acc[k], inv));
@@ -870,7 +900,7 @@ __global__ void __launch_bounds__(kPvThreads) combine_blocks(Args a) {
 // kept keys in order from +0.0. The V columns of the next tile are in
 // flight during a tile's chain (two buffers), the next tile's scores in
 // registers. Writes the block's p @ v columns (and l).
-template <int D, bool PAGED>
+template <int D, bool PAGED, int DV = D>
 __global__ void __launch_bounds__(kPvThreads, 6) split_pv_slice(Args a) {
   constexpr int kMaxG = max_g<D>();
   constexpr int SC = kSliceCols;                   // columns a slice
@@ -890,6 +920,8 @@ __global__ void __launch_bounds__(kPvThreads, 6) split_pv_slice(Args a) {
   const int G = a.G;
   const long long bh = (long long)b * a.Hkv + h, row0 = bh * G;
   const __nv_bfloat16* vbase = a.v + sl * SC;
+  // this slice's V columns
+  const int vcols = DV == D ? SC : min(DV - sl * SC, SC);
   // stage 3 may launch now: it waits for this grid before reading its
   // output
   asm volatile("griddepcontrol.launch_dependents;");
@@ -906,7 +938,7 @@ __global__ void __launch_bounds__(kPvThreads, 6) split_pv_slice(Args a) {
     for (int u = 0; u < 2 && t_lo + u < t_hi; ++u) {
       load_rows<SC, PAGED, kPvThreads>(
           a, vbase, b, h, page_of<PAGED>(a, b, t_lo + u),
-          tile_of(a, t_lo + u, lo, len), sV[u], SC);
+          tile_of(a, t_lo + u, lo, len), sV[u], SC, vcols);
       cp_async_commit();
     }
   }
@@ -991,7 +1023,7 @@ __global__ void __launch_bounds__(kPvThreads, 6) split_pv_slice(Args a) {
       if (tt + 2 < t_hi) {
         load_rows<SC, PAGED, kPvThreads>(
             a, vbase, b, h, page_of<PAGED>(a, b, tt + 2),
-            tile_of(a, tt + 2, lo, len), sV[buf], SC);
+            tile_of(a, tt + 2, lo, len), sV[buf], SC, vcols);
         cp_async_commit();
       }
     }
@@ -1123,7 +1155,7 @@ __device__ __forceinline__ void chain_col(float (&acc)[R], const float* pr,
   }
 }
 
-template <int D, bool PAGED, int R>
+template <int D, bool PAGED, int R, int DV = D>
 __global__ void __launch_bounds__(kRowsThreads) split_pv_rows(Args a) {
   constexpr int PS = rows_stride<R>();            // scores' rows a key
   constexpr int CW = kRowsChain / 32;             // chain warps; warp CW: l
@@ -1159,7 +1191,7 @@ __global__ void __launch_bounds__(kRowsThreads) split_pv_rows(Args a) {
   for (int u = 0; u < nbuf && t_lo + u < t_hi; ++u) {
     load_rows<D, PAGED, kRowsThreads>(
         a, a.v, b, h, page_of<PAGED>(a, b, t_lo + u),
-        tile_of(a, t_lo + u, lo, len), sV + u * kTile * D, D);
+        tile_of(a, t_lo + u, lo, len), sV + u * kTile * D, D, DV);
     cp_async_commit();
   }
   asm volatile("griddepcontrol.wait;" ::: "memory");
@@ -1237,7 +1269,7 @@ __global__ void __launch_bounds__(kRowsThreads) split_pv_rows(Args a) {
       load_rows<D, PAGED, kRowsThreads>(
           a, a.v, b, h, page_of<PAGED>(a, b, tt - 1 + nbuf),
           tile_of(a, tt - 1 + nbuf, lo, len),
-          sV + (tt - 1 - t_lo) % nbuf * kTile * D, D);
+          sV + (tt - 1 - t_lo) % nbuf * kTile * D, D, DV);
       cp_async_commit();
     }
     if (!lwarp && tt + 1 < t_hi) tile_exps(tt + 1);
@@ -1284,7 +1316,7 @@ inline cudaError_t launch_dependent(void (*kernel)(Args), dim3 grid,
 
 // the three kernels of the chained sweep whose scores take MAXG rows a key
 // (chain_rows) and, below sixteen, whose stage 2 chains R of them
-template <int D, bool PAGED, int MAXG, int R = MAXG>
+template <int D, bool PAGED, int MAXG, int R = MAXG, int DV = D>
 int launch_chain(Args a, float* scratch, cudaStream_t stream) {
   constexpr bool kRows = MAXG < kChainG;  // stage 2 split_pv_rows
   static_assert(!kRows || rows_stride<R>() == MAXG, "R rows of MAXG");
@@ -1301,28 +1333,28 @@ int launch_chain(Args a, float* scratch, cudaStream_t stream) {
   // process)
   static const cudaError_t attrs = [] {
     cudaError_t e = cudaFuncSetAttribute(
-        split_scores_rows<D, PAGED, MAXG>,
+        split_scores_rows<D, PAGED, MAXG, DV>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)rows_smem<D, MAXG>());
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(
-          split_scores_rows<D, PAGED, MAXG>,
+          split_scores_rows<D, PAGED, MAXG, DV>,
           cudaFuncAttributePreferredSharedMemoryCarveout,
           (int)cudaSharedmemCarveoutMaxShared);
     if (e == cudaSuccess) {
       if constexpr (kRows) {
         e = cudaFuncSetAttribute(
-            split_pv_rows<D, PAGED, R>,
+            split_pv_rows<D, PAGED, R, DV>,
             cudaFuncAttributeMaxDynamicSharedMemorySize,
             (int)rows_smem<D>(kRowsBufs));
         if (e == cudaSuccess)
           e = cudaFuncSetAttribute(
-              split_pv_rows<D, PAGED, R>,
+              split_pv_rows<D, PAGED, R, DV>,
               cudaFuncAttributePreferredSharedMemoryCarveout,
               (int)cudaSharedmemCarveoutMaxShared);
       } else {
         e = cudaFuncSetAttribute(
-            split_pv_slice<D, PAGED>,
+            split_pv_slice<D, PAGED, DV>,
             cudaFuncAttributePreferredSharedMemoryCarveout,
             (int)cudaSharedmemCarveoutMaxShared);
       }
@@ -1346,22 +1378,22 @@ int launch_chain(Args a, float* scratch, cudaStream_t stream) {
   const dim3 grid1(a.nT, a.Hkv, a.B);
   const dim3 grid2 =
       kRows ? dim3(a.Hkv, a.nB, a.B) : dim3(a.nB * slices<D>(), a.Hkv, a.B);
-  split_scores_rows<D, PAGED, MAXG>
+  split_scores_rows<D, PAGED, MAXG, DV>
       <<<grid1, kScoreThreads, rows_smem<D, MAXG>(), stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const bool pdl = (long long)grid2.x * grid2.y * grid2.z > sms;
   if constexpr (kRows)
-    err = launch_dependent(split_pv_rows<D, PAGED, R>, grid2, kRowsThreads,
+    err = launch_dependent(split_pv_rows<D, PAGED, R, DV>, grid2, kRowsThreads,
                            a, stream, pdl,
                            rows_smem<D>(rows_bufs<PAGED>(a.tpb)));
   else
-    err = launch_dependent(split_pv_slice<D, PAGED>, grid2, kPvThreads, a,
+    err = launch_dependent(split_pv_slice<D, PAGED, DV>, grid2, kPvThreads, a,
                            stream, pdl);
   if (err != cudaSuccess) return (int)err;
-  const long long groups = (long long)a.B * a.Hkv * a.G * (D / 4);
+  const long long groups = (long long)a.B * a.Hkv * a.G * (DV / 4);
   return (int)launch_dependent(
-      combine_blocks<D>,
+      combine_blocks<D, DV>,
       dim3((unsigned)((groups + kPvThreads - 1) / kPvThreads)), kPvThreads,
       a, stream);
 }
@@ -1371,7 +1403,7 @@ int launch_chain(Args a, float* scratch, cudaStream_t stream) {
 // block chains, D = 128 and 256).
 // Returns a CUDA error code: invalid arguments, too little scratch, or
 // the first launch that failed.
-template <int D, int MODE, bool PAGED>
+template <int D, int MODE, bool PAGED, int DV = D>
 int launch(Args a, float* scratch, long long scratch_len,
            cudaStream_t stream) {
   if (a.G > max_g<D>()) return (int)cudaErrorInvalidValue;
@@ -1386,14 +1418,18 @@ int launch(Args a, float* scratch, long long scratch_len,
     if constexpr (D == 128) {
       const int rows = chain_rows(D, a.G);
       if (rows == kChainG4)
-        return launch_chain<D, PAGED, kChainG4>(a, scratch, stream);
+        return launch_chain<D, PAGED, kChainG4, kChainG4, DV>(a, scratch,
+                                                             stream);
       if (rows == kChainG8)
         return a.G <= kChainG6
-                   ? launch_chain<D, PAGED, kChainG8, 6>(a, scratch, stream)
-                   : launch_chain<D, PAGED, kChainG8, 8>(a, scratch, stream);
+                   ? launch_chain<D, PAGED, kChainG8, 6, DV>(a, scratch,
+                                                             stream)
+                   : launch_chain<D, PAGED, kChainG8, 8, DV>(a, scratch,
+                                                             stream);
     }
-    return launch_chain<D, PAGED, kChainG>(a, scratch, stream);
+    return launch_chain<D, PAGED, kChainG, kChainG, DV>(a, scratch, stream);
   } else {
+    static_assert(DV == D, "the dense heads hold whole rows");
     const long long tiles = (long long)a.B * a.Hkv * a.G * a.nT;
     a.scores = scratch;
     a.tmax = a.scores + tiles * kTile;
@@ -1425,9 +1461,9 @@ int launch(Args a, float* scratch, long long scratch_len,
 }
 
 // `launch` for the head dims the port instantiates (gpt2-small's 64 and
-// its --reduced form's 32, in every mode; phi3-medium's 128 and
-// recurrentgemma's 256 in the normalized mode only: neither shards its
-// sequence).
+// its --reduced form's 32, in every mode; phi3-medium's 128,
+// recurrentgemma's 256 and h2o-danube3's 120, on the D 128 kernels with
+// DV = 120, in the normalized mode only: none shards its sequence).
 template <int MODE, bool PAGED>
 int run(const Args& a, int D, float* scratch, long long scratch_len,
         cudaStream_t stream) {
@@ -1438,6 +1474,11 @@ int run(const Args& a, int D, float* scratch, long long scratch_len,
       return launch<32, MODE, PAGED>(a, scratch, scratch_len, stream);
     case 64:
       return launch<64, MODE, PAGED>(a, scratch, scratch_len, stream);
+    case 120:
+      if constexpr (MODE == kNormalized)
+        return launch<128, MODE, PAGED, 120>(a, scratch, scratch_len, stream);
+      else
+        return (int)cudaErrorInvalidValue;
     case 128:
       if constexpr (MODE == kNormalized)
         return launch<128, MODE, PAGED>(a, scratch, scratch_len, stream);

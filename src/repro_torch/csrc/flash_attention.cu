@@ -59,10 +59,12 @@
 // Head dims 128 (phi3-medium: 4 query heads a KV head) and 256
 // (recurrentgemma: 16 query heads on one KV head) have a kernel of their
 // own, fa_rows below, templated on the head dim and built for this
-// card's CUDA cores: the function's f32 FMA chains run at most at one FMA
-// a clock on each of an SM's 128 lanes, so the design spends itself on
-// how many FMAs each shared-memory load and each issued instruction
-// feeds.
+// card's CUDA cores (h2o-danube3's head dim 120 runs the D 128 kernel
+// with columns 120-127 of q, K and V zero-filled as they load, so each
+// score's chain ends in exact +0 terms, and 120 columns written): the
+// function's f32 FMA chains run at most at one FMA a clock on each of an
+// SM's 128 lanes, so the design spends itself on how many FMAs each
+// shared-memory load and each issued instruction feeds.
 // - A CTA of 256 threads takes 64 query rows of one KV head, rows being
 //   (position, query head) pairs, position-major: at G 16 four positions
 //   of all 16 heads, at G 4 sixteen positions of 4 heads, which share
@@ -689,16 +691,26 @@ struct Staged {
   uint4 w[2];
 };
 
+// Whether the kernel of head dim kD also serves a narrower head dim dv,
+// zero-filling the rest of each q, K and V row as it loads them: D 128
+// serves h2o-danube3's 120 (an exact +0 at the end of each score's
+// chain; dv columns written). Elsewhere that code folds away.
+template <int kD>
+constexpr bool kNarrow = kD == 128;
+
 // K slab sl (d 16 sl .. 16 sl + 15) of the nkeys keys from key0:
-// [key][16 d]; thread tid takes key tid / 2 (+ 128), half tid % 2
+// [key][16 d]; thread tid takes key tid / 2 (+ 128), half tid % 2. Columns
+// at or past dv (the head dim the tensors hold) load as zeros.
+template <int kD>
 __device__ __forceinline__ void load_k(Staged& st, const __nv_bfloat16* kb,
                                        long long kss, int key0, int nkeys,
-                                       int km, int sl) {
+                                       int km, int sl, int dv) {
 #pragma unroll
   for (int n = 0; n < 2; ++n) {
     const int r = threadIdx.x / 2 + n * (kThreads / 2), h = threadIdx.x % 2;
     const int key = key0 + r;
-    st.w[n] = r < nkeys && key < km
+    st.w[n] = r < nkeys && key < km &&
+                      (!kNarrow<kD> || kSlabD * sl + 8 * h < dv)
                   ? *reinterpret_cast<const uint4*>(kb + key * kss +
                                                     kSlabD * sl + 8 * h)
                   : make_uint4(0, 0, 0, 0);
@@ -720,18 +732,19 @@ __device__ __forceinline__ void store_k(float* stage, const Staged& st,
 }
 
 // V slab: 16 keys from key0, all kD d, [key][kD]; 16 bytes a thread at
-// kD = 128, 32 at 256
+// kD = 128, 32 at 256; columns at or past dv load as zeros
 template <int kD>
 __device__ __forceinline__ void load_v(Staged& st, const __nv_bfloat16* vb,
-                                       long long vss, int key0, int km) {
+                                       long long vss, int key0, int km,
+                                       int dv) {
 #pragma unroll
   for (int n = 0; n < Layout<kD>::kVKeys * kD / 8 / kThreads; ++n) {
     const int i = threadIdx.x + n * kThreads;
     const int r = i / (kD / 8), c = i % (kD / 8);
     const int key = key0 + r;
-    st.w[n] = key < km ? *reinterpret_cast<const uint4*>(vb + key * vss +
-                                                         8 * c)
-                       : make_uint4(0, 0, 0, 0);
+    st.w[n] = key < km && (!kNarrow<kD> || 8 * c < dv)
+                  ? *reinterpret_cast<const uint4*>(vb + key * vss + 8 * c)
+                  : make_uint4(0, 0, 0, 0);
   }
 }
 
@@ -890,6 +903,7 @@ __device__ __forceinline__ void pv_slab(const float* sp, const float* vs,
   }
 }
 
+// dv: the head dim of the tensors, kD or (where kNarrow) fewer columns
 template <int kD, int BACKEND>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_rows_kernel(const __nv_bfloat16* __restrict__ q,
@@ -899,7 +913,7 @@ fa_rows_kernel(const __nv_bfloat16* __restrict__ q,
                const int* __restrict__ q_offset, int q_off, int H, int Hkv,
                int Sq, int Sk, Strides qs, Strides ks, Strides vs,
                Strides os, float sm_scale, int causal, int window,
-               int block_k) {
+               int block_k, int dv) {
   using L = Layout<kD>;
   constexpr int C = L::kCols;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -938,11 +952,12 @@ fa_rows_kernel(const __nv_bfloat16* __restrict__ q,
   Staged st;
   if (blk < wk.blk_end) {
     wk.live(blk, g_lo, g_hi);
-    load_k(st, kb, ks.s, blk * block_k + g_lo * kGroup,
-           piece(g_hi - g_lo) * kGroup, wk.kmax(blk), 0);
+    load_k<kD>(st, kb, ks.s, blk * block_k + g_lo * kGroup,
+               piece(g_hi - g_lo) * kGroup, wk.kmax(blk), 0, dv);
   }
 
-  // q * sm_scale, transposed: sQt[d][row]; rows past Sq * G are zeros
+  // q * sm_scale, transposed: sQt[d][row]; rows past Sq * G and columns
+  // at or past dv are zeros
   {
     constexpr int CH = kD / 8, N = kRows * CH / kThreads;
     uint4 w[N];
@@ -950,7 +965,7 @@ fa_rows_kernel(const __nv_bfloat16* __restrict__ q,
     for (int n = 0; n < N; ++n) {
       const int i = tid + n * kThreads, r = i % kRows, c = i / kRows;
       const int row = r0 + r;
-      w[n] = row < nrows
+      w[n] = row < nrows && (!kNarrow<kD> || c * 8 < dv)
                  ? *reinterpret_cast<const uint4*>(
                        q + b * qs.b + (hk * G + row % G) * qs.h +
                        (long long)(row / G) * qs.s + c * 8)
@@ -1016,11 +1031,11 @@ fa_rows_kernel(const __nv_bfloat16* __restrict__ q,
         const int nn = sl + 1 < kD / kSlabD ? n : piece(g_hi - gs - n);
         const bool nk = sl + 1 < kD / kSlabD || gs + n < g_hi;
         if (nk)
-          load_k(st, kb, ks.s, k0 + (sl + 1 < kD / kSlabD ? gs : gs + n) *
-                                        kGroup,
-                 nn * kGroup, km, (sl + 1) % (kD / kSlabD));
+          load_k<kD>(st, kb, ks.s,
+                     k0 + (sl + 1 < kD / kSlabD ? gs : gs + n) * kGroup,
+                     nn * kGroup, km, (sl + 1) % (kD / kSlabD), dv);
         else
-          load_v<kD>(st, vb, vs.s, k0 + g_lo * kGroup, km);
+          load_v<kD>(st, vb, vs.s, k0 + g_lo * kGroup, km, dv);
         if (on) {
           const float* kst = ring + stage * kStage +
                              (gw * kGroup + tc) * kSlabD;
@@ -1084,10 +1099,10 @@ fa_rows_kernel(const __nv_bfloat16* __restrict__ q,
       float* nst = ring + (stage ^ 1) * kStage;
       const bool nv = hg + 1 < SPG * g_hi;
       if (nv)
-        load_v<kD>(st, vb, vs.s, k0 + (hg + 1) * VK, km);
+        load_v<kD>(st, vb, vs.s, k0 + (hg + 1) * VK, km, dv);
       else if (nxt < wk.blk_end)
-        load_k(st, kb, ks.s, nxt * block_k + n_lo * kGroup,
-               piece(n_hi - n_lo) * kGroup, wk.kmax(nxt), 0);
+        load_k<kD>(st, kb, ks.s, nxt * block_k + n_lo * kGroup,
+                   piece(n_hi - n_lo) * kGroup, wk.kmax(nxt), 0, dv);
       if (hg == SPG * g_lo) {
         // row lrow's block max, m_new and alpha, for every thread; then p
         // of the block's first two groups
@@ -1147,6 +1162,9 @@ fa_rows_kernel(const __nv_bfloat16* __restrict__ q,
   load_f32<4>(sMn + 4 * tr, l_all);
   load_f32<4>(sMn + 32 + 4 * tr, l_all + 4);
 
+  if constexpr (kNarrow<kD>) {
+    if (C * (4 * warp + tc) >= dv) return;     // the zero-filled columns
+  }
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int row = r0 + (i / 4) * 32 + 4 * tr + i % 4;
@@ -1167,7 +1185,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
            const void* kv_len, const void* q_offset, int q_off, int B, int H,
            int Hkv, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
            Strides os, float sm_scale, int causal, int window, int block_k,
-           cudaStream_t stream) {
+           int dv, cudaStream_t stream) {
   constexpr int kMaxDevices = 64;
   static bool raised[kMaxDevices] = {};
   int dev = 0;
@@ -1196,7 +1214,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(v),
       static_cast<__nv_bfloat16*>(o), static_cast<const int*>(kv_len),
       static_cast<const int*>(q_offset), q_off, H, Hkv, Sq, Sk, qs, ks, vs, os,
-      sm_scale, causal, window, block_k);
+      sm_scale, causal, window, block_k, dv);
   return (int)cudaGetLastError();
 }
 
@@ -1208,6 +1226,7 @@ size_t smem_bytes(int D, int block_k) {
       return Smem<32>::bytes(score_keys<32>(block_k));
     case 64:
       return Smem<64>::bytes(score_keys<64>(block_k));
+    case 120:
     case 128:
       return fa_rows::smem_bytes<128>(block_k);
     case 256:
@@ -1223,11 +1242,11 @@ int launch(const void* q, const void* k, const void* v, void* o,
            int H, int Hkv, int Sq, int Sk, Strides qs, Strides ks,
            Strides vs, Strides os, float sm_scale, int causal, int window,
            int block_k, cudaStream_t stream) {
-  if constexpr (D >= 128) {
-    return fa_rows::launch<D, BACKEND>(q, k, v, o, kv_len, q_offset, q_off,
-                                       B, H, Hkv, Sq, Sk, qs, ks, vs, os,
-                                       sm_scale, causal, window, block_k,
-                                       stream);
+  if constexpr (D >= 120) {
+    // head dim 120 runs the D 128 kernel on zero-filled columns
+    return fa_rows::launch<D == 120 ? 128 : D, BACKEND>(
+        q, k, v, o, kv_len, q_offset, q_off, B, H, Hkv, Sq, Sk, qs, ks, vs,
+        os, sm_scale, causal, window, block_k, D, stream);
   } else {
     // the shared-memory limit, raised to the card's once per instantiation
     // and device
@@ -1327,6 +1346,10 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
       return launch_exp<64>(backend, q, k, v, o, kv_len, q_offset, q_off, B,
                             H, Hkv, Sq, Sk, qs, ks, vs, os, sm_scale, causal,
                             window, block_k, s);
+    case 120:
+      return launch_exp<120>(backend, q, k, v, o, kv_len, q_offset, q_off,
+                             B, H, Hkv, Sq, Sk, qs, ks, vs, os, sm_scale,
+                             causal, window, block_k, s);
     case 128:
       return launch_exp<128>(backend, q, k, v, o, kv_len, q_offset, q_off,
                              B, H, Hkv, Sq, Sk, qs, ks, vs, os, sm_scale,

@@ -68,28 +68,35 @@ PAGED_LIB = KernelLib("decode_attention_paged.cu")     # paged_decode_fwd
 PAGED_PARTIAL_LIB = KernelLib("decode_attention_paged.cu")
 PAGED_PACKED_LIB = KernelLib("decode_attention_paged.cu")
 # head dims of the normalized sweeps (B2, B7): gpt2-small's 64, its
-# --reduced config's 32, phi3-medium's 128, recurrentgemma's 256; the
+# --reduced config's 32, h2o-danube3's 120, phi3-medium's 128,
+# recurrentgemma's 256; the
 # partial and packed modes (B5, B6, B8, B9) serve the sequence-sharded
 # dense path only, whose configs have head dims 32 and 64
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 120, 128, 256)
 STAT_HEAD_DIMS = (32, 64)
+# head dims that run a wider instantiation of the kernels: the rest of each
+# q, K and V row is zero-filled in shared memory (an exact +0 at the end
+# of each score's chain) and the scratch keeps the wider rows
+KERNEL_D = {120: 128}
 # head dims whose plain sweep writes its products key-major, (keys, d) @
 # (d, G) and (d, keys) @ (keys, G): the orientation in which cuBLAS's
 # f32 product on the H100 sums each score over d and each p @ v and l over
 # the block's keys in order (tools/matmul_order.py reads it), the order
 # the kernels at these head dims chain them in (block_chain in
-# decode_split.cuh); 32 and 64 keep einsum / sum
-KEY_MAJOR_DIMS = (128, 256)
+# decode_split.cuh; at 120 as at 128, tools/d128_order.py --d 120); 32 and
+# 64 keep einsum / sum
+KEY_MAJOR_DIMS = (120, 128, 256)
 # query heads per KV head the sweep takes at a head dim: 16 where the
 # block chains (phi3-medium's 4 and dbrx's 6 at D 128, recurrentgemma's 16
 # at D 256; the sixteen-row path's shared memory is sized by it), 8 at D 32
 # and 64, so gpt2's heads keep their occupancy
 MAX_GROUP = {d: 16 if d in KEY_MAJOR_DIMS else 8 for d in HEAD_DIMS}
 # the tiers of query rows a key the chained sweep's scores take at head
-# dim 128 (chain_rows in decode_split.cuh): G <= CHAIN_G4 (phi3-medium's
-# 4) takes four rows, G <= CHAIN_G8 (dbrx's 6) eight, each an
-# instantiation of its own whose stage 2 chains no row past G (at eight
-# rows: six for G <= 6); G 9 to 16 take MAX_GROUP's 16
+# dim 128, and so at 120 (chain_rows in decode_split.cuh): G <= CHAIN_G4
+# (phi3-medium's and h2o-danube3's 4) takes four rows, G <= CHAIN_G8
+# (dbrx's 6) eight, each an instantiation of its own whose stage 2
+# chains no row past G (at eight rows: six for G <= 6); G 9 to 16 take
+# MAX_GROUP's 16
 CHAIN_G4 = 4
 CHAIN_G8 = 8
 TILE = 64                 # keys per tile of the split sweep (decode_split.cuh)
@@ -128,6 +135,15 @@ def _sweep_plain(q, k_cache, v_cache, cache_len, seq_offset, *, window,
     acc = torch.zeros((b, hkv, g, d), dtype=torch.float32, device=q.device)
     bs = min(block_s, smax)
     key_major = d in KEY_MAJOR_DIMS
+    # one query row would take cuBLAS's matrix-vector path, which does not
+    # sum in order; a second, zero row keeps the matrix product's order
+    # (tools/d128_order.py --d 120)
+    gm = max(g, 2) if key_major else g
+
+    def rows(t):                          # (..., G, n) -> (..., gm, n)
+        return t if gm == g else torch.nn.functional.pad(
+            t, (0, 0, 0, gm - g))
+    qm = rows(qg)
     for k0 in range(0, smax, bs):
         kb = kk[:, :, k0:k0 + bs].float()
         vb = vv[:, :, k0:k0 + bs].float()
@@ -138,7 +154,8 @@ def _sweep_plain(q, k_cache, v_cache, cache_len, seq_offset, *, window,
             keep = keep & (kpos >= cl - window)
         keep = keep[:, None, None, :]
         if key_major:
-            s = (kb.contiguous() @ qg.transpose(-1, -2)).transpose(-1, -2)
+            s = (kb.contiguous() @ qm.transpose(-1, -2)).transpose(
+                -1, -2)[..., :g, :]
         else:
             s = torch.einsum("bkgd,bktd->bkgt", qg, kb)
         s = torch.where(keep, s, NEG_INF)
@@ -147,12 +164,13 @@ def _sweep_plain(q, k_cache, v_cache, cache_len, seq_offset, *, window,
         p = torch.where(keep, exp_fn(s - m_new[..., None]), 0.0)
         pr = p.to(cdt).float()
         if key_major:
-            pt = p.contiguous().transpose(-1, -2)            # (keys, G)
+            pt = rows(p).contiguous().transpose(-1, -2)      # (keys, gm)
             vt = vb.contiguous().transpose(-1, -2)           # (d, keys)
             # l as the product of p with d rows of ones, one kept: the
             # same product as p @ v; with one row cuBLAS leaves key order
-            l_blk = (torch.ones_like(vt) @ pt)[..., 0, :]
-            pv = (vt @ pr.contiguous().transpose(-1, -2)).transpose(-1, -2)
+            l_blk = (torch.ones_like(vt) @ pt)[..., 0, :g]
+            pv = (vt @ rows(pr).contiguous().transpose(-1, -2)).transpose(
+                -1, -2)[..., :g, :]
         else:
             l_blk = p.sum(dim=-1)
             pv = torch.einsum("bkgt,bktd->bkgd", pr, vb)
@@ -255,9 +273,10 @@ def _ptrs(outs):
 
 def _chain_rows(d, g):
     """Query rows a key the chained sweep's scores take at head dim ``d``
-    for ``g`` query heads a KV head: at head dim 128 CHAIN_G4 for g <=
-    CHAIN_G4 and CHAIN_G8 for g <= CHAIN_G8, else MAX_GROUP[d]."""
-    if d == 128:
+    for ``g`` query heads a KV head: at head dim 128 (and 120, which runs
+    it) CHAIN_G4 for g <= CHAIN_G4 and CHAIN_G8 for g <= CHAIN_G8, else
+    MAX_GROUP[d]."""
+    if KERNEL_D.get(d, d) == 128:
         for rows in (CHAIN_G4, CHAIN_G8):
             if g <= rows:
                 return rows
@@ -272,8 +291,10 @@ def _split_scratch(qg, keys, block):
     head); at ``KEY_MAJOR_DIMS``, where the kernels chain each update
     block by column slices (``block_chain``), the scores of
     ``_chain_rows(d, g)`` query rows a key, and each update block's p @
-    v, alpha and l. Returns (buffer, its length)."""
+    v, alpha and l, at the width of the instantiation that runs ``d``
+    (``KERNEL_D``). Returns (buffer, its length)."""
     b, hkv, g, d = qg.shape
+    d = KERNEL_D.get(d, d)
     bs = max(min(block, keys), 1)
     blocks = max(-(-keys // bs), 1)
     tiles = blocks * -(-bs // TILE)

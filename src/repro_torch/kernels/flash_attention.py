@@ -21,11 +21,13 @@ from repro_torch.core.vexp import get_exp_fn
 from .build import BACKEND_CODE, F, I, KernelLib, LL, P
 
 LIB = KernelLib("flash_attention.cu")
-HEAD_DIMS = (32, 64, 128, 256)  # gpt2-small's 64, its --reduced config's
-                                # 32, phi3-medium's 128, recurrentgemma's
-                                # 256
-L_CHAIN_DIMS = (128, 256)  # head dims whose kernel (fa_rows) chains each
-                           # block's l
+HEAD_DIMS = (32, 64, 120, 128, 256)  # gpt2-small's 64, its --reduced
+                                     # config's 32, h2o-danube3's 120,
+                                     # phi3-medium's 128, recurrentgemma's
+                                     # 256; 120 runs the D 128 kernel on
+                                     # zero-filled columns
+L_CHAIN_DIMS = (120, 128, 256)  # head dims whose kernel (fa_rows) chains
+                                # each block's l
 _SMEM_OK = set()          # (device, head dim, block_k) that fit
 
 
@@ -37,8 +39,8 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, kv_len=None,
     f32 dots, keys at or past ``kv_len[b]`` masked, queries at
     ``q_offset`` + i. Each block's l is summed in the order of the
     kernel's instantiation at this head dim: at D = 32 and 64 the
-    threads' partial sums and a tree, nearest to ``sum``'s; at D = 128
-    and 256 one chain over the block's keys in order (``L_CHAIN_DIMS``,
+    threads' partial sums and a tree, nearest to ``sum``'s; at D = 120,
+    128 and 256 one chain over the block's keys in order (``L_CHAIN_DIMS``,
     ``_attention_flash_l_chain``), since over their ~10-30x more outputs
     a tree's one-ulp flips reach outputs of |o| >= 0.5, past the exact
     limit."""
@@ -113,7 +115,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, kv_len=None,
     The policy gives the exp backend and ``block_k``, the online-update
     block; the kernel holds a block's scores in shared memory, so on the
     card ``block_k`` is bounded by it (on an H100: 640 keys at D = 64 with
-    64-row query tiles; 640 at D = 128 and 512 at D = 256, whose 64-row
+    64-row query tiles; 640 at D = 120 and 128 and 512 at D = 256, whose 64-row
     tiles of (position, head) pairs keep q^T and the K / V slabs as f32
     beside a 256-byte row of scores a key)."""
     b, sq, h, d = q.shape

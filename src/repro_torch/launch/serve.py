@@ -815,7 +815,9 @@ class Server:
     ``block_budget`` (physical pages per group, default a full
     reservation per slot plus a scratch page per shard) and
     ``prefix_cache`` exist for tests that squeeze the pool or turn the
-    cache off. ``kv_mode`` ("auto", "seq", "batch") with ``shards`` (a
+    cache off (None: on wherever the pool keeps one, which a windowed
+    ring does not; True on a windowed paged pool raises). ``kv_mode``
+    ("auto", "seq", "batch") with ``shards`` (a
     ``distributed.ShardGroup``) places the cache:
     ``distributed.resolve_kv_shards`` says when "seq" shards a group's
     cache over the group's ranks; every rank then constructs the same
@@ -832,7 +834,7 @@ class Server:
                  policy: Optional[ExecPolicy] = None,
                  policy_groups: Optional[dict] = None, device=None,
                  paged: bool = False, block_budget: Optional[int] = None,
-                 prefix_cache: bool = True, kv_mode: str = "auto",
+                 prefix_cache: Optional[bool] = None, kv_mode: str = "auto",
                  shards=None, cuda_graphs: bool = True,
                  injector: Optional[FaultInjector] = None,
                  deadline_s: Optional[float] = None, degrade_groups=(),
@@ -844,8 +846,12 @@ class Server:
         self.cfg, self.params = cfg, params
         self.max_batch, self.max_seq = max_batch, max_seq
         # a windowed family keeps a ring of the window at most (reference
-        # serve.py:947): a full-window ring decodes without bound
+        # serve.py:947): a full-window ring decodes without bound, and a
+        # wave admits prompts of at most the ring (submit refuses longer
+        # ones), so no prefill wraps it
         self.cache_s = min(max_seq, cfg.sliding_window or max_seq)
+        if prefix_cache is None:
+            prefix_cache = cfg.sliding_window is None
         self.policy = policy if policy is not None else resolve_policy(cfg)
         groups = dict(policy_groups) if policy_groups else {}
         groups.setdefault("default", self.policy)
@@ -1164,7 +1170,10 @@ def make_requests(cfg, n, prompt_len, max_new, *, mixed_lengths=False,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gpt2-small")
+    ap.add_argument("--arch", default="gpt2-small",
+                    help="a ported config: gpt2-small, mamba2-1.3b, "
+                         "recurrentgemma-9b, phi3-medium-14b, "
+                         "h2o-danube3-4b, dbrx-132b, grok-1-314b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)

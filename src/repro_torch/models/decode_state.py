@@ -421,6 +421,15 @@ class DecodeState:
         as recurrent state is)."""
         return None
 
+    def _linear_cap(self):
+        """``max_len`` of a KV or ring pool (reference ``_linear_cap``,
+        ``decode_state.py:597-606``): None for a full-window ring, which
+        wraps, so a slot decodes without bound; a pool narrower than the
+        window cannot wrap (the cursor pos % window runs past it) and
+        stops slots at its capacity, as a linear cache does."""
+        w = self.cfg.sliding_window
+        return self.cache_s if w is None or self.cache_s < w else None
+
     def prefill_width(self, n: int) -> int:
         """Admission width for a wave whose longest prompt is ``n``."""
         return _len_bucket(n, self.cache_s)
@@ -889,13 +898,17 @@ class DecodeState:
 
 
 class KVDecodeState(DecodeState):
-    """Dense transformer: contiguous KV cache + per-slot positions."""
+    """Dense transformer: contiguous KV cache + per-slot positions. A
+    windowed config's cache is a ring of ``cache_s`` = min(max_seq,
+    window) rows (``max_len`` None at the full window); it does not shard
+    its sequence or speculate (reference ``decode_state.py:834-853``)."""
 
     kind = "kv"
 
     @classmethod
     def supports_seq_sharding(cls, cfg) -> bool:
-        return True              # a linear cache (the port has no windows)
+        # a ring's wrapping write straddles the slices
+        return cfg.sliding_window is None
 
     def _state_axes(self, cfg):
         return transformer.state_axes(cfg)
@@ -936,14 +949,15 @@ class KVDecodeState(DecodeState):
 
     def max_len(self):
         # a linear cache is exhausted when the next write would fall past
-        # its last row
-        return self.cache_s
+        # its last row; a full-window ring wraps instead
+        return self._linear_cap()
 
     def supports_speculative(self) -> bool:
         # a linear, unsharded cache (reference decode_state.py:845-853):
         # the verify program is unsharded, and the position-only rollback
-        # relies on rejected rows staying masked until overwritten
-        return self.shard is None
+        # relies on rejected rows staying masked until overwritten, where
+        # a ring's wrap overwrites the pre-burst row it lands on
+        return self.shard is None and self.max_len() is not None
 
     def _spec_mode(self) -> str:
         return "kv"
@@ -1012,11 +1026,7 @@ class HybridDecodeState(DecodeState):
     RG-LRU (h, conv) rows beside the local attention's ring-buffer KV
     (port of ``HybridDecodeState``, ``decode_state.py:946-992``).
 
-    * ``max_len``: None for a full-window pool (the ring wraps, so a slot
-      decodes without bound); a pool narrower than the window cannot wrap
-      its ring (the cursor pos % window runs past it) and stops slots at
-      its capacity, as a linear cache does (``_linear_cap``,
-      ``decode_state.py:597-606``).
+    * ``max_len``: ``_linear_cap``, None for a full-window pool.
     * ``reset_slots`` zeroes only the recurrent rows: the ring rows are
       masked by length and overwritten by the next fixed-width admission.
     * ``prefill_width`` is fixed at ``cache_s``: the RG-LRU scan's
@@ -1060,8 +1070,7 @@ class HybridDecodeState(DecodeState):
         return logits
 
     def max_len(self):
-        w = self.cfg.sliding_window
-        return self.cache_s if w is None or self.cache_s < w else None
+        return self._linear_cap()
 
     def _reset_leaf(self, ax) -> bool:
         return ax.seq is None
@@ -1168,6 +1177,12 @@ class PagedKVDecodeState(KVDecodeState):
       * no shared page is ever written: decode writes only at positions
         >= the prompt length, past every full (shareable) prompt page.
 
+    A windowed config's table is a ring of ceil(cache_s / page) pages,
+    allocated whole at admission and freed whole at finish, with no
+    prefix cache (a ring page's content depends on the slot's wrap phase;
+    reference ``decode_state.py:1250``) and monolithic admission only
+    (``:1550``): asking for either raises.
+
     Sequence-sharded over n ranks (``comm``), the allocator has one
     partition per rank: table column c belongs to rank c // (ns/n), global
     page ids are partition-major, and each rank's pool holds only its
@@ -1185,6 +1200,9 @@ class PagedKVDecodeState(KVDecodeState):
                  comm=None, cuda_graphs=True, n_pages=None,
                  prefix_cache=True):
         from .block_pool import BlockAllocator, PrefixCache
+        if prefix_cache and cfg.sliding_window:
+            raise ValueError("a windowed (ring) paged pool has no prefix "
+                             "cache: pass prefix_cache=False")
         self.page = policy.block_page
         self.ns = -(-cache_s // self.page)          # table columns per slot
         super().__init__(cfg, params, policy, pool_width, cache_s,
@@ -1446,8 +1464,9 @@ class PagedKVDecodeState(KVDecodeState):
     def supports_speculative(self) -> bool:
         # the preconditions of per-slot chunk admission (reference
         # decode_state.py:1509-1512): the verify writes through the device
-        # tables, whose ids are this rank's only on an unsharded pool
-        return self.supports_chunked()
+        # tables, whose ids are this rank's only on an unsharded pool; a
+        # ring cannot roll back
+        return self.supports_chunked() and self.max_len() is not None
 
     def _spec_mode(self) -> str:
         return "kv_paged"
@@ -1469,6 +1488,16 @@ class PagedKVDecodeState(KVDecodeState):
         # monolithically, as the reference's do
         return self.shard is None
 
+    def chunk_width(self, c: int) -> int:
+        self._no_ring_chunks()
+        return super().chunk_width(c)
+
+    def _no_ring_chunks(self):
+        if self.cfg.sliding_window:
+            raise ValueError("a windowed (ring) paged pool admits "
+                             "monolithically (reference decode_state.py:"
+                             "1550): serve it with prefill_chunk=0")
+
     def begin_chunk(self, slot, prompt, plen) -> int:
         """Reserve the slot's whole table now (the full-reservation
         invariant of monolithic admission) and attach this prompt's own
@@ -1476,6 +1505,7 @@ class PagedKVDecodeState(KVDecodeState):
         starts past the attached pages; chunks never write them (only
         full pages are shared, and writes begin at the cursor). On
         OutOfBlocks everything taken is released first."""
+        self._no_ring_chunks()
         self._ensure_cache()
         self._maybe_inject_admission_fault()
         j, plen = int(slot), int(plen)

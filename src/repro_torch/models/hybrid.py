@@ -56,9 +56,9 @@ from .layers import gelu, mask_padded_logits, mlp_apply, norm_apply, \
 from .ssm import _causal_conv
 from .state_spec import LeafAxes
 from .transformer import (MLP, Attention, Norm, _chunk_lanes, _dense, _live,
-                          _param, _positions, _qkv, _write_chunk_kv,
-                          _write_chunk_kv_paged, _write_token_kv,
-                          _write_token_kv_paged)
+                          _param, _positions, _qkv, _ring_len, _ring_pos,
+                          _ring_rows, _write_chunk_kv, _write_chunk_kv_paged,
+                          _write_token_kv, _write_token_kv_paged)
 
 RG_LRU_C = 8.0     # Griffin's fixed exponent scale
 LAYOUT = "bshd"    # the ring buffers' layout, whatever cfg.kv_cache_layout
@@ -293,17 +293,6 @@ def attn_layer_apply(x, p, cfg, pos, kv_len=None, *, policy):
     return _attn_out(x, o, p, cfg, policy), (k, v)
 
 
-def _ring_len(cfg, pos):
-    """Keys in a slot's ring at position ``pos`` (its token written)."""
-    w = cfg.sliding_window
-    return torch.clamp(pos + 1, max=w) if w else pos + 1
-
-
-def _ring_pos(cfg, pos):
-    w = cfg.sliding_window
-    return torch.remainder(pos, w) if w else pos
-
-
 @hot_path
 def attn_layer_decode(x, p, cfg, ck, cv, pos, wpos, ok, *, policy):
     """Single-token local-attention decode against a ring buffer: the
@@ -453,7 +442,6 @@ def prefill(params, cfg, tokens, *, prompt_len=None, policy):
     dev = x.device
     pos = torch.arange(s, device=dev)[None, :]
     w = cfg.sliding_window
-    win = min(s, w or s)
     plen = last_idx = valid = None
     if prompt_len is not None:
         if w and s > w:
@@ -482,10 +470,7 @@ def prefill(params, cfg, tokens, *, prompt_len=None, policy):
             # pad rows must not reach the decode state
             k = torch.where(valid, k, 0)
             v = torch.where(valid, v, 0)
-        k, v = k[:, s - win:], v[:, s - win:]
-        if w and s > w:
-            k = torch.roll(k, s % w, dims=1)
-            v = torch.roll(v, s % w, dims=1)
+        k, v = _ring_rows(k, w), _ring_rows(v, w)
         st["k"].append(k.to(torch.bfloat16))
         st["v"].append(v.to(torch.bfloat16))
     for rec in params.tail:

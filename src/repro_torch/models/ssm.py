@@ -303,8 +303,9 @@ def forward(params, cfg, tokens, *, policy):
     return norm_apply(x, params.ln_f, cfg.norm, cfg.norm_eps)
 
 
-def init_cache(cfg, batch, seq_len=None, device="cpu"):
-    """Decode state for ``batch`` rows. ``seq_len`` is accepted for the
+def init_cache(cfg, batch, seq_len, device):
+    """Decode state for ``batch`` rows on ``device``, which the caller
+    names, as for every family's cache. ``seq_len`` is accepted for the
     family-uniform signature and unused: the state is O(1) in length."""
     del seq_len
     di, nh, ds, ng, conv_dim = ssm_dims(cfg)

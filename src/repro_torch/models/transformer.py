@@ -15,8 +15,16 @@ SwiGLU (``layers.mlp_apply``; the SwiGLU gate's exp takes the policy's
 exponential, on the card one launch of the vexp kernel a layer).
 
 The KV cache is a dict {"k", "v"} of stacked (L, B, S, Hkv, hd) ("bshd")
-or (L, B, Hkv, S, hd) ("bhsd") bf16 tensors. ``decode_step`` writes it in
-place (the reference donates it through a jitted step instead), and the
+or (L, B, Hkv, S, hd) ("bhsd") bf16 tensors. A config with a
+``sliding_window`` (h2o-danube3-4b) attends over the last ``window``
+positions and keeps a ring of min(seq, window) rows: position p at slot
+p % window, written by decode at that slot, each step sweeping the
+ring's min(pos + 1, window) slots in slot order with no window mask
+(reference ``transformer.py:402-412``, ``:633-660``, ``:741-751``); a
+paged pool holds the ring behind a table of ceil(window / page) pages,
+indexed by ``(pos % window) // page`` (``:835-845``). ``decode_step``
+writes the cache in place (the reference donates it through a jitted
+step instead), and the
 decode steps read only device tensors (positions, live mask, tables) and
 copy nothing from the host, so one CUDA graph can hold a whole step
 (``runtime.graphs.StepGraph``). The paged
@@ -170,7 +178,8 @@ def forward(params, cfg, tokens, *, policy):
     for blk in params.layers:
         h = norm_apply(x, blk.ln_attn, cfg.norm, cfg.norm_eps)
         q, k, v = _qkv(h, blk.attn, cfg, pos)
-        o = attention(q, k, v, causal=cfg.causal, policy=policy)
+        o = attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window,
+                      policy=policy)
         x = _finish_block(x, o.flatten(2) @ blk.attn.wo, blk, cfg, policy)
     return norm_apply(x, params.ln_f, cfg.norm, cfg.norm_eps)
 
@@ -188,10 +197,14 @@ def _logits(params, cfg, x):
 
 
 def init_cache(cfg, batch, seq_len, device):
+    """Stacked KV cache of ``seq_len`` rows, or a ring of min(seq_len,
+    window) rows for a windowed config."""
+    w = cfg.sliding_window
+    s = min(seq_len, w) if w else seq_len
     if cfg.kv_cache_layout == "bhsd":
-        shape = (cfg.n_layers, batch, cfg.n_kv_heads, seq_len, cfg.hd)
+        shape = (cfg.n_layers, batch, cfg.n_kv_heads, s, cfg.hd)
     else:
-        shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.hd)
+        shape = (cfg.n_layers, batch, s, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
 
@@ -210,22 +223,57 @@ def state_axes(cfg):
     return {"k": LeafAxes(1, seq), "v": LeafAxes(1, seq)}
 
 
+def _ring_len(cfg, pos):
+    """Keys in a slot's ring at position ``pos`` (its token written):
+    min(pos + 1, window), or pos + 1 without a window."""
+    w = cfg.sliding_window
+    return torch.clamp(pos + 1, max=w) if w else pos + 1
+
+
+def _ring_pos(cfg, pos):
+    """The slot position ``pos`` is written at: pos % window, or pos."""
+    w = cfg.sliding_window
+    return torch.remainder(pos, w) if w else pos
+
+
+def _ring_rows(kv, w):
+    """A prefill's (B, S, ...) K or V as the cache keeps it: all S rows
+    where S <= ``w`` (or no window), else the last ``w`` rolled into ring
+    order, position p at slot p % w (reference ``transformer.py:473-478``)."""
+    s = kv.shape[1]
+    if w and s > w:
+        return torch.roll(kv[:, s - w:], s % w, dims=1)
+    return kv
+
+
 def prefill(params, cfg, tokens, *, prompt_len=None, policy, hist=None):
     """Forward over the prompt; returns (last_logits (B, 1, V), cache).
 
     ``prompt_len`` (B,) marks ragged right-padded rows: padding keys are
     masked out of attention (the kernel takes them as per-row key
     lengths), pad K/V rows are zeroed, and logits come from each row's
-    last real token.
+    last real token. A windowed config attends over the last ``window``
+    positions and returns its ring (``_ring_rows``); a ragged prefill
+    wider than the window raises, as the ring's roll is batch-uniform.
 
     ``hist`` {"k", "v"}: (L, B, h, Hkv, hd) bf16 ("bshd" whatever the
     cache layout) is a shared-prefix KV history already in the page pool.
     ``tokens`` are then each row's suffix at absolute positions h + i,
     attending over [history | suffix] through attention's ``q_offset=h``
     with ``kv_len = h + prompt_len``; ``prompt_len`` counts suffix tokens,
-    and the returned cache and logits cover the suffix only."""
+    and the returned cache and logits cover the suffix only. Linear caches
+    only: a ring has no history split."""
+    w = cfg.sliding_window
+    if hist is not None and w:
+        raise ValueError("history-conditioned prefill needs a linear "
+                         "(non-windowed) cache")
     x = embed_inputs(params, cfg, tokens)
     b, s, _ = x.shape
+    if prompt_len is not None and w and s > w:
+        raise ValueError(
+            f"ragged prefill of {s} tokens exceeds the sliding window "
+            f"({w}): the ring-buffer roll is batch-uniform; prefill ragged "
+            f"windowed batches at <= window")
     h0 = 0 if hist is None else hist["k"].shape[2]
     pos = torch.arange(s, device=x.device)[None, :] + h0
     kv_len = valid = None
@@ -239,8 +287,8 @@ def prefill(params, cfg, tokens, *, prompt_len=None, policy, hist=None):
         h = norm_apply(x, blk.ln_attn, cfg.norm, cfg.norm_eps)
         q, k, v = _qkv(h, blk.attn, cfg, pos)
         if hist is None:
-            o = attention(q, k, v, causal=cfg.causal, kv_len=kv_len,
-                          policy=policy)
+            o = attention(q, k, v, causal=cfg.causal, window=w,
+                          kv_len=kv_len, policy=policy)
         else:
             kc = torch.cat([hist["k"][i].to(k.dtype), k], dim=1)
             vc = torch.cat([hist["v"][i].to(v.dtype), v], dim=1)
@@ -250,6 +298,7 @@ def prefill(params, cfg, tokens, *, prompt_len=None, policy, hist=None):
         if valid is not None:
             k = torch.where(valid, k, 0)
             v = torch.where(valid, v, 0)
+        k, v = _ring_rows(k, w), _ring_rows(v, w)
         if cfg.kv_cache_layout == "bhsd":
             k, v = k.transpose(1, 2), v.transpose(1, 2)
         ks.append(k.to(torch.bfloat16))
@@ -352,7 +401,9 @@ def prefill_chunk(params, cfg, tokens, cache, off, clens, *, policy,
     row's last valid lane, meaningful where the prompt completes with
     this chunk, and the cache). ``all_lanes=True`` (the speculative
     verify) returns (B, C, V) logits of every lane instead; lanes at or
-    past a row's ``clens`` are garbage the caller masks."""
+    past a row's ``clens`` are garbage the caller masks. A windowed
+    config's queries are window-masked; its prompts fit the ring, so a
+    chunk's positions are its slots."""
     lay = cfg.kv_cache_layout
     lanes = _chunk_lanes(off, clens, tokens.shape[1], tokens.device)
     pos, ok, off, kv_len = lanes
@@ -363,8 +414,8 @@ def prefill_chunk(params, cfg, tokens, cache, off, clens, *, policy,
         _write_chunk_kv(cv, v, pos, ok, lay)
         if lay == "bhsd":
             ck, cv = ck.transpose(1, 2), cv.transpose(1, 2)
-        return attention(q, ck, cv, causal=True, kv_len=kv_len,
-                         q_offset=off, policy=policy)
+        return attention(q, ck, cv, causal=True, window=cfg.sliding_window,
+                         kv_len=kv_len, q_offset=off, policy=policy)
 
     return _chunk_layers(params, cfg, tokens, lanes, layer_attn,
                          all_lanes, policy=policy), cache
@@ -426,18 +477,19 @@ def decode_step(params, cfg, token, cache, pos, *, policy, live=None):
     (B, 1, V) logits. ``live`` (B,) int: rows with ``live == 0`` leave
     their cache rows untouched (the reference parks their write at a
     dropped index). A negative token (the non-finite sentinel) is never
-    used as an embedding index."""
+    used as an embedding index. A windowed config writes its ring at
+    pos % window and sweeps min(pos + 1, window) slots."""
     b = token.shape[0]
     pos = _positions(pos, b, token.device)
     ok = _live(live, b, token.device)
     lay = cfg.kv_cache_layout
+    wpos, clen = _ring_pos(cfg, pos), _ring_len(cfg, pos)
 
     def layer_attn(i, q, k, v):
         ck, cv = cache["k"][i], cache["v"][i]
-        _write_token_kv(ck, k, pos, ok, lay)
-        _write_token_kv(cv, v, pos, ok, lay)
-        return decode_attention(q, ck, cv, pos + 1, layout=lay,
-                                policy=policy)
+        _write_token_kv(ck, k, wpos, ok, lay)
+        _write_token_kv(cv, v, wpos, ok, lay)
+        return decode_attention(q, ck, cv, clen, layout=lay, policy=policy)
 
     return _decode_layers(params, cfg, token, pos, layer_attn,
                           policy=policy), cache
@@ -470,7 +522,11 @@ def decode_step_sharded(params, cfg, token, cache, pos, *, policy, shard,
     holds this rank's (L, B, local_s, Hkv, hd) slice ("bshd"), written in
     place. Everything outside attention is replicated compute; per layer
     the merge is the step's only collective ("packed") or three of them
-    ("split"). Returns the (B, 1, V) logits, equal on every rank."""
+    ("split"). Returns the (B, 1, V) logits, equal on every rank. Linear
+    caches only: a ring's wrapping write straddles the slices."""
+    if cfg.sliding_window:
+        raise NotImplementedError("sequence-sharded decode covers linear "
+                                  "caches, not a windowed ring")
     b = token.shape[0]
     pos = _positions(pos, b, token.device)
     ok = _live(live, b, token.device)
@@ -551,19 +607,23 @@ def decode_step_paged(params, cfg, token, cache, tables, pos, *, policy,
     stacked pools of ``init_paged_cache``; ``tables`` (B, nS) int32 block
     table shared by every layer; pos (B,) int, each row's token position.
     The pool is written in place and returned with the (B, 1, V) logits;
-    the tables are read only. Rows with ``live == 0`` write nothing."""
+    the tables are read only. Rows with ``live == 0`` write nothing. A
+    windowed config's tables are rings of ceil(window / page) pages: the
+    write lands at column (pos % window) // page, and the sweep takes
+    min(pos + 1, window) keys."""
     b = token.shape[0]
     lay = cfg.kv_cache_layout
     page = cache["k"].shape[3 if lay == "bhsd" else 2]
     pos = _positions(pos, b, token.device)
-    gids, offs, ok = _paged_coords(tables, pos, _live(live, b, token.device),
-                                   page)
+    gids, offs, ok = _paged_coords(tables, _ring_pos(cfg, pos),
+                                   _live(live, b, token.device), page)
+    clen = _ring_len(cfg, pos)
 
     def layer_attn(i, q, k, v):
         pk, pv = cache["k"][i], cache["v"][i]
         _write_token_kv_paged(pk, k, gids, offs, ok, lay)
         _write_token_kv_paged(pv, v, gids, offs, ok, lay)
-        return _paged_attn(q, pk, pv, tables, pos + 1, cfg, policy)
+        return _paged_attn(q, pk, pv, tables, clen, cfg, policy)
 
     return _decode_layers(params, cfg, token, pos, layer_attn,
                           policy=policy), cache
@@ -597,8 +657,13 @@ def prefill_chunk_paged(params, cfg, tokens, cache, tables, off, clens, *,
     attend causally over them (``q_offset=off``, ``kv_len = off +
     clens``). Rows with ``clens == 0`` write nothing. The pool is
     written in place and returned with the (B, 1, V) logits (every
-    lane's (B, C, V) with ``all_lanes``)."""
+    lane's (B, C, V) with ``all_lanes``). Linear tables only: windowed
+    paged pools admit monolithically."""
     from repro_torch.kernels.decode_attention import paged_gather
+    if cfg.sliding_window:
+        raise NotImplementedError("chunked prefill over a paged ring: "
+                                  "windowed paged pools admit "
+                                  "monolithically")
     lay = cfg.kv_cache_layout
     page = cache["k"].shape[3 if lay == "bhsd" else 2]
     ns = tables.shape[1]
@@ -634,9 +699,13 @@ def decode_step_paged_sharded(params, cfg, token, cache, tables, pos, *,
     ``shard.offset`` (= rank * nS_local * page). The token's K/V land
     only on the rank owning the position; each rank walks its pages in
     partial-statistics mode and the ranks merge through the policy's
-    merge strategy. Returns the (B, 1, V) logits, equal on every rank."""
+    merge strategy. Returns the (B, 1, V) logits, equal on every rank.
+    Linear tables only."""
     from repro_torch.kernels.decode_attention import \
         decode_attention_paged_partial_merged
+    if cfg.sliding_window:
+        raise NotImplementedError("sequence-sharded paged decode covers "
+                                  "linear tables, not a windowed ring")
     b = token.shape[0]
     lay = cfg.kv_cache_layout
     page = cache["k"].shape[3 if lay == "bhsd" else 2]

@@ -454,7 +454,7 @@ def test_chunked_prefill_equals_monolithic(models, exp):
         toks[b, plen[b]:] = 0
     mono, mstate = ssm.prefill(tp, cfg, torch.from_numpy(toks),
                                prompt_len=torch.from_numpy(plen), policy=pol)
-    state = ssm.init_cache(cfg, B)
+    state = ssm.init_cache(cfg, B, None, "cpu")
     last = None
     for c in range(3):
         clens = np.clip(plen - c * q, 0, q).astype(np.int32)

@@ -20,11 +20,20 @@ kernel to both plain versions under every exp backend at:
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 tools/d128_order.py
+    python3 tools/d128_order.py [--d 120]
 
 One JSON line a (kernel, design, plain version, exp backend): max |err|,
 the share of outputs changed and whether ``ATT_LIMITS`` hold, then the
 ptxas report (registers, spills) of the D 128 kernels.
+
+``--d 120`` reads h2o-danube3-4b's head dim (32 query heads on 8 KV
+heads, G 4, d 120) instead: first which order cuBLAS's f32 products take
+at d 120 (each plain product against an in-order f32 chain, the count of
+outputs that differ), with the operands as they are and zero-padded to
+128 columns, as the reference's ops pad them, at G 4 and at the edge
+cases' G 1 (one query row, and with a second, zero row); then, where
+the kernels take head dim 120, FA, B2 and B7 against their plain
+versions under every exp backend.
 """
 
 from __future__ import annotations
@@ -193,9 +202,145 @@ def build_designs():
                                 or "Compiling" in ln)][:24]}), flush=True)
 
 
+def pad_to(x, d):
+    return torch.nn.functional.pad(x, (0, d - x.shape[-1]))
+
+
+def order_d120():
+    """Which order cuBLAS sums the plain versions' products in at d 120,
+    unpadded and padded to 128: the decode sweep's key-major products
+    and l (8 KV heads at G 4, one KV head at G 1 as one row and as two;
+    a 512- and a 64-key block) and FA's einsums (scores, p . v and l at
+    a 512-key block, 256 queries)."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    from matmul_order import chain, differ, key_sum
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(23)
+
+    def bf16_randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(
+            torch.bfloat16).float()
+
+    dev = torch.cuda.get_device_name(0)
+    # danube's G 4 on 8 KV heads, and the edge cases' G 1 on one KV head,
+    # whose single query row cuBLAS takes through its matrix-vector path;
+    # with a second, zero row (rows 2) through the matrix product's
+    for (G, H, R), K in ((c, k_) for c in ((4, 8, 4), (1, 1, 1), (1, 1, 2))
+                         for k_ in (512, 64)):
+        q, k, v = (bf16_randn(8, H, G, 120), bf16_randn(8, H, K, 120),
+                   bf16_randn(8, H, K, 120))
+        sc = chain(q, k.transpose(-1, -2))
+        p = torch.softmax(sc / 120 ** 0.5, -1)
+        pr = p.to(torch.bfloat16).float()
+        pc, lc = chain(pr, v), key_sum(p)
+
+        def rows(t):
+            return torch.nn.functional.pad(t, (0, 0, 0, R - G))
+        for pad in (120, 128):
+            qq, kk, vv = (pad_to(t, pad) for t in (q, k, v))
+            vt = vv.transpose(-1, -2)
+            print(json.dumps({
+                "order": "decode key-major", "d": 120, "padded_to": pad,
+                "G": G, "rows": R, "kv_heads": H, "keys": K,
+                "outputs": sc.numel(),
+                "scores_vs_chain": differ((kk @ rows(qq).transpose(-1, -2))
+                                          .transpose(-1, -2)[..., :G, :],
+                                          sc),
+                "pv_vs_chain": differ(
+                    (vt @ rows(pr).transpose(-1, -2)).transpose(-1, -2)
+                    [..., :G, :120], pc),
+                "l_onesD_vs_chain": differ(
+                    (torch.ones_like(vt) @ rows(p).transpose(-1, -2))
+                    [..., 0, :G], lc),
+                "device": dev}), flush=True)
+    S, K = 256, 512
+    qg = bf16_randn(2, S, 2, 4, 120)
+    k, v = bf16_randn(2, K, 2, 120), bf16_randn(2, K, 2, 120)
+    sc = chain(qg.permute(0, 2, 3, 1, 4), k.permute(0, 2, 3, 1)[:, :, None])
+    p = torch.softmax(sc, -1)
+    pr = p.to(torch.bfloat16).float()
+    pc = chain(pr, v.permute(0, 2, 1, 3)[:, :, None])
+    lc = key_sum(p)
+    for pad in (120, 128):
+        qq, kk, vv = (pad_to(t, pad) for t in (qg, k, v))
+        print(json.dumps({
+            "order": "fa einsum", "d": 120, "padded_to": pad, "G": 4,
+            "queries": S, "keys": K, "outputs": sc.numel(),
+            "scores_vs_chain": differ(
+                torch.einsum("bskgd,btkd->bkgst", qq, kk), sc),
+            "pv_vs_chain": differ(
+                torch.einsum("bkgst,btkd->bkgsd", pr, vv)[..., :120], pc),
+            "l_onesD_vs_chain": differ(torch.einsum(
+                "bkgst,btkd->bkgsd", p, torch.ones_like(vv))[..., 0], lc),
+            "device": dev}), flush=True)
+
+
+def kernels_d120():
+    """FA, B2 and B7 at d 120 against their plain versions under every
+    exp backend: the kernels run their D 128 instantiation with columns
+    120-127 zero-filled in shared memory, the plain versions their
+    unpadded key-major / l-chain products."""
+    if 120 not in fa.HEAD_DIMS or 120 not in da.HEAD_DIMS:
+        print(json.dumps({"kernels_d120": "the kernels take no head dim "
+                          "120 yet"}), flush=True)
+        return
+    paths = build.build_all(["flash_attention.cu", *DECODE_SOURCES])
+    for src, path in paths.items():
+        log = path.with_suffix(".log").read_text()
+        print(json.dumps({"ptxas": src, "lines": [
+            ln for ln in log.splitlines()
+            if re.search(r"spill|registers", ln)][:40]}), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    h, hkv, d, s = 32, 8, 120, 4096
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    sq = 1024
+    q, k, v = randn(4, sq, h, d), randn(4, sq, hkv, d), randn(4, sq, hkv, d)
+    kv_len = torch.tensor([sq, 700, 33, 1000], dtype=torch.int32,
+                          device="cuda")
+    real = (torch.arange(sq, device="cuda")[None] < kv_len[:, None])[
+        :, :, None, None]
+    qd = randn(8, 1, h, d)
+    cl = torch.randint(1, s + 1, (8,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    cl[0] = s
+    kc, vc = randn(8, s, hkv, d), randn(8, s, hkv, d)
+    ns = s // PAGE
+    kp, vp = randn(1 + 8 * ns, PAGE, hkv, d), randn(1 + 8 * ns, PAGE, hkv, d)
+    tab = ((torch.randperm(8 * ns, generator=gen, device="cuda") + 1)
+           .reshape(8, ns).to(torch.int32))
+    for exp in EXPS:
+        pol = ExecPolicy(exp_backend=exp, block_k=512, block_page=PAGE)
+        outs = {
+            ("flash_attention", "wave"): (
+                fa.flash_attention(q, k, v, kv_len=kv_len, policy=pol),
+                fa.flash_attention_plain(
+                    q, k, v, kv_len=kv_len, block_k=512, exp_backend=exp),
+                real),
+            ("decode_attention", "bshd"): (
+                da.decode_attention(qd, kc, vc, cl, policy=pol),
+                da.decode_attention_plain(
+                    qd, kc, vc, cl, block_s=pol.block_s, exp_backend=exp),
+                None),
+            ("decode_attention_paged", "bshd"): (
+                da.decode_attention_paged(qd, kp, vp, tab, cl, policy=pol),
+                da.decode_attention_paged_plain(
+                    qd, kp, vp, tab, cl, exp_backend=exp),
+                None)}
+        for (kernel, case), (out, ref, rl) in outs.items():
+            line(kernel, f"d120 {case}", "key_major", exp,
+                 *reading(out, ref, rl))
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("[d128_order] no CUDA device")
+    if sys.argv[1:] == ["--d", "120"]:
+        order_d120()
+        kernels_d120()
+        return
     if len(sys.argv) == 3 and sys.argv[1] == "--design":
         decode_order(sys.argv[2])
         return

@@ -61,7 +61,7 @@ S1_FMA = ("#pragma unroll 2\n  for (int v8 = 0; v8 < D / 8; ++v8) {",
 S1_Q = ("for (int i = tid; i < G * D; i += kScoreThreads)",
         "for (int i = tid; i < 0; i += kScoreThreads)")
 S1_K = ("  load_rows<D, PAGED, kScoreThreads>(a, a.k, b, h, phys, x, sK, "
-        "PITCH);\n", "")
+        "PITCH, DV);\n", "")
 # stage 2: the exps, the p @ v and l chains, the V copies
 S2_EXP = ("const float e = exp_as<BK>(__fsub_rn(sv[u], m));",
           "const float e = __fsub_rn(sv[u], m);")

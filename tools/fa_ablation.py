@@ -103,9 +103,10 @@ _WIDEN_256 = [("    widen8(st.w[n], f);\n",
                "    f[4] = f[5] = __uint_as_float(st.w[n].z);\n"
                "    f[6] = f[7] = __uint_as_float(st.w[n].w);\n")]
 _COPY_256 = [
-    ("    st.w[n] = r < nkeys && key < km\n", "    st.w[n] = false\n"),
-    ("    st.w[n] = key < km ? *reinterpret_cast",
-     "    st.w[n] = false ? *reinterpret_cast")]
+    ("    st.w[n] = r < nkeys && key < km &&\n",
+     "    st.w[n] = false &&\n"),
+    ("    st.w[n] = key < km && (!kNarrow<kD> || 8 * c < dv)\n",
+     "    st.w[n] = false\n")]
 CUTS_D256 = {
     # 64 (position, head) rows a CTA, 8 x 8 register tiles, K in 16-d
     # slabs and V in 16-key slabs widened to f32 through registers, l in

@@ -5,16 +5,17 @@ Pallas FlashAttention and flash-decode kernels, interpreted on the CPU)
 against the same under the ``reference`` tier, on the same tokens, under
 every exp backend.
 
-``chip_smoke.py``'s ``serve_phi3`` and ``serve_dbrx`` phases hold the
-port's ``cuda`` tier (its kernels, which compute what the Pallas kernels
-compute: q and p rounded to bf16 in the decode sweep, the blockwise
-online update) to its ``reference`` tier on the card, to limits set from
-these readings, as ``tools/ssm_form_gap.py`` sets the recurrent
-families' form limits. Run from the repository root:
+``chip_smoke.py``'s ``serve_phi3``, ``serve_dbrx`` and ``serve_danube``
+phases hold the port's ``cuda`` tier (its kernels, which compute what
+the Pallas kernels compute: q and p rounded to bf16 in the decode sweep,
+the blockwise online update) to its ``reference`` tier on the card, to
+limits set from these readings, as ``tools/ssm_form_gap.py`` sets the
+recurrent families' form limits. Run from the repository root:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/tier_gap.py \
-        [--arch phi3-medium-14b|dbrx-132b] [--width reduced|narrow|full] \
-        [--layers 2 4 6] [--extrapolate 40] [--prior FILE]
+        [--arch phi3-medium-14b|dbrx-132b|h2o-danube3-4b] \
+        [--width reduced|narrow|full] [--layers 2 4 6] [--extrapolate 40] \
+        [--prior FILE]
 
 ``--width reduced`` reads the arch's ``reduced()`` config on prompts of
 24 and 9 tokens (dbrx: 4 experts, top-2, G 1, head dim 32). The other
@@ -27,7 +28,13 @@ it a few layers on the CPU); ``--width narrow`` is dbrx-132b's shape at
 an eighth of its widths (d 768, 6 query heads on one KV head of 128: G 6
 and head dim 128 as on the card; 16 experts, top-4, capacity factor
 1.25, expert d_ff 1,344; the whole untied vocabulary; ~2 GB of f32
-weights at 8 layers). Prints one JSON line per depth: per backend the
+weights at 8 layers). h2o-danube3-4b at ``--width full`` (d 3840, 32
+query heads on 8 KV heads of 120, SwiGLU d_ff 10,240, vocabulary 32,000,
+window 4,096; f32 weights of one layer 0.62 GB, the embedding and the
+unembedding 0.98 GB) takes prompts of 1,000 and 4,096 tokens, so that its
+16 forced steps run past the ring's wrap, as ``serve_danube`` replays
+each group's 4,096-token request; its cache is the ring, never wider
+than the window. Prints one JSON line per depth: per backend the
 max |pallas - reference| over the forced steps, the max |logit| and
 their ratio. With ``--extrapolate L`` and two or more depths it also
 prints a least-squares fit of log(ratio) against log(depth) per backend
@@ -56,6 +63,9 @@ from ssm_form_gap import fit  # noqa: E402
 # (prompt lengths, forced steps) per width
 SHAPES = {"reduced": ((24, 9), 16), "narrow": ((300, 1000), 16),
           "full": ((300, 1000), 16)}
+# a windowed arch's full-width prompts: one at the window, so the forced
+# steps wrap the ring
+WINDOWED_FULL = (1000, 4096)
 # dbrx-132b at an eighth of its widths (``--width narrow``)
 NARROW = {"d_model": 768, "n_heads": 6, "n_kv_heads": 1, "head_dim": 128,
           "d_ff": 1344}
@@ -67,7 +77,12 @@ def tier_logits(params, cfg, prompt, forced, pol):
                                 {"tokens": jnp.asarray(prompt[None])},
                                 policy=pol)
     steps = len(forced)
-    cache = {k: jnp.pad(v, ((0, 0), (0, 0), (0, steps), (0, 0), (0, 0)))
+    # room for the forced tokens; a ring (a windowed arch) holds at most
+    # the window
+    s = len(prompt)
+    room = (min(s + steps, cfg.sliding_window) if cfg.sliding_window
+            else s + steps) - s
+    cache = {k: jnp.pad(v, ((0, 0), (0, 0), (0, room), (0, 0), (0, 0)))
              for k, v in cache.items()}
     out = [np.asarray(logits[0, 0])]
     for t in range(steps - 1):
@@ -88,6 +103,8 @@ def gap(width, n_layers=None, arch="phi3-medium-14b"):
             raise SystemExit("--width narrow is dbrx-132b's")
         cfg = dataclasses.replace(cfg, **NARROW)
     prompts_len, steps = SHAPES[width]
+    if width == "full" and cfg.sliding_window:
+        prompts_len = WINDOWED_FULL
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     params = api.init_params(cfg, jax.random.PRNGKey(0))
@@ -121,7 +138,8 @@ def gap(width, n_layers=None, arch="phi3-medium-14b"):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=("phi3-medium-14b", "dbrx-132b"),
+    ap.add_argument("--arch", choices=("phi3-medium-14b", "dbrx-132b",
+                                       "h2o-danube3-4b"),
                     default="phi3-medium-14b")
     ap.add_argument("--width", choices=tuple(SHAPES), default="reduced")
     ap.add_argument("--layers", type=int, nargs="*", default=[None])
