@@ -25,7 +25,13 @@ one card (gloo, host-staged collectives), then self-speculatively on both
 pools (spec_k = 4, drafts under vexp_hw, verify "scan" and "chunk",
 each burst k draft-step replays and one verify replay; scan tokens held
 to the plain serves' request by request, chunk tokens up to a near
-tie, the hw group's own-backend drafts as a control), then serves
+tie, the hw group's own-backend drafts as a control), then trains
+full-width gpt2-small through ``repro_torch.launch.train`` (B3's and
+B1's autograd Functions held to autograd of their plain versions bit
+for bit at the step's shapes; the loss falls, a resumed run repeats an
+uninterrupted one's losses bit for bit, the preemption drain, cuda vs
+reference tier, every exp backend, the step's time, memory and busy
+share; 12 B3 launches a step, none in the backward), then serves
 full-width mamba2-1.3b (the ssm family, attention-free, every gate exp
 one launch of the exp kernel) the same three ways: monolithic (graph and
 eager arms in turns, the capture audit, the decode step's graph ms per
@@ -197,13 +203,17 @@ def f32_ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def kernel_vs_plain(out, ref, real=None):
-    """(max |out - ref|, share of outputs whose bits differ) over the
-    outputs that the boolean ``real`` (broadcast to ``out``) selects."""
-    o, r = out.float(), ref.float()
+    """(max |out - ref|, share of outputs whose bits differ, max |out -
+    ref| over the outputs more than one bf16 ulp apart) over the outputs
+    that the boolean ``real`` (broadcast to ``out``) selects."""
+    from repro_torch.kernels.limits import beyond_one_ulp
+    o, r = out, ref
     if real is not None:
         sel = real.expand_as(o)
         o, r = o[sel], r[sel]
-    return float((o - r).abs().max()), float((o != r).double().mean())
+    return (float((o.float() - r.float()).abs().max()),
+            float((o.float() != r.float()).double().mean()),
+            beyond_one_ulp(o, r))
 
 
 def check_attention(kernel, readings, where=""):
@@ -213,11 +223,15 @@ def check_attention(kernel, readings, where=""):
     textbook split-KV merge (``textbook_partial``), and for FA the scan
     with p in two bf16 terms against the same scan with p exact.
     ``readings`` maps (exp, "kernel" | "half_block" | "half_page" |
-    "textbook_merge" | "p_two_terms") to (max_abs_err,
-    mismatch_share)."""
-    from repro_torch.kernels.limits import ATT_LIMITS
-    for (exp, who), (err, share) in readings.items():
+    "textbook_merge" | "p_two_terms") to ``kernel_vs_plain``'s
+    (max_abs_err, mismatch_share, max_abs_err beyond one bf16 ulp); the
+    last stands for the first where ONE_ULP_FREE names the kernel and
+    exp."""
+    from repro_torch.kernels.limits import ATT_LIMITS, ONE_ULP_FREE
+    for (exp, who), (err, share, far) in readings.items():
         lim_err, lim_share = ATT_LIMITS[kernel][exp]
+        if exp in ONE_ULP_FREE.get(kernel, ()):
+            err = far
         inside = err <= lim_err and share <= lim_share
         if who == "kernel" and not inside:
             fail(f"{kernel}{where} {exp}: kernel off its plain version by "
@@ -853,7 +867,7 @@ def _fa_case(fa, policy_cls, block_k, q, k, v, kv_len, q_offset, tag,
                                    kv_len, q_offset, window, truth=truth)
     res = {f"{tag}exact_{who}_vs_f64_mismatch_share": share
            for who, share in truth.items()}
-    for (exp, who), (err, share) in readings.items():
+    for (exp, who), (err, share, _) in readings.items():
         res[f"{tag}{exp}_{who}_max_abs_err"] = err
         res[f"{tag}{exp}_{who}_mismatch_share"] = share
     with SmiSampler() as smi:
@@ -1103,7 +1117,7 @@ def phase_flash_attention(policy_cls, block_k):
     check_attention("flash_attention", verify_readings, " verify")
     worst = max(err for rd in (readings, hot_readings, d32_readings,
                                chunk_readings, verify_readings)
-                for (_, who), (err, _) in rd.items() if who == "kernel")
+                for (_, who), (err, *_) in rd.items() if who == "kernel")
     return {"name": "flash_attention_bhsd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:104",
@@ -1162,7 +1176,7 @@ def phase_decode(policy_cls):
                                       layout=layout, exp=exp)
                 readings[exp, "textbook_merge"] = kernel_vs_plain(
                     _norm_stats(*tb).reshape(ref.shape), ref)
-        for (exp, who), (err, share) in readings.items():
+        for (exp, who), (err, share, _) in readings.items():
             res[f"{layout}_{exp}_{who}_max_abs_err"] = err
             res[f"{layout}_{exp}_{who}_mismatch_share"] = share
             if who == "kernel":
@@ -1271,7 +1285,7 @@ def phase_paged_decode(policy_cls):
                     layout=layout, exp=exp)
                 readings[exp, "textbook_merge"] = kernel_vs_plain(
                     _norm_stats(*tb).reshape(ref.shape), ref)
-        for (exp, who), (err, share) in readings.items():
+        for (exp, who), (err, share, _) in readings.items():
             res[f"{layout}_{exp}_{who}_max_abs_err"] = err
             res[f"{layout}_{exp}_{who}_mismatch_share"] = share
             if who == "kernel":
@@ -1540,13 +1554,13 @@ def phase_sharded_decode(policy_cls):
                     kernel, kern, plain, textbook, unsharded, q, cache_len,
                     offs, block, exps, policy_cls, problems)
                 tag = f"{kind}_{layout}_n{n}_"
-                for (exp, who), (err, share) in readings.items():
+                for (exp, who), (err, share, _) in readings.items():
                     res[f"{tag}{exp}_{who}_max_abs_err"] = err
                     res[f"{tag}{exp}_{who}_mismatch_share"] = share
                 res.update({f"{tag}{exp}_fold_max_abs_err": e
                             for exp, e in fold.items()})
                 worst[kind] = max([worst[kind]] + [
-                    err for (_, who), (err, _) in readings.items()
+                    err for (_, who), (err, *_) in readings.items()
                     if who == "kernel"])
                 checks.append((kernel, readings, f" {layout} n={n}"))
                 # overflow guard: per-shard maxima hundreds apart
@@ -3138,6 +3152,480 @@ def profile_serve(kernels, make_server, reqs, what):
             "top_kernels_s": {k[:80]: v / 1e6 for k, v in top}}
 
 
+# ------------------------------------------------------ the training path
+
+TRAIN_SHAPE = dict(b=8, s=1024, h=12, hkv=12, d=64)      # gpt2's step
+TRAIN_D128 = dict(b=8, s=1024, h=40, hkv=10, d=128)      # phi3's G 4
+TRAIN_BLOCK_K = 512                 # gpt2's attn_block_k, the policy's
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+TRAIN_STEPS = 40                    # the loss-falls run, every step logged
+TRAIN_LOG_EVERY = 5                 # the losses the fall is read on: 8,
+                                    # the first four apart from the last
+# The loss falls: the mean of the last four of the every-5th-step losses
+# below the first four's, and that fall larger by TRAIN_FALL_MIN nats
+# than the same fall of the initial weights' losses on the same batches
+# (the lr-0 control, which must fail this check). A batch's own loss
+# spreads by ~0.05 nats (its 128 motif tokens' initial logits), which
+# the paired difference cancels.
+TRAIN_FALL_MIN = 0.05
+TRAIN_RESUME_K = 3                  # k: steps k..2k-1 resumed from k
+# warmup and the cosine over the run: at lr 1e-3 held flat (the head of
+# a 1,000-step schedule) the loss rose past the control's from step 30
+# on an H100 (11.17 against 10.98)
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=3, total_steps=TRAIN_STEPS)
+TRAIN_TIMED_STEPS = 5
+# one step on the cuda tier against one on the reference tier, same
+# weights and batch: the only difference is B3's forward (its order
+# flips a few bf16 outputs, ATT_LIMITS); B1 under vexp is bitwise. The
+# loss, the global gradient norm and every gradient leaf (max |d| over
+# the leaf's max |g|) within these shares; a new parameter within 2 lr
+# of the other tier's: Adam's first step is lr x a gradient's sign, so
+# an element whose gradient is small against the tiers' difference
+# flips (an H100 read 2.2 % of the elements apart by more than 1e-3 lr;
+# reported, not held). A flipped bf16 activation moves a gradient
+# element by up to a bf16 ulp of it (0.4-0.8 %): the leaves read 7.7e-3
+# on an H100 80GB HBM3 at 700 W.
+TIER_LOSS_REL, TIER_GNORM_REL, TIER_GRAD_REL = 1e-4, 1e-3, 2e-2
+# B1 under exact is within 2 f32 ulps of torch.exp (the vexp phase), so
+# its gradient g * y within 3 of the plain one's
+B1_EXACT_GRAD_ULP = 3
+
+
+def _grads_equal(a, b):
+    return all(bool(nan_aware_equal(x, y).all()) for x, y in zip(a, b))
+
+
+def _fa_train_case(policy_cls, shape, seed):
+    """B3's autograd Function (forward: the kernel; backward: the
+    recompute of attention_flash) against autograd of attention_flash on
+    the same inputs and one cotangent, per exp backend: dq, dk, dv bit
+    for bit, dq and dk 0 under vexp_hw, the forward inside ATT_LIMITS
+    of the plain version. Returns (readings, {exp: ms of the Function's
+    forward + backward}, {exp: the plain's})."""
+    from repro_torch.core.attention import attention_flash
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, s, h, hkv, d = (shape[k] for k in ("b", "s", "h", "hkv", "d"))
+    q = torch.randn(b, s, h, d, generator=g, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn(b, s, hkv, d, generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    cot = torch.randn(b, s, h, d, generator=g, device="cuda").to(
+        torch.bfloat16)
+    readings, ms, plain_ms = {}, {}, {}
+    for exp in EXP_BACKENDS:
+        pol = policy_cls(exp_backend=exp, block_k=TRAIN_BLOCK_K)
+
+        def kernel_vjp():
+            qa, ka, va = (t.detach().requires_grad_() for t in (q, k, v))
+            out = fa.flash_attention(qa, ka, va, causal=True, policy=pol)
+            return out, torch.autograd.grad(out, (qa, ka, va), cot)
+
+        def plain_vjp():
+            qb, kb, vb = (t.detach().requires_grad_() for t in (q, k, v))
+            ref = attention_flash(qb, kb, vb, causal=True, exp_impl=exp)
+            return ref, torch.autograd.grad(ref, (qb, kb, vb), cot)
+
+        out, ga = kernel_vjp()
+        _, gb = plain_vjp()
+        if not _grads_equal(ga, gb):
+            fail(f"train FA d={d} {exp}: dq / dk / dv through the kernel's "
+                 f"Function differ from autograd of attention_flash")
+        if exp == "vexp_hw" and (ga[0].any() or ga[1].any()):
+            fail(f"train FA d={d} vexp_hw: dq / dk not 0")
+        if exp != "vexp_hw" and not (ga[0].any() and ga[1].any()):
+            fail(f"train FA d={d} {exp}: dq / dk all 0")
+        plain = fa.flash_attention_plain(q, k, v, causal=True,
+                                         block_k=TRAIN_BLOCK_K,
+                                         exp_backend=exp)
+        readings[(exp, "kernel")] = kernel_vs_plain(out.detach(), plain)
+        del out, ga, gb, plain
+        ms[exp] = cuda_time_ms(kernel_vjp, iters=3, warmup=1)
+        plain_ms[exp] = cuda_time_ms(plain_vjp, iters=3, warmup=1)
+    return readings, ms, plain_ms
+
+
+def _vexp_train_case(policy_cls):
+    """B1's autograd Function against autograd of the plain exp at the
+    loss's chunk shape (B, 512, vocab padded) of score offsets <= 0 with
+    saturating tails, per exp backend: the values and the gradients bit
+    for bit (exact: within B1_EXACT_GRAD_ULP), 0 under vexp_hw."""
+    from repro_torch.kernels import vexp as kv
+    g = torch.Generator(device="cuda").manual_seed(22)
+    x = -(torch.randn(TRAIN_BATCH, 512, 50304, generator=g,
+                      device="cuda").abs() * 8)
+    x[0, 0, :4] = torch.tensor([-200.0, -100.0, -87.0, 0.0])
+    cot = torch.randn(x.shape, generator=g, device="cuda")
+    out = {}
+    for exp in EXP_BACKENDS:
+        pol = policy_cls(exp_backend=exp)
+        xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+        ya = kv.vexp(xa, policy=pol)
+        (ga,) = torch.autograd.grad(ya, xa, cot)
+        yb = kv.vexp_plain(xb, exp)
+        (gb,) = torch.autograd.grad(yb, xb, cot)
+        if exp == "exact":
+            ulp = int(f32_ulp_distance(ga.abs(), gb.abs()).max())
+            if ulp > B1_EXACT_GRAD_ULP:
+                fail(f"train B1 exact: gradient {ulp} ulps off the plain "
+                     f"one's (limit {B1_EXACT_GRAD_ULP})")
+            out[f"{exp}_grad_max_ulp"] = ulp
+        elif not (bool(nan_aware_equal(ya, yb).all())
+                  and bool(nan_aware_equal(ga, gb).all())):
+            fail(f"train B1 {exp}: the Function's value or gradient "
+                 f"differs from the plain function's")
+        if exp == "vexp_hw" and ga.any():
+            fail("train B1 vexp_hw: gradient not 0")
+        del xa, xb, ya, yb, ga, gb
+    return out
+
+
+def phase_train_kernels(policy_cls):
+    """The training path's kernels under autograd: B3 at gpt2's step
+    shape (B 8, S 1,024, 12 heads of 64) and at D 128, G 4 (phi3's 40 on
+    10), B1 at the loss's chunk shape."""
+    res, fa_rows = {}, {}
+    for label, shape, seed in (("d64", TRAIN_SHAPE, 21),
+                               ("d128g4", TRAIN_D128, 23)):
+        readings, ms, plain_ms = _fa_train_case(policy_cls, shape, seed)
+        check_attention("flash_attention", readings, f" train {label}")
+        fa_rows[label] = {
+            "fwd_max_abs_err": max(r[0] for r in readings.values()),
+            "fwd_mismatch_share": max(r[1] for r in readings.values()),
+            "fwd_max_abs_err_beyond_one_ulp": max(
+                r[2] for r in readings.values()),
+            "fwd_bwd_ms": ms, "plain_fwd_bwd_ms": plain_ms}
+        torch.cuda.empty_cache()
+    b1 = _vexp_train_case(policy_cls)
+    torch.cuda.empty_cache()
+    res = {"flash_attention": fa_rows, "vexp": b1}
+    emit({"phase": "train_kernels", "block_k": TRAIN_BLOCK_K, **res})
+    return res
+
+
+def _train_batch(cfg, step):
+    """The trainer's batch of ``step`` (StructuredLM, seed 17), on the
+    card."""
+    from repro_torch.data import StructuredLM
+    hb = StructuredLM(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=17).batch(step)
+    return {k: torch.from_numpy(v).cuda() for k, v in hb.items()}
+
+
+def _step_readings(cfg, step_fn, params, state):
+    """Device ms of TRAIN_TIMED_STEPS steps by CUDA events (the median),
+    peak memory over them, and the device busy share of one more step
+    (torch.profiler, CUDA kernel time over the step's wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+    batches = [_train_batch(cfg, i) for i in range(TRAIN_TIMED_STEPS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for bt in batches[:-1]:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, _ = step_fn(params, state, bt)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, _ = step_fn(params, state, batches[-1])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, n_kernels, by_name = 0.0, 0, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            busy += us
+            n_kernels += 1
+            by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    ms = sorted(times)[len(times) // 2]
+    return {"step_ms": ms, "step_ms_all": times,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+            "peak_bytes": peak,
+            "device_busy_share": (busy / wall_us if n_kernels
+                                  else "not measured"),
+            "kernels_a_step": n_kernels, "step_wall_ms": wall_us / 1e3,
+            "device_busy_ms": busy / 1e3,
+            "top_kernels_ms": {k: v / 1e3 for k, v in top}}
+
+
+def train_step_bound_ms(cfg):
+    """(The least ms of one step, the ms of the design's recomputes.) The
+    bound: the step's operations over the peak rate of their type (the
+    bytes, ~3.5 GB of masters, moments and gradients plus activations,
+    take ~2 ms at 3.35 TB/s, below it), three passes of each product: the
+    forward and the two backward products. bf16: the layers' products, 6
+    x their weights x the tokens. f32 (the reference's f32 attention and
+    logits): causal attention's two products, the lower half of the
+    scores, 2 B H S^2 D a layer a pass; the logits product, 2 T D V a
+    pass. The recomputes (attention_flash's forward in B3's backward,
+    each loss chunk's forward again in its backward) are one more pass
+    of each, reported beside the bound, not in it."""
+    t = TRAIN_BATCH * TRAIN_SEQ
+    d, f, layers = cfg.d_model, cfg.d_ff, cfg.n_layers
+    w_layer = 4 * d * d + 2 * d * f
+    bf16 = 6 * w_layer * layers * t
+    att = 2 * TRAIN_BATCH * cfg.n_heads * TRAIN_SEQ ** 2 * cfg.hd * layers
+    logits = 2 * t * d * cfg.vocab_padded
+    return ((bf16 / BF16_FLOP_PER_S + 3 * (att + logits) / F32_FLOP_PER_S)
+            * 1e3, (att + logits) / F32_FLOP_PER_S * 1e3)
+
+
+def loss_fell(losses, control):
+    """The loss-falls check (TRAIN_FALL_MIN) on the every-5th-step
+    losses of a run and the initial weights' losses on the same batches:
+    (passed, the run's fall, the control's fall)."""
+    def fall(ls):
+        return float(np.mean(ls[:4]) - np.mean(ls[-4:]))
+    if len(losses) < 8:
+        fail(f"train: {len(losses)} losses; the fall needs 8")
+    ran, ctrl = fall(losses), fall(control)
+    return ran > 0 and ran - ctrl > TRAIN_FALL_MIN, ran, ctrl
+
+
+def _control_losses(cfg, policy, steps):
+    """The lr-0 control: the initial weights' (``train``'s seed 0) loss
+    on each of ``steps``' batches, forwards only."""
+    from repro_torch.models import api
+    params = api.init_params(cfg, 0, device="cuda", trainable=True)
+    with torch.no_grad():
+        out = [float(api.loss_fn(params, cfg, _train_batch(cfg, s),
+                                 policy=policy, device="cuda"))
+               for s in steps]
+    del params
+    return out
+
+
+def _tier_step(cfg, opt_cfg, base):
+    """One step on the cuda and on the reference tier from the same
+    weights and batch: (loss, gradient norm, lr, new parameters,
+    gradients) each; the gradients from ``value_and_grad`` on the same
+    inputs."""
+    from repro_torch import optim
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import api
+    out = {}
+    for tier in ("cuda", "reference"):
+        pol = base.replace(kernel_backend=tier)
+        params = api.init_params(cfg, 0, device="cuda", trainable=True)
+        _, grads = ltrain.value_and_grad(params, cfg, _train_batch(cfg, 0),
+                                         pol)
+        state = optim.init(dict(params.named_parameters()), opt_cfg)
+        step = ltrain.make_train_step(cfg, opt_cfg, policy=pol)
+        params, state, stats = step(params, state, _train_batch(cfg, 0))
+        out[tier] = (float(stats["loss"]), float(stats["grad_norm"]),
+                     float(stats["lr"]),
+                     {n: p.detach() for n, p in params.named_parameters()},
+                     grads)
+        del params, state
+    return out
+
+
+def _check_tiers(out):
+    (lc, gc_, lr, pc, dc), (lr_, gr, _, pr, dr) = (out["cuda"],
+                                                   out["reference"])
+    worst, moved, total, grad_rel = 0.0, 0, 0, 0.0
+    for n in pc:
+        dd = (pc[n] - pr[n]).abs()
+        worst = max(worst, float(dd.max()))
+        moved += int((dd > 1e-3 * lr).sum())
+        total += dd.numel()
+        grad_rel = max(grad_rel, float((dc[n] - dr[n]).abs().max()
+                                       / dr[n].abs().max().clamp(
+                                           min=1e-30)))
+    res = {"loss_cuda": lc, "loss_reference": lr_,
+           "loss_rel": abs(lc - lr_) / abs(lr_), "grad_norm_cuda": gc_,
+           "grad_norm_reference": gr, "grad_norm_rel": abs(gc_ - gr) / gr,
+           "grad_leaf_rel_max": grad_rel, "new_params_max_abs": worst,
+           "lr": lr, "new_params_moved_share": moved / total}
+    if res["loss_rel"] > TIER_LOSS_REL or res["grad_norm_rel"] > \
+            TIER_GNORM_REL or grad_rel > TIER_GRAD_REL or \
+            worst > 2 * lr * (1 + 1e-3):
+        fail(f"train tiers: cuda vs reference step off its limits: {res}")
+    return res
+
+
+def _exp_steps(cfg, base):
+    """One loss and gradient on the cuda tier under each exp backend from
+    the same weights and batch: every wq / wk gradient exactly 0 under
+    vexp_hw (the reference's zero derivative), not under the others."""
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import api
+    params = api.init_params(cfg, 0, device="cuda", trainable=True)
+    out = {}
+    for exp in EXP_BACKENDS:
+        loss, grads = ltrain.value_and_grad(
+            params, cfg, _train_batch(cfg, 0), base.replace(exp_backend=exp))
+        qk = [g for n, g in grads.items()
+              if n.endswith(("attn.wq", "attn.wk"))]
+        zero = all(not bool(g.any()) for g in qk)
+        if zero != (exp == "vexp_hw"):
+            fail(f"train {exp}: wq / wk gradients {'all' if zero else 'not'}"
+                 f" 0")
+        out[exp] = {"loss": float(loss),
+                    "grad_norm": float(torch.sqrt(sum(
+                        (g.float() ** 2).sum() for g in grads.values()
+                        if g is not None))),
+                    "wq_wk_grads_zero": zero}
+        del grads
+    del params
+    return out
+
+
+def phase_train_gpt2(kernels, smi):
+    """Full-width gpt2-small trained through ``repro_torch.launch.train``
+    (batch 8, seq 1,024, StructuredLM seed 17, vexp, the cuda tier): the
+    loss falls over TRAIN_STEPS (``loss_fell`` against the lr-0 control,
+    which must fail it), a run stopped at k and resumed from its
+    checkpoint in a fresh ``train`` repeats the losses of steps k..2k-1
+    bit for bit, the preemption drain leaves the drained step's
+    checkpoint, one step on the cuda tier against the reference tier,
+    one loss and gradient under each exp backend, the step's device ms,
+    tokens / s, peak memory and busy share; no library attention, B3
+    twelve launches a forward (none in the backward), B1 four (two loss
+    chunks, each again in the recompute). Returns the path's launch
+    counts."""
+    import tempfile
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.ft import PreemptionGuard
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import api
+    from repro_torch.runtime import resolve_policy
+    cfg = get_config("gpt2-small")
+    base = resolve_policy(cfg, env={})
+    if base.kernel_backend != "cuda" or base.block_k != TRAIN_BLOCK_K:
+        fail(f"gpt2's train policy is {base.describe()}")
+    opt_cfg = optim.OptConfig(**TRAIN_OPT)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_calls = []
+
+    def counting_sdpa(*a, **k):
+        sdpa_calls.append(1)
+        return sdpa(*a, **k)
+
+    cuda_fwd = {"n": 0}             # cuda-tier forwards and backwards
+
+    def quiet(msg):
+        lines.append(msg)
+
+    lines = []
+    torch.cuda.synchronize()
+    torch.nn.functional.scaled_dot_product_attention = counting_sdpa
+    kernels.reset_launch_counts()
+    t_path = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, opt_cfg=opt_cfg,
+                      policy=base, device="cuda", log=quiet)
+            t0 = time.perf_counter()
+            _, full = ltrain.train(cfg, steps=TRAIN_STEPS, log_every=1,
+                                   guard=PreemptionGuard(signals=()), **kw)
+            run_s = time.perf_counter() - t0
+            cuda_fwd["n"] += TRAIN_STEPS
+            logged = [s for s, _ in full if s % TRAIN_LOG_EVERY == 0]
+            fell = [l for s, l in full if s % TRAIN_LOG_EVERY == 0]
+            control = _control_losses(cfg, base, logged)
+            no_grad_fwd = len(logged)
+            ok, ran_fall, ctrl_fall = loss_fell(fell, control)
+            if not ok:
+                fail(f"train: the loss did not fall: {fell}, the lr-0 "
+                     f"control's {control} (falls {ran_fall}, {ctrl_fall})")
+            if loss_fell(control, control)[0]:
+                fail("train: the lr-0 control passes the loss-falls check")
+            if control[0] != fell[0]:       # step 0 runs the initial weights
+                fail(f"train: the control's step-0 loss {control[0]} is not "
+                     f"the run's {fell[0]}")
+            k = TRAIN_RESUME_K
+            d = os.path.join(tmp, "resume")
+            ltrain.train(cfg, steps=k, ckpt_dir=d, ckpt_every=1000,
+                         log_every=1, guard=PreemptionGuard(signals=()),
+                         **kw)
+            _, resumed = ltrain.train(cfg, steps=2 * k, ckpt_dir=d,
+                                      ckpt_every=1000, log_every=1,
+                                      guard=PreemptionGuard(signals=()),
+                                      **kw)
+            cuda_fwd["n"] += 2 * k
+            want = [(s, l) for s, l in full if k <= s < 2 * k]
+            if f"[train] resumed from step {k}" not in lines or \
+                    resumed != want:
+                fail(f"train resume: {resumed} != the uninterrupted "
+                     f"run's {want}")
+            guard = PreemptionGuard(signals=())
+            n_log = len(lines)
+
+            def drain_log(msg):
+                lines.append(msg)
+                if len(lines) == n_log + 2:
+                    guard.trigger()
+
+            p_dir = os.path.join(tmp, "preempt")
+            _, hist = ltrain.train(cfg, steps=TRAIN_STEPS, ckpt_dir=p_dir,
+                                   ckpt_every=1000, log_every=1,
+                                   guard=guard, **{**kw, "log": drain_log})
+            from repro_torch import ckpt as ckpt_lib
+            drained = ckpt_lib.latest_step(p_dir)
+            cuda_fwd["n"] += len(hist)
+            if len(hist) != 2 or drained != 2:
+                fail(f"train preemption: {len(hist)} steps, checkpoint at "
+                     f"{drained} (want 2, 2)")
+        tiers = _check_tiers(_tier_step(cfg, opt_cfg, base))
+        cuda_fwd["n"] += 2
+        exps = _exp_steps(cfg, base)
+        cuda_fwd["n"] += len(EXP_BACKENDS)
+        params = api.init_params(cfg, 0, device="cuda", trainable=True)
+        state = optim.init(dict(params.named_parameters()), opt_cfg)
+        step_fn = ltrain.make_train_step(cfg, opt_cfg, policy=base)
+        before = kernels.launch_counts()
+        params, state, _ = step_fn(params, state, _train_batch(cfg, 0))
+        torch.cuda.synchronize()
+        one = {n: c - before[n] for n, c in kernels.launch_counts().items()}
+        readings = _step_readings(cfg, step_fn, params, state)
+        cuda_fwd["n"] += 1 + TRAIN_TIMED_STEPS + 1
+        del params, state, step_fn
+    finally:
+        torch.nn.functional.scaled_dot_product_attention = sdpa
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t_path
+    counts = kernels.launch_counts()
+    layers = cfg.n_layers
+    chunks = -(-TRAIN_SEQ // cfg.loss_chunk)
+    b1 = 2 * chunks                     # a chunk and its recompute
+    if sdpa_calls:
+        fail(f"train: {len(sdpa_calls)} library attention calls")
+    if one["flash_attention"] != layers or one["vexp"] != b1:
+        fail(f"train: one step launched {one} (want {layers} B3, {b1} B1)")
+    want = {"flash_attention": layers * (cuda_fwd["n"] + no_grad_fwd),
+            "vexp": b1 * cuda_fwd["n"] + chunks * no_grad_fwd}
+    if any(counts[n] != c for n, c in want.items()) or any(
+            c for n, c in counts.items()
+            if n not in want and n != "vexp_hw_table"):
+        fail(f"train path launched {counts}, want {want} and no other "
+             f"kernel")
+    bound, recompute_ms = train_step_bound_ms(cfg)
+    emit({"phase": "train_gpt2", "arch": cfg.arch_id,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "opt": TRAIN_OPT,
+          "policy": base.describe(), "nvidia_smi": smi,
+          "losses_every_5": fell, "lr0_control_losses": control,
+          "fall": ran_fall, "lr0_control_fall": ctrl_fall,
+          "fall_min": TRAIN_FALL_MIN,
+          "run_s": run_s, "path_s": path_s, "resume_k": TRAIN_RESUME_K,
+          "resumed_losses": resumed, "tiers": tiers, "exps": exps,
+          "one_step_launches": one, "cuda_forwards": cuda_fwd["n"],
+          "bound_ms": bound, "bound_by": "operations",
+          "recompute_ms": recompute_ms, **readings,
+          "step_vs_bound": readings["step_ms"] / bound,
+          "launches": counts})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 # ----------------------------------------------------------- the ssm family
 
 SSM_ARCH = "mamba2-1.3b"
@@ -3977,7 +4465,7 @@ def _fa_edges(fa, policy_cls, q, k, v, qc, window, label):
             rd, _ = _fa_readings(fa, policy_cls, bk, qe, ke, ve, kv, off,
                                  window)
             tag = f"{name}_bk{bk}"
-            for (exp, who), (err, share) in rd.items():
+            for (exp, who), (err, share, _) in rd.items():
                 res[f"{tag}_{exp}_{who}_max_abs_err"] = err
                 res[f"{tag}_{exp}_{who}_mismatch_share"] = share
             out.append((f"{label} {tag}", rd))
@@ -4234,7 +4722,7 @@ def phase_hybrid_kernels(policy_cls):
     dec_keys = keys + ("stage_us_vexp",)
 
     def worst(rd):
-        return max(e for (_, who), (e, _) in rd.items() if who == "kernel")
+        return max(e for (_, who), (e, *_) in rd.items() if who == "kernel")
     fa_keys = keys + ("fma_floor_ms", "sm_clock_mhz")
     fa_row = {k: fa_res[k] for k in fa_keys}
     fa_row.update({f"chunk_{k}": fa_res[f"chunk_{k}"] for k in fa_keys
@@ -4564,7 +5052,7 @@ def _d128_fa_rows(fa, policy_cls, block_k, inputs, label, chunk=True,
         rd_cut, _ = _fa_readings(fa, policy_cls, block_k, q[:2],
                                  k[:2, :sq], v[:2, :sq], kv_len[:2], 0,
                                  cut_window)
-        for (exp, who), (err, share) in rd_cut.items():
+        for (exp, who), (err, share, _) in rd_cut.items():
             res[f"w{cut_window}_{exp}_{who}_max_abs_err"] = err
             res[f"w{cut_window}_{exp}_{who}_mismatch_share"] = share
         out.append((f"{label} window {cut_window}", rd_cut))
@@ -4650,7 +5138,7 @@ def d128_kernel_rows(policy_cls, arch, fa_inputs, decode_shape, label,
             "bound_by", "library_ms", "library_graph_ms", "shape")
 
     def worst(rd):
-        return max(e for (_, who), (e, _) in rd.items() if who == "kernel")
+        return max(e for (_, who), (e, *_) in rd.items() if who == "kernel")
     fa_keys = keys + ("fma_floor_ms", "sm_clock_mhz")
     fa_row = {k: fa_res[k] for k in fa_keys}
     if chunk:
@@ -5407,6 +5895,12 @@ def main():
     by_path.update(phase_serve_sharded(kernels, smi, cfg, params, policy,
                                        groups, paged_reqs))
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_rows = phase_train_kernels(ExecPolicy)
+    rows[0]["train"] = train_rows["vexp"]
+    rows[2]["train"] = train_rows["flash_attention"]
+    by_path["train_gpt2"] = phase_train_gpt2(kernels, smi)
     cfg, params, policy, groups = ssm_setup()
     ssm_counts, ssm_mono = phase_serve_ssm(kernels, smi, cfg, params, policy,
                                            groups)

@@ -1,4 +1,4 @@
-"""Carry the JAX package's parameters into the port.
+"""Carry the JAX package's parameters into the port, and back.
 
 ``params_from_numpy(tree, cfg)`` takes the reference's parameter tree
 (``repro.models.api.init_params`` or a checkpoint's arrays) as nested
@@ -28,6 +28,13 @@ layer's gate ``wg`` crosses with its other 2-D weights. A MoE layer's
 compute dtype like every other 2-D weight (the reference lifts it back
 to f32 only after that cast), and its stacked ``experts`` {wg, wu, wd}
 keep their leading E axis and go to the compute dtype too.
+
+The way back: ``params_to_numpy(model)`` (numpy) and ``params_to_tree``
+/ ``opt_state_to_tree`` (tensors, for checkpoints) give the reference's
+tree, layers stacked on axis 0 under the reference's leaf names;
+``opt_state_from_tree`` reads an optimizer state back onto a model's
+parameter names. A trainable model (``trainable=True``) holds every
+value as an f32 master, unrounded.
 """
 
 from __future__ import annotations
@@ -41,8 +48,11 @@ from repro_torch.runtime import resolve_device
 
 
 def _copy(param, array, via=None):
-    """``param`` <- ``array``, rounded through dtype ``via`` first."""
-    src = torch.from_numpy(np.array(array, dtype=np.float32))
+    """``param`` <- ``array`` (numpy or a tensor), rounded through dtype
+    ``via`` first."""
+    src = (array.detach().to("cpu", torch.float32)
+           if isinstance(array, torch.Tensor)
+           else torch.from_numpy(np.array(array, dtype=np.float32)))
     if tuple(src.shape) != tuple(param.shape):
         raise ValueError(f"shape {tuple(src.shape)} != parameter "
                          f"{tuple(param.shape)}")
@@ -89,15 +99,22 @@ def _copy_hybrid(model, tree, cfg):
         _copy_module(rec, tree["tail"], j, via=cdt)
 
 
-def params_from_numpy(tree: dict, cfg, *, device=None):
+def params_from_numpy(tree: dict, cfg, *, device=None, trainable=False):
+    """The port's model of ``cfg`` holding ``tree``'s values (leaves numpy
+    arrays or tensors). ``trainable`` (dense and MoE families): f32
+    masters that take gradients, every value carried unrounded."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev)
+    if trainable and cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the {cfg.family} family's training is not "
+            f"ported yet (ROADMAP.md, A13)")
     if cfg.family == "hybrid":
         model = hybrid.Hybrid(cfg, g, dev)
         _copy_hybrid(model, tree, cfg)
     else:
         model = (ssm.SSM(cfg, g, dev) if cfg.family == "ssm"
-                 else Transformer(cfg, g, dev))
+                 else Transformer(cfg, g, dev, trainable=trainable))
         _copy_layers(model, tree["layers"], cfg)
     for name, arr in tree["ln_f"].items():
         _copy(getattr(model.ln_f, name), arr)
@@ -105,3 +122,91 @@ def params_from_numpy(tree: dict, cfg, *, device=None):
     if not cfg.tie_embeddings:
         _copy(model.unembed, tree["unembed"])
     return model
+
+
+def _split(name: str):
+    """A parameter's dotted name -> (tree path, stacking indices): the
+    module-list indices ("layers.3.attn.wq" -> ("layers", "attn", "wq"),
+    (3,)) are the reference's stacking axes, outermost first."""
+    parts = name.split(".")
+    return (tuple(p for p in parts if not p.isdigit()),
+            tuple(int(p) for p in parts if p.isdigit()))
+
+
+def named_to_tree(named: dict) -> dict:
+    """Tensors keyed by parameter name (``model.named_parameters()``, or
+    an optimizer moment) -> the reference's tree: nested dicts by leaf
+    name, each module list stacked on a leading axis (two for the
+    hybrid's period recurrences). Dtypes and devices are kept."""
+    groups: dict = {}
+    for name, t in named.items():
+        path, idx = _split(name)
+        groups.setdefault(path, {})[idx] = t.detach()
+    tree: dict = {}
+    for path, parts in groups.items():
+        def stack(prefix):
+            if len(prefix) == len(next(iter(parts))):
+                return parts[prefix]
+            n = 1 + max(i[len(prefix)] for i in parts)
+            return torch.stack([stack(prefix + (j,)) for j in range(n)])
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = stack(())
+    return tree
+
+
+def tree_to_named(tree: dict, names) -> dict:
+    """``named_to_tree``'s inverse for the parameter ``names`` of a model:
+    each name's slice of its stacked leaf."""
+    out = {}
+    for name in names:
+        path, idx = _split(name)
+        leaf = tree
+        for key in path:
+            leaf = leaf[key]
+        out[name] = torch.as_tensor(leaf)[idx] if idx else \
+            torch.as_tensor(leaf)
+    return out
+
+
+def params_to_tree(model) -> dict:
+    """The model's parameters as the reference's tree (tensors, on the
+    model's device, in the dtypes held)."""
+    return named_to_tree(dict(model.named_parameters()))
+
+
+def params_to_numpy(model) -> dict:
+    """``params_from_numpy``'s inverse: the reference's tree of numpy
+    arrays, layers stacked on axis 0, the reference's leaf names. A
+    trainable model's leaves are f32, the reference's ``param_dtype``; a
+    serving model's bf16 leaves come back widened to f32, which holds
+    their values exactly (numpy has no bf16)."""
+    def host(node):
+        if isinstance(node, dict):
+            return {k: host(v) for k, v in node.items()}
+        if node.dtype == torch.bfloat16:
+            node = node.float()
+        return node.cpu().numpy()
+    return host(params_to_tree(model))
+
+
+def opt_state_to_tree(state: dict) -> dict:
+    """An optimizer state ``{"m", "v", "step"}`` (``optim.adamw``, the
+    moments keyed by parameter name) as the reference's ``{"m": tree,
+    "v": tree, "step"}``."""
+    return {"m": named_to_tree(state["m"]), "v": named_to_tree(state["v"]),
+            "step": state["step"]}
+
+
+def opt_state_from_tree(tree: dict, model) -> dict:
+    """``opt_state_to_tree``'s inverse for ``model``'s parameters, on the
+    model's device, moments in the dtype the tree holds."""
+    dev = model.embed.device
+    names = [n for n, _ in model.named_parameters()]
+
+    def moments(t):
+        return {n: v.to(dev) for n, v in tree_to_named(t, names).items()}
+
+    return {"m": moments(tree["m"]), "v": moments(tree["v"]),
+            "step": torch.as_tensor(tree["step"]).to(dev, torch.int32)}

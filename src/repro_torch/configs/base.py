@@ -5,8 +5,13 @@ ported families read: the dense decoder, the MoE decoder, the ssm
 (Mamba-2) family and the hybrid (RG-LRU + local attention) family. The
 port keeps its own copy rather than importing the reference package, so
 it stays importable where JAX is absent. Fields of families not ported
-yet (modality stubs) and the training-only ``logit_softcap`` and
-``router_aux_coef`` are left out until their slice lands.
+yet (modality stubs) are left out. Training carries ``loss_chunk``, the
+chunked cross-entropy's sequence chunk (``models.layers.cross_entropy``);
+the reference's ``logit_softcap`` and ``router_aux_coef`` (the hybrid's
+and the MoE's losses) wait for their slice. The parameters are f32
+masters (the reference's ``param_dtype``) only in a model built for
+training (``models.api.init_params(..., trainable=True)``); a serving
+model holds its layers in the compute dtype.
 
 Execution fields resolve into a ``runtime.ExecPolicy``: ``REPRO_*``
 environment variables and per-call overrides take precedence over them.
@@ -67,6 +72,7 @@ class ModelConfig:
     attn_block_k: int = 512         # FlashAttention KV block (online-update unit)
     kv_cache_layout: str = "bshd"   # bshd | bhsd
     compute_dtype: str = "bfloat16"
+    loss_chunk: int = 512           # chunked cross-entropy seq chunk
     source: str = ""
 
     @property
@@ -108,4 +114,5 @@ class ModelConfig:
             ssm_headdim=32 if self.ssm_state else 64,
             ssm_state=min(self.ssm_state, 32),
             ssm_chunk=16,
+            loss_chunk=64,
         )

@@ -155,12 +155,34 @@ def vexp_bf16_fixedpoint(x: torch.Tensor) -> torch.Tensor:
     return out.to(torch.int16).view(torch.bfloat16)
 
 
-def vexp_hw(x: torch.Tensor) -> torch.Tensor:
-    """Any float dtype through the bf16 hardware model (round to bf16,
-    then back to the caller's dtype)."""
+def _vexp_hw_value(x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.bfloat16:
         return vexp_bf16_fixedpoint(x)
     return vexp_bf16_fixedpoint(x.to(torch.bfloat16)).to(x.dtype)
+
+
+class _VexpHw(torch.autograd.Function):
+    """A zero derivative: the reference's model goes through integer
+    bitcasts, which JAX differentiates as zero, so ``jax.grad`` of
+    ``vexp_hw`` reads 0 everywhere. The port gives the same zeros (the
+    integer path here would cut the graph instead)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _vexp_hw_value(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.zeros_like(g)
+
+
+def vexp_hw(x: torch.Tensor) -> torch.Tensor:
+    """Any float dtype through the bf16 hardware model (round to bf16,
+    then back to the caller's dtype). Its derivative is 0, as in the
+    reference."""
+    if x.requires_grad:
+        return _VexpHw.apply(x)
+    return _vexp_hw_value(x)
 
 
 def exact_exp(x: torch.Tensor) -> torch.Tensor:

@@ -106,9 +106,44 @@ def _rows16(t):
         t.stride(i) % 8 == 0 for i in range(3))
 
 
+class _FlashAttentionFn(torch.autograd.Function):
+    """The kernel's forward (the plain version on CPU tensors) with the
+    reference's recompute backward (``_fa_bwd``, ``repro/kernels/
+    flash_attention/ops.py:82-96``): autograd of ``attention_flash``
+    under the same exp, mask and scale, at that function's own block_k
+    (512, as ``flash_attention_ref`` calls it), from the saved q, k, v.
+    No kernel runs in the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, kv_len, q_offset, sm_scale,
+                policy):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, kv_len, q_offset, sm_scale,
+                    policy.exp_backend)
+        return _flash_attention(q, k, v, causal=causal, window=window,
+                                kv_len=kv_len, q_offset=q_offset,
+                                sm_scale=sm_scale, policy=policy)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, window, kv_len, q_offset, sm_scale, exp = ctx.args
+        qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = attention_flash(
+                *qkv, causal=causal, window=window, exp_impl=exp,
+                q_offset=q_offset, sm_scale=sm_scale,
+                kv_valid=(None if kv_len is None
+                          else kv_valid_from_len(kv_len, qkv[1].shape[1])))
+        return (*torch.autograd.grad(out, qkv, g),
+                None, None, None, None, None, None)
+
+
 def flash_attention(q, k, v, *, causal=True, window=None, kv_len=None,
                     q_offset=0, sm_scale=None, policy):
     """q (B,Sq,H,D), k/v (B,Sk,Hkv,D) -> (B,Sq,H,D) in q's dtype.
+    Where autograd records q, k or v (training) the call goes through
+    ``_FlashAttentionFn``; otherwise (serving, a captured step) straight
+    to the kernel.
 
     ``kv_len`` (B,) int: real keys per row (None: all Sk). ``q_offset``
     int or (B,) int: query i of row b sits at position q_offset[b] + i.
@@ -118,6 +153,16 @@ def flash_attention(q, k, v, *, causal=True, window=None, kv_len=None,
     64-row query tiles; 640 at D = 120 and 128 and 512 at D = 256, whose 64-row
     tiles of (position, head) pairs keep q^T and the K / V slabs as f32
     beside a 256-byte row of scores a key)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttentionFn.apply(q, k, v, causal, window, kv_len,
+                                       q_offset, sm_scale, policy)
+    return _flash_attention(q, k, v, causal=causal, window=window,
+                            kv_len=kv_len, q_offset=q_offset,
+                            sm_scale=sm_scale, policy=policy)
+
+
+def _flash_attention(q, k, v, *, causal, window, kv_len, q_offset, sm_scale,
+                     policy):
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     block_k = min(policy.block_k, sk)

@@ -27,7 +27,19 @@ own: the plain version computed on the host moves 1.2e-4 of the outputs
 against itself on the card, and a tensor-core kernel with every product
 exact moved 2-7e-4 of them (PERF.md). The scan with p in two bf16 terms
 (an under-split tensor-core kernel) must fail them too.
+
+FA under the exact exp admits a one-ulp flip at any magnitude
+(``ONE_ULP_FREE``): its max bounds only the outputs that moved by more
+than one bf16 ulp, so an output is inside when it is within max(2e-3,
+one bf16 ulp of the plain output). The absolute max alone admitted a
+flip only below |o| = 0.5, a matter of the inputs' size, not of the
+kernel: at the training step's shape (B 8, S 1,024, 12 causal heads of
+64) one flipped output of 33 sat in [0.5, 1), 3.9e-3 off (PERF.md). The
+share still bounds how many flip, and every output at the smoke shapes
+stays within one ulp or 2e-3, as before.
 """
+
+import torch
 
 ATT_LIMITS = {
     "flash_attention": {"exact": (2e-3, 3e-5), "vexp": (8e-3, 3e-5),
@@ -59,3 +71,21 @@ ATT_LIMITS = {
                                  "vexp": (1e-3, 5e-3),
                                  "vexp_hw": (2e-3, 3e-3)},
 }
+
+# (kernel, exp backends) whose max counts only outputs more than one bf16
+# ulp from the plain version's (``beyond_one_ulp``)
+ONE_ULP_FREE = {"flash_attention": ("exact",)}
+
+
+def beyond_one_ulp(out, ref) -> float:
+    """Largest |out - ref| over the outputs more than one bf16 ulp from
+    ``ref`` (0.0 where none is): two bf16 values of one sign one ulp
+    apart differ by one in their 16-bit patterns. Other dtypes: the
+    largest |out - ref|."""
+    diff = (out.float() - ref.float()).abs()
+    if out.dtype == ref.dtype == torch.bfloat16:
+        steps = (out.view(torch.int16).int()
+                 - ref.view(torch.int16).int()).abs()
+        diff = diff[steps > 1]
+    return float(diff.max()) if diff.numel() else 0.0
+

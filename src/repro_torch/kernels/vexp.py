@@ -68,8 +68,42 @@ def vexp_hw_table(device: torch.device) -> torch.Tensor:
     return table
 
 
+class _VexpFn(torch.autograd.Function):
+    """The kernel's forward (the plain version on a CPU tensor) with the
+    plain function's derivative, so training takes the same gradient
+    through either: ``g * y`` under exact (``torch.exp``'s), ``y``
+    guarded against inf * 0 under vexp (``core.vexp._VexpF32``'s), zero
+    under vexp_hw (``core.vexp._VexpHw``'s)."""
+
+    @staticmethod
+    def forward(ctx, x, policy):
+        y = _vexp(x, policy)
+        ctx.exp_backend = policy.exp_backend
+        if policy.exp_backend != "vexp_hw":
+            ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.exp_backend == "vexp_hw":
+            return torch.zeros_like(g), None
+        (y,) = ctx.saved_tensors
+        if ctx.exp_backend == "vexp":
+            return torch.where(torch.isfinite(y), y,
+                               torch.zeros_like(y)) * g, None
+        return g * y, None
+
+
 def vexp(x: torch.Tensor, *, policy) -> torch.Tensor:
-    """exp(x) under ``policy.exp_backend``."""
+    """exp(x) under ``policy.exp_backend``. Where autograd records ``x``
+    the call goes through ``_VexpFn``; otherwise (serving, a captured
+    step) straight to the kernel."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _VexpFn.apply(x, policy)
+    return _vexp(x, policy)
+
+
+def _vexp(x: torch.Tensor, policy) -> torch.Tensor:
     if x.device.type == "cpu":
         return vexp_plain(x, policy.exp_backend)
     if x.device.type != "cuda":

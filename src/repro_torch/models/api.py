@@ -1,7 +1,8 @@
 """Model API of the port (the ``repro/models/api.py`` subset ported so
-far): init_params / forward / prefill (with an optional shared-prefix
-history) / prefill_chunk / init_cache / decode_step / init_paged_cache /
-prefill_chunk_paged / decode_step_paged.
+far): init_params / loss_fn / forward / prefill (with an optional
+shared-prefix history) / prefill_chunk / init_cache / decode_step /
+init_paged_cache / prefill_chunk_paged / decode_step_paged. ``loss_fn``
+covers the dense family; the others raise, naming ROADMAP A13.
 
 One family dispatch (``_mod``, the reference's ``api.py:24-30``) picks
 the module: ``models.ssm`` for the ssm family, ``models.hybrid`` for the
@@ -46,11 +47,37 @@ def _policy(cfg, policy):
     return policy if policy is not None else resolve_policy(cfg)
 
 
-def init_params(cfg, seed: int = 0, *, device=None):
-    """Random weights from ``torch.Generator(device).manual_seed(seed)``."""
+def _no_training(cfg):
+    """Families whose loss is not ported raise, naming the ROADMAP item."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the {cfg.family} family's training (its loss "
+            f"and trainable parameters) is not ported yet (ROADMAP.md, A13)")
+
+
+def init_params(cfg, seed: int = 0, *, device=None, trainable=False):
+    """Random weights from ``torch.Generator(device).manual_seed(seed)``;
+    with ``trainable``, f32 masters that take gradients (dense and MoE
+    families)."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
+    if trainable:
+        _no_training(cfg)
+        return transformer.init_params(cfg, g, dev, trainable=True)
     return _mod(cfg).init_params(cfg, g, dev)
+
+
+def loss_fn(params, cfg, batch, *, policy=None, device=None):
+    """Training loss of ``batch`` {"tokens", "labels", optional "mask"}
+    (reference ``api.py:41-43``): mean nats a token, a 0-d f32 tensor
+    that autograd differentiates into ``params``. The ssm and hybrid
+    families, and the MoE one, raise (ROADMAP.md, A13)."""
+    _no_training(cfg)
+    dev = resolve_device(device)
+    _check_params(params, dev)
+    b = {k: torch.as_tensor(batch[k], device=dev)
+         for k in ("tokens", "labels", "mask") if batch.get(k) is not None}
+    return transformer.loss_fn(params, cfg, b, policy=_policy(cfg, policy))
 
 
 def forward(params, cfg, batch, *, policy=None, device=None):

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.dispatch import exp_callable
 
@@ -120,3 +121,57 @@ def mask_padded_logits(logits, vocab: int):
         return logits
     keep = torch.arange(logits.shape[-1], device=logits.device) < vocab
     return torch.where(keep, logits, -1e30)
+
+
+def _ce_chunk(x, w, lab, m, softcap, exp_fn):
+    """One sequence chunk's masked NLL (B, C) (the reference's scan body,
+    ``layers.py:183-201``): f32 logits against the unembedding, a
+    log-sum-exp through ``exp_fn`` about the detached row max, the label
+    logit from a gathered unembedding row."""
+    wf = w.float()
+    xf = x.float()
+    logits = xf @ wf                                      # (B, C, V)
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    mx = logits.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(exp_fn(logits - mx).sum(dim=-1)) + mx[..., 0]
+    corr = (xf * F.embedding(lab, wf.T)).sum(dim=-1)
+    if softcap:
+        corr = softcap * torch.tanh(corr / softcap)
+    return (lse - corr) * m
+
+
+def cross_entropy(x_final, w_unembed, labels, *, chunk=512,
+                  logit_softcap=0.0, mask=None, policy):
+    """Chunked cross-entropy over the sequence axis, mean nats a token
+    (reference ``layers.py:160-214``). x_final (B, S, D); w_unembed (D,
+    V); labels (B, S) int; mask: optional (B, S) bool of the tokens that
+    count. The sequence is cut into chunks of ``chunk`` (the last padded,
+    its pad masked); each chunk's (B, C, V) f32 logits live only inside
+    ``_ce_chunk``, which the backward recomputes
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``), so
+    no chunk's logits are kept for it. The exp is the policy's
+    (``kernels.dispatch.exp_callable``: the exp kernel under the cuda
+    tier on the card); the label logit comes through a row gather
+    (``F.embedding``, deterministic in its gradient)."""
+    exp_fn = exp_callable(policy)
+    b, s, _ = x_final.shape
+    chunk = min(chunk, s)
+    nchunk = -(-s // chunk)
+    pad = nchunk * chunk - s
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.bool, device=x_final.device)
+    if pad:
+        x_final = F.pad(x_final, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    tot = torch.zeros((), dtype=torch.float32, device=x_final.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x_final.device)
+    for c0 in range(0, nchunk * chunk, chunk):
+        m = mask[:, c0:c0 + chunk].float()
+        nll = checkpoint(_ce_chunk, x_final[:, c0:c0 + chunk], w_unembed,
+                         labels[:, c0:c0 + chunk], m, logit_softcap, exp_fn,
+                         use_reentrant=False)
+        tot = tot + nll.sum()
+        cnt = cnt + m.sum()
+    return tot / torch.clamp(cnt, min=1.0)

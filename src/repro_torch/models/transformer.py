@@ -5,9 +5,11 @@ plain functions over them. A MoE block (``cfg.n_experts`` > 0) holds a
 ``_finish_block``, covers forward, prefill, chunks and decode.
 
 Parameter layout and dtypes follow the reference: matmul weights are
-(d_in, d_out); per layer, 2-D weights are held in the compute dtype (the
-reference casts each layer's 2-D f32 params to bf16 as it enters the scan;
-casting once at load gives the same values) and 1-D params stay f32; the
+(d_in, d_out); per layer, a serving model holds 2-D weights in the
+compute dtype (the reference casts each layer's 2-D f32 params to bf16
+as it enters the scan; casting once at load gives the same values), a
+trainable one (``trainable=True``, ``loss_fn``) holds f32 masters and
+casts them inside ``forward``; 1-D params stay f32; the
 embedding stays f32 and lookups are cast to the compute dtype afterwards;
 logits are an f32 matmul against ``embed.T`` (tied embeddings) or the
 f32 ``unembed`` (d_model, vocab_padded) (untied). The MLP is GELU or
@@ -38,12 +40,14 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.analysis.registry import hot_path
 from repro_torch.core.attention import attention, decode_attention
 from repro_torch.kernels.dispatch import dispatch
-from .layers import apply_rope, mask_padded_logits, mlp_apply, norm_apply
+from .layers import (apply_rope, cross_entropy, mask_padded_logits,
+                     mlp_apply, norm_apply)
 from .moe import MoE, moe_apply
 
 
@@ -110,16 +114,23 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Parameter container; the computations are the functions below."""
+    """Parameter container; the computations are the functions below.
 
-    def __init__(self, cfg, g: torch.Generator, device):
+    ``trainable``: every parameter an f32 master with ``requires_grad``
+    (the reference's ``param_dtype``), the layers' 2-D weights cast to
+    the compute dtype inside ``forward`` as the reference casts them
+    (``transformer.py:366``); else (serving) frozen, with those weights
+    held in the compute dtype."""
+
+    def __init__(self, cfg, g: torch.Generator, device, *, trainable=False):
         super().__init__()
         if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"{cfg.arch_id}: family {cfg.family!r} (parallel blocks, "
                 f"modality inputs, the logit softcap) is not ported yet; "
                 f"only dense and MoE decoders are")
-        dtype = getattr(torch, cfg.compute_dtype)
+        dtype = (torch.float32 if trainable
+                 else getattr(torch, cfg.compute_dtype))
         self.layers = nn.ModuleList(
             [Block(cfg, g, dtype, device) for _ in range(cfg.n_layers)])
         self.ln_f = Norm(cfg.d_model, cfg.norm, device)
@@ -128,15 +139,42 @@ class Transformer(nn.Module):
         if not cfg.tie_embeddings:
             self.unembed = _param(_dense(g, cfg.d_model, cfg.vocab_padded,
                                          torch.float32, device))
+        if trainable:
+            self.requires_grad_(True)
 
 
-def init_params(cfg, g: torch.Generator, device) -> Transformer:
+def init_params(cfg, g: torch.Generator, device, *,
+                trainable=False) -> Transformer:
     """Random weights with the reference's layout and scales (dense
     N(0,1)/sqrt(d_in), a MoE layer's router and each expert's FFN the
     same, the experts stacked on a leading E axis, embedding N(0,1)*0.02,
     an untied unembedding N(0,1)/sqrt(d_model) in f32, zero biases, unit
-    norms), drawn from ``g`` on ``device``."""
-    return Transformer(cfg, g, device)
+    norms), drawn from ``g`` on ``device``; f32 masters with
+    ``trainable``."""
+    return Transformer(cfg, g, device, trainable=trainable)
+
+
+class _Cast:
+    """A layer's parameters as its forward reads them: f32 weights of
+    two or more dims in the compute dtype, the rest as held (the
+    reference's cast at ``transformer.py:366``)."""
+
+    def __init__(self, mod: nn.Module, dtype):
+        for name, t in mod._parameters.items():
+            if t is not None and t.dtype == torch.float32 and t.dim() > 1:
+                t = t.to(dtype)
+            setattr(self, name, t)
+        for name, sub in mod._modules.items():
+            setattr(self, name, _Cast(sub, dtype))
+
+
+def _compute_layer(blk, cfg):
+    """``blk`` itself when its weights are already in the compute dtype
+    (a serving model), else its ``_Cast``."""
+    dtype = getattr(torch, cfg.compute_dtype)
+    if blk.attn.wq.dtype == dtype:
+        return blk
+    return _Cast(blk, dtype)
 
 
 # ------------------------------------------------------------ attention
@@ -167,15 +205,23 @@ def _finish_block(x, a, blk, cfg, policy):
 
 
 def embed_inputs(params, cfg, tokens):
-    """tokens (B, S) int -> (B, S, D) in the compute dtype."""
-    return params.embed[tokens].to(getattr(torch, cfg.compute_dtype))
+    """tokens (B, S) int -> (B, S, D) in the compute dtype. The lookup
+    is ``F.embedding``, whose gradient on the card sums each row's
+    tokens in a fixed order (no atomics), so a train step is
+    deterministic."""
+    return F.embedding(tokens, params.embed).to(
+        getattr(torch, cfg.compute_dtype))
 
 
 def forward(params, cfg, tokens, *, policy):
-    """Full-sequence forward to the final normed hidden states (B, S, D)."""
+    """Full-sequence forward to the final normed hidden states (B, S, D).
+    Differentiable: a trainable model's layers are cast as they enter
+    (``_compute_layer``), and attention keeps the gradient (the cuda
+    tier through the kernel's recompute backward)."""
     x = embed_inputs(params, cfg, tokens)
     pos = torch.arange(x.shape[1], device=x.device)[None, :]
     for blk in params.layers:
+        blk = _compute_layer(blk, cfg)
         h = norm_apply(x, blk.ln_attn, cfg.norm, cfg.norm_eps)
         q, k, v = _qkv(h, blk.attn, cfg, pos)
         o = attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window,
@@ -188,6 +234,22 @@ def unembed_matrix(params, cfg):
     """(d_model, vocab_padded) f32: the tied embedding's transpose, or
     the untied ``unembed`` (reference ``transformer.py:333-335``)."""
     return params.embed.T if cfg.tie_embeddings else params.unembed
+
+
+def loss_fn(params, cfg, batch, *, policy):
+    """Training loss, mean nats a token (reference ``transformer.py:
+    384-398``): ``forward``, then the chunked ``cross_entropy`` against
+    ``unembed_matrix`` over ``batch["labels"]`` with the optional
+    ``batch["mask"]`` (B, S) bool. The MoE family raises: its aux and z
+    losses are not carried yet."""
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the MoE loss (the router's aux and z losses, "
+            f"router_aux_coef) is not ported yet (ROADMAP.md, A13)")
+    x = forward(params, cfg, batch["tokens"], policy=policy)
+    return cross_entropy(x, unembed_matrix(params, cfg), batch["labels"],
+                         chunk=cfg.loss_chunk, mask=batch.get("mask"),
+                         policy=policy)
 
 
 def _logits(params, cfg, x):

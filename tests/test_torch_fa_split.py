@@ -28,7 +28,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.vexp import get_exp_fn, vexp_hw  # noqa: E402
-from repro_torch.kernels.limits import ATT_LIMITS  # noqa: E402
+from repro_torch.kernels.limits import (  # noqa: E402
+    ATT_LIMITS, ONE_ULP_FREE, beyond_one_ulp)
 
 ALL_BF16 = torch.arange(-32768, 32768, dtype=torch.int32).to(
     torch.int16).view(torch.bfloat16)
@@ -159,10 +160,29 @@ def test_under_split_fails_the_limits(operand, d, terms, exp):
 
     def reading(n):
         out = _scan(q, k, v, KV_LEN, 128, exp, **{key: n})
-        o, r = out.float()[real.expand_as(out)], ref.float()[
-            real.expand_as(ref)]
-        return float((o - r).abs().max()), float((o != r).double().mean())
+        o, r = out[real.expand_as(out)], ref[real.expand_as(ref)]
+        err = (beyond_one_ulp(o, r)
+               if exp in ONE_ULP_FREE["flash_attention"]
+               else float((o.float() - r.float()).abs().max()))
+        return err, float((o != r).double().mean())
 
     err, share = reading(terms)
     assert not (err <= lim_err and share <= lim_share), (err, share)
     assert reading(3) == (0.0, 0.0)
+
+
+def test_one_ulp_free_max():
+    """FA's exact max counts only the outputs more than one bf16 ulp off
+    the plain version's: a flip at |o| in [0.5, 1) (3.9e-3) is inside
+    at any magnitude, two ulps are not, and +0 / -0 count as equal."""
+    assert ONE_ULP_FREE == {"flash_attention": ("exact",)}
+    ref = torch.tensor([0.75, 0.3, -0.6, 0.0], dtype=torch.bfloat16)
+    one = torch.tensor([0.75390625, 0.3, -0.6015625, -0.0],
+                       dtype=torch.bfloat16)
+    assert float((one.float() - ref.float()).abs().max()) > \
+        ATT_LIMITS["flash_attention"]["exact"][0]
+    assert beyond_one_ulp(one, ref) == 0.0
+    two = one.clone()
+    two[0] = 0.7578125
+    assert beyond_one_ulp(two, ref) == 0.0078125
+    assert beyond_one_ulp(two.float(), ref.float()) == 0.0078125

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro_torch.configs import REGISTRY, get_config  # noqa: E402
 from repro_torch.ft import FaultInjector  # noqa: E402

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.ft import (POINTS, FaultInjector,  # noqa: E402

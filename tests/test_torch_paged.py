@@ -26,6 +26,7 @@ import pytest
 from hypothesis import given, settings, strategies as st
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
